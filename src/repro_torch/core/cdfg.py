@@ -1,0 +1,705 @@
+"""CDFG construction from ``torch.fx`` graphs — the port's front end.
+
+The paper (Cheng & Wawrzynek 2016) operates on the control-dataflow graph
+of a performance-critical loop nest, produced by the LLVM front end from
+C.  The reference package traces with ``jax.make_jaxpr``; the port traces
+with ``torch.fx.symbolic_trace`` (``make_fx`` cannot trace a loop body
+that indexes with a 0-d tensor: ``cols[j]`` calls
+``aten._local_scalar_dense``) and *lowers* each FX node into the
+reference's primitive vocabulary through one table (:data:`_LOWERING`):
+
+* a ``__getitem__`` with a 0-d integer index expands into the five
+  equations the jaxpr of ``x[j]`` has — ``lt, add, select_n,
+  dynamic_slice, squeeze`` (negative-index wrap, then a one-row slice);
+* ``operator.mul`` → ``mul``, ``operator.add`` → ``add``, and so on.
+
+So :data:`MEMORY_PRIMITIVES`, :data:`DEFAULT_LATENCY`,
+:data:`CHEAP_PRIMITIVES` and Algorithm 1 apply unchanged, and a body
+compiles to the same plan as its JAX twin.  The lowered program is a
+:class:`Graph` of :class:`Eqn` records over :class:`Var` values; each
+``Var`` carries an :class:`Aval` (``shape`` and a ``torch.dtype``, whose
+``itemsize`` is all the partitioner reads).  Closed-over tensors become
+constants named ``const{k}`` in first-use order, as in the reference.
+
+Two views are provided:
+
+* :func:`CDFG.from_function` — acyclic dataflow graph of a traced function.
+* :func:`CDFG.from_loop_body` — the faithful §III view: the body of a loop
+  is traced, and back-edges are added from each carry output to the
+  matching carry input, recreating the cyclic CDFG on which Algorithm 1's
+  ``allStronglyConnComps`` runs for real.
+
+Memory-dependence edges (§III-A) are inserted between memory operations
+that touch the same *region*, found by tracing each memory op's operand
+back through layout-only ops to a graph input or constant, or set by user
+annotation — the analogue of the paper's user-guided alias results.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import operator
+from typing import Any, Callable, Iterable, Mapping, Sequence
+
+import torch
+import torch.fx as fx
+from torch.fx.passes.shape_prop import ShapeProp
+
+# ---------------------------------------------------------------------------
+# Operation classification (the paper's "long latency" table, §III-A) —
+# the reference's tables, unchanged, so the lowered graph is classified
+# exactly like its jaxpr twin.
+# ---------------------------------------------------------------------------
+
+#: primitives that perform data-dependent / strided memory traffic — the
+#: template's "memory operations".
+MEMORY_PRIMITIVES: frozenset[str] = frozenset({
+    "gather",
+    "scatter",
+    "scatter-add",
+    "scatter-mul",
+    "scatter-min",
+    "scatter-max",
+    "scatter_add",
+    "dynamic_slice",
+    "dynamic_update_slice",
+    "take",
+    "argsort",  # permutation materialization reads/writes memory irregularly
+})
+
+#: default per-primitive latency (abstract cycles).  Anything > 1 is "long
+#: latency" in the Algorithm-1 sense.  Unlisted primitives default to 1.
+DEFAULT_LATENCY: dict[str, int] = {
+    # contraction
+    "dot_general": 8,
+    "conv_general_dilated": 8,
+    # transcendentals (multi-pass)
+    "exp": 4, "log": 4, "log1p": 4, "tanh": 4, "logistic": 4, "erf": 4,
+    "sin": 4, "cos": 4, "pow": 4, "integer_pow": 2, "rsqrt": 4, "sqrt": 4,
+    "div": 4, "cbrt": 4, "exp2": 4,
+    # float multiply-class ops: the paper's canonical 4-cycle example
+    "mul": 4,
+    # reductions / scans are multi-pass
+    "reduce_sum": 2, "reduce_max": 2, "reduce_min": 2, "reduce_prod": 2,
+    "cumsum": 4, "cumlogsumexp": 4, "cummax": 4, "cumprod": 4,
+    "sort": 8, "top_k": 8,
+    # loop / control primitives carry their body's latency; treated long
+    "scan": 8, "while": 8, "cond": 2, "pjit": 8, "custom_call": 8,
+    # memory ops: the *issue* cost; the stall cost is the memory model's job
+    "gather": 2, "scatter": 2, "scatter-add": 2,
+    "dynamic_slice": 2, "dynamic_update_slice": 2,
+}
+
+#: layout-only primitives that are transparent when tracing a memory operand
+#: back to its root buffer.  In-place-update ops (scatter, dus) are also
+#: transparent on operand 0: the functional output aliases the input buffer,
+#: so loads from the updated array belong to the same memory region.
+_TRANSPARENT = frozenset({
+    "convert_element_type", "reshape", "transpose", "broadcast_in_dim",
+    "squeeze", "bitcast_convert_type", "copy", "rev", "slice",
+    "scatter", "scatter-add", "scatter-mul", "scatter-min", "scatter-max",
+    "dynamic_update_slice",
+})
+
+# integer "cheap" ops eligible for duplication instead of a channel (§III-B1)
+CHEAP_PRIMITIVES: frozenset[str] = frozenset({
+    "add", "sub", "and", "or", "xor", "not", "lt", "le", "gt", "ge", "eq",
+    "ne", "select_n", "max", "min", "shift_left", "shift_right_logical",
+    "shift_right_arithmetic", "convert_element_type", "broadcast_in_dim",
+    "reshape", "squeeze", "iota", "concatenate", "pad", "slice", "transpose",
+    "rem", "sign", "neg", "abs", "floor", "ceil", "round", "clamp",
+})
+
+
+@dataclasses.dataclass
+class LatencyModel:
+    """Maps primitives to abstract cycle latencies (paper §III-A).
+
+    ``table`` overrides :data:`DEFAULT_LATENCY`; ``default`` is used for
+    unknown primitives.  ``long_threshold`` is the Algorithm-1 cut: ops that
+    "cannot be completed within one clock cycle".
+    """
+
+    table: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    default: int = 1
+    long_threshold: int = 1
+
+    def latency(self, prim_name: str) -> int:
+        if prim_name in self.table:
+            return self.table[prim_name]
+        return DEFAULT_LATENCY.get(prim_name, self.default)
+
+    def is_long(self, prim_name: str) -> bool:
+        return self.latency(prim_name) > self.long_threshold
+
+
+# ---------------------------------------------------------------------------
+# The lowered program
+# ---------------------------------------------------------------------------
+
+_SHORT = {torch.float32: "f32", torch.float64: "f64", torch.float16: "f16",
+          torch.bfloat16: "bf16", torch.int64: "i64", torch.int32: "i32",
+          torch.int16: "i16", torch.int8: "i8", torch.uint8: "u8",
+          torch.bool: "bool"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Aval:
+    """Abstract value: what the partitioner reads of a graph value."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    def __str__(self) -> str:
+        dims = ",".join(str(d) for d in self.shape)
+        return f"{_SHORT.get(self.dtype, str(self.dtype))}[{dims}]"
+
+
+class Var:
+    """One SSA value of the lowered graph (hashed by identity)."""
+
+    __slots__ = ("aval", "name")
+
+    def __init__(self, aval: Aval, name: str):
+        self.aval = aval
+        self.name = name
+
+    def __repr__(self) -> str:
+        return f"{self.name}:{self.aval}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Literal:
+    """A Python scalar operand (never a channel payload)."""
+
+    val: Any
+    aval: Aval
+
+
+@dataclasses.dataclass(eq=False)
+class Eqn:
+    """One primitive application: ``outvars = impl(*invars, **params)``.
+    ``source`` names the FX node it was lowered from."""
+
+    prim: str
+    invars: list[Any]
+    outvars: list[Var]
+    params: dict[str, Any]
+    impl: Callable[..., Any]
+    source: str
+
+    def eval(self, *invals: Any) -> Any:
+        return self.impl(*invals, **self.params)
+
+
+@dataclasses.dataclass(eq=False)
+class Graph:
+    """The lowered program of a traced function — the port's counterpart
+    of a closed jaxpr: equations, inputs, outputs, and the closed-over
+    constants (``constvars[k]`` is bound to ``consts[k]``).  ``code`` is
+    the FX graph's text (part of the compile-cache key)."""
+
+    eqns: list[Eqn]
+    invars: list[Var]
+    outvars: list[Any]
+    constvars: list[Var]
+    consts: list[torch.Tensor]
+    code: str
+
+    def __str__(self) -> str:
+        lines = [f"{{ consts {self.constvars}; inputs {self.invars}"]
+        for e in self.eqns:
+            args = ", ".join(repr(v.val) if isinstance(v, Literal) else
+                             repr(v) for v in e.invars)
+            lines.append(f"    {e.outvars[0]!r} = {e.prim}({args})")
+        lines.append(f"  out {self.outvars} }}")
+        return "\n".join(lines)
+
+
+# -- primitive implementations (the stage programs evaluate these) ----------
+
+def _select_n(pred: torch.Tensor, on_false: Any, on_true: Any) -> torch.Tensor:
+    return torch.where(pred, on_true, on_false)
+
+
+def _dynamic_slice(operand: torch.Tensor, start: torch.Tensor,
+                   *other_starts: Any, slice_sizes: tuple[int, ...]
+                   ) -> torch.Tensor:
+    # only axis 0 is dynamic (the lowering of x[j]); the start is clamped
+    # into range like the reference's dynamic_slice
+    start = torch.clamp(start, 0, operand.shape[0] - slice_sizes[0])
+    return torch.index_select(operand, 0, start.reshape(1).long())
+
+
+def _squeeze(x: torch.Tensor, *, dimensions: tuple[int, ...]) -> torch.Tensor:
+    return torch.squeeze(x, dim=dimensions)
+
+
+#: FX node (call_function target, or call_method name) -> primitive name
+_BINARY: dict[Any, str] = {
+    operator.add: "add", torch.add: "add", "add": "add",
+    operator.sub: "sub", torch.sub: "sub", "sub": "sub",
+    operator.mul: "mul", torch.mul: "mul", "mul": "mul",
+    operator.truediv: "div", torch.div: "div", "div": "div",
+    operator.lt: "lt", torch.lt: "lt", "lt": "lt",
+    operator.le: "le", torch.le: "le", "le": "le",
+    operator.gt: "gt", torch.gt: "gt", "gt": "gt",
+    operator.ge: "ge", torch.ge: "ge", "ge": "ge",
+    operator.eq: "eq", torch.eq: "eq", "eq": "eq",
+    operator.ne: "ne", torch.ne: "ne", "ne": "ne",
+    operator.and_: "and", operator.or_: "or", operator.xor: "xor",
+    torch.maximum: "max", "maximum": "max",
+    torch.minimum: "min", "minimum": "min",
+    operator.matmul: "dot_general", torch.matmul: "dot_general",
+    "matmul": "dot_general",
+}
+_UNARY: dict[Any, str] = {
+    operator.neg: "neg", torch.neg: "neg", "neg": "neg",
+    torch.abs: "abs", "abs": "abs",
+    torch.exp: "exp", "exp": "exp", torch.log: "log", "log": "log",
+    torch.tanh: "tanh", "tanh": "tanh", torch.sigmoid: "logistic",
+    "sigmoid": "logistic", torch.sqrt: "sqrt", "sqrt": "sqrt",
+    torch.rsqrt: "rsqrt", "rsqrt": "rsqrt",
+    torch.sin: "sin", "sin": "sin", torch.cos: "cos", "cos": "cos",
+}
+#: primitive name -> implementation on tensors (and Python scalars)
+_IMPL: dict[str, Callable[..., Any]] = {
+    "add": operator.add, "sub": operator.sub, "mul": operator.mul,
+    "div": operator.truediv, "lt": operator.lt, "le": operator.le,
+    "gt": operator.gt, "ge": operator.ge, "eq": operator.eq,
+    "ne": operator.ne, "and": operator.and_, "or": operator.or_,
+    "xor": operator.xor, "max": torch.maximum, "min": torch.minimum,
+    "dot_general": torch.matmul, "neg": operator.neg, "abs": torch.abs,
+    "exp": torch.exp, "log": torch.log, "tanh": torch.tanh,
+    "logistic": torch.sigmoid, "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
+    "sin": torch.sin, "cos": torch.cos,
+    "select_n": _select_n, "dynamic_slice": _dynamic_slice,
+    "squeeze": _squeeze,
+}
+
+
+class _Lowering:
+    """Walks an FX graph and emits :class:`Eqn` records."""
+
+    def __init__(self, gm: fx.GraphModule):
+        self.gm = gm
+        self.env: dict[fx.Node, Any] = {}
+        self.eqns: list[Eqn] = []
+        self.invars: list[Var] = []
+        self.constvars: list[Var] = []
+        self.consts: list[torch.Tensor] = []
+
+    def emit(self, prim: str, invars: list[Any], aval: Aval, source: str,
+             **params: Any) -> Var:
+        out = Var(aval, f"{source}.{len(self.eqns)}")
+        self.eqns.append(Eqn(prim, invars, [out], params, _IMPL[prim],
+                             source))
+        return out
+
+    def read(self, arg: Any, like: Aval | None = None) -> Any:
+        if isinstance(arg, fx.Node):
+            return self.env[arg]
+        if isinstance(arg, (bool, int, float)):
+            dtype = like.dtype if like is not None else torch.float32
+            return Literal(arg, Aval((), dtype))
+        raise NotImplementedError(
+            f"operand {arg!r} is not lowered by the port's front end yet")
+
+    def run(self) -> Graph:
+        for node in self.gm.graph.nodes:
+            if node.op == "placeholder":
+                v = Var(_aval_of(node), node.name)
+                self.invars.append(v)
+                self.env[node] = v
+            elif node.op == "get_attr":
+                val = operator.attrgetter(node.target)(self.gm)
+                v = Var(_aval_of(node), node.name)
+                self.constvars.append(v)
+                self.consts.append(val)
+                self.env[node] = v
+            elif node.op in ("call_function", "call_method"):
+                self.env[node] = self.lower(node)
+            elif node.op == "output":
+                outs = node.args[0]
+                flat = list(outs) if isinstance(outs, (tuple, list)) \
+                    else [outs]
+                outvars = [self.read(o) for o in flat]
+            else:
+                raise NotImplementedError(
+                    f"FX node {node.op} {node.target!r} is not lowered by "
+                    f"the port's front end yet")
+        return Graph(self.eqns, self.invars, outvars, self.constvars,
+                     self.consts, str(self.gm.graph))
+
+    def lower(self, node: fx.Node) -> Var:
+        target = node.target
+        if node.kwargs:
+            raise NotImplementedError(
+                f"keyword arguments on {target!r} are not lowered yet")
+        if target in (operator.getitem, "__getitem__"):
+            return self.lower_getitem(node)
+        aval = _aval_of(node)
+        if target in _BINARY and len(node.args) == 2:
+            a, b = node.args
+            like = self.env[a].aval if isinstance(a, fx.Node) \
+                else self.env[b].aval
+            return self.emit(_BINARY[target],
+                             [self.read(a, like), self.read(b, like)],
+                             aval, node.name)
+        if target in _UNARY and len(node.args) == 1:
+            return self.emit(_UNARY[target], [self.read(node.args[0])],
+                             aval, node.name)
+        if target is torch.where and len(node.args) == 3:
+            c, a, b = node.args
+            return self.emit("select_n", [self.read(c), self.read(b, aval),
+                                          self.read(a, aval)],
+                             aval, node.name)
+        raise NotImplementedError(
+            f"FX node {node.op} {target!r} is not lowered by the port's "
+            f"front end yet")
+
+    def lower_getitem(self, node: fx.Node) -> Var:
+        """``x[j]`` with a 0-d integer tensor ``j`` → the jaxpr's five
+        equations: wrap a negative index, slice one row, drop the axis."""
+        arr_n, idx_n = node.args
+        arr, idx = self.env[arr_n], self.read(idx_n)
+        if not (isinstance(idx, Var) and idx.aval.shape == ()
+                and not idx.aval.dtype.is_floating_point
+                and idx.aval.dtype != torch.bool):
+            raise NotImplementedError(
+                f"indexing {arr_n.name}[{idx_n!r}]: only a 0-d integer "
+                f"tensor index is lowered yet")
+        it, src = idx.aval.dtype, node.name
+        scalar = Aval((), it)
+        neg = self.emit("lt", [idx, Literal(0, scalar)],
+                        Aval((), torch.bool), src)
+        wrapped = self.emit("add", [idx, Literal(arr.aval.shape[0], scalar)],
+                            scalar, src)
+        sel = self.emit("select_n", [neg, idx, wrapped], scalar, src)
+        sizes = (1,) + tuple(arr.aval.shape[1:])
+        zeros = [Literal(0, scalar)] * (len(sizes) - 1)
+        row = self.emit("dynamic_slice", [arr, sel, *zeros],
+                        Aval(sizes, arr.aval.dtype), src, slice_sizes=sizes)
+        return self.emit("squeeze", [row], Aval(sizes[1:], arr.aval.dtype),
+                         src, dimensions=(0,))
+
+
+def _aval_of(node: fx.Node) -> Aval:
+    meta = node.meta.get("tensor_meta")
+    if meta is None:
+        raise NotImplementedError(
+            f"FX node {node.name} does not produce one tensor")
+    return Aval(tuple(meta.shape), meta.dtype)
+
+
+def trace(fn: Callable, *example_args: Any) -> tuple[Graph, Any]:
+    """Trace ``fn`` with ``torch.fx.symbolic_trace``, propagate shapes on
+    ``example_args`` and lower to a :class:`Graph`.  Returns the graph and
+    the output structure (``None`` for a single output, else the tuple
+    length).  Closed-over tensors must be module globals or closure
+    variables: ``symbolic_trace`` does not accept tensor default
+    arguments."""
+    gm = fx.symbolic_trace(fn)
+    ShapeProp(gm).propagate(*example_args)
+    graph = _Lowering(gm).run()
+    out_node = next(n for n in gm.graph.nodes if n.op == "output")
+    outs = out_node.args[0]
+    out_tree = len(outs) if isinstance(outs, (tuple, list)) else None
+    return graph, out_tree
+
+
+@dataclasses.dataclass
+class Node:
+    """One CDFG node == one lowered equation (before SCC collapse)."""
+
+    id: int
+    prim: str
+    eqn: Eqn
+    is_memory: bool
+    latency: int
+    region: str | None = None  # memory region for memory ops
+    is_store: bool = False
+
+    @property
+    def is_long(self) -> bool:
+        return self.latency > 1
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        tag = "M" if self.is_memory else ("L" if self.is_long else ".")
+        return f"<n{self.id} {self.prim} [{tag}]>"
+
+
+@dataclasses.dataclass
+class Edge:
+    src: int
+    dst: int
+    var: Any | None  # Var carried (None for memory-order / carry edges)
+    kind: str = "data"  # "data" | "mem" | "carry"
+
+
+class CDFG:
+    """Control-dataflow graph over lowered equations.
+
+    Nodes are equations; edges are SSA def-use pairs plus explicit
+    memory-ordering edges and (for the loop view) carry back-edges.
+    """
+
+    def __init__(
+        self,
+        graph: Graph,
+        nodes: list[Node],
+        edges: list[Edge],
+        region_of_invar: Mapping[int, str],
+    ) -> None:
+        self.graph = graph
+        self.nodes = nodes
+        self.edges = edges
+        self.invars = list(graph.invars)
+        self.outvars = list(graph.outvars)
+        self.region_of_invar = dict(region_of_invar)
+        self._by_id = {n.id: n for n in nodes}
+        #: active TransformConfig, set by the driver's ``transform`` pass
+        #: (None = untransformed); read by ``partition.materialize``
+        self.transforms = None
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_function(
+        cls,
+        fn: Callable,
+        *example_args: Any,
+        latency_model: LatencyModel | None = None,
+        regions: Mapping[int, str] | None = None,
+        add_memory_edges: bool = True,
+    ) -> "CDFG":
+        graph, _ = trace(fn, *example_args)
+        return cls.from_graph(graph, latency_model=latency_model,
+                              regions=regions,
+                              add_memory_edges=add_memory_edges)
+
+    @classmethod
+    def from_graph(
+        cls,
+        graph: Graph,
+        *,
+        latency_model: LatencyModel | None = None,
+        regions: Mapping[int, str] | None = None,
+        add_memory_edges: bool = True,
+        annotate_regions: bool = True,
+        carry_pairs: Sequence[tuple[int, int]] = (),
+    ) -> "CDFG":
+        """Build the CDFG.  ``carry_pairs`` is a list of
+        ``(outvar_index, invar_index)`` pairs: a back-edge is added from the
+        producer of ``outvars[o]`` to every consumer of ``invars[i]``,
+        recreating loop-carried dependence cycles (the §III loop view).
+
+        ``annotate_regions=False`` defers the memory-dependence analysis
+        (region discovery + ordering edges) so it can run as a separate
+        compiler pass — see :func:`annotate_memory_regions` and
+        :func:`add_memory_order_edges`.
+        """
+        lm = latency_model or LatencyModel()
+
+        nodes: list[Node] = []
+        producer: dict[Any, int] = {}  # var -> node id
+        for i, eqn in enumerate(graph.eqns):
+            prim = eqn.prim
+            nodes.append(Node(
+                id=i,
+                prim=prim,
+                eqn=eqn,
+                is_memory=prim in MEMORY_PRIMITIVES,
+                latency=lm.latency(prim),
+                is_store=prim.startswith("scatter")
+                or prim == "dynamic_update_slice",
+            ))
+            for ov in eqn.outvars:
+                producer[ov] = i
+
+        edges: list[Edge] = []
+        for i, eqn in enumerate(graph.eqns):
+            for iv in eqn.invars:
+                if isinstance(iv, Literal):
+                    continue
+                if iv in producer:
+                    edges.append(Edge(producer[iv], i, iv, "data"))
+
+        cdfg = cls(graph, nodes, edges, dict(regions or {}))
+
+        if annotate_regions or add_memory_edges:
+            annotate_memory_regions(cdfg, regions, producer=producer)
+        if add_memory_edges:
+            add_memory_order_edges(cdfg)
+
+        # loop-carried back-edges (the §III faithful view)
+        for out_idx, in_idx in carry_pairs:
+            ov = graph.outvars[out_idx]
+            if isinstance(ov, Literal) or ov not in producer:
+                continue
+            src = producer[ov]
+            iv = graph.invars[in_idx]
+            for j, eqn in enumerate(graph.eqns):
+                if any(x is iv for x in eqn.invars):
+                    cdfg.edges.append(Edge(src, j, None, "carry"))
+
+        return cdfg
+
+    @classmethod
+    def from_loop_body(
+        cls,
+        body_fn: Callable,
+        carry_example: torch.Tensor,
+        *xs_example: Any,
+        latency_model: LatencyModel | None = None,
+        regions: Mapping[int, str] | None = None,
+        nonaliasing_carries: Sequence[int] = (),
+    ) -> "CDFG":
+        """Trace ``body_fn(carry, *xs) -> new_carry`` and add the carry
+        back-edge so loop-carried dependence becomes a real cycle.
+
+        The carry is one tensor in this slice (tuple carries arrive with
+        the other Table-I loop bodies).  ``nonaliasing_carries`` is the
+        paper's §III-A *user annotation*: carries whose back-edge is
+        dropped so Algorithm 1 can pipeline across a false dependence.
+        """
+        graph, _ = trace(body_fn, carry_example, *xs_example)
+        carry_pairs = [(0, 0)] if 0 not in set(nonaliasing_carries) else []
+        return cls.from_graph(graph, latency_model=latency_model,
+                              regions=regions, carry_pairs=carry_pairs)
+
+    # -- queries ------------------------------------------------------------
+
+    def node(self, nid: int) -> Node:
+        return self._by_id[nid]
+
+    def successors(self, nid: int) -> Iterable[int]:
+        return (e.dst for e in self.edges if e.src == nid)
+
+    def to_networkx(self):
+        import networkx as nx
+
+        g = nx.MultiDiGraph()
+        for n in self.nodes:
+            g.add_node(n.id, prim=n.prim, is_memory=n.is_memory,
+                       latency=n.latency, region=n.region)
+        for e in self.edges:
+            g.add_edge(e.src, e.dst, kind=e.kind)
+        return g
+
+    @property
+    def memory_nodes(self) -> list[Node]:
+        return [n for n in self.nodes if n.is_memory]
+
+    @property
+    def long_nodes(self) -> list[Node]:
+        return [n for n in self.nodes if n.is_long]
+
+    def summary(self) -> str:
+        lines = [f"CDFG: {len(self.nodes)} nodes, {len(self.edges)} edges, "
+                 f"{len(self.memory_nodes)} memory ops, "
+                 f"{len(self.long_nodes)} long-latency ops"]
+        for n in self.nodes:
+            tag = "MEM" if n.is_memory else ("LONG" if n.is_long else "")
+            reg = f" region={n.region}" if n.region else ""
+            lines.append(f"  n{n.id:<3} {n.prim:<24} lat={n.latency}"
+                         f" {tag}{reg}")
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Memory-dependence analysis (§III-A) — standalone so the compiler driver
+# can schedule it as a named pass (repro_torch.dataflow.passes.MemoryDepPass).
+# ---------------------------------------------------------------------------
+
+
+def producer_map(cdfg: CDFG) -> dict[Any, int]:
+    """var -> id of the node that defines it."""
+    return {ov: n.id for n in cdfg.nodes for ov in n.eqn.outvars}
+
+
+def annotate_memory_regions(
+    cdfg: CDFG, regions: Mapping[int, str] | None = None,
+    *, producer: Mapping[Any, int] | None = None,
+) -> dict[int, str]:
+    """Region discovery: walk each memory op's buffer operand back through
+    layout ops to a graph input (or a closed-over constant) and record the
+    region on the node.  ``regions`` overrides names per input index — the
+    paper's user-guided alias annotation.  ``producer`` accepts a
+    precomputed :func:`producer_map` to avoid rebuilding it."""
+    graph = cdfg.graph
+    if producer is None:
+        producer = producer_map(cdfg)
+    invar_index = {v: k for k, v in enumerate(graph.invars)}
+    constvar_index = {v: k for k, v in enumerate(graph.constvars)}
+    region_of_invar = cdfg.region_of_invar
+    if regions:
+        region_of_invar.update(regions)
+
+    def root_invar(var: Any) -> int | None:
+        seen = 0
+        while True:
+            if var in invar_index:
+                return invar_index[var]
+            if var in constvar_index:
+                return -1 - constvar_index[var]  # consts: negative ids
+            pid = producer.get(var)
+            if pid is None:
+                return None
+            peqn = cdfg.nodes[pid].eqn
+            if peqn.prim in _TRANSPARENT and peqn.invars:
+                nxt = peqn.invars[0]
+                if isinstance(nxt, Literal):
+                    return None
+                var = nxt
+                seen += 1
+                if seen > 100:
+                    return None
+            else:
+                return None
+
+    for node in cdfg.nodes:
+        if not node.is_memory or not node.eqn.invars:
+            continue
+        op0 = node.eqn.invars[0]
+        if isinstance(op0, Literal):
+            continue
+        ridx = root_invar(op0)
+        if ridx is not None:
+            default = (f"arg{ridx}" if ridx >= 0
+                       else f"const{-1 - ridx}")
+            name = region_of_invar.get(ridx, default)
+            region_of_invar.setdefault(ridx, name)
+            node.region = name
+        else:
+            node.region = "_anon"
+    return region_of_invar
+
+
+def add_memory_order_edges(cdfg: CDFG) -> list[Edge]:
+    """§III-A: explicit ordering edges between memory ops of one region.
+    Loads commute; stores serialize against everything in the region.
+    Appends the new edges to ``cdfg.edges`` and returns them."""
+    added: list[Edge] = []
+    by_region: dict[str, list[Node]] = {}
+    for n in cdfg.nodes:
+        if n.is_memory and n.region is not None:
+            by_region.setdefault(n.region, []).append(n)
+    for reg_nodes in by_region.values():
+        reg_nodes.sort(key=lambda n: n.id)
+        last_store: Node | None = None
+        loads_since_store: list[Node] = []
+        for n in reg_nodes:
+            if n.is_store:
+                if last_store is not None:
+                    added.append(Edge(last_store.id, n.id, None, "mem"))
+                for ld in loads_since_store:
+                    added.append(Edge(ld.id, n.id, None, "mem"))
+                last_store = n
+                loads_since_store = []
+            else:
+                if last_store is not None:
+                    added.append(Edge(last_store.id, n.id, None, "mem"))
+                loads_since_store.append(n)
+    cdfg.edges.extend(added)
+    return added

@@ -1,0 +1,280 @@
+"""The pass pipeline of the dataflow compiler driver.
+
+Each pass is a named object with a ``run(ctx)`` method that reads/writes
+fields of a shared :class:`CompileContext`.  The default pipeline mirrors
+the paper's flow —
+
+    trace → memdep → transform → partition → rewrite → dse → decouple → schedule
+
+(``transform`` is a no-op unless ``options.transforms`` activates the
+HLS transformation catalog — see ``repro_torch.dataflow.transforms`` — and
+``dse`` is a no-op unless ``options.dse`` is set, which raises until the
+design-space explorer is ported) — with each step delegating to the
+corresponding ``repro_torch.core`` function.  Pipelines are ordinary
+immutable value objects: ``default_pipeline().replace("partition",
+MyPartitionPass())`` swaps a pass, ``.without("rewrite")`` drops one,
+``.insert_after(...)`` adds one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Sequence
+
+import torch
+
+from ..core.cdfg import (CDFG, Graph, add_memory_order_edges,
+                         annotate_memory_regions, trace)
+from ..core.decouple import decouple
+from ..core.partition import (duplicate_cheap_rewrite,
+                              materialize, merge_costly_boundaries,
+                              stage_groups)
+from .options import CompileOptions
+from .schedule import Schedule
+
+
+@dataclasses.dataclass
+class CompileContext:
+    """Mutable state threaded through the pass pipeline."""
+
+    fn: Callable
+    example_args: tuple
+    options: CompileOptions
+    device: torch.device = dataclasses.field(
+        default_factory=lambda: torch.device("cpu"))
+    graph: Graph | None = None
+    out_tree: Any = None        # None (one output) or the tuple length
+    cdfg: CDFG | None = None
+    plan: Any = None            # StagePlan from the partition pass
+    partition: Any = None
+    program: Any = None         # DecoupledProgram
+    schedule: Schedule | None = None
+    dse_result: Any = None
+    timings: dict[str, float] = dataclasses.field(default_factory=dict)
+    #: pass name -> verifier findings recorded by the inter-pass hook
+    diagnostics: dict[str, list] = dataclasses.field(default_factory=dict)
+
+
+class Pass:
+    """Base class for driver passes; subclasses set ``name``."""
+
+    name = "pass"
+
+    def run(self, ctx: CompileContext) -> None:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"<{type(self).__name__} {self.name!r}>"
+
+
+class TracePass(Pass):
+    """Front end: ``torch.fx`` trace, lowering, and the raw CDFG (SSA data
+    edges only).  Example tensors are moved to the compile device, and
+    every closed-over tensor must already live there.
+
+    With ``options.loop`` the function is a loop body ``body(carry, *xs)``
+    with one tensor carry, and a carry back-edge is added unless the carry
+    is listed in ``nonaliasing_carries`` (the §III-A user annotation) —
+    the cyclic §III view.
+    """
+
+    name = "trace"
+
+    def run(self, ctx: CompileContext) -> None:
+        opts = ctx.options
+        args = tuple(a.to(ctx.device) if isinstance(a, torch.Tensor) else a
+                     for a in ctx.example_args)
+        if opts.loop and not (args and isinstance(args[0], torch.Tensor)):
+            raise NotImplementedError(
+                "loop=True takes one tensor carry in this slice; tuple "
+                "carries arrive with the other Table-I loop bodies")
+        ctx.graph, ctx.out_tree = trace(ctx.fn, *args)
+        for cv, c in zip(ctx.graph.constvars, ctx.graph.consts):
+            if c.device.type != ctx.device.type:
+                raise ValueError(
+                    f"closed-over tensor {cv.name} lies on {c.device}, but "
+                    f"the program is compiled for {ctx.device}")
+        carry_pairs: Sequence[tuple[int, int]] = ()
+        if opts.loop and 0 not in set(opts.nonaliasing_carries):
+            carry_pairs = [(0, 0)]
+        ctx.cdfg = CDFG.from_graph(
+            ctx.graph,
+            latency_model=opts.latency_model(),
+            add_memory_edges=False,
+            annotate_regions=False,
+            carry_pairs=carry_pairs,
+        )
+
+
+class MemoryDepPass(Pass):
+    """§III-A memory-dependence analysis: region discovery + ordering
+    edges between memory ops of a shared region."""
+
+    name = "memdep"
+
+    def run(self, ctx: CompileContext) -> None:
+        regions = ctx.options.regions_map() or None
+        annotate_memory_regions(ctx.cdfg, regions)
+        if ctx.options.add_memory_edges:
+            add_memory_order_edges(ctx.cdfg)
+
+
+class TransformPass(Pass):
+    """The HLS transformation catalog (``repro_torch.dataflow.transforms``):
+    validate ``options.transforms`` against the analyzed CDFG and annotate
+    the CDFG with the active config.  No-op when ``options.transforms``
+    is unset or the identity."""
+
+    name = "transform"
+
+    def run(self, ctx: CompileContext) -> None:
+        cfg = getattr(ctx.options, "transforms", None)
+        if cfg is None or cfg.is_identity:
+            ctx.cdfg.transforms = None
+            return
+        cfg.validate(ctx.cdfg)
+        ctx.cdfg.transforms = cfg
+
+
+class PartitionPass(Pass):
+    """Algorithm 1: SCCs → condensation → topo order → stage groups,
+    materialized into a Partition with FIFO channels.  When the active
+    transform config asks for memory-port re-association, the plan's
+    multi-region stages are split by region first."""
+
+    name = "partition"
+
+    def run(self, ctx: CompileContext) -> None:
+        ctx.plan = stage_groups(ctx.cdfg, policy=ctx.options.policy)
+        cfg = getattr(ctx.cdfg, "transforms", None)
+        if cfg is not None and cfg.reassoc:
+            from .transforms import split_by_region
+            ctx.plan = split_by_region(ctx.cdfg, ctx.plan)
+        ctx.partition = materialize(ctx.cdfg, ctx.plan)
+
+
+class RewritePass(Pass):
+    """Post-partition rewrites: cost-aware boundary merging (for the
+    ``cost_aware`` policy) and §III-B1 cheap-op duplication; channels are
+    re-derived afterwards."""
+
+    name = "rewrite"
+
+    def run(self, ctx: CompileContext) -> None:
+        opts = ctx.options
+        if opts.policy == "cost_aware" and len(ctx.plan.groups) > 1:
+            ctx.plan = merge_costly_boundaries(
+                ctx.cdfg, ctx.plan, opts.channel_cost_bytes)
+            ctx.partition = materialize(ctx.cdfg, ctx.plan)
+        if opts.duplicate_cheap and opts.policy != "fused":
+            duplicate_cheap_rewrite(ctx.partition)
+
+
+class DsePass(Pass):
+    """Partition-space design-space exploration (no-op unless
+    ``options.dse`` is set).  The explorer (``dataflow/dse.py``) is not
+    ported yet, so a set ``options.dse`` raises."""
+
+    name = "dse"
+
+    def run(self, ctx: CompileContext) -> None:
+        if ctx.options.dse is not None:
+            raise NotImplementedError(
+                "options.dse: the design-space explorer (dse.py) is not "
+                "ported yet; it arrives with the DSE slice")
+
+
+class DecouplePass(Pass):
+    """Access/execute decoupling: one executable program per stage."""
+
+    name = "decouple"
+
+    def run(self, ctx: CompileContext) -> None:
+        ctx.program = decouple(ctx.partition)
+
+
+class SchedulePass(Pass):
+    """Static schedule analysis: per-stage summaries (II, latency,
+    memory-in-SCC), channel totals, and the lazily-built systolic
+    executor. Feeds ``Compiled.report()`` / ``.simulate()``."""
+
+    name = "schedule"
+
+    def run(self, ctx: CompileContext) -> None:
+        ctx.schedule = Schedule.from_program(
+            ctx.program, stream_argnums=ctx.options.stream_argnums)
+
+
+@dataclasses.dataclass(frozen=True)
+class PassPipeline:
+    """An ordered, inspectable sequence of passes."""
+
+    passes: tuple[Pass, ...]
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "passes", tuple(self.passes))
+        names = self.names()
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate pass names: {names}")
+
+    def names(self) -> list[str]:
+        return [p.name for p in self.passes]
+
+    def __iter__(self):
+        return iter(self.passes)
+
+    def __getitem__(self, name: str) -> Pass:
+        for p in self.passes:
+            if p.name == name:
+                return p
+        raise KeyError(name)
+
+    def index(self, name: str) -> int:
+        for i, p in enumerate(self.passes):
+            if p.name == name:
+                return i
+        raise KeyError(name)
+
+    # -- structural edits (return new pipelines) -----------------------------
+
+    def replace(self, name: str, new_pass: Pass) -> "PassPipeline":
+        i = self.index(name)
+        return PassPipeline(self.passes[:i] + (new_pass,)
+                            + self.passes[i + 1:])
+
+    def without(self, name: str) -> "PassPipeline":
+        i = self.index(name)
+        return PassPipeline(self.passes[:i] + self.passes[i + 1:])
+
+    def insert_after(self, name: str, new_pass: Pass) -> "PassPipeline":
+        i = self.index(name)
+        return PassPipeline(self.passes[:i + 1] + (new_pass,)
+                            + self.passes[i + 1:])
+
+    # -- execution ------------------------------------------------------------
+
+    def run(self, ctx: CompileContext, *, start: int = 0,
+            stop: int | None = None) -> CompileContext:
+        from . import verify as _verify
+        check = _verify.enabled(ctx.options)
+        for p in self.passes[start:stop]:
+            t0 = time.perf_counter()
+            p.run(ctx)
+            ctx.timings[p.name] = time.perf_counter() - t0
+            if check:
+                # inter-pass IR verification: an error here names the
+                # pass that broke an invariant
+                _verify.verify_ctx(ctx, p.name)
+        return ctx
+
+    def signature(self) -> tuple:
+        """Identity of the pipeline structure, for cache keying."""
+        return tuple((p.name, type(p).__module__ + "." + type(p).__qualname__)
+                     for p in self.passes)
+
+
+def default_pipeline() -> PassPipeline:
+    return PassPipeline((TracePass(), MemoryDepPass(), TransformPass(),
+                         PartitionPass(), RewritePass(), DsePass(),
+                         DecouplePass(), SchedulePass()))

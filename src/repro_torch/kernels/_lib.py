@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds.  Libraries go under ``build/repro_torch/<hash>/`` at
+the repository root (``.gitignore`` lists ``build/``), keyed by a hash of
+the source and the flags, and are built at first use.  :func:`build_all`
+starts one ``nvcc`` per source at once.
+
+Every C entry point takes device pointers and a stream as ``c_void_p``
+and returns the ``cudaGetLastError()`` after its launches; :func:`check`
+raises on anything but 0.  ``LAUNCHES`` counts wrapper calls that launch
+a kernel, one entry per kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: kernel name -> C entry points with their argument types
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES: dict[str, dict[str, list]] = {
+    "spmv_bsr": {"spmv_bsr_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "running_max": {"running_max_i64": [_P, _P, _P, _L, _P],
+                    "running_max_i32": [_P, _P, _P, _L, _P]},
+}
+
+#: launches per kernel since the last :func:`reset_counts`
+LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(),
+                          digest_size=8).hexdigest()
+    return BUILD_ROOT / key / f"lib{name}.so"
+
+
+def _start_build(name: str) -> tuple[Path, subprocess.Popen | None]:
+    out = _lib_path(name)
+    if out.exists():
+        return out, None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_build(name: str, out: Path, proc: subprocess.Popen | None) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> None:
+    """Compile every kernel source, one ``nvcc`` per source in parallel."""
+    with _lock:
+        started = {n: _start_build(n) for n in SIGNATURES if n not in _libs}
+        for n, (out, proc) in started.items():
+            _finish_build(n, out, proc)
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            out, proc = _start_build(name)
+            _finish_build(name, out, proc)
+            cdll = ctypes.CDLL(str(out))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(cdll, fn).argtypes = argtypes
+                getattr(cdll, fn).restype = ctypes.c_int
+            _libs[name] = cdll
+        return _libs[name]
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the kernels take it."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

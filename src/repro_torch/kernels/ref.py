@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each function is the semantic ground truth its kernel is held against:
+the CPU tests run it against the JAX reference, ``chip_smoke.py``
+compares each kernel with it on the card, and a kernel wrapper uses it
+for a tensor that lies on the CPU.  Only tensor ops here, no kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def spmv_bsr_ref(values: torch.Tensor, col_ids: torch.Tensor,
+                 x: torch.Tensor, nrows: int) -> torch.Tensor:
+    """Block-sparse-row SpMV.
+
+    values : (n_block_rows, nnz_blocks, bm, bk) stored blocks
+    col_ids: (n_block_rows, nnz_blocks) int32 — block-column of each stored
+             block; −1 marks padding blocks (contribute zero).
+    x      : (K,) dense vector; K = n_block_cols * bk
+    returns: (nrows,) = A @ x with fp32 accumulation.
+    """
+    bk = values.shape[3]
+    xb = x.reshape(-1, bk)                            # (n_block_cols, bk)
+    valid = col_ids >= 0
+    gathered = xb[torch.where(valid, col_ids, 0).long()]   # (nbr, nnz, bk)
+    gathered = torch.where(valid[..., None], gathered, 0)
+    y = torch.einsum("rnmk,rnk->rm", values.float(), gathered.float())
+    return y.reshape(-1)[:nrows].to(x.dtype)
+
+
+#: tile width of the blocked scan (the CUDA kernel's 1024-value tile)
+SCAN_TILE = 1024
+
+
+def _doubling_max_scan(t: torch.Tensor) -> torch.Tensor:
+    """Inclusive max-scan along the last axis by Hillis–Steele doubling
+    (the shuffle scan the kernel runs inside a tile)."""
+    t = t.clone()
+    d = 1
+    while d < t.shape[-1]:
+        t[..., d:] = torch.maximum(t[..., d:], t[..., :-d].clone())
+        d *= 2
+    return t
+
+
+def running_max_ref(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running maximum of a 1-D integer tensor, blocked as the
+    kernel is: per-tile maxima, an exclusive scan of them into per-tile
+    carries, then a scan of each tile folded with its carry.  Exact."""
+    n = x.shape[0]
+    low = torch.iinfo(x.dtype).min
+    nt = -(-n // SCAN_TILE)
+    tiles = torch.full((nt * SCAN_TILE,), low, dtype=x.dtype, device=x.device)
+    tiles[:n] = x
+    tiles = tiles.reshape(nt, SCAN_TILE)
+    incl = _doubling_max_scan(tiles.amax(dim=1))
+    carry = torch.cat([incl.new_full((1,), low), incl[:-1]])
+    out = torch.maximum(_doubling_max_scan(tiles), carry[:, None])
+    return out.reshape(-1)[:n]

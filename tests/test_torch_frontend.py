@@ -1,0 +1,184 @@
+"""The port's front end and driver (repro_torch.core.cdfg on torch.fx,
+partition, decouple, channels, emulated pipeline, backends) against the
+JAX reference: the same loop body, traced by each package, must compile
+to the same plan, and every execution backend must return the plain
+result.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from benchmarks.paper_kernels import make_spmv as ref_make_spmv
+from repro.dataflow import compile as ref_compile
+from repro_torch.core.channels import ChannelSpec, DeviceFIFO
+from repro_torch.dataflow import compile as port_compile
+from repro_torch.dataflow import dataflow_jit
+from repro_torch.dataflow.options import ResourceConstraints
+from repro_torch.workloads import make_spmv
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    repro_torch.set_device("cpu")
+    yield
+    repro_torch.set_device(None)
+
+
+def _plan(compiled):
+    sch = compiled.schedule
+    return {
+        "stages": sch.num_stages,
+        "channels": sch.num_channels,
+        "channel_bytes": sch.channel_bytes,
+        "latencies": [s.latency for s in sch.stages],
+        "iis": [s.ii for s in sch.stages],
+        "pipeline_ii": sch.pipeline_ii,
+        "total_latency": sch.total_latency,
+        "regions": [list(s.regions) for s in sch.stages],
+        "mem_in_scc": [s.mem_in_scc for s in sch.stages],
+        "prims": [list(s.prims) for s in sch.stages],
+        "in_bytes": [s.in_channel_bytes for s in sch.stages],
+        "node_ids": [list(s.node_ids) for s in compiled.partition.stages],
+    }
+
+
+@pytest.fixture(scope="module")
+def spmv_pair():
+    k = ref_make_spmv(0.125)
+    ref = ref_compile(k.loop_body, k.carry_example, *k.body_args, loop=True)
+    w = make_spmv(0.125, device="cpu")
+    port = port_compile(w.loop_body, w.carry_example, *w.body_args,
+                        loop=True, device="cpu")
+    return ref, port, w
+
+
+def test_spmv_plan_matches_reference(spmv_pair):
+    ref, port, _ = spmv_pair
+    assert _plan(port) == _plan(ref)
+    plan = _plan(port)
+    assert plan["stages"] == 5 and plan["channels"] == 6
+    assert plan["channel_bytes"] == 24
+    assert plan["latencies"] == [5, 6, 6, 5, 1]
+    assert plan["pipeline_ii"] == 1 and plan["total_latency"] == 23
+    assert plan["regions"][:3] == [["const0"], ["const1"], ["const2"]]
+
+
+def test_spmv_report_is_clean(spmv_pair):
+    _, port, _ = spmv_pair
+    rep = port.report()
+    assert "5 stages, 6 channels (24B/token)" in rep
+    assert "verify: clean" in rep
+    assert port.verify() == []
+
+
+@pytest.mark.parametrize("backend", ["sequential", "emulated", "eager"])
+def test_backends_return_the_plain_result(spmv_pair, backend):
+    """Each backend over the first row's nonzeros equals the direct call
+    bit for bit, and the CSR row product within fp32 summation order."""
+    _, port, w = spmv_pair
+    acc = plain = torch.zeros(())
+    for j in range(int(w.indptr[0]), int(w.indptr[1])):
+        jt = torch.tensor(j, dtype=torch.int32)
+        acc = port(acc, jt, backend=backend)
+        plain = w.loop_body(plain, jt)
+    assert torch.equal(acc, plain)
+    np.testing.assert_allclose(float(acc), w.expected[0], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_gather_body_plan_matches_reference():
+    """A second body through the lowering table: a data-dependent gather
+    feeding a transcendental, with a Python-scalar operand."""
+    rng = np.random.default_rng(1)
+    table = rng.normal(size=64).astype(np.float32)
+    idx = rng.integers(0, 64, 32).astype(np.int32)
+    tj, ij = jnp.asarray(table), jnp.asarray(idx)
+    tt, it = torch.from_numpy(table), torch.from_numpy(idx)
+
+    def ref_body(acc, i):
+        return acc + jnp.tanh(tj[ij[i]] * 2.0) - acc * 0.5
+
+    def port_body(acc, i):
+        return acc + torch.tanh(tt[it[i]] * 2.0) - acc * 0.5
+
+    ref = ref_compile(ref_body, jnp.float32(0), jnp.int32(0), loop=True)
+    port = port_compile(port_body, torch.zeros(()),
+                        torch.zeros((), dtype=torch.int32), loop=True,
+                        device="cpu")
+    assert _plan(port) == _plan(ref)
+    acc = torch.zeros(())
+    for i in range(8):
+        i_t = torch.tensor(i, dtype=torch.int32)
+        want = port_body(acc, i_t)
+        for backend in ("sequential", "emulated"):
+            assert torch.equal(port(acc, i_t, backend=backend), want)
+        acc = want
+
+
+def test_unlowered_operations_raise():
+    x = torch.arange(8.0)
+
+    def body(acc, j):            # cumsum has no lowering rule yet
+        return torch.cumsum(acc * x, 0)[j]
+
+    with pytest.raises(NotImplementedError):
+        port_compile(body, torch.zeros(()), torch.zeros((), dtype=torch.int32),
+                     loop=True, device="cpu")
+
+
+def test_dse_option_raises_until_ported(spmv_pair):
+    _, _, w = spmv_pair
+    with pytest.raises(NotImplementedError):
+        port_compile(w.loop_body, w.carry_example, *w.body_args, loop=True,
+                     device="cpu", dse=ResourceConstraints())
+
+
+def test_compile_cache_returns_the_same_artifact(spmv_pair):
+    _, port, w = spmv_pair
+    again = port_compile(w.loop_body, w.carry_example, *w.body_args,
+                         loop=True, device="cpu")
+    assert again is port
+
+
+def test_dataflow_jit_dispatches():
+    w = torch.tensor([1.0, -2.0, 3.0])
+
+    @dataflow_jit(device="cpu")
+    def f(x):
+        return torch.tanh(x * w) + 1.0
+
+    x = torch.tensor([0.5, 0.25, -1.0])
+    assert torch.equal(f(x), torch.tanh(x * w) + 1.0)
+    assert torch.equal(f(x, backend="emulated"), torch.tanh(x * w) + 1.0)
+    assert f.lower(x).num_stages >= 1
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, ()), (torch.int64, (3,)), (torch.bool, (5,)),
+    (torch.float16, (3,)), (torch.int8, (2, 3)),
+])
+def test_channel_spec_roundtrip(dtype, shape):
+    x = (torch.arange(int(np.prod(shape)) or 1) - 2).reshape(shape).to(dtype)
+    y = torch.ones((), dtype=torch.float32) * 7.5
+    spec = ChannelSpec.from_avals([x, y])
+    word = spec.pack([x, y], pad_to=spec.width + 3)
+    assert word.dtype == torch.int32 and word.numel() == spec.width + 3
+    gx, gy = spec.unpack(word)
+    assert torch.equal(gx, x) and torch.equal(gy, y)
+
+
+def test_device_fifo_backpressure():
+    fifo = DeviceFIFO(depth=2, width=3)
+    s = fifo.init()
+    words = [torch.full((3,), v, dtype=torch.int32) for v in (1, 2, 3)]
+    for wd in words:
+        s = fifo.push(s, wd)          # the third push meets a full FIFO
+    assert int(s.count) == 2 and not bool(fifo.can_push(s))
+    out = []
+    for _ in range(3):                # the third pop meets an empty one
+        wd, s = fifo.pop(s, fifo.can_pop(s))
+        out.append(int(wd[0]))
+    assert out[:2] == [1, 2] and int(s.count) == 0

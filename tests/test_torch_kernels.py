@@ -1,0 +1,213 @@
+"""The port's kernels (repro_torch.kernels) against the JAX reference.
+
+On the CPU every wrapper runs its plain PyTorch version, which is held
+against the reference here: ``spmv_bsr`` against the Pallas kernel in
+interpret mode, its oracle ``ref.spmv_bsr_ref`` and the dense product
+(the tolerances of tests/test_kernels.py: fp32 accumulation in another
+order, so 1e-4 against dense and 1e-5 against the oracle), and the
+running max bit for bit against the reference engine's numpy form.  The
+tests marked ``cuda`` hold each CUDA kernel against its plain version and
+skip where there is no card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.core import engine as ref_engine
+from repro.kernels import csr_to_bsr as ref_csr_to_bsr
+from repro.kernels import ref as ref_oracles
+from repro.kernels import spmv as ref_spmv
+from repro_torch import interop
+from repro_torch.core import engine as port_engine
+from repro_torch.kernels import _lib, csr_to_bsr, ref, running_max, spmv
+
+_RNG = np.random.default_rng(42)
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    repro_torch.set_device("cpu")
+    port_engine.select(None)
+    _lib.reset_counts()
+    yield
+    port_engine.select(None)
+    repro_torch.set_device(None)
+
+
+def _random_csr(M, K, density, seed=0):
+    rng = np.random.default_rng(seed)
+    dense = ((rng.random((M, K)) < density)
+             * rng.normal(size=(M, K))).astype(np.float32)
+    indptr = np.zeros(M + 1, np.int64)
+    indptr[1:] = np.cumsum((dense != 0).sum(1))
+    indices = np.nonzero(dense)[1].astype(np.int32)
+    return dense, indptr, indices, dense[dense != 0]
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# spmv_bsr
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,K,density", [
+    (64, 256, 0.25),     # the paper's density
+    (64, 256, 0.02),     # very sparse
+    (16, 128, 0.9),      # nearly dense
+])
+def test_spmv_plain_matches_reference(M, K, density):
+    dense, indptr, indices, data = _random_csr(M, K, density)
+    vals, cols = csr_to_bsr(indptr, indices, data, (M, K), bm=8, bk=128)
+    x = _RNG.normal(size=(K,)).astype(np.float32)
+    got = spmv(torch.from_numpy(vals), torch.from_numpy(cols),
+               torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got[:M], dense @ x, rtol=1e-4, atol=1e-4)
+    pallas = np.asarray(ref_spmv(jnp.asarray(vals), jnp.asarray(cols),
+                                 jnp.asarray(x)))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    oracle = np.asarray(ref_oracles.spmv_bsr_ref(
+        jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x), M))
+    np.testing.assert_allclose(got[:M], oracle, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_spmv_plain_on_any_block_structure(seed):
+    """For any BSR structure (padding ids included), plain == oracle."""
+    rng = np.random.default_rng(seed)
+    nbr, nnz, bm, bk = 1 + seed, 1 + seed % 3, 8, 128
+    nbc = nnz + 1
+    vals = rng.normal(size=(nbr, nnz, bm, bk)).astype(np.float32)
+    cols = rng.integers(-1, nbc, size=(nbr, nnz)).astype(np.int32)
+    x = rng.normal(size=(nbc * bk,)).astype(np.float32)
+    got = spmv(torch.from_numpy(vals), torch.from_numpy(cols),
+               torch.from_numpy(x)).numpy()
+    want = np.asarray(ref_oracles.spmv_bsr_ref(
+        jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x), nbr * bm))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("M,K,density,bm,bk", [
+    (64, 256, 0.25, 8, 128),
+    (61, 300, 0.1, 8, 128),      # ragged block row and block column
+    (40, 512, 0.0, 8, 128),      # all-empty rows
+    (512, 512, 0.25, 8, 128),    # the reference example's size
+    (33, 70, 0.5, 4, 32),
+])
+def test_csr_to_bsr_identical_to_reference(M, K, density, bm, bk):
+    _, indptr, indices, data = _random_csr(M, K, density, seed=M + K)
+    got_v, got_c = csr_to_bsr(indptr, indices, data, (M, K), bm=bm, bk=bk)
+    want_v, want_c = ref_csr_to_bsr(indptr, indices, data, (M, K),
+                                    bm=bm, bk=bk)
+    assert got_v.dtype == want_v.dtype and got_c.dtype == want_c.dtype
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_array_equal(got_v, want_v)
+
+
+def test_reference_state_carries_across_to_tensors():
+    """interop hands the reference's numpy SpMV state to the kernels:
+    same values, same dtypes, on the named device."""
+    _, indptr, indices, data = _random_csr(64, 256, 0.25)
+    vals, cols = ref_csr_to_bsr(indptr, indices, data, (64, 256))
+    x = _RNG.normal(size=256).astype(np.float32)
+    st = interop.spmv_state_to_torch(
+        {"indptr": indptr, "indices": indices, "data": data,
+         "bsr_values": vals, "bsr_col_ids": cols, "x": x}, "cpu")
+    assert st["bsr_col_ids"].dtype == torch.int32
+    assert st["bsr_values"].device == torch.device("cpu")
+    np.testing.assert_array_equal(st["indptr"].numpy(), indptr)
+    got = spmv(st["bsr_values"], st["bsr_col_ids"], st["x"]).numpy()
+    want = np.asarray(ref_spmv(jnp.asarray(vals), jnp.asarray(cols),
+                               jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(KeyError):
+        interop.spmv_state_to_torch({"csr": indptr}, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# running max
+# ---------------------------------------------------------------------------
+
+def _scan_input(n, pattern, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if pattern == "trending":      # the solver's b - cumsum(c) shape
+        a = rng.integers(0, 1000, n) - np.cumsum(rng.integers(1, 9, n))
+    elif pattern == "increasing":
+        a = np.cumsum(rng.integers(0, 5, n))
+    else:                          # "wide": values above 2^31
+        a = rng.integers(-(1 << 40), 1 << 40, n)
+    return a.astype(dtype)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 4097, 1 << 20])
+@pytest.mark.parametrize("pattern,dtype", [
+    ("trending", np.int64), ("increasing", np.int64), ("wide", np.int64),
+    ("trending", np.int32),
+])
+def test_running_max_plain_bit_identical(n, pattern, dtype):
+    a = _scan_input(n, pattern, dtype, seed=n)
+    got = running_max(torch.from_numpy(a)).numpy()
+    assert got.dtype == a.dtype
+    np.testing.assert_array_equal(got, np.maximum.accumulate(a))
+    np.testing.assert_array_equal(got, ref_engine._running_max_np(a.copy()))
+
+
+def test_engine_torch_on_cpu_matches_numpy():
+    a = _scan_input(port_engine.JIT_MIN_ELEMS + 17, "wide", np.int64, 3)
+    want = ref_engine._running_max_np(a.copy())
+    with port_engine.use("torch"):
+        got = port_engine.running_max(a.copy())
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cpu_tensors_never_touch_the_kernel_library():
+    _, indptr, indices, data = _random_csr(16, 128, 0.5)
+    vals, cols = csr_to_bsr(indptr, indices, data, (16, 128))
+    spmv(torch.from_numpy(vals), torch.from_numpy(cols),
+         torch.zeros(128))
+    running_max(torch.arange(5000))
+    with port_engine.use("torch"):
+        port_engine.running_max(np.arange(1 << 16, dtype=np.int64))
+    assert _lib.counts() == {"spmv_bsr": 0, "running_max": 0}
+    assert _lib._libs == {}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(TypeError):
+        running_max(torch.zeros(8))
+    with pytest.raises(ValueError):
+        spmv(torch.zeros(1, 1, 8, 128), torch.zeros(1, 1, dtype=torch.int32),
+             torch.zeros(100))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against their plain versions (skip without a card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_spmv_bsr_kernel_matches_plain():
+    dev = _needs_card()
+    dense, indptr, indices, data = _random_csr(61, 300, 0.25)
+    vals, cols = csr_to_bsr(indptr, indices, data, (61, 300))
+    x = _RNG.normal(size=(cols.shape[1] + 2) * 128).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (vals, cols, x)]
+    got = spmv(*args)
+    want = ref.spmv_bsr_ref(*args, vals.shape[0] * 8)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert _lib.counts()["spmv_bsr"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1025, (1 << 20) + 7])
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_running_max_kernel_bit_identical(n, dtype):
+    dev = _needs_card()
+    a = _scan_input(n, "wide" if dtype == np.int64 else "trending", dtype, n)
+    got = running_max(torch.from_numpy(a).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.maximum.accumulate(a))
