@@ -9,7 +9,8 @@ Phases, one line (or block) each:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    (one ``nvcc`` per ``src/repro_torch/csrc/*.cu``, all at once);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   main path's shapes — ``spmv_bsr`` on the Table-I BSR matrix
+   main path's shapes (kernel times are CUDA-graph replays, so the
+   host's enqueue time is left out) — ``spmv_bsr`` on the Table-I BSR matrix
    (512, 32, 8, 128) within rtol=atol=1e-4 (fp32 sums in another order),
    ``running_max`` bit for bit at 2^20 and odd sizes, int32 and int64,
    values above 2^31 — with median CUDA-event times of the kernel, the
@@ -25,9 +26,31 @@ Phases, one line (or block) each:
    running max on the card), again with the ``numpy`` engine; the cycles
    must be identical and equal the reference's recorded
    16,517,754 / 318,747,791;
-5. one JSON line listing every kernel with its launches on the main path
-   (phases 3-4), its error against the plain version, its times and its
-   bound; then the ``nvidia-smi`` line; then the result line.
+5. the attention kernels against their plain versions on the card, at
+   the serving path's shapes in bf16 (rtol=atol=2e-2, the bf16 tolerance
+   of tests/test_kernels.py) and once in fp32 (rtol=atol=1e-4) —
+   ``flash_attention`` causal on q (8, 9, 512, 64) and k/v (8, 3, 512,
+   64), ``decode_attention`` on q (8, 9, 64) against (8, 3, 552, 64)
+   caches at length 513 and at ragged lengths — with median CUDA-event
+   times of the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` (GQA, causal or length-masked);
+6. the serving path: SmolLM-135M at full width (30 layers, d_model 576,
+   random weights from seed 0), 8 requests of 512 tokens, 32 new tokens
+   each.  (a) In fp32, ``attn_impl="pallas"`` against ``"full"``: the
+   greedy tokens identical and the prefill logits within rtol=atol=1e-3.
+   (b) In the published bf16, the kernels' path timed on the host clock
+   (prefill s, decode ms/token, tok/s) and held against the bf16
+   ``"full"`` path: max |Δ prefill logits| within the larger of
+   2e-2·max|logits| and the bf16 plain path's own max |Δ| to the fp32
+   logits of (a) (30 bf16 layers amplify a one-ulp difference in one
+   attention output to about 2 % of max|logits|); the share of greedy
+   tokens that agree is printed, and one decode step is traced with
+   ``torch.profiler``: its device busy time over the untraced step's
+   host time is the device's busy share;
+7. one JSON line listing every kernel with its launches on its main path
+   (phases 3-4 for the SpMV kernels, run (b) of phase 6 for attention),
+   its error against the plain version, its times and its bound; then
+   the ``nvidia-smi`` line; then the result line.
 
 Any failed phase exits non-zero before the result line.  Without a CUDA
 device, or outside the repository, the script exits non-zero at once.
@@ -47,10 +70,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM data-sheet peaks: HBM rate and the
-#: float32 rate outside the tensor cores
+#: H100 SXM data-sheet peaks: HBM rate, the float32 rate outside the
+#: tensor cores, and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+
+#: the serving phase: smollm-135m, 8 requests of 512 tokens, 32 new each
+SERVE_BATCH, PROMPT_LEN, GEN = 8, 512, 32
+MAX_LEN = PROMPT_LEN + GEN + 8
 
 #: the reference's recorded Fig. 5 SpMV cells on ACP (BENCH_sim.json)
 REF_DATAFLOW_CYCLES = 16_517_754
@@ -65,22 +93,67 @@ def require(cond: bool, msg: str) -> None:
         sys.exit(1)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+def cuda_ms(fn, reps: int = 20, per_graph: int = 10) -> float:
+    """Median device time of one call of ``fn`` in ms: ``per_graph`` calls
+    captured in a CUDA graph, the graph replayed ``reps`` times between
+    CUDA events.  Replaying leaves the host's enqueue time out, which
+    exceeds the device time of a small kernel."""
     import torch
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):                       # warm-up
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_graph)
+    del graph
     return statistics.median(times)
+
+
+def device_busy_ms(fn) -> tuple[float | None, float]:
+    """(device busy ms, host wall ms) of one call of ``fn`` under
+    ``torch.profiler``: the union of the kernel, memcpy and memset spans
+    of its trace (None where the trace holds no device span), and the
+    host clock, which includes the profiler's own cost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(ROOT, "build", "decode_step_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    if not spans:
+        return None, wall
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, wall
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -298,28 +371,234 @@ def main() -> None:
     require((df, cv) == (REF_DATAFLOW_CYCLES, REF_CONVENTIONAL_CYCLES),
             "Fig. 5 cycles differ from the reference's")
 
-    # -- 5. the kernels line --------------------------------------------------
-    launches = _lib.counts()
-    for row in (spmv_row, rmax_row):
+    spmv_launches = _lib.counts()
+
+    # -- 5. the attention kernels against their plain versions ---------------
+    fa_row, da_row = attention_kernels(dev)
+
+    # -- 6. the serving path ----------------------------------------------------
+    serve_launches = serve_smollm(dev)
+
+    # -- 7. the kernels line --------------------------------------------------
+    rows = (spmv_row, rmax_row, fa_row, da_row)
+    for row, launches in zip(rows, (spmv_launches, spmv_launches,
+                                    serve_launches, serve_launches)):
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0,
-                f"{row['name']} was not launched on the main path")
+                f"{row['name']} was not launched on its main path")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in (spmv_row, rmax_row)]}))
+                                  for row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def _bound(nbytes: int, ops: int) -> dict:
+def attention_kernels(dev) -> tuple[dict, dict]:
+    """Phase 5: each attention kernel against its plain version at the
+    serving path's shapes; times of kernel, plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, HQ, HKV, S, D = SERVE_BATCH, 9, 3, PROMPT_LEN, 64
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def held(name, got, want, tol):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                f"{name} disagrees with its plain version (max err {err})")
+        return err
+
+    q, k, v = randn(B, HQ, S, D), randn(B, HKV, S, D), randn(B, HKV, S, D)
+    errs = {}
+    for dtype, tol in ((bf16, 2e-2), (f32, 1e-4)):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        errs[dtype] = held(f"flash_attention {dtype}",
+                           flash_attention(qq, kk, vv, causal=True),
+                           ref.flash_attention_ref(qq, kk, vv, causal=True),
+                           tol)
+    causal_ops = 2 * 2 * B * HQ * S * S * D // 2
+    fa_row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "max_abs_err": errs[bf16],
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True)),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                            causal=True)),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        **_bound(2 * (2 * q.numel() + k.numel() + v.numel()), causal_ops,
+                 BF16_TC_OPS_PER_S),
+    }
+    print(f"[5] flash_attention bf16 q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} causal: max|kernel-plain| {errs[bf16]:.3g} "
+          f"(rtol=atol=2e-2; fp32 {errs[f32]:.3g} at 1e-4), kernel "
+          f"{fa_row['ms']:.4f} ms, plain {fa_row['plain_ms']:.4f} ms, SDPA "
+          f"{fa_row['library_ms']:.4f} ms, bound {fa_row['bound_ms']:.4f} ms "
+          f"({fa_row['bound_by']})", flush=True)
+
+    qd = randn(B, HQ, D)
+    kc, vc = randn(B, HKV, MAX_LEN, D), randn(B, HKV, MAX_LEN, D)
+    first = torch.full((B,), PROMPT_LEN + 1, dtype=torch.int32, device=dev)
+    ragged = torch.tensor([1, 17, 256, MAX_LEN, 300, 2, 513, 64],
+                          dtype=torch.int32, device=dev)[:B]
+    errs = {}
+    for dtype, tol in ((bf16, 2e-2), (f32, 1e-4)):
+        for label, lengths in (("513", first), ("ragged", ragged)):
+            qq, kk, vv = (t.to(dtype) for t in (qd, kc, vc))
+            errs[dtype, label] = held(
+                f"decode_attention {dtype} lengths {label}",
+                decode_attention(qq, kk, vv, lengths),
+                ref.decode_attention_ref(qq, kk, vv, lengths), tol)
+    mask = (torch.arange(MAX_LEN, device=dev)[None, :]
+            < first[:, None])[:, None, None, :]
+    valid = int(first.sum())
+    da_row = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:178",
+        "max_abs_err": max(errs[bf16, "513"], errs[bf16, "ragged"]),
+        "ms": cuda_ms(lambda: decode_attention(qd, kc, vc, first)),
+        "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(qd, kc, vc,
+                                                             first)),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)),
+        **_bound(2 * (2 * qd.numel() + 2 * valid * HKV * D) + 4 * B,
+                 4 * HQ * valid * D, BF16_TC_OPS_PER_S),
+    }
+    print(f"[5] decode_attention bf16 q {tuple(qd.shape)} caches "
+          f"{tuple(kc.shape)}: max|kernel-plain| {errs[bf16, '513']:.3g} at "
+          f"length 513, {errs[bf16, 'ragged']:.3g} ragged {ragged.tolist()} "
+          f"(rtol=atol=2e-2; fp32 {errs[f32, '513']:.3g} / "
+          f"{errs[f32, 'ragged']:.3g} at 1e-4), kernel {da_row['ms']:.4f} "
+          f"ms, plain {da_row['plain_ms']:.4f} ms, SDPA "
+          f"{da_row['library_ms']:.4f} ms, bound {da_row['bound_ms']:.4f} ms"
+          f" ({da_row['bound_by']})", flush=True)
+    return fa_row, da_row
+
+
+def serve_smollm(dev) -> dict:
+    """Phase 6: serve SmolLM-135M at full width; returns the kernel
+    launches of run (b), the bf16 kernels' path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = load_config("smollm-135m")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
+    reqs = [Request(i, prompts[i], GEN) for i in range(SERVE_BATCH)]
+    tokens = torch.from_numpy(prompts).to(dev)
+
+    def run(c, params, impl):
+        """Prefill logits, then one served batch with its kernel launches
+        counted from 0 and its host-clock wall."""
+        c = dataclasses.replace(c, attn_impl=impl)
+        with torch.inference_mode():
+            logits, _ = prefill(params, tokens, c, MAX_LEN)
+        server = BatchedServer(c, params, max_len=MAX_LEN)
+        _lib.reset_counts()
+        t0 = time.perf_counter()
+        res = server.serve(reqs)
+        wall = time.perf_counter() - t0
+        launches = _lib.counts()
+        return (logits.float(), np.array([r.tokens for r in res]), res, wall,
+                launches)
+
+    # (a) fp32: the kernels' path against the plain path
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), c32, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    lp, tp, *_ = run(c32, params, "pallas")
+    lf, tf, *_ = run(c32, params, "full")
+    logits32 = lf
+    err = float((lp - lf).abs().max())
+    require(bool(torch.isfinite(lp).all()) and lp.shape == (SERVE_BATCH,
+                                                            cfg.vocab_size),
+            f"fp32 prefill logits: shape {tuple(lp.shape)} or not finite")
+    require(torch.allclose(lp, lf, rtol=1e-3, atol=1e-3),
+            f"fp32 prefill logits, pallas vs full: max err {err}")
+    require(np.array_equal(tp, tf), "fp32 greedy tokens, pallas != full")
+    print(f"[6a] smollm-135m fp32 ({n_params} params, {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}), {SERVE_BATCH}x{PROMPT_LEN} "
+          f"prompts, {GEN} new tokens: pallas == full greedy tokens; "
+          f"prefill logits max|Δ| {err:.3g} (rtol=atol=1e-3)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) the published bf16: the kernels' path, timed and counted
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    lf, tf, *_ = run(cfg, params, "full")
+    run(cfg, params, "pallas")                      # warm-up
+    lp, tp, res, wall, launches = run(cfg, params, "pallas")
+    err = float((lp - lf).abs().max())
+    scale = float(lf.abs().max())
+    # the bf16 plain path's own error: its distance to the fp32 logits of
+    # the same weights (the bf16 weights are the fp32 ones rounded)
+    noise = float((lf - logits32).abs().max())
+    require(bool(torch.isfinite(lp).all()), "bf16 prefill logits not finite")
+    require(err <= max(2e-2 * scale, noise),
+            f"bf16 prefill logits, pallas vs full: max |Δ| {err} > both "
+            f"2e-2 * {scale} and the plain path's bf16 error {noise}")
+    agree = float((tp == tf).mean())
+    decode_ms = res[0].decode_s * 1e3
+    n_tok = SERVE_BATCH * GEN
+    print(f"[6b] smollm-135m bf16, attn_impl='pallas': prefill "
+          f"{res[0].prefill_s:.4f} s, decode {decode_ms:.3f} ms/token step "
+          f"({SERVE_BATCH} sequences), {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tok/s (host clock); prefill logits max|Δ| vs "
+          f"full {err:.4g} (max|logits| {scale:.4g}; limit the larger of "
+          f"2e-2 of it and the plain bf16 path's max|Δ| to fp32, {noise:.4g});"
+          f" pallas bf16 max|Δ| to fp32 "
+          f"{float((lp - logits32).abs().max()):.4g}; "
+          f"greedy tokens agreeing with full {agree:.4f}; launches "
+          f"flash_attention {launches['flash_attention']}, decode_attention "
+          f"{launches['decode_attention']}", flush=True)
+    cp = dataclasses.replace(cfg, attn_impl="pallas")
+    with torch.inference_mode():
+        logits, cache = prefill(params, tokens, cp, MAX_LEN)
+        busy, wall = device_busy_ms(lambda: decode_step(
+            params, logits.argmax(-1), cache, PROMPT_LEN, cp))
+    print(f"[6b] one decode step under torch.profiler: host {wall:.3f} ms "
+          f"with the profiler's cost, "
+          + ("device busy not measured (no device spans in the trace)"
+             if busy is None else f"device busy {busy:.3f} ms = "
+             f"{100 * busy / decode_ms:.1f} % of the untraced "
+             f"{decode_ms:.3f} ms step"), flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [leaf for sub in tree for leaf in _leaves(sub)]
+    return [tree]
+
+
+def _bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """Least time on the card: bytes moved at the HBM rate vs operations
-    at the float32 (non-tensor-core) rate, whichever is larger."""
+    at ``ops_per_s`` (default the float32 non-tensor-core rate),
+    whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 

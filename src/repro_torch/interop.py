@@ -12,7 +12,12 @@ imports the reference package:
   ``SimStage`` / ``MemAccess``, or the port's — any object with those
   fields) into plain dicts of numpy arrays, and :func:`stages_from_records`
   builds the port's :class:`~repro_torch.core.simulator.SimStage` list
-  from them, so both simulators can be fed identical stages.
+  from them, so both simulators can be fed identical stages;
+* :func:`lm_params_to_torch` turns the reference's LM parameter tree
+  (nested dicts and lists of numpy arrays, each segment's leaves stacked
+  over its repeats) into the port's tree, one entry per repeat, and
+  :func:`lm_cache_to_numpy` stacks the port's KV cache back into the
+  reference's layout, so weights and caches compare across packages.
 """
 
 from __future__ import annotations
@@ -78,3 +83,67 @@ def stages_from_records(records: Sequence[Mapping[str, Any]]
                             width=int(a.get("width", 1)))
                   for a in r.get("accesses", ())])
         for r in records]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _stack_trees(trees: Sequence[Any]) -> Any:
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack_trees([t[i] for t in trees])
+                for i in range(len(first))]
+    return np.stack([t.detach().float().cpu().numpy() for t in trees])
+
+
+def lm_params_to_torch(params: Mapping[str, Any], cfg,
+                       device: str | torch.device | None = None
+                       ) -> dict[str, Any]:
+    """The port's parameter tree from the reference's, as numpy.
+
+    ``params`` is the reference's tree with numpy leaves
+    (``jax.tree_util.tree_map(np.asarray, params)``): ``segment_<i>`` is
+    a list over the unit's layers whose leaves carry a leading ``repeats``
+    axis.  Returns ``segment_<i>[repeat][unit_index]`` trees of tensors on
+    ``device`` (default: the port's device policy) in ``cfg``'s dtype.
+    """
+    dev = get_device(device)
+
+    def leaf(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":   # numpy has no bfloat16 of its own
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a, order="C")).to(
+            dev, cfg.torch_dtype)
+
+    out: dict[str, Any] = {}
+    segments = {f"segment_{si}": seg for si, seg in enumerate(cfg.segments)}
+    for key, sub in params.items():
+        if key not in segments:
+            out[key] = _tree_map(leaf, sub)
+            continue
+        seg = segments[key]
+        if len(sub) != len(seg.unit):
+            raise ValueError(f"{key}: {len(sub)} layers in the unit, the "
+                             f"config says {len(seg.unit)}")
+        out[key] = [[_tree_map(lambda a, r=r: leaf(np.asarray(a)[r]), layer)
+                     for layer in sub] for r in range(seg.repeats)]
+    missing = set(segments) - set(out)
+    if missing:
+        raise KeyError(f"reference params lack {sorted(missing)}")
+    return out
+
+
+def lm_cache_to_numpy(cache: Mapping[str, Any]) -> dict[str, Any]:
+    """The reference's cache layout from the port's: each
+    ``segment_<i>[repeat][unit_index]`` tree stacked over its repeats into
+    ``segment_<i>[unit_index]`` with a leading repeats axis, as float32
+    numpy arrays."""
+    return {key: _stack_trees(reps) for key, reps in cache.items()}

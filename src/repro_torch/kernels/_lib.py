@@ -10,7 +10,8 @@ starts one ``nvcc`` per source at once.
 Every C entry point takes device pointers and a stream as ``c_void_p``
 and returns the ``cudaGetLastError()`` after its launches; :func:`check`
 raises on anything but 0.  ``LAUNCHES`` counts wrapper calls that launch
-a kernel, one entry per kernel.
+a kernel, one entry per kernel.  One source may hold several kernels
+(``flash_attention.cu`` holds prefill and decode attention).
 """
 
 from __future__ import annotations
@@ -32,12 +33,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel name -> C entry points with their argument types
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_PREFILL = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
+_DECODE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
 SIGNATURES: dict[str, dict[str, list]] = {
     "spmv_bsr": {"spmv_bsr_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "running_max": {"running_max_i64": [_P, _P, _P, _L, _P],
                     "running_max_i32": [_P, _P, _P, _L, _P]},
+    "flash_attention": {"flash_attention_bf16": _PREFILL,
+                        "flash_attention_f32": _PREFILL},
+    "decode_attention": {"decode_attention_bf16": _DECODE,
+                         "decode_attention_f32": _DECODE},
 }
+
+#: kernel name -> its source in ``csrc/`` where the two differ
+SOURCES: dict[str, str] = {"decode_attention": "flash_attention"}
 
 #: launches per kernel since the last :func:`reset_counts`
 LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
@@ -65,48 +76,54 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _source(name: str) -> str:
+    return SOURCES.get(name, name)
+
+
+def _lib_path(source: str) -> Path:
+    src = (CSRC / f"{source}.cu").read_bytes()
     key = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(),
                           digest_size=8).hexdigest()
-    return BUILD_ROOT / key / f"lib{name}.so"
+    return BUILD_ROOT / key / f"lib{source}.so"
 
 
-def _start_build(name: str) -> tuple[Path, subprocess.Popen | None]:
-    out = _lib_path(name)
+def _start_build(source: str) -> tuple[Path, subprocess.Popen | None]:
+    out = _lib_path(source)
     if out.exists():
         return out, None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def _finish_build(name: str, out: Path, proc: subprocess.Popen | None) -> None:
+def _finish_build(source: str, out: Path,
+                  proc: subprocess.Popen | None) -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {source}.cu:\n{log}")
     os.replace(tmp, out)
 
 
 def build_all() -> None:
     """Compile every kernel source, one ``nvcc`` per source in parallel."""
     with _lock:
-        started = {n: _start_build(n) for n in SIGNATURES if n not in _libs}
-        for n, (out, proc) in started.items():
-            _finish_build(n, out, proc)
+        sources = {_source(n) for n in SIGNATURES if n not in _libs}
+        started = {s: _start_build(s) for s in sorted(sources)}
+        for s, (out, proc) in started.items():
+            _finish_build(s, out, proc)
 
 
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
     with _lock:
         if name not in _libs:
-            out, proc = _start_build(name)
-            _finish_build(name, out, proc)
+            out, proc = _start_build(_source(name))
+            _finish_build(_source(name), out, proc)
             cdll = ctypes.CDLL(str(out))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(cdll, fn).argtypes = argtypes

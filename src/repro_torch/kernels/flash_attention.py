@@ -1,0 +1,126 @@
+"""Streaming attention (prefill + decode) as hand-written CUDA kernels.
+
+Attention is the model stack's dominant "memory operation" in the
+paper's sense: at decode time the KV cache read is a long HBM stream
+feeding little compute.  The kernels stream K/V tiles through shared
+memory (the access stage) into an online softmax whose running state
+(m, l, acc) stays in registers (the execute stage), and read each KV
+head once per query head of its group.  See ``csrc/flash_attention.cu``.
+
+A CPU tensor takes the plain version (:func:`ref.flash_attention_ref`,
+:func:`ref.decode_attention_ref`); a CUDA tensor launches the kernel or
+raises.  Padding to blocks is the caller's (:mod:`.ops`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _lib, ref
+
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def _check_cuda(name: str, tensors: dict[str, torch.Tensor],
+                d: int) -> None:
+    """Raise unless the kernel takes these CUDA tensors as they are."""
+    first = next(iter(tensors.values()))
+    if first.device.type != "cuda" or any(
+            t.device != first.device for t in tensors.values()):
+        raise ValueError(f"{name}: {', '.join(tensors)} must all lie on one "
+                         f"CUDA device (or all on the CPU)")
+    if first.dtype not in _SUFFIX or any(
+            t.dtype != first.dtype for t in tensors.values()):
+        raise TypeError(f"{name} kernel takes bfloat16 or float32 tensors of "
+                        f"one dtype, got "
+                        f"{[str(t.dtype) for t in tensors.values()]}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors.values()):
+        raise ValueError(f"{name} kernel takes contiguous, 16-byte-aligned "
+                         f"tensors")
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"{name} kernel takes a head dim that is a multiple "
+                         f"of 8 in [8, 128], got {d}")
+
+
+def _check_heads(name: str, hq: int, hkv: int) -> None:
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"{name}: {hq} query heads are not a multiple of "
+                         f"{hkv} kv heads")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """GQA prefill attention.
+
+    q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d); returns (B, Hq, Sq, d) in
+    q's dtype.  Query head h reads kv head ``h // (Hq // Hkv)``; the
+    causal mask aligns query and key positions from 0.
+    """
+    B, Hq, Sq, d = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    Hkv, Sk = k.shape[1], k.shape[2]
+    _check_heads("flash_attention", Hq, Hkv)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    _check_cuda("flash_attention", {"q": q, "k": k, "v": v}, d)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        err = getattr(_lib.lib("flash_attention"),
+                      f"flash_attention_{_SUFFIX[q.dtype]}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+            Hkv, Sq, Sk, d, scale, int(causal), _lib.stream())
+        _lib.LAUNCHES["flash_attention"] += 1
+    _lib.check("flash_attention", err)
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     scale: float | None = None) -> torch.Tensor:
+    """One-token GQA decode attention over a ragged cache.
+
+    q: (B, Hq, d); caches: (B, Hkv, S, d); lengths: (B,) int32 on the
+    caches' device, each in [0, S].  Positions at or past a sequence's
+    length are masked; a length of 0 gives zeros.  Returns (B, Hq, d).
+    """
+    B, Hq, d = q.shape
+    if k_cache.ndim != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != B or k_cache.shape[3] != d \
+            or lengths.shape != (B,):
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
+                         f"lengths {tuple(lengths.shape)} do not match")
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    _check_heads("decode_attention", Hq, Hkv)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
+                                        scale=scale)
+    _check_cuda("decode_attention", {"q": q, "k_cache": k_cache,
+                                     "v_cache": v_cache}, d)
+    if lengths.device != q.device or lengths.dtype != torch.int32 \
+            or not lengths.is_contiguous():
+        raise TypeError("decode_attention kernel takes contiguous int32 "
+                        "lengths on the caches' device")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        err = getattr(_lib.lib("decode_attention"),
+                      f"decode_attention_{_SUFFIX[q.dtype]}")(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, d, scale,
+            _lib.stream())
+        _lib.LAUNCHES["decode_attention"] += 1
+    _lib.check("decode_attention", err)
+    return out

@@ -8,6 +8,8 @@ for a tensor that lies on the CPU.  Only tensor ops here, no kernels.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -59,3 +61,50 @@ def running_max_ref(x: torch.Tensor) -> torch.Tensor:
     carry = torch.cat([incl.new_full((1,), low), incl[:-1]])
     out = torch.maximum(_doubling_max_scan(tiles), carry[:, None])
     return out.reshape(-1)[:n]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """GQA prefill attention as the kernel computes it.
+
+    q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d) with Hq % Hkv == 0; query
+    head h reads kv head ``h // (Hq // Hkv)``.  The causal mask aligns
+    query and key positions from 0 (query i sees keys 0..i), as the
+    reference's Pallas kernel does.  fp32 math, output in q's dtype.
+    """
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    if causal:
+        visible = (torch.arange(Sk, device=q.device)[None, :]
+                   <= torch.arange(Sq, device=q.device)[:, None])
+        s = s.masked_fill(~visible, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", w, v.float())
+    return out.reshape(B, Hq, Sq, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor,
+                         *, scale: float | None = None) -> torch.Tensor:
+    """One-token GQA decode attention over a ragged cache.
+
+    q: (B, Hq, d); caches: (B, Hkv, S, d); lengths: (B,) int — the valid
+    prefix of each sequence's cache, in [0, S].  A sequence of length 0
+    gives zeros, as the kernel does.  fp32 math, output in q's dtype.
+    """
+    B, Hq, d = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, d)
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, k_cache.float()) * scale
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < lengths.to(q.device).long()[:, None])          # (B, S)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(valid.any(dim=1)[:, None, None, None], w, 0.0)
+    out = torch.einsum("bhgs,bhsd->bhgd", w, v_cache.float())
+    return out.reshape(B, Hq, d).to(q.dtype)

@@ -1,0 +1,226 @@
+"""The port's attention kernels (repro_torch.kernels) against the JAX
+reference.
+
+On the CPU ``ops.flash_attention`` and ``ops.decode_attention`` run their
+plain versions, and are held here against the reference's
+``repro.kernels.ops`` (Pallas in interpret mode) on the same numpy
+inputs, at the tolerances of tests/test_kernels.py: fp32 3e-5 (online
+softmax over tiles against one contraction), 1e-4 for decode against the
+last row of prefill.  The real layout (GQA 9/3, d=64) and the reduced
+test configs' (MQA 4/1, d=16) are both covered.  The tests marked
+``cuda`` hold each CUDA kernel against its plain version and skip where
+there is no card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import _lib, ops, ref
+from repro_torch.kernels import decode_attention, flash_attention
+
+FP32 = dict(rtol=3e-5, atol=3e-5)
+#: (B, Hq, Hkv, d): smollm-135m's layout, and reduced smollm's
+LAYOUTS = [(2, 9, 3, 64), (2, 4, 1, 16)]
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    repro_torch.set_device("cpu")
+    _lib.reset_counts()
+    yield
+    repro_torch.set_device(None)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    return torch.device("cuda")
+
+
+def _normal(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _both(fn_port, fn_ref, *arrays, **kw):
+    got = fn_port(*(torch.from_numpy(a) for a in arrays), **kw)
+    want = fn_ref(*(jnp.asarray(a) for a in arrays), **kw)
+    return got.numpy(), np.asarray(want)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=["9-3-d64", "4-1-d16"])
+@pytest.mark.parametrize("Sq", [5, 16, 40])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_reference(layout, Sq, causal):
+    B, Hq, Hkv, d = layout
+    rng = np.random.default_rng(Sq + d)
+    q = _normal(rng, B, Hq, Sq, d)
+    k, v = _normal(rng, B, Hkv, Sq, d), _normal(rng, B, Hkv, Sq, d)
+    if not causal and Sq % 8:
+        # both packages refuse to pad keys for non-causal attention
+        with pytest.raises(ValueError, match="non-causal"):
+            ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                causal=False)
+        with pytest.raises(ValueError, match="non-causal"):
+            ref_ops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                    causal=False)
+        return
+    got, want = _both(ops.flash_attention, ref_ops.flash_attention, q, k, v,
+                      causal=causal)
+    assert got.shape == (B, Hq, Sq, d) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **FP32)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(5, 16), (16, 40), (40, 16)])
+def test_flash_attention_causal_mask_aligns_from_zero(Sq, Sk):
+    """Query i sees keys 0..i whatever Sk is, as the reference's kernel
+    does (its oracle would offset by Sk − Sq); with Sq > Sk the queries
+    past Sk also see the reference's zero-padded keys."""
+    rng = np.random.default_rng(Sq * Sk)
+    q = _normal(rng, 1, 9, Sq, 64)
+    k, v = _normal(rng, 1, 3, Sk, 64), _normal(rng, 1, 3, Sk, 64)
+    got, want = _both(ops.flash_attention, ref_ops.flash_attention, q, k, v)
+    np.testing.assert_allclose(got, want, **FP32)
+
+
+def test_flash_attention_keeps_bf16_and_scale():
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(_normal(rng, 1, 4, 16, 16)).bfloat16()
+    k = torch.from_numpy(_normal(rng, 1, 1, 16, 16)).bfloat16()
+    out = flash_attention(q, k, k, scale=0.5)
+    assert out.dtype == torch.bfloat16
+    want = ref.flash_attention_ref(q.float(), k.float(), k.float(),
+                                   scale=0.5)
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=["9-3-d64", "4-1-d16"])
+@pytest.mark.parametrize("S", [40, 300])
+def test_decode_attention_matches_reference(layout, S):
+    B, Hq, Hkv, d = layout
+    rng = np.random.default_rng(S + d)
+    q = _normal(rng, B, Hq, d)
+    kc, vc = _normal(rng, B, Hkv, S, d), _normal(rng, B, Hkv, S, d)
+    lengths = np.array([1, S][:B] if S == 40 else
+                       rng.integers(1, S + 1, size=B), np.int32)
+    got, want = _both(ops.decode_attention, ref_ops.decode_attention, q, kc,
+                      vc, lengths)
+    assert got.shape == (B, Hq, d)
+    np.testing.assert_allclose(got, want, **FP32)
+
+
+def test_decode_matches_prefill_last_token():
+    """decode(q_last) == prefill(full)[:, :, -1] (tests/test_kernels.py)."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(_normal(rng, 1, 9, 40, 64))
+    k = torch.from_numpy(_normal(rng, 1, 3, 40, 64))
+    v = torch.from_numpy(_normal(rng, 1, 3, 40, 64))
+    full = ops.flash_attention(q, k, v)
+    dec = ops.decode_attention(q[:, :, -1], k, v, torch.tensor([40]))
+    torch.testing.assert_close(dec, full[:, :, -1], rtol=1e-4, atol=1e-4)
+
+
+def test_decode_length_zero_gives_zeros():
+    """The kernel's semantics, not the oracle's NaN."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(_normal(rng, 2, 4, 16))
+    kc = torch.from_numpy(_normal(rng, 2, 1, 24, 16))
+    out = decode_attention(q, kc, kc, torch.tensor([0, 7], dtype=torch.int32))
+    assert torch.equal(out[0], torch.zeros(4, 16))
+    want = ref.decode_attention_ref(q[1:], kc[1:], kc[1:], torch.tensor([7]))
+    torch.testing.assert_close(out[1:], want)
+
+
+def test_wrappers_reject_bad_shapes():
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, torch.zeros(1, 2, 8, 16), torch.zeros(1, 2, 8, 8))
+    with pytest.raises(ValueError, match="do not match"):
+        decode_attention(q[:, :, 0], torch.zeros(1, 2, 8, 16),
+                         torch.zeros(1, 2, 8, 16), torch.zeros(2))
+    assert _lib.counts() == dict.fromkeys(_lib.SIGNATURES, 0)
+    assert _lib._libs == {}
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against their plain versions (skip without a card)
+# ---------------------------------------------------------------------------
+
+def _cuda_inputs(dev, dtype, seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(_normal(rng, *s)).to(dev, dtype) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,d", [
+    (2, 9, 3, 512, 512, 64),     # smollm-135m's layout at the path's S
+    (2, 4, 1, 40, 40, 16),       # reduced smollm
+    (1, 8, 2, 100, 100, 128),    # largest d, ragged S
+    (1, 2, 2, 5, 37, 40),        # Sq < Sk, d not a power of two
+    (1, 6, 3, 70, 33, 32),       # Sq > Sk
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, Sq, Sk, d, causal,
+                                              dtype):
+    dev = _needs_card()
+    q, k, v = _cuda_inputs(dev, dtype, Sq + d, (B, Hq, Sq, d),
+                           (B, Hkv, Sk, d), (B, Hkv, Sk, d))
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert got.dtype == dtype
+    assert _lib.counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
+    (8, 9, 3, 552, 64),          # the serving path's cache
+    (3, 4, 1, 24, 16),
+    (2, 8, 2, 300, 128),
+    (2, 2, 1, 61, 40),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(B, Hq, Hkv, S, d, dtype):
+    dev = _needs_card()
+    q, kc, vc = _cuda_inputs(dev, dtype, S + d, (B, Hq, d), (B, Hkv, S, d),
+                             (B, Hkv, S, d))
+    lengths = torch.tensor(([0, 1, 17, S, 256 % S + 1, S - 1, 33 % S, 2]
+                            )[:B], dtype=torch.int32, device=dev)
+    got = decode_attention(q, kc, vc, lengths)
+    want = ref.decode_attention_ref(q, kc, vc, lengths)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _lib.counts()["decode_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take():
+    dev = _needs_card()
+    q = torch.zeros(1, 4, 8, 64, device=dev)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 4, 8, 136, device=dev)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 8, 4, 64, device=dev).transpose(1, 2)
+        flash_attention(t, t, t)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention(q[:, :, 0].contiguous(), q, q,
+                         torch.ones(1, dtype=torch.int64, device=dev))
+    assert _lib.counts() == dict.fromkeys(_lib.SIGNATURES, 0)

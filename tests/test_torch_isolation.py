@@ -11,7 +11,10 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import load_config, reduced
 from repro_torch.core import engine as port_engine
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models import init_cache, init_params
 from repro_torch.workloads import make_spmv
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -47,7 +50,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.kernels, "
-            "repro_torch.workloads, repro_torch.interop; "
+            "repro_torch.workloads, repro_torch.interop, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -86,3 +91,21 @@ def test_engine_never_falls_back_to_the_cpu():
     with port_engine.use("torch"):
         np.testing.assert_array_equal(port_engine.running_max(big.copy()),
                                       big)
+
+
+def test_model_and_server_without_cuda_raise_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cfg = reduced(load_config("smollm-135m"))
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(gen, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--arch", "smollm-135m", "--reduced"])
+    params = init_params(gen, cfg, device="cpu")
+    assert params["embed"]["table"].device == torch.device("cpu")
+    repro_torch.set_device("cpu")
+    assert init_cache(cfg, 1, 8)["segment_0"][0][0]["mixer"]["k"].device \
+        == torch.device("cpu")

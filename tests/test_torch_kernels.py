@@ -174,7 +174,8 @@ def test_cpu_tensors_never_touch_the_kernel_library():
     running_max(torch.arange(5000))
     with port_engine.use("torch"):
         port_engine.running_max(np.arange(1 << 16, dtype=np.int64))
-    assert _lib.counts() == {"spmv_bsr": 0, "running_max": 0}
+    assert _lib.counts() == dict.fromkeys(_lib.SIGNATURES, 0)
+    assert {"spmv_bsr", "running_max"} <= set(_lib.counts())
     assert _lib._libs == {}
 
 
