@@ -47,10 +47,36 @@ Phases, one line (or block) each:
    tokens that agree is printed, and one decode step is traced with
    ``torch.profiler``: its device busy time over the untraced step's
    host time is the device's busy share;
-7. one JSON line listing every kernel with its launches on its main path
-   (phases 3-4 for the SpMV kernels, run (b) of phase 6 for attention),
-   its error against the plain version, its times and its bound; then
-   the ``nvidia-smi`` line; then the result line.
+7. the kernel API at SmolLM-135M's full width, on phase 6's bf16 model
+   (seed 0) and prompt tokens.  Driven once with the launch counts set
+   to 0: ``decoupled_gather`` of the 4,096 tokens' rows of the embedding
+   table with the default ``fn`` (tanh(2*row)), ``ops.rmsnorm`` with
+   layer 0's norm weight on the (8, 512, 576) embeddings ``table[tokens]``,
+   and ``ops.matmul`` of the normed (4096, 576) rows with layer 0's MLP
+   input weight (576 x 1536), then of that (4096, 1536) product with the
+   output weight (1536 x 576).  Then each kernel against its plain
+   version: ``decoupled_gather`` rtol 2**-7 / atol 0 in bf16 (one bf16
+   ulp: both sides compute tanh in fp32 and round once) and 1e-6 in fp32,
+   with ``fn="identity"`` bit for bit ``table[idx]``; ``rmsnorm`` 2e-2
+   bf16, 1e-5 fp32; both products rtol 1e-2 / atol 5e-2 in bf16 (one
+   rounding of fp32 sums taken in another order) and 2e-5 / 3e-4 in
+   fp32 (tests/test_kernels.py's).  ``decoupled_gather_staged``
+   on the same indices and table with the ``sequential`` and
+   ``emulated`` backends, bit for bit the plain version, its report
+   printed (3 stages, 2 channels required); the quickstart kernel
+   (``examples/quickstart.py``) through ``dataflow_jit(stream_argnums=
+   (1,))`` on the card: its plan equal to the reference's recorded one
+   (4 stages, 3 channels, 96 B/token, II 1, latency 15), the
+   ``sequential``, ``emulated`` and ``eager`` backends and a 6-microbatch
+   ``stream`` equal to the direct calls.  Kernel, plain version and
+   library times (``torch.matmul``, ``F.rms_norm``; none computes the
+   gather, whose floor ``torch.index_select`` is printed); the matmul's
+   row in the kernels line sums the path's two products;
+8. one JSON line listing every kernel with its launches on its main path
+   (phases 3-4 for the SpMV kernels, run (b) of phase 6 for attention,
+   phase 7 for the kernel API), its error against the plain version, its
+   times and its bound; then the ``nvidia-smi`` line; then the result
+   line.
 
 Any failed phase exits non-zero before the result line.  Without a CUDA
 device, or outside the repository, the script exits non-zero at once.
@@ -79,6 +105,15 @@ BF16_TC_OPS_PER_S = 989e12
 #: the serving phase: smollm-135m, 8 requests of 512 tokens, 32 new each
 SERVE_BATCH, PROMPT_LEN, GEN = 8, 512, 32
 MAX_LEN = PROMPT_LEN + GEN + 8
+
+#: one bf16 unit in the last place, relative: the bound on a kernel's bf16
+#: result against its plain version when both compute in fp32 and round once
+BF16_ULP = 2 ** -7
+
+#: the reference's plan of the quickstart kernel on table f32[1024], idx
+#: i32[8], w f32[] (repro.dataflow.compile on the CPU): stages, channels,
+#: channel bytes per token, pipeline II, total latency
+REF_QUICKSTART_PLAN = (4, 3, 96, 1, 15)
 
 #: the reference's recorded Fig. 5 SpMV cells on ACP (BENCH_sim.json)
 REF_DATAFLOW_CYCLES = 16_517_754
@@ -377,12 +412,18 @@ def main() -> None:
     fa_row, da_row = attention_kernels(dev)
 
     # -- 6. the serving path ----------------------------------------------------
-    serve_launches = serve_smollm(dev)
+    serve_launches, model = serve_smollm(dev)
 
-    # -- 7. the kernels line --------------------------------------------------
-    rows = (spmv_row, rmax_row, fa_row, da_row)
+    # -- 7. the kernel API ----------------------------------------------------
+    api_rows, api_launches = kernel_api(dev, model)
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 8. the kernels line --------------------------------------------------
+    rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
     for row, launches in zip(rows, (spmv_launches, spmv_launches,
-                                    serve_launches, serve_launches)):
+                                    serve_launches, serve_launches,
+                                    *[api_launches] * len(api_rows))):
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0,
                 f"{row['name']} was not launched on its main path")
@@ -402,7 +443,9 @@ def attention_kernels(dev) -> tuple[dict, dict]:
     serving path's shapes; times of kernel, plain version and SDPA."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (decode_attention,
+                                                    flash_attention)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     B, HQ, HKV, S, D = SERVE_BATCH, 9, 3, PROMPT_LEN, 64
@@ -487,9 +530,10 @@ def attention_kernels(dev) -> tuple[dict, dict]:
     return fa_row, da_row
 
 
-def serve_smollm(dev) -> dict:
+def serve_smollm(dev) -> tuple[dict, dict]:
     """Phase 6: serve SmolLM-135M at full width; returns the kernel
-    launches of run (b), the bf16 kernels' path."""
+    launches of run (b), the bf16 kernels' path, and the bf16 model's
+    prompt tokens, embedding table and layer 0's norm and MLP weights."""
     import dataclasses
 
     import torch
@@ -580,9 +624,184 @@ def serve_smollm(dev) -> dict:
              if busy is None else f"device busy {busy:.3f} ms = "
              f"{100 * busy / decode_ms:.1f} % of the untraced "
              f"{decode_ms:.3f} ms step"), flush=True)
+    layer0 = params["segment_0"][0][0]
+    model = {"tokens": tokens, "table": params["embed"]["table"],
+             "norm": layer0["norm1"]["scale"],
+             "w_in": layer0["mlp"]["w_up"], "w_out": layer0["mlp"]["w_down"]}
     del params, cache
     torch.cuda.empty_cache()
-    return launches
+    return launches, model
+
+
+def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
+    """Phase 7: the kernel API at SmolLM-135M's full width; returns the
+    rows of its three kernels and their launches on the driven path."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import dataflow_jit
+    from repro_torch.kernels import (_lib, decoupled_gather,
+                                     decoupled_gather_ref,
+                                     decoupled_gather_staged, matmul, ref,
+                                     rmsnorm)
+
+    tokens, table = model["tokens"], model["table"]
+    norm_w, w_in, w_out = model["norm"], model["w_in"], model["w_out"]
+    idx = tokens.flatten()
+    n, d = idx.numel(), table.shape[1]
+
+    # the path, driven once with the counts at 0
+    emb = table[tokens]
+    _lib.reset_counts()
+    gathered = decoupled_gather(idx, table)
+    normed = rmsnorm(emb, norm_w)
+    x = normed.reshape(n, d)
+    up = matmul(x, w_in)
+    down = matmul(up, w_out)
+    torch.cuda.synchronize()
+    launches = _lib.counts()
+
+    def held(name, got, want, rtol, atol):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        require(bool(torch.isfinite(got.float()).all())
+                and got.shape == want.shape and got.dtype == want.dtype,
+                f"{name}: shape {tuple(got.shape)} / dtype {got.dtype} or "
+                f"not finite")
+        require(torch.allclose(got.float(), want.float(), rtol=rtol,
+                               atol=atol),
+                f"{name} disagrees with its plain version (max err {err})")
+        return err
+
+    require(torch.equal(decoupled_gather(idx, table, fn="identity"),
+                        table[idx]),
+            "decoupled_gather fn='identity' != table[idx]")
+    t32 = table.float()
+    g_err = held("decoupled_gather bf16", gathered,
+                 decoupled_gather_ref(idx, table), BF16_ULP, 0.0)
+    g_err32 = held("decoupled_gather fp32", decoupled_gather(idx, t32),
+                   decoupled_gather_ref(idx, t32), 1e-6, 1e-6)
+    r_err = held("rmsnorm bf16", normed, ref.rmsnorm_ref(emb, norm_w),
+                 2e-2, 2e-2)
+    r_err32 = held("rmsnorm fp32", rmsnorm(emb.float(), norm_w.float()),
+                   ref.rmsnorm_ref(emb.float(), norm_w.float()), 1e-5, 1e-5)
+    m_errs = [held(f"matmul bf16 {label}", got, ref.matmul_ref(a, b),
+                   1e-2, 5e-2)
+              for label, got, a, b in (("in", up, x, w_in),
+                                       ("out", down, up, w_out))]
+    m_errs32 = [held(f"matmul fp32 {label}", matmul(a.float(), b.float()),
+                     ref.matmul_ref(a.float(), b.float()), 2e-5, 3e-4)
+                for label, a, b in (("in", x, w_in), ("out", up, w_out))]
+    print(f"[7] kernel API path (smollm-135m bf16, {n} tokens): "
+          f"decoupled_gather fn='identity' == table[idx]; "
+          f"max|kernel-plain| decoupled_gather {g_err:.3g} (rtol 2**-7, "
+          f"one bf16 ulp; fp32 {g_err32:.3g} at 1e-6), rmsnorm "
+          f"{tuple(emb.shape)} {r_err:.3g} (2e-2; fp32 {r_err32:.3g} at "
+          f"1e-5), matmul {tuple(x.shape)} x {tuple(w_in.shape)} "
+          f"{m_errs[0]:.3g} and {tuple(up.shape)} x {tuple(w_out.shape)} "
+          f"{m_errs[1]:.3g} (rtol 1e-2, atol 5e-2; "
+          f"fp32 {m_errs32[0]:.3g} / {m_errs32[1]:.3g} at 2e-5 / 3e-4); "
+          f"launches {launches['decoupled_gather']} / {launches['rmsnorm']} "
+          f"/ {launches['dataflow_matmul']}", flush=True)
+
+    # the compiler-derived gather, and the quickstart kernel, on the card
+    want = decoupled_gather_ref(idx, table)
+    for backend in ("sequential", "emulated"):
+        t0 = time.perf_counter()
+        got = decoupled_gather_staged(idx, table, backend=backend)
+        torch.cuda.synchronize()
+        require(got.device == table.device and torch.equal(got, want),
+                f"decoupled_gather_staged {backend} != decoupled_gather_ref")
+        print(f"[7] decoupled_gather_staged {backend}: bit-identical to "
+              f"decoupled_gather_ref in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    prog = decoupled_gather_staged.lower(idx, table)
+    print(prog.report(), flush=True)
+    require((prog.num_stages, prog.schedule.num_channels) == (3, 2),
+            f"staged gather: {prog.num_stages} stages, "
+            f"{prog.schedule.num_channels} channels, expected 3 and 2")
+
+    @dataflow_jit(stream_argnums=(1,))
+    def quickstart(table, idx, w):
+        return torch.tanh(table[idx] * w) + 1.0
+
+    qt = torch.arange(1024, dtype=torch.float32, device=dev)
+    qi = torch.tensor([3, 997, 41, 512, 7, 800, 64, 2], dtype=torch.int32,
+                      device=dev)
+    qw = torch.tensor(1.5, device=dev)
+    c = quickstart.lower(qt, qi, qw)
+    sch = c.schedule
+    plan = (sch.num_stages, sch.num_channels, sch.channel_bytes,
+            sch.pipeline_ii, sch.total_latency)
+    print(c.report(), flush=True)
+    require(c.device == dev, "the quickstart did not compile for "
+            "CUDA")
+    require(plan == REF_QUICKSTART_PLAN, f"quickstart plan {plan} != the "
+            f"reference's {REF_QUICKSTART_PLAN}")
+    direct = quickstart.__wrapped__(qt, qi, qw)
+    for backend in ("sequential", "emulated", "eager"):
+        require(torch.equal(quickstart(qt, qi, qw, backend=backend), direct),
+                f"quickstart {backend} backend != the direct call")
+    stream = torch.stack([(qi + t) % 1024 for t in range(6)])
+    require(torch.equal(c.stream(qt, stream, qw), torch.stack(
+        [quickstart.__wrapped__(qt, s, qw) for s in stream])),
+        "quickstart stream != the direct calls")
+    print(f"[7] quickstart on the card: plan {plan} == the reference's; "
+          f"sequential, emulated, eager == direct call; stream of 6 "
+          f"microbatches == direct calls", flush=True)
+
+    # times at the path's shapes
+    floor = cuda_ms(lambda: torch.index_select(table, 0, idx))
+    gather_row = {
+        "name": "decoupled_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/decoupled_gather.cu",
+        "replaces": "src/repro/kernels/decoupled_gather.py:71",
+        "max_abs_err": g_err,
+        "ms": cuda_ms(lambda: decoupled_gather(idx, table)),
+        "plain_ms": cuda_ms(lambda: decoupled_gather_ref(idx, table)),
+        "library_ms": None,
+        **_bound(2 * n * d * table.element_size() + 4 * n, 2 * n * d),
+    }
+    rms_row = {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:28",
+        "max_abs_err": r_err,
+        "ms": cuda_ms(lambda: rmsnorm(emb, norm_w)),
+        "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(emb, norm_w)),
+        "library_ms": cuda_ms(lambda: F.rms_norm(emb, (d,), norm_w, 1e-6)),
+        **_bound(2 * emb.numel() * emb.element_size()
+                 + norm_w.numel() * norm_w.element_size(), 4 * emb.numel()),
+    }
+    mm_rows = []
+    for a, b in ((x, w_in), (up, w_out)):
+        (M, K), N = a.shape, b.shape[1]
+        mm_rows.append({
+            "name": "dataflow_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/dataflow_matmul.cu",
+            "replaces": "src/repro/kernels/dataflow_matmul.py:51",
+            "max_abs_err": max(m_errs),
+            "ms": cuda_ms(lambda: matmul(a, b)),
+            "plain_ms": cuda_ms(lambda: ref.matmul_ref(a, b)),
+            "library_ms": cuda_ms(lambda: torch.matmul(a, b)),
+            **_bound(2 * (M * K + K * N + M * N), 2 * M * N * K,
+                     BF16_TC_OPS_PER_S),
+            "shape": f"({M}, {K}) x ({K}, {N})",
+        })
+    # the path launches the kernel once per product: its row sums both
+    mm_row = {**mm_rows[0], "shape": "both products", **{
+        k: sum(r[k] for r in mm_rows)
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    for row in (gather_row, rms_row, *mm_rows, mm_row):
+        print(f"[7] {row['name']} {row.get('shape', '')}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+              + ("none" if row["library_ms"] is None
+                 else f"{row['library_ms']:.4f} ms")
+              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+    print(f"[7] decoupled_gather floor: torch.index_select of the same rows "
+          f"{floor:.4f} ms (no PyTorch call computes tanh(2*table[idx]))",
+          flush=True)
+    return [gather_row, mm_row, rms_row], launches
 
 
 def _leaves(tree):

@@ -11,6 +11,9 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
 * a ``__getitem__`` with a 0-d integer index expands into the five
   equations the jaxpr of ``x[j]`` has — ``lt, add, select_n,
   dynamic_slice, squeeze`` (negative-index wrap, then a one-row slice);
+  with a 1-D integer index vector, into those of ``x[idx]`` — ``lt, add,
+  select_n, broadcast_in_dim, gather`` (the wrap, the (N, 1) index, then
+  a gather of whole rows);
 * ``operator.mul`` → ``mul``, ``operator.add`` → ``add``, and so on.
 
 So :data:`MEMORY_PRIMITIVES`, :data:`DEFAULT_LATENCY`,
@@ -235,6 +238,22 @@ def _squeeze(x: torch.Tensor, *, dimensions: tuple[int, ...]) -> torch.Tensor:
     return torch.squeeze(x, dim=dimensions)
 
 
+def _broadcast_in_dim(x: torch.Tensor, *, shape: tuple[int, ...],
+                      broadcast_dimensions: tuple[int, ...]) -> torch.Tensor:
+    view = [1] * len(shape)
+    for src, dst in enumerate(broadcast_dimensions):
+        view[dst] = x.shape[src]
+    return x.reshape(view).expand(shape)
+
+
+def _gather(operand: torch.Tensor, indices: torch.Tensor, *,
+            slice_sizes: tuple[int, ...]) -> torch.Tensor:
+    # whole rows along axis 0 (the lowering of x[idx]); indices (N, 1) are
+    # in range after the wrap, and clamped like the reference's gather
+    rows = torch.clamp(indices[:, 0], 0, operand.shape[0] - 1)
+    return torch.index_select(operand, 0, rows.long())
+
+
 #: FX node (call_function target, or call_method name) -> primitive name
 _BINARY: dict[Any, str] = {
     operator.add: "add", torch.add: "add", "add": "add",
@@ -274,7 +293,8 @@ _IMPL: dict[str, Callable[..., Any]] = {
     "logistic": torch.sigmoid, "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
     "sin": torch.sin, "cos": torch.cos,
     "select_n": _select_n, "dynamic_slice": _dynamic_slice,
-    "squeeze": _squeeze,
+    "squeeze": _squeeze, "broadcast_in_dim": _broadcast_in_dim,
+    "gather": _gather,
 }
 
 
@@ -359,24 +379,33 @@ class _Lowering:
             f"front end yet")
 
     def lower_getitem(self, node: fx.Node) -> Var:
-        """``x[j]`` with a 0-d integer tensor ``j`` → the jaxpr's five
-        equations: wrap a negative index, slice one row, drop the axis."""
+        """``x[j]`` with a 0-d or 1-D integer tensor → the jaxpr's five
+        equations: wrap negative indices, then slice one row and drop the
+        axis (0-d), or gather whole rows at an (N, 1) index (1-D)."""
         arr_n, idx_n = node.args
         arr, idx = self.env[arr_n], self.read(idx_n)
-        if not (isinstance(idx, Var) and idx.aval.shape == ()
+        if not (isinstance(idx, Var) and len(idx.aval.shape) <= 1
                 and not idx.aval.dtype.is_floating_point
                 and idx.aval.dtype != torch.bool):
             raise NotImplementedError(
-                f"indexing {arr_n.name}[{idx_n!r}]: only a 0-d integer "
-                f"tensor index is lowered yet")
-        it, src = idx.aval.dtype, node.name
+                f"indexing {arr_n.name}[{idx_n!r}]: only a 0-d or 1-D "
+                f"integer tensor index is lowered yet")
+        it, src, ishape = idx.aval.dtype, node.name, idx.aval.shape
         scalar = Aval((), it)
         neg = self.emit("lt", [idx, Literal(0, scalar)],
-                        Aval((), torch.bool), src)
+                        Aval(ishape, torch.bool), src)
         wrapped = self.emit("add", [idx, Literal(arr.aval.shape[0], scalar)],
-                            scalar, src)
-        sel = self.emit("select_n", [neg, idx, wrapped], scalar, src)
+                            Aval(ishape, it), src)
+        sel = self.emit("select_n", [neg, idx, wrapped], Aval(ishape, it),
+                        src)
         sizes = (1,) + tuple(arr.aval.shape[1:])
+        if ishape:
+            col = self.emit("broadcast_in_dim", [sel],
+                            Aval(ishape + (1,), it), src,
+                            shape=ishape + (1,), broadcast_dimensions=(0,))
+            return self.emit("gather", [arr, col],
+                             Aval(ishape + sizes[1:], arr.aval.dtype), src,
+                             slice_sizes=sizes)
         zeros = [Literal(0, scalar)] * (len(sizes) - 1)
         row = self.emit("dynamic_slice", [arr, sel, *zeros],
                         Aval(sizes, arr.aval.dtype), src, slice_sizes=sizes)

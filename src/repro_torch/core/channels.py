@@ -26,6 +26,8 @@ from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
+from .._device import get_device
+
 WORD = torch.int32  # the transport word (4 bytes)
 
 
@@ -110,14 +112,16 @@ class DeviceFIFO:
     are tensors, so a push or pop never syncs with the host.  Push on a
     full FIFO and pop on an empty one are no-ops, gated by the caller via
     :meth:`can_push` / :meth:`can_pop` masks (backpressure — §II's
-    bounded channels are what localize stalls).
+    bounded channels are what localize stalls).  ``device`` follows the
+    port's policy (:func:`repro_torch.get_device`): the card unless the
+    CPU is asked for.
     """
 
     def __init__(self, depth: int, width: int,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.depth = depth
         self.width = width
-        self.device = torch.device(device)
+        self.device = get_device(device)
 
     def init(self) -> FIFOState:
         z = torch.zeros((), dtype=torch.int64, device=self.device)

@@ -45,6 +45,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
                         "flash_attention_f32": _PREFILL},
     "decode_attention": {"decode_attention_bf16": _DECODE,
                          "decode_attention_f32": _DECODE},
+    "rmsnorm": {f"rmsnorm_{x}_{w}": [_P, _P, _P, _I, _I, _F, _P]
+                for x in ("f32", "bf16") for w in ("f32", "bf16")},
+    "dataflow_matmul": {f"dataflow_matmul_{a}_{o}": [_P, _P, _P, _I, _I, _I,
+                                                       _P]
+                        for a in ("f32", "bf16") for o in ("f32", "bf16")},
+    "decoupled_gather": {f"decoupled_gather_{t}": [_P, _P, _P, _I, _I, _I,
+                                                     _I, _P]
+                         for t in ("f32", "bf16")},
 }
 
 #: kernel name -> its source in ``csrc/`` where the two differ

@@ -13,6 +13,15 @@ import math
 import torch
 
 
+def matmul_ref(x: torch.Tensor, w: torch.Tensor,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain matmul with fp32 accumulation, cast to ``out_dtype`` (else
+    x's dtype).  Call it with ``allow_tf32`` off for a full-fp32 product
+    on the card."""
+    out = torch.matmul(x.float(), w.float())
+    return out.to(out_dtype or x.dtype)
+
+
 def spmv_bsr_ref(values: torch.Tensor, col_ids: torch.Tensor,
                  x: torch.Tensor, nrows: int) -> torch.Tensor:
     """Block-sparse-row SpMV.
@@ -108,3 +117,12 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.where(valid.any(dim=1)[:, None, None, None], w, 0.0)
     out = torch.einsum("bhgs,bhsd->bhgd", w, v_cache.float())
     return out.reshape(B, Hq, d).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis in fp32: ``x·rsqrt(mean(x²)+eps)·w``,
+    output in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ref import rmsnorm_ref
+
 
 def _normal(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -37,10 +39,7 @@ def rmsnorm_init(d: int, dtype: torch.dtype, device: torch.device) -> dict:
 
 def rmsnorm_apply(params: dict, x: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * params["scale"].float()).to(x.dtype)
+    return rmsnorm_ref(x, params["scale"], eps)
 
 
 def layernorm_init(d: int, dtype: torch.dtype, device: torch.device) -> dict:

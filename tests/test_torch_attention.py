@@ -20,7 +20,8 @@ import torch
 import repro_torch
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import _lib, ops, ref
-from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels.flash_attention import (decode_attention,
+                                                flash_attention)
 
 FP32 = dict(rtol=3e-5, atol=3e-5)
 #: (B, Hq, Hkv, d): smollm-135m's layout, and reduced smollm's

@@ -5,6 +5,7 @@ to the same plan, and every execution backend must return the plain
 result.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,6 +117,98 @@ def test_gather_body_plan_matches_reference():
         for backend in ("sequential", "emulated"):
             assert torch.equal(port(acc, i_t, backend=backend), want)
         acc = want
+
+
+def _quickstart_pair():
+    """examples/quickstart.py's kernel, traced by each package: a gather
+    through an index vector feeding a multiply and a tanh."""
+    def ref_kernel(table, idx, w):
+        return jnp.tanh(table[idx] * w) + 1.0
+
+    def port_kernel(table, idx, w):
+        return torch.tanh(table[idx] * w) + 1.0
+
+    table = np.arange(1024, dtype=np.float32)
+    idx = np.asarray([3, 997, 41, 512, 7, 800, 64, 2], np.int32)
+    ref = ref_compile(ref_kernel, jnp.asarray(table), jnp.asarray(idx),
+                      jnp.float32(1.5), stream_argnums=(1,))
+    port = dataflow_jit(port_kernel, stream_argnums=(1,))
+    args = (torch.from_numpy(table), torch.from_numpy(idx),
+            torch.tensor(1.5))
+    return ref, port, args
+
+
+def test_quickstart_plan_matches_reference():
+    ref, port, args = _quickstart_pair()
+    compiled = port.lower(*args)
+    assert _plan(compiled) == _plan(ref)
+    plan = _plan(compiled)
+    assert (plan["stages"], plan["channels"], plan["channel_bytes"],
+            plan["pipeline_ii"], plan["total_latency"]) == (4, 3, 96, 1, 15)
+    assert plan["prims"][0] == ["lt", "add", "select_n", "broadcast_in_dim",
+                                "gather"]
+    assert plan["regions"][0] == ["arg0"]
+
+
+@pytest.mark.parametrize("backend", ["sequential", "emulated", "eager"])
+def test_quickstart_backends_return_the_direct_call(backend):
+    _, port, args = _quickstart_pair()
+    assert torch.equal(port(*args, backend=backend), port.__wrapped__(*args))
+
+
+def test_quickstart_stream_returns_the_direct_calls():
+    _, port, (table, idx, w) = _quickstart_pair()
+    stream = torch.stack([(idx + t) % 1024 for t in range(6)])
+    got = port.lower(table, idx, w).stream(table, stream, w)
+    want = torch.stack([port.__wrapped__(table, s, w) for s in stream])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("backend", ["sequential", "emulated", "eager"])
+def test_staged_gather_plan_matches_reference(backend):
+    """decoupled_gather_staged's function: the plan of the reference's
+    vmap of a row function, every backend equal to the direct call."""
+    rng = np.random.default_rng(2)
+    table = rng.normal(size=(64, 128)).astype(np.float32)
+    idx = rng.integers(0, 64, 8).astype(np.int32)
+
+    def ref_fn(i, t):
+        return jax.vmap(lambda r: jnp.tanh(r * 2.0))(t[i])
+
+    def port_fn(i, t):
+        return torch.tanh(t[i] * 2.0)
+
+    ref = ref_compile(ref_fn, jnp.asarray(idx), jnp.asarray(table),
+                      stream_argnums=(0,))
+    args = (torch.from_numpy(idx), torch.from_numpy(table))
+    port = port_compile(port_fn, *args, stream_argnums=(0,), device="cpu")
+    assert _plan(port) == _plan(ref)
+    plan = _plan(port)
+    assert (plan["stages"], plan["channels"], plan["channel_bytes"],
+            plan["total_latency"]) == (3, 2, 8192, 14)
+    assert torch.equal(port(*args, backend=backend), port_fn(*args))
+
+
+def test_negative_index_vector_wraps_as_reference():
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(16, 4)).astype(np.float32)
+    idx = np.asarray([-1, 0, -16, 5, 15, -7], np.int32)
+
+    def ref_fn(t, i):
+        return t[i] * 3.0
+
+    def port_fn(t, i):
+        return t[i] * 3.0
+
+    ref = ref_compile(ref_fn, jnp.asarray(table), jnp.asarray(idx))
+    args = (torch.from_numpy(table), torch.from_numpy(idx))
+    port = port_compile(port_fn, *args, device="cpu")
+    assert _plan(port) == _plan(ref)
+    want = np.asarray(ref(jnp.asarray(table), jnp.asarray(idx)))
+    for backend in ("sequential", "emulated"):
+        got = port(*args, backend=backend)
+        assert torch.equal(got, port_fn(*args))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_unlowered_operations_raise():

@@ -12,6 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import load_config, reduced
+from repro_torch.core import DeviceFIFO
 from repro_torch.core import engine as port_engine
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import init_cache, init_params
@@ -109,3 +110,16 @@ def test_model_and_server_without_cuda_raise_unless_cpu_is_asked_for():
     repro_torch.set_device("cpu")
     assert init_cache(cfg, 1, 8)["segment_0"][0][0]["mixer"]["k"].device \
         == torch.device("cpu")
+
+
+def test_device_fifo_without_cuda_raises_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceFIFO(2, 3)
+    assert DeviceFIFO(2, 3, device="cpu").init().buf.device \
+        == torch.device("cpu")
+    repro_torch.set_device("cpu")
+    state = DeviceFIFO(2, 3).init()
+    assert {state.buf.device, state.head.device, state.count.device} \
+        == {torch.device("cpu")}
