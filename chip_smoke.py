@@ -7,7 +7,11 @@ toolkit:  ``python3 chip_smoke.py``
 Phases, one line (or block) each:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
-   (one ``nvcc`` per ``src/repro_torch/csrc/*.cu``, all at once);
+   (one ``nvcc`` per ``src/repro_torch/csrc/*.cu``, all at once), then the
+   tensor-core instructions in the built code: ``cuobjdump -sass`` (beside
+   ``nvcc``) must find ``HGMMA`` in ``dataflow_matmul``'s library (its
+   wgmma route) and ``HMMA`` in ``flash_attention``'s (its bf16 prefill);
+   without ``cuobjdump`` it prints "SASS not checked";
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes (kernel times are CUDA-graph replays, so the
    host's enqueue time is left out) — ``spmv_bsr`` on the Table-I BSR matrix
@@ -43,10 +47,13 @@ Phases, one line (or block) each:
    ``"full"`` path: max |Δ prefill logits| within the larger of
    2e-2·max|logits| and the bf16 plain path's own max |Δ| to the fp32
    logits of (a) (30 bf16 layers amplify a one-ulp difference in one
-   attention output to about 2 % of max|logits|); the share of greedy
+   attention output to about 2 % of max|logits|); every prefill launch
+   of the served batch must take the tensor-core route (``mma.sync``,
+   counted by the wrapper in ``_lib.ROUTES``); the share of greedy
    tokens that agree is printed, and one decode step is traced with
    ``torch.profiler``: its device busy time over the untraced step's
-   host time is the device's busy share;
+   host time is the device's busy share; one prefill is traced too, for
+   its device busy time and its attention kernels' share of it;
 7. the kernel API at SmolLM-135M's full width, on phase 6's bf16 model
    (seed 0) and prompt tokens.  Driven once with the launch counts set
    to 0: ``decoupled_gather`` of the 4,096 tokens' rows of the embedding
@@ -60,7 +67,8 @@ Phases, one line (or block) each:
    with ``fn="identity"`` bit for bit ``table[idx]``; ``rmsnorm`` 2e-2
    bf16, 1e-5 fp32; both products rtol 1e-2 / atol 5e-2 in bf16 (one
    rounding of fp32 sums taken in another order) and 2e-5 / 3e-4 in
-   fp32 (tests/test_kernels.py's).  ``decoupled_gather_staged``
+   fp32 (tests/test_kernels.py's); both bf16 products of the path must
+   take the ``wgmma+tma`` route.  ``decoupled_gather_staged``
    on the same indices and table with the ``sequential`` and
    ``emulated`` backends, bit for bit the plain version, its report
    printed (3 stages, 2 channels required); the quickstart kernel
@@ -70,13 +78,15 @@ Phases, one line (or block) each:
    ``sequential``, ``emulated`` and ``eager`` backends and a 6-microbatch
    ``stream`` equal to the direct calls.  Kernel, plain version and
    library times (``torch.matmul``, ``F.rms_norm``; none computes the
-   gather, whose floor ``torch.index_select`` is printed); the matmul's
-   row in the kernels line sums the path's two products;
+   gather, whose floor ``torch.index_select`` is printed), each product
+   also in fp32 (the CUDA-core route) and at every tile width the wgmma
+   route chooses among; the matmul's row in the kernels line sums the
+   path's two products;
 8. one JSON line listing every kernel with its launches on its main path
    (phases 3-4 for the SpMV kernels, run (b) of phase 6 for attention,
-   phase 7 for the kernel API), its error against the plain version, its
-   times and its bound; then the ``nvidia-smi`` line; then the result
-   line.
+   phase 7 for the kernel API), the design those launches took, its error
+   against the plain version, its times and its bound; then the
+   ``nvidia-smi`` line; then the result line.
 
 Any failed phase exits non-zero before the result line.  Without a CUDA
 device, or outside the repository, the script exits non-zero at once.
@@ -159,11 +169,14 @@ def cuda_ms(fn, reps: int = 20, per_graph: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_busy_ms(fn) -> tuple[float | None, float]:
-    """(device busy ms, host wall ms) of one call of ``fn`` under
-    ``torch.profiler``: the union of the kernel, memcpy and memset spans
-    of its trace (None where the trace holds no device span), and the
-    host clock, which includes the profiler's own cost."""
+def device_busy_ms(fn, name: str,
+                   kernel: str = "") -> tuple[float | None, float, float]:
+    """(device busy ms, host wall ms, ms of the kernels named like
+    ``kernel``) of one call of ``fn`` under ``torch.profiler``: the union
+    of the kernel, memcpy and memset spans of its trace (None where the
+    trace holds no device span), the host clock, which includes the
+    profiler's own cost, and the summed spans of the kernels whose name
+    holds ``kernel``.  The trace goes to ``build/<name>_trace.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -173,7 +186,7 @@ def device_busy_ms(fn) -> tuple[float | None, float]:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(ROOT, "build", "decode_step_trace.json")
+    path = os.path.join(ROOT, "build", f"{name}_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -181,14 +194,16 @@ def device_busy_ms(fn) -> tuple[float | None, float]:
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                    and "dur" in e)
+    named = sum(e["dur"] for e in events if e.get("cat") == "kernel"
+                and kernel and kernel in e.get("name", "")) / 1e3
     if not spans:
-        return None, wall
+        return None, wall, named
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e3, wall
+    return busy / 1e3, wall, named
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -232,6 +247,7 @@ def main() -> None:
     _lib.build_all()
     print(f"[1] kernels built in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(_lib.SIGNATURES)})", flush=True)
+    print(f"[1] {check_sass()}", flush=True)
 
     # -- the Table-I workload on the card ------------------------------------
     t0 = time.perf_counter()
@@ -265,7 +281,7 @@ def main() -> None:
                   + nbr * bm * 4)
     spmv_ops = 2 * valid * bm * bk
     spmv_row = {
-        "name": "spmv_bsr", "route": "cuda",
+        "name": "spmv_bsr", "route": "cuda", "design": "cuda-core fp32",
         "source": "src/repro_torch/csrc/spmv_bsr.cu",
         "replaces": "src/repro/kernels/spmv.py:56",
         "max_abs_err": spmv_err,
@@ -311,7 +327,7 @@ def main() -> None:
     a_main = cases["i32 2^20 trending"]
     t_main = torch.from_numpy(a_main).to(dev)
     rmax_row = {
-        "name": "running_max", "route": "cuda",
+        "name": "running_max", "route": "cuda", "design": "cuda-core int",
         "source": "src/repro_torch/csrc/running_max.cu",
         "replaces": "src/repro/core/engine.py:477",
         "max_abs_err": float(rmax_err),
@@ -427,7 +443,7 @@ def main() -> None:
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0,
                 f"{row['name']} was not launched on its main path")
-    keys = ("name", "route", "source", "replaces", "launches",
+    keys = ("name", "route", "design", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
@@ -471,7 +487,7 @@ def attention_kernels(dev) -> tuple[dict, dict]:
                            tol)
     causal_ops = 2 * 2 * B * HQ * S * S * D // 2
     fa_row = {
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "route": "cuda", "design": "mma.sync",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:85",
         "max_abs_err": errs[bf16],
@@ -483,12 +499,15 @@ def attention_kernels(dev) -> tuple[dict, dict]:
         **_bound(2 * (2 * q.numel() + k.numel() + v.numel()), causal_ops,
                  BF16_TC_OPS_PER_S),
     }
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    fp32_ms = cuda_ms(lambda: flash_attention(q32, k32, v32, causal=True))
     print(f"[5] flash_attention bf16 q {tuple(q.shape)} k/v "
           f"{tuple(k.shape)} causal: max|kernel-plain| {errs[bf16]:.3g} "
           f"(rtol=atol=2e-2; fp32 {errs[f32]:.3g} at 1e-4), kernel "
           f"{fa_row['ms']:.4f} ms, plain {fa_row['plain_ms']:.4f} ms, SDPA "
           f"{fa_row['library_ms']:.4f} ms, bound {fa_row['bound_ms']:.4f} ms "
-          f"({fa_row['bound_by']})", flush=True)
+          f"({fa_row['bound_by']}); in fp32 (cuda-core fp32) {fp32_ms:.4f} "
+          f"ms", flush=True)
 
     qd = randn(B, HQ, D)
     kc, vc = randn(B, HKV, MAX_LEN, D), randn(B, HKV, MAX_LEN, D)
@@ -508,6 +527,7 @@ def attention_kernels(dev) -> tuple[dict, dict]:
     valid = int(first.sum())
     da_row = {
         "name": "decode_attention", "route": "cuda",
+        "design": "cuda-core fp32",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:178",
         "max_abs_err": max(errs[bf16, "513"], errs[bf16, "ragged"]),
@@ -562,7 +582,7 @@ def serve_smollm(dev) -> tuple[dict, dict]:
         wall = time.perf_counter() - t0
         launches = _lib.counts()
         return (logits.float(), np.array([r.tokens for r in res]), res, wall,
-                launches)
+                launches, _lib.routes())
 
     # (a) fp32: the kernels' path against the plain path
     c32 = dataclasses.replace(cfg, dtype="float32")
@@ -589,13 +609,17 @@ def serve_smollm(dev) -> tuple[dict, dict]:
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     lf, tf, *_ = run(cfg, params, "full")
     run(cfg, params, "pallas")                      # warm-up
-    lp, tp, res, wall, launches = run(cfg, params, "pallas")
+    lp, tp, res, wall, launches, routes = run(cfg, params, "pallas")
     err = float((lp - lf).abs().max())
     scale = float(lf.abs().max())
     # the bf16 plain path's own error: its distance to the fp32 logits of
     # the same weights (the bf16 weights are the fp32 ones rounded)
     noise = float((lf - logits32).abs().max())
     require(bool(torch.isfinite(lp).all()), "bf16 prefill logits not finite")
+    require(routes["flash_attention"] == {"mma.sync":
+                                          launches["flash_attention"]},
+            f"bf16 prefill launches by design: {routes['flash_attention']}, "
+            f"expected all {launches['flash_attention']} on mma.sync")
     require(err <= max(2e-2 * scale, noise),
             f"bf16 prefill logits, pallas vs full: max |Δ| {err} > both "
             f"2e-2 * {scale} and the plain path's bf16 error {noise}")
@@ -611,19 +635,29 @@ def serve_smollm(dev) -> tuple[dict, dict]:
           f" pallas bf16 max|Δ| to fp32 "
           f"{float((lp - logits32).abs().max()):.4g}; "
           f"greedy tokens agreeing with full {agree:.4f}; launches "
-          f"flash_attention {launches['flash_attention']}, decode_attention "
+          f"flash_attention {launches['flash_attention']} (by design "
+          f"{dict(routes['flash_attention'])}), decode_attention "
           f"{launches['decode_attention']}", flush=True)
     cp = dataclasses.replace(cfg, attn_impl="pallas")
     with torch.inference_mode():
         logits, cache = prefill(params, tokens, cp, MAX_LEN)
-        busy, wall = device_busy_ms(lambda: decode_step(
-            params, logits.argmax(-1), cache, PROMPT_LEN, cp))
+        busy, wall, _ = device_busy_ms(lambda: decode_step(
+            params, logits.argmax(-1), cache, PROMPT_LEN, cp), "decode_step")
+        pre_busy, pre_wall, pre_attn = device_busy_ms(
+            lambda: prefill(params, tokens, cp, MAX_LEN), "prefill",
+            "prefill_mma_kernel")
     print(f"[6b] one decode step under torch.profiler: host {wall:.3f} ms "
           f"with the profiler's cost, "
           + ("device busy not measured (no device spans in the trace)"
              if busy is None else f"device busy {busy:.3f} ms = "
              f"{100 * busy / decode_ms:.1f} % of the untraced "
              f"{decode_ms:.3f} ms step"), flush=True)
+    print(f"[6b] one prefill under torch.profiler: host {pre_wall:.3f} ms "
+          f"with the profiler's cost, "
+          + ("device busy not measured (no device spans in the trace)"
+             if pre_busy is None else f"device busy {pre_busy:.3f} ms, of "
+             f"which flash_attention's kernels {pre_attn:.3f} ms"),
+          flush=True)
     layer0 = params["segment_0"][0][0]
     model = {"tokens": tokens, "table": params["embed"]["table"],
              "norm": layer0["norm1"]["scale"],
@@ -643,6 +677,9 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
                                      decoupled_gather_ref,
                                      decoupled_gather_staged, matmul, ref,
                                      rmsnorm)
+    from repro_torch.kernels.dataflow_matmul import (BLOCK_M, BLOCK_NS,
+                                                     WGMMA, Route, _launch,
+                                                     route)
 
     tokens, table = model["tokens"], model["table"]
     norm_w, w_in, w_out = model["norm"], model["w_in"], model["w_out"]
@@ -659,6 +696,9 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
     down = matmul(up, w_out)
     torch.cuda.synchronize()
     launches = _lib.counts()
+    require(_lib.routes()["dataflow_matmul"] == {"wgmma+tma": 2},
+            f"the path's bf16 products by design: "
+            f"{_lib.routes()['dataflow_matmul']}, expected both on wgmma+tma")
 
     def held(name, got, want, rtol, atol):
         torch.cuda.synchronize()
@@ -753,6 +793,7 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
     floor = cuda_ms(lambda: torch.index_select(table, 0, idx))
     gather_row = {
         "name": "decoupled_gather", "route": "cuda",
+        "design": "cuda-core fp32",
         "source": "src/repro_torch/csrc/decoupled_gather.cu",
         "replaces": "src/repro/kernels/decoupled_gather.py:71",
         "max_abs_err": g_err,
@@ -762,7 +803,7 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
         **_bound(2 * n * d * table.element_size() + 4 * n, 2 * n * d),
     }
     rms_row = {
-        "name": "rmsnorm", "route": "cuda",
+        "name": "rmsnorm", "route": "cuda", "design": "cuda-core fp32",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:28",
         "max_abs_err": r_err,
@@ -772,36 +813,73 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
         **_bound(2 * emb.numel() * emb.element_size()
                  + norm_w.numel() * norm_w.element_size(), 4 * emb.numel()),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mm_rows = []
     for a, b in ((x, w_in), (up, w_out)):
         (M, K), N = a.shape, b.shape[1]
+        rt = route(a, b, sms=sms)
+        a32, b32 = a.float(), b.float()
         mm_rows.append({
             "name": "dataflow_matmul", "route": "cuda",
+            "design": rt.design,
             "source": "src/repro_torch/csrc/dataflow_matmul.cu",
             "replaces": "src/repro/kernels/dataflow_matmul.py:51",
             "max_abs_err": max(m_errs),
             "ms": cuda_ms(lambda: matmul(a, b)),
             "plain_ms": cuda_ms(lambda: ref.matmul_ref(a, b)),
+            "fp32_ms": cuda_ms(lambda: matmul(a32, b32)),
             "library_ms": cuda_ms(lambda: torch.matmul(a, b)),
             **_bound(2 * (M * K + K * N + M * N), 2 * M * N * K,
                      BF16_TC_OPS_PER_S),
-            "shape": f"({M}, {K}) x ({K}, {N})",
+            "shape": f"({M}, {K}) x ({K}, {N}), {rt.design} "
+                     f"{BLOCK_M} x {rt.block_n} tiles",
         })
+    # every tile width the route chooses among, at the path's shapes
+    for a, b in ((x, w_in), (up, w_out)):
+        widths = {bn: cuda_ms(lambda: _launch(a, b, torch.bfloat16,
+                                              Route(WGMMA, bn)))
+                  for bn in BLOCK_NS}
+        print(f"[7] dataflow_matmul {tuple(a.shape)} x {tuple(b.shape)} by "
+              f"tile width: " + ", ".join(f"{BLOCK_M} x {bn} {t:.4f} ms"
+                                          for bn, t in widths.items())
+              + f"; the route takes {route(a, b, sms=sms).block_n}",
+              flush=True)
     # the path launches the kernel once per product: its row sums both
     mm_row = {**mm_rows[0], "shape": "both products", **{
         k: sum(r[k] for r in mm_rows)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "fp32_ms")}}
     for row in (gather_row, rms_row, *mm_rows, mm_row):
         print(f"[7] {row['name']} {row.get('shape', '')}: kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
               + ("none" if row["library_ms"] is None
                  else f"{row['library_ms']:.4f} ms")
-              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + (f"; the same product in fp32 (cuda-core fp32) "
+                 f"{row['fp32_ms']:.4f} ms" if "fp32_ms" in row else ""),
               flush=True)
     print(f"[7] decoupled_gather floor: torch.index_select of the same rows "
           f"{floor:.4f} ms (no PyTorch call computes tanh(2*table[idx]))",
           flush=True)
     return [gather_row, mm_row, rms_row], launches
+
+
+def check_sass() -> str:
+    """Phase 1: count the tensor-core instructions in the SASS of the
+    built libraries; each tensor-core route must have compiled to them."""
+    from repro_torch.kernels import _lib
+    tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return "SASS not checked (no cuobjdump beside nvcc)"
+    found = []
+    for name, op in (("dataflow_matmul", "HGMMA"), ("flash_attention",
+                                                    "HMMA")):
+        sass = subprocess.run([tool, "-sass", str(_lib._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        n = sum(op in line for line in sass.splitlines())
+        require(n > 0, f"no {op} instruction in {name}'s SASS")
+        found.append(f"{n} {op} in {name}")
+    return "SASS: " + ", ".join(found)
 
 
 def _leaves(tree):

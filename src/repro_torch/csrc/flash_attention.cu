@@ -14,24 +14,40 @@
 // 9 query heads over 3 kv heads, d = 64, 512-token prompts) prefill reads
 // ~12.6 MB and does ~2.4 GFLOP, so the least time is set by the bytes and
 // is a few microseconds; a one-token decode step reads the valid cache
-// prefix (~3.2 MB at batch 8), under a microsecond.  This first design is
-// simple, not fast: its products run in fp32 on the CUDA cores, not on the
-// tensor cores, so prefill is bound by instruction issue far above its
-// bound, and decode by its launch and fixed latency.  The wgmma/TMA
-// design is later work.
+// prefix (~3.2 MB at batch 8), under a microsecond.
 //
-// Prefill design.  The TPU kernel walks the KV axis as the last,
-// sequential grid dimension and carries (m, l, acc) in VMEM scratch from
-// one step to the next.  Blocks on the card run in no order, so the KV
-// walk becomes a loop inside the block: one block per (q-tile of 64 rows,
-// query head, batch) walking 32-key tiles; G = DMAX/16 threads per query
-// row, each owning 16 of the (zero-padded) head dims in registers, their
-// partial dot products summed with G-lane shuffles.  K and V tiles are staged through shared
-// memory as fp32 (the access stage), and the tiles past the last query
-// row of the block are never loaded (the Pallas kernel's skip of fully
-// masked KV blocks).  A thread's dims are four-wide chunks strided by 4G
-// floats, so the G threads of a row read one contiguous span of a tile
-// row and the shared-memory loads are free of bank conflicts.
+// The TPU kernel walks the KV axis as the last, sequential grid dimension
+// and carries (m, l, acc) in VMEM scratch from one step to the next.
+// Blocks on the card run in no order, so the KV walk becomes a loop inside
+// the block, and the tiles past the last query row of the block are never
+// loaded (the Pallas kernel's skip of fully masked KV blocks).  Two
+// prefill designs; the wrapper (kernels/flash_attention.py,
+// `prefill_route`) picks one from the dtype:
+//
+// Prefill, bf16 (mma.sync): the FlashAttention-2 structure on the tensor
+// cores.  One block per (64 query rows, query head, batch), four warps of
+// 16 rows.  Q's fragments are loaded once with ldmatrix and stay in
+// registers; K and V tiles of 64 keys stream through a two-stage cp.async
+// ring in shared memory (rows padded by 16 bytes, so ldmatrix is free of
+// bank conflicts; head dims padded to a multiple of 16 with zeros by the
+// copies' source size).  S = Q K^T and O += P V run on
+// mma.m16n8k16 (bf16 in, fp32 accumulate); the online softmax keeps m, l
+// and O in fp32 registers, its row max over each quad of lanes by two
+// shuffles.  P is rounded to bf16 as P V's A operand — straight from S's
+// accumulator registers — while l sums the fp32 P: the one departure from
+// the Pallas kernel, which multiplies P V in fp32 (SDPA rounds P the same
+// way).  Keys past Sk and the causal future are masked before the row max,
+// only on the tiles that reach them.  A quad of lanes writes whole 32-byte
+// sectors of the output (one shuffle between lane pairs).
+//
+// Prefill, fp32 (CUDA cores): G = DMAX/16 threads per query row, each
+// owning 16 of the (zero-padded) head dims in registers, their partial dot
+// products summed with G-lane shuffles; 32-key K and V tiles staged
+// through shared memory; fp32 FMAs for both products.  It carries the
+// serving path's fp32 exactness check.  A thread's dims are four-wide
+// chunks strided by 4G floats, so the G threads of a row read one
+// contiguous span of a tile row and the shared-memory loads are free of
+// bank conflicts.
 //
 // Decode design.  Scalar prefetch of the lengths becomes a plain load of
 // lengths[b] by the block.  One block per (query head, batch), sixteen
@@ -88,21 +104,14 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// Four consecutive values from 8-byte-aligned device memory.
+// Four consecutive floats from 16-byte-aligned device memory.
 __device__ __forceinline__ void load4(const float* p, float* out) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 f0 = __bfloat1622float2(h[0]);
-  const float2 f1 = __bfloat1622float2(h[1]);
-  out[0] = f0.x; out[1] = f0.y; out[2] = f1.x; out[3] = f1.y;
-}
 
 // ---------------------------------------------------------------------------
-// Prefill
+// Prefill, fp32: the products on the CUDA cores
 // ---------------------------------------------------------------------------
 
 template <int DMAX>
@@ -255,6 +264,324 @@ int launch_prefill(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
+// Prefill, bf16: the products on the tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+template <int D>  // head dim rounded up to 16 (zero-padded in shared memory)
+struct MmaPrefill {
+  static constexpr int BQ = 64;       // query rows per block: 16 per warp
+  static constexpr int BKV = 64;      // keys per tile
+  static constexpr int NT = 128;      // four warps
+  static constexpr int LD = D + 8;    // padded row: ldmatrix without bank
+                                      // conflicts (D/8 + 1 chunks, odd)
+  static constexpr int TILE = 64 * LD;                 // elements
+  static constexpr int SMEM = 5 * TILE * 2;            // Q, K[2], V[2]
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; `bytes` 0 zero-fills the chunk.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&c)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Store one row's part of two adjacent 8-column accumulator tiles, tile j
+// at `col0` and tile j + 1 after it (lane t of each quad holds columns
+// 2t, 2t + 1 of both): one shuffle between lane pairs gives each lane
+// four consecutive columns, so the quad writes 32 contiguous bytes of the
+// row (a whole sector), not two 16-byte halves.  All lanes call it; `in`
+// masks the store only.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int col0,
+                                           int lane, float a0, float a1,
+                                           float b0, float b1, bool in,
+                                           int d) {
+  const uint32_t lo = pack_bf16(a0, a1), hi = pack_bf16(b0, b1);
+  const bool odd = lane & 1;
+  const uint32_t got = __shfl_xor_sync(kFull, odd ? lo : hi, 1);
+  const int t = lane % 4, col = col0 + 4 * (t / 2) + 8 * (t & 1);
+  if (in && col < d)  // d % 8 == 0: four columns are in or out together
+    *reinterpret_cast<uint2*>(row + col) =
+        odd ? make_uint2(got, hi) : make_uint2(lo, got);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4*g + t.  An fp32
+// accumulator c of a 16 x 8 tile holds rows g (c0, c1) and g + 8 (c2, c3)
+// at columns 2t, 2t + 1.  The A operand of a k16 step is the pair of
+// accumulator tiles of its two 8-column halves, so P goes from S's
+// accumulators into P.V's A operand without leaving the registers.
+template <int D>
+__global__ void __launch_bounds__(MmaPrefill<D>::NT)
+prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq,
+                   int Sk, int d, float scale_log2, int causal) {
+  using C = MmaPrefill<D>;
+  constexpr int LD = C::LD, TILE = C::TILE;
+  constexpr int KD = D / 16;   // k16 steps over the head dim (S = Q K^T)
+  constexpr int ND = D / 8;    // n8 tiles over the head dim (O = P V)
+  constexpr int CH = D / 8;    // 16-byte chunks of a tile row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + TILE;       // two stages
+  __nv_bfloat16* vs = ks + 2 * TILE;   // two stages
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // the longest causal rows first: blocks start in index order
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;
+  const int hk = h / (Hq / Hkv);
+  const __nv_bfloat16* qp = q + static_cast<size_t>(b * Hq + h) * Sq * d;
+  const __nv_bfloat16* kp = k + static_cast<size_t>(b * Hkv + hk) * Sk * d;
+  const __nv_bfloat16* vp = v + static_cast<size_t>(b * Hkv + hk) * Sk * d;
+
+  // rows [r0, r0 + 64) of a (rows, d) matrix; zeros past `rows` and d
+  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                       int rows) {
+    for (int c = tid; c < 64 * CH; c += C::NT) {
+      const int r = c / CH, cc = (c % CH) * 8;
+      const bool in = r0 + r < rows && cc < d;
+      cp_async16(dst + r * LD + cc,
+                 in ? src + static_cast<size_t>(r0 + r) * d + cc : src,
+                 in ? 16 : 0);
+    }
+  };
+
+  // causal: keys past the block's last query row are masked for every row
+  const int kend = causal ? min(Sk, q0 + C::BQ) : Sk;
+  const int ntiles = (kend + C::BKV - 1) / C::BKV;
+  load_tile(qs, qp, q0, Sq);
+  if (ntiles > 0) {
+    load_tile(ks, kp, 0, Sk);
+    load_tile(vs, vp, 0, Sk);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // this lane's two rows, g and g + 8 of the warp's 16
+  const int row0 = q0 + 16 * warp + lane / 4, row1 = row0 + 8;
+  uint32_t qf[KD][4];
+  float oacc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+  float m0 = kMask, m1 = kMask, l0 = 0.f, l1 = 0.f;  // log2 domain
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int cur = t & 1, k0 = t * C::BKV;
+    if (t + 1 < ntiles) {  // the access stage runs one tile ahead
+      load_tile(ks + (cur ^ 1) * TILE, kp, k0 + C::BKV, Sk);
+      load_tile(vs + (cur ^ 1) * TILE, vp, k0 + C::BKV, Sk);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    if (t == 0) {
+      // Q's A fragments: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15)
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(smem_addr(qs + (16 * warp + lane % 8 + 8 * (lane / 8 % 2)) *
+                                   LD +
+                          16 * kk + 8 * (lane / 16)),
+                qf[kk]);
+    }
+    const __nv_bfloat16* kt = ks + cur * TILE;
+    const __nv_bfloat16* vt = vs + cur * TILE;
+
+    // S = Q K^T: K rows (keys) are the B operand's columns, d its k
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        uint32_t r[4];  // keys 16j2 + (0-7 | 8-15) x d (lo | hi)
+        ldsm_x4(smem_addr(kt + (16 * j2 + lane % 8 + 8 * (lane / 16)) * LD +
+                          16 * kk + 8 * (lane / 8 % 2)),
+                r);
+        mma_16816(s[2 * j2], qf[kk], r[0], r[1]);
+        mma_16816(s[2 * j2 + 1], qf[kk], r[2], r[3]);
+      }
+
+    // scale into the log2 domain; mask keys past Sk and, on the tiles that
+    // reach past the block's first row, the causal future — before the max
+    const bool edge = k0 + C::BKV > Sk || (causal && k0 + C::BKV - 1 > q0);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (key >= Sk || (causal && key > row)) x = kMask;
+        }
+        s[j][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    // the row max over the quad of lanes that hold the row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      oacc[j][0] *= alpha0;
+      oacc[j][1] *= alpha0;
+      oacc[j][2] *= alpha1;
+      oacc[j][3] *= alpha1;
+    }
+    // P in fp32 for l; rounded to bf16 as P.V's A operand
+    uint32_t pa[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = exp2f(s[j][0] - m0), p1 = exp2f(s[j][1] - m0);
+      const float p2 = exp2f(s[j][2] - m1), p3 = exp2f(s[j][3] - m1);
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      pa[j][0] = pack_bf16(p0, p1);
+      pa[j][1] = pack_bf16(p2, p3);
+    }
+
+    // O += P V: V rows (keys) are the B operand's k, read transposed
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0],
+                             pa[2 * kk + 1][1]};
+#pragma unroll
+      for (int j2 = 0; j2 < ND / 2; ++j2) {
+        uint32_t r[4];  // keys 16kk + (0-7 | 8-15) x d 16j2 + (lo | hi)
+        ldsm_x4_trans(smem_addr(vt + (16 * kk + lane % 8 +
+                                      8 * (lane / 8 % 2)) * LD +
+                                16 * j2 + 8 * (lane / 16)),
+                      r);
+        mma_16816(oacc[2 * j2], a, r[0], r[1]);
+        mma_16816(oacc[2 * j2 + 1], a, r[2], r[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed: tile t+2 may overwrite it
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // l over the quad, then the cast; rows past Sq are not stored
+  l0 += __shfl_xor_sync(kFull, l0, 1);
+  l0 += __shfl_xor_sync(kFull, l0, 2);
+  l1 += __shfl_xor_sync(kFull, l1, 1);
+  l1 += __shfl_xor_sync(kFull, l1, 2);
+  const float lc0 = fmaxf(l0, 1e-20f), lc1 = fmaxf(l1, 1e-20f);
+  __nv_bfloat16* op = o + static_cast<size_t>(b * Hq + h) * Sq * d;
+#pragma unroll
+  for (int j = 0; j < ND; j += 2) {
+    store_pair(op + static_cast<size_t>(row0) * d, 8 * j, lane,
+               oacc[j][0] / lc0, oacc[j][1] / lc0, oacc[j + 1][0] / lc0,
+               oacc[j + 1][1] / lc0, row0 < Sq, d);
+    store_pair(op + static_cast<size_t>(row1) * d, 8 * j, lane,
+               oacc[j][2] / lc1, oacc[j][3] / lc1, oacc[j + 1][2] / lc1,
+               oacc[j + 1][3] / lc1, row1 < Sq, d);
+  }
+}
+
+template <int D>
+int launch_prefill_mma_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, __nv_bfloat16* o, int B,
+                         int Hq, int Hkv, int Sq, int Sk, int d,
+                         float scale_log2, int causal, cudaStream_t st) {
+  auto kernel = prefill_mma_kernel<D>;
+  // the opt-in to more than 48 KB of shared memory, once per device
+  static unsigned ready = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && !(ready >> dev & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MmaPrefill<D>::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready |= 1u << dev;
+  }
+  const dim3 grid((Sq + 63) / 64, Hq, B);
+  kernel<<<grid, MmaPrefill<D>::NT, MmaPrefill<D>::SMEM, st>>>(
+      q, k, v, o, Hq, Hkv, Sq, Sk, d, scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_prefill_mma(const void* q, const void* k, const void* v, void* o,
+                       int B, int Hq, int Hkv, int Sq, int Sk, int d,
+                       float scale, int causal, void* stream) {
+  const auto* qt = static_cast<const __nv_bfloat16*>(q);
+  const auto* kt = static_cast<const __nv_bfloat16*>(k);
+  const auto* vt = static_cast<const __nv_bfloat16*>(v);
+  auto* ot = static_cast<__nv_bfloat16*>(o);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float sl = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  switch ((d + 15) / 16) {
+#define PREFILL_MMA_CASE(N)                                                \
+  case N:                                                                  \
+    return launch_prefill_mma_d<16 * N>(qt, kt, vt, ot, B, Hq, Hkv, Sq, Sk, \
+                                        d, sl, causal, st);
+    PREFILL_MMA_CASE(1)
+    PREFILL_MMA_CASE(2)
+    PREFILL_MMA_CASE(3)
+    PREFILL_MMA_CASE(4)
+    PREFILL_MMA_CASE(5)
+    PREFILL_MMA_CASE(6)
+    PREFILL_MMA_CASE(7)
+    PREFILL_MMA_CASE(8)
+#undef PREFILL_MMA_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Decode
 // ---------------------------------------------------------------------------
 
@@ -398,8 +725,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int Hq,
                                     int Hkv, int Sq, int Sk, int d,
                                     float scale, int causal, void* stream) {
-  return launch_prefill<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, d,
-                                       scale, causal, stream);
+  return launch_prefill_mma(q, k, v, o, B, Hq, Hkv, Sq, Sk, d, scale, causal,
+                            stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,

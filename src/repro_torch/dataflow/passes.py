@@ -24,6 +24,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from .._device import get_device
 from ..core.cdfg import (CDFG, Graph, add_memory_order_edges,
                          annotate_memory_regions, trace)
 from ..core.decouple import decouple
@@ -41,8 +42,9 @@ class CompileContext:
     fn: Callable
     example_args: tuple
     options: CompileOptions
-    device: torch.device = dataclasses.field(
-        default_factory=lambda: torch.device("cpu"))
+    #: the compile device; unset, the port's default (``set_device``),
+    #: which is the card unless the caller asked for the CPU
+    device: torch.device = dataclasses.field(default_factory=get_device)
     graph: Graph | None = None
     out_tree: Any = None        # None (one output) or the tuple length
     cdfg: CDFG | None = None

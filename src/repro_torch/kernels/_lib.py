@@ -10,8 +10,11 @@ starts one ``nvcc`` per source at once.
 Every C entry point takes device pointers and a stream as ``c_void_p``
 and returns the ``cudaGetLastError()`` after its launches; :func:`check`
 raises on anything but 0.  ``LAUNCHES`` counts wrapper calls that launch
-a kernel, one entry per kernel.  One source may hold several kernels
-(``flash_attention.cu`` holds prefill and decode attention).
+a kernel, one entry per kernel, and ``ROUTES`` the same launches by the
+design they took, for the kernels with more than one (``dataflow_matmul``:
+``"wgmma+tma"`` or ``"cuda-core fp32"``; ``flash_attention``:
+``"mma.sync"`` or ``"cuda-core fp32"``).  One source may hold several
+kernels (``flash_attention.cu`` holds prefill and decode attention).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -47,9 +51,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
                          "decode_attention_f32": _DECODE},
     "rmsnorm": {f"rmsnorm_{x}_{w}": [_P, _P, _P, _I, _I, _F, _P]
                 for x in ("f32", "bf16") for w in ("f32", "bf16")},
-    "dataflow_matmul": {f"dataflow_matmul_{a}_{o}": [_P, _P, _P, _I, _I, _I,
-                                                       _P]
-                        for a in ("f32", "bf16") for o in ("f32", "bf16")},
+    "dataflow_matmul": {
+        **{f"dataflow_matmul_{a}_{o}": [_P, _P, _P, _I, _I, _I, _P]
+           for a in ("f32", "bf16") for o in ("f32", "bf16")},
+        **{f"dataflow_matmul_wgmma_bf16_{o}": [_P, _P, _P, _I, _I, _I, _I, _P]
+           for o in ("f32", "bf16")}},
     "decoupled_gather": {f"decoupled_gather_{t}": [_P, _P, _P, _I, _I, _I,
                                                      _I, _P]
                          for t in ("f32", "bf16")},
@@ -60,6 +66,9 @@ SOURCES: dict[str, str] = {"decode_attention": "flash_attention"}
 
 #: launches per kernel since the last :func:`reset_counts`
 LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+#: the same launches by design, for the kernels with more than one
+ROUTES: dict[str, Counter[str]] = {"dataflow_matmul": Counter(),
+                                   "flash_attention": Counter()}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -68,10 +77,16 @@ _lock = threading.Lock()
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for by_design in ROUTES.values():
+        by_design.clear()
 
 
 def counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def routes() -> dict[str, dict[str, int]]:
+    return {k: dict(v) for k, v in ROUTES.items()}
 
 
 def _nvcc() -> str:

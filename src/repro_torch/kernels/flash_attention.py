@@ -7,6 +7,11 @@ memory (the access stage) into an online softmax whose running state
 (m, l, acc) stays in registers (the execute stage), and read each KV
 head once per query head of its group.  See ``csrc/flash_attention.cu``.
 
+Prefill has two designs, chosen by :func:`prefill_route` from the dtype:
+bf16 multiplies on the tensor cores (``"mma.sync"``, P rounded to bf16
+before P·V, as SDPA does), fp32 on the CUDA cores (``"cuda-core fp32"``,
+the serving path's exactness check).
+
 A CPU tensor takes the plain version (:func:`ref.flash_attention_ref`,
 :func:`ref.decode_attention_ref`); a CUDA tensor launches the kernel or
 raises.  Padding to blocks is the caller's (:mod:`.ops`).
@@ -21,6 +26,16 @@ import torch
 from . import _lib, ref
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+MMA = "mma.sync"
+CUDA_CORE = "cuda-core fp32"
+
+
+def prefill_route(dtype: torch.dtype) -> str:
+    """The prefill design a CUDA launch takes: every bf16 shape the kernels
+    take (d a multiple of 8 in [8, 128]) runs on the tensor cores, fp32 on
+    the CUDA cores."""
+    return MMA if dtype == torch.bfloat16 else CUDA_CORE
 
 
 def _check_cuda(name: str, tensors: dict[str, torch.Tensor],
@@ -74,12 +89,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    design = prefill_route(q.dtype)
+    entry = "flash_attention_bf16" if design == MMA else \
+        "flash_attention_f32"
     with torch.cuda.device(q.device):
-        err = getattr(_lib.lib("flash_attention"),
-                      f"flash_attention_{_SUFFIX[q.dtype]}")(
+        err = getattr(_lib.lib("flash_attention"), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, Sq, Sk, d, scale, int(causal), _lib.stream())
         _lib.LAUNCHES["flash_attention"] += 1
+        _lib.ROUTES["flash_attention"][design] += 1
     _lib.check("flash_attention", err)
     return out
 

@@ -12,6 +12,9 @@ test configs' (MQA 4/1, d=16) are both covered.  The tests marked
 there is no card.
 """
 
+import importlib
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +23,15 @@ import torch
 import repro_torch
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import _lib, ops, ref
-from repro_torch.kernels.flash_attention import (decode_attention,
-                                                flash_attention)
+from repro_torch.kernels.flash_attention import (CUDA_CORE, MMA,
+                                                decode_attention,
+                                                flash_attention,
+                                                prefill_route)
+
+#: the reference's Pallas module (its package exports the function under
+#: the module's name)
+ref_fa = importlib.import_module("repro.kernels.flash_attention")
+BF16 = dict(rtol=2e-2, atol=2e-2)
 
 FP32 = dict(rtol=3e-5, atol=3e-5)
 #: (B, Hq, Hkv, d): smollm-135m's layout, and reduced smollm's
@@ -100,6 +110,65 @@ def test_flash_attention_keeps_bf16_and_scale():
     want = ref.flash_attention_ref(q.float(), k.float(), k.float(),
                                    scale=0.5)
     torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, MMA),
+                                        (torch.float32, CUDA_CORE)])
+def test_prefill_route_is_chosen_from_dtype(dtype, want):
+    """bf16 (the serving path's dtype) on the tensor cores, fp32 (the
+    exactness check's) on the CUDA cores, for every head dim taken."""
+    assert prefill_route(dtype) == want
+
+
+def _mma_prefill_model(q, k, v, *, causal, tile=64):
+    """The tensor-core prefill's arithmetic in plain PyTorch: bf16 inputs,
+    S in fp32, KV in 64-key tiles with the online rescale, l summed from
+    the fp32 P, P rounded to bf16 before P·V (fp32 sums), the output
+    rounded to bf16."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    mask = -0.7 * float(np.finfo(np.float32).max)
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(Hq // Hkv, 1) for t in (k, v))
+    m = torch.full((B, Hq, Sq), mask)
+    l = torch.zeros(B, Hq, Sq)
+    acc = torch.zeros(B, Hq, Sq, d)
+    for k0 in range(0, Sk, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) / math.sqrt(d)
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])
+            s = s.masked_fill(keys[None, :] > torch.arange(Sq)[:, None],
+                              mask)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-20)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=["9-3-d64", "4-1-d16"])
+@pytest.mark.parametrize("Sq", [5, 16, 40])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mma_prefill_arithmetic_meets_the_bf16_bar(layout, Sq, causal):
+    """Rounding P to bf16 before P·V (the tensor-core kernel's one
+    departure from the Pallas kernel, which multiplies P·V in fp32) stays
+    within the bf16 bar against the reference's kernel (interpret mode,
+    one block) on bf16 inputs."""
+    B, Hq, Hkv, d = layout
+    rng = np.random.default_rng(100 + Sq + d)
+    arrays = [_normal(rng, B, h, Sq, d) for h in (Hq, Hkv, Hkv)]
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    got = _mma_prefill_model(q, k, v, causal=causal)
+    want = ref_fa.flash_attention(
+        *(jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays),
+        causal=causal, block_q=Sq, block_k=Sq, interpret=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, dtype=np.float32), **BF16)
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +255,43 @@ def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, Sq, Sk, d, causal,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert got.dtype == dtype
     assert _lib.counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,d", [(16, 16), (40, 40), (64, 64),
+                                 (128, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_mma_one_hot_values_bit_for_bit(S, d, causal):
+    """V one-hot in d (key j writes column perm[j]) and scores that are
+    either 0 or -65536·scale (q = 256·e_a, k = -256·e_b), so every weight
+    is exactly 0 or 1/n: the bf16 kernel equals its plain version bit for
+    bit, and a wrong ldmatrix (transposed) layout shows as moved columns."""
+    dev = _needs_card()
+    rng = np.random.default_rng(S + d + causal)
+    B, Hq, Hkv = 2, 4, 2
+    q = torch.zeros(B, Hq, S, d)
+    k = torch.zeros(B, Hkv, S, d)
+    v = torch.zeros(B, Hkv, S, d)
+    for bh in np.ndindex(B, Hq):
+        q[bh][torch.arange(S), torch.from_numpy(rng.integers(0, d, S))] = 256
+    for bh in np.ndindex(B, Hkv):
+        k[bh][torch.arange(S), torch.from_numpy(rng.integers(0, d, S))] = -256
+        v[bh][torch.arange(S), torch.from_numpy(rng.permutation(d)[:S])] = 1
+    q, k, v = (t.to(dev, torch.bfloat16) for t in (q, k, v))
+    got = flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, causal=causal))
+    assert _lib.routes()["flash_attention"] == {MMA: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_its_route(dtype):
+    dev = _needs_card()
+    q, k, v = _cuda_inputs(dev, dtype, 7, (2, 9, 64, 64), (2, 3, 64, 64),
+                           (2, 3, 64, 64))
+    flash_attention(q, k, v)
+    assert _lib.routes()["flash_attention"] == {
+        prefill_route(dtype): 1}
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ import repro_torch
 from repro_torch.configs import load_config, reduced
 from repro_torch.core import DeviceFIFO
 from repro_torch.core import engine as port_engine
+from repro_torch.dataflow.options import CompileOptions
+from repro_torch.dataflow.passes import CompileContext
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import init_cache, init_params
 from repro_torch.workloads import make_spmv
@@ -123,3 +125,19 @@ def test_device_fifo_without_cuda_raises_unless_cpu_is_asked_for():
     state = DeviceFIFO(2, 3).init()
     assert {state.buf.device, state.head.device, state.count.device} \
         == {torch.device("cpu")}
+
+
+def test_compile_context_follows_the_device_policy():
+    """A CompileContext built without a device takes the port's default —
+    the card unless the CPU is asked for — never the CPU on its own."""
+    def ctx():
+        return CompileContext(fn=abs, example_args=(),
+                              options=CompileOptions())
+    repro_torch.set_device("cpu")
+    assert ctx().device == torch.device("cpu")
+    repro_torch.set_device(None)
+    if torch.cuda.is_available():
+        assert ctx().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ctx()

@@ -28,6 +28,7 @@ from repro.kernels.decoupled_gather import \
 from repro_torch.kernels import (_lib, decoupled_gather, decoupled_gather_ref,
                                  decoupled_gather_staged, matmul, ops, ref,
                                  rmsnorm)
+from repro_torch.kernels import dataflow_matmul as dm
 
 _RNG = np.random.default_rng(42)
 _DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -213,6 +214,43 @@ def test_wrappers_reject_bad_shapes():
                          torch.zeros(4, 3))
 
 
+def _misaligned(rows, cols, dtype):
+    """A contiguous (rows, cols) view whose base is 2 bytes past 16."""
+    return torch.empty(rows * cols + 1, dtype=dtype)[1:].view(rows, cols)
+
+
+@pytest.mark.parametrize("x,w,want", [
+    # phase 7 of chip_smoke.py: smollm-135m's two MLP products; 4096 rows
+    # in 32 tiles, so N = 1536 in 192-wide tiles is 256 tiles (2 waves of
+    # 132) and N = 576 is 96 (one wave)
+    ((4096, 576, "bf16"), (576, 1536, "bf16"), (dm.WGMMA, 192)),
+    ((4096, 1536, "bf16"), (1536, 576, "bf16"), (dm.WGMMA, 192)),
+    ((128, 128, "bf16"), (128, 128, "bf16"), (dm.WGMMA, 64)),
+    ((4096, 576, "f32"), (576, 1536, "f32"), (dm.CUDA_CORE, None)),
+    ((257, 129, "bf16"), (129, 512, "bf16"), (dm.CUDA_CORE, None)),
+    ((257, 128, "bf16"), (128, 511, "bf16"), (dm.CUDA_CORE, None)),
+    ((3, 0, "bf16"), (0, 8, "bf16"), (dm.CUDA_CORE, None)),
+    ("misaligned", (128, 256, "bf16"), (dm.CUDA_CORE, None)),
+], ids=["phase7-in", "phase7-out", "one-tile", "fp32", "K=129", "N=511",
+        "K=0", "misaligned-x"])
+def test_matmul_route_is_chosen_from_shape_dtype_and_alignment(x, w, want):
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}
+    xt = (_misaligned(64, 128, torch.bfloat16) if x == "misaligned"
+          else torch.empty(x[:2], dtype=dtype[x[2]]))
+    wt = torch.empty(w[:2], dtype=dtype[w[2]])
+    assert dm.route(xt, wt) == dm.Route(*want)
+
+
+def test_matmul_route_fills_whole_waves():
+    """The wgmma tile width is the one with the fewest waves x width; the
+    widest wins a tie, and fewer SMs take fewer, wider tiles."""
+    x = torch.empty(4096, 576, dtype=torch.bfloat16)
+    w = torch.empty(576, 1536, dtype=torch.bfloat16)
+    assert dm.route(x, w).block_n == 192        # 256 tiles: 2 waves of 132
+    assert dm.route(x, w, sms=384).block_n == 128   # 384 tiles: 1 wave
+    assert dm.route(x, w, sms=1).block_n == 256
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels against their plain versions (skip without a card)
 # ---------------------------------------------------------------------------
@@ -247,6 +285,48 @@ def test_matmul_kernel_matches_plain(M, K, N, dtype, out):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert got.dtype == want.dtype
     assert _lib.counts()["dataflow_matmul"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n", dm.BLOCK_NS)
+@pytest.mark.parametrize("M,K", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("tiles", [1, 2])
+def test_matmul_wgmma_selects_columns_bit_for_bit(block_n, M, K, tiles):
+    """w selects columns of x (one 1 per column), x is an integer ramp
+    exact in bf16: out is x[:, sel] bit for bit, so a wrong shared-memory
+    descriptor or swizzle shows as a permutation, not as noise."""
+    dev = _needs_card()
+    N = block_n * tiles
+    rng = np.random.default_rng(block_n + M + K + tiles)
+    sel = torch.from_numpy(rng.integers(0, K, N)).to(dev)
+    ramp = torch.arange(M * K, device=dev).reshape(M, K) % 241 - 120
+    x = ramp.to(torch.bfloat16)
+    w = torch.zeros(K, N, dtype=torch.bfloat16, device=dev)
+    w[sel, torch.arange(N, device=dev)] = 1
+    for out in (torch.bfloat16, torch.float32):
+        got = dm._launch(x, w, out, dm.Route(dm.WGMMA, block_n))
+        assert torch.equal(got, x[:, sel].to(out))
+    assert _lib.routes()["dataflow_matmul"] == {dm.WGMMA: 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (4096, 576, 1536, "bf16"), (4096, 1536, 576, "bf16"),
+    (100, 72, 200, "bf16"), (4096, 576, 1536, "f32"),
+    (257, 129, 511, "bf16"), (3, 0, 8, "bf16")])
+def test_matmul_kernel_takes_its_route(M, K, N, dtype):
+    dev = _needs_card()
+    x = _cuda_pair(dev, (M, K), dtype, M)
+    w = _cuda_pair(dev, (K, N), dtype, N)
+    got = matmul(x, w)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want_route = dm.route(x, w, sms=sms)
+    assert _lib.routes()["dataflow_matmul"] == {want_route.design: 1}
+    assert (want_route.design == dm.WGMMA) == (
+        dtype == "bf16" and K % 8 == 0 and N % 8 == 0 and K > 0)
+    tol = (MATMUL_TOL["f32"] if dtype == "f32" else KERNEL_MATMUL_BF16_TOL)
+    torch.testing.assert_close(got.float(), ref.matmul_ref(x, w).float(),
+                               **tol)
 
 
 @pytest.mark.cuda
