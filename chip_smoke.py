@@ -8,14 +8,17 @@ Phases, one line (or block) each:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    (one ``nvcc`` per ``src/repro_torch/csrc/*.cu``, all at once), then the
-   tensor-core instructions in the built code: ``cuobjdump -sass`` (beside
+   instructions the Hopper designs compile to: ``cuobjdump -sass`` (beside
    ``nvcc``) must find ``HGMMA`` in ``dataflow_matmul``'s library (its
-   wgmma route) and ``HMMA`` in ``flash_attention``'s (its bf16 prefill);
-   without ``cuobjdump`` it prints "SASS not checked";
+   wgmma route), ``HMMA`` in ``flash_attention``'s (its bf16 prefill) and
+   the bulk copy ``UBLKCP`` in ``spmv_bsr``'s and ``flash_attention``'s
+   (the SpMV ring and the decode ring); without ``cuobjdump`` it prints
+   "SASS not checked";
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes (kernel times are CUDA-graph replays, so the
    host's enqueue time is left out) — ``spmv_bsr`` on the Table-I BSR matrix
-   (512, 32, 8, 128) within rtol=atol=1e-4 (fp32 sums in another order),
+   (512, 32, 8, 128), which must take the bulk-copy ring
+   (``spmv_route``), within rtol=atol=1e-4 (fp32 sums in another order),
    ``running_max`` bit for bit at 2^20 and odd sizes, int32 and int64,
    values above 2^31 — with median CUDA-event times of the kernel, the
    plain version and one PyTorch library call (``torch.mv`` on the dense
@@ -24,7 +27,8 @@ Phases, one line (or block) each:
    card, ``compile(..., loop=True)``, ``report()`` (5 stages), the
    ``sequential`` and ``emulated`` backends over the first row's
    nonzeros against the plain loop, and ``ops.spmv`` on the whole matrix
-   against a float64 dense product on the host (rtol=atol=1e-4);
+   against a float64 dense product on the host (rtol=atol=1e-4); every
+   ``spmv_bsr`` launch of phases 3-4 on the bulk-copy ring;
 4. Fig. 5, SpMV, ACP: the dataflow and conventional machines simulated
    over all 4,194,304 iterations with the ``torch`` engine (the solver's
    running max on the card), again with the ``numpy`` engine; the cycles
@@ -35,9 +39,10 @@ Phases, one line (or block) each:
    of tests/test_kernels.py) and once in fp32 (rtol=atol=1e-4) —
    ``flash_attention`` causal on q (8, 9, 512, 64) and k/v (8, 3, 512,
    64), ``decode_attention`` on q (8, 9, 64) against (8, 3, 552, 64)
-   caches at length 513 and at ragged lengths — with median CUDA-event
-   times of the kernel, the plain version and
-   ``F.scaled_dot_product_attention`` (GQA, causal or length-masked);
+   caches at length 513 and at ragged lengths, in clusters of
+   ``decode_split(8, 3, 552, SMs)`` CTAs — with median CUDA-event times of
+   the kernel, the plain version and ``F.scaled_dot_product_attention``
+   (GQA, causal or length-masked);
 6. the serving path: SmolLM-135M at full width (30 layers, d_model 576,
    random weights from seed 0), 8 requests of 512 tokens, 32 new tokens
    each.  (a) In fp32, ``attn_impl="pallas"`` against ``"full"``: the
@@ -49,11 +54,13 @@ Phases, one line (or block) each:
    logits of (a) (30 bf16 layers amplify a one-ulp difference in one
    attention output to about 2 % of max|logits|); every prefill launch
    of the served batch must take the tensor-core route (``mma.sync``,
-   counted by the wrapper in ``_lib.ROUTES``); the share of greedy
-   tokens that agree is printed, and one decode step is traced with
-   ``torch.profiler``: its device busy time over the untraced step's
-   host time is the device's busy share; one prefill is traced too, for
-   its device busy time and its attention kernels' share of it;
+   counted by the wrapper in ``_lib.ROUTES``) and every decode launch the
+   cluster split of phase 5; the share of greedy tokens that agree is
+   printed, and one decode step is traced with ``torch.profiler``: its
+   device busy time over the untraced step's host time is the device's
+   busy share, and its ``decode_attention`` kernels' time is printed; one
+   prefill is traced too, for its device busy time and its attention
+   kernels' share of it;
 7. the kernel API at SmolLM-135M's full width, on phase 6's bf16 model
    (seed 0) and prompt tokens.  Driven once with the launch counts set
    to 0: ``decoupled_gather`` of the 4,096 tokens' rows of the embedding
@@ -229,7 +236,7 @@ def main() -> None:
     from repro_torch.core.simulator import acp
     from repro_torch.kernels import _lib, ops, ref
     from repro_torch.kernels.scan import running_max
-    from repro_torch.kernels.spmv import csr_to_bsr, spmv_bsr
+    from repro_torch.kernels.spmv import RING, csr_to_bsr, spmv_bsr, spmv_route
     from repro_torch.workloads import make_spmv
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 yardstick
@@ -264,6 +271,9 @@ def main() -> None:
     # -- 2. each kernel against its plain version ------------------------------
     vals, cols, x = (state["bsr_values"], state["bsr_col_ids"], state["x"])
     nbr, nnz, bm, bk = vals.shape
+    spmv_design = spmv_route(vals, x)
+    require(spmv_design == RING, f"the Table-I matrix takes {spmv_design}, "
+            f"not the bulk-copy ring")
     y_k = spmv_bsr(vals, cols, x)
     y_p = ref.spmv_bsr_ref(vals, cols, x, nbr * bm)
     torch.cuda.synchronize()
@@ -281,7 +291,7 @@ def main() -> None:
                   + nbr * bm * 4)
     spmv_ops = 2 * valid * bm * bk
     spmv_row = {
-        "name": "spmv_bsr", "route": "cuda", "design": "cuda-core fp32",
+        "name": "spmv_bsr", "route": "cuda", "design": spmv_design,
         "source": "src/repro_torch/csrc/spmv_bsr.cu",
         "replaces": "src/repro/kernels/spmv.py:56",
         "max_abs_err": spmv_err,
@@ -292,7 +302,8 @@ def main() -> None:
         **_bound(spmv_bytes, spmv_ops),
     }
     del dense
-    print(f"[2] spmv_bsr {tuple(vals.shape)}: max|kernel-plain| "
+    print(f"[2] spmv_bsr {tuple(vals.shape)}, route {spmv_design!r}: "
+          f"max|kernel-plain| "
           f"{spmv_err:.3g} (rtol=atol=1e-4), kernel {spmv_row['ms']:.4f} ms, "
           f"plain {spmv_row['plain_ms']:.4f} ms, torch.mv dense "
           f"{spmv_row['library_ms']:.4f} ms, bound {spmv_row['bound_ms']:.4f}"
@@ -423,6 +434,9 @@ def main() -> None:
             "Fig. 5 cycles differ from the reference's")
 
     spmv_launches = _lib.counts()
+    require(_lib.routes()["spmv_bsr"] == {RING: spmv_launches["spmv_bsr"]},
+            f"phases 3-4 spmv_bsr launches by design: "
+            f"{_lib.routes()['spmv_bsr']}, expected all on {RING}")
 
     # -- 5. the attention kernels against their plain versions ---------------
     fa_row, da_row = attention_kernels(dev)
@@ -461,6 +475,8 @@ def attention_kernels(dev) -> tuple[dict, dict]:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (decode_attention,
+                                                    decode_design,
+                                                    decode_split,
                                                     flash_attention)
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -525,9 +541,11 @@ def attention_kernels(dev) -> tuple[dict, dict]:
     mask = (torch.arange(MAX_LEN, device=dev)[None, :]
             < first[:, None])[:, None, None, :]
     valid = int(first.sum())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = decode_split(B, HKV, MAX_LEN, sms)
     da_row = {
         "name": "decode_attention", "route": "cuda",
-        "design": "cuda-core fp32",
+        "design": decode_design(split),
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:178",
         "max_abs_err": max(errs[bf16, "513"], errs[bf16, "ragged"]),
@@ -540,7 +558,8 @@ def attention_kernels(dev) -> tuple[dict, dict]:
                  4 * HQ * valid * D, BF16_TC_OPS_PER_S),
     }
     print(f"[5] decode_attention bf16 q {tuple(qd.shape)} caches "
-          f"{tuple(kc.shape)}: max|kernel-plain| {errs[bf16, '513']:.3g} at "
+          f"{tuple(kc.shape)}, {da_row['design']!r} ({split} CTAs per "
+          f"cluster on {sms} SMs): max|kernel-plain| {errs[bf16, '513']:.3g} at "
           f"length 513, {errs[bf16, 'ragged']:.3g} ragged {ragged.tolist()} "
           f"(rtol=atol=2e-2; fp32 {errs[f32, '513']:.3g} / "
           f"{errs[f32, 'ragged']:.3g} at 1e-4), kernel {da_row['ms']:.4f} "
@@ -559,6 +578,8 @@ def serve_smollm(dev) -> tuple[dict, dict]:
     import torch
     from repro_torch.configs import load_config
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (decode_design,
+                                                    decode_split)
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models import decode_step, init_params, prefill
 
@@ -620,6 +641,13 @@ def serve_smollm(dev) -> tuple[dict, dict]:
                                           launches["flash_attention"]},
             f"bf16 prefill launches by design: {routes['flash_attention']}, "
             f"expected all {launches['flash_attention']} on mma.sync")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = decode_design(decode_split(SERVE_BATCH, cfg.num_kv_heads,
+                                       MAX_LEN, sms))
+    require(routes["decode_attention"] == {split:
+                                           launches["decode_attention"]},
+            f"decode launches by design: {routes['decode_attention']}, "
+            f"expected all {launches['decode_attention']} on {split!r}")
     require(err <= max(2e-2 * scale, noise),
             f"bf16 prefill logits, pallas vs full: max |Δ| {err} > both "
             f"2e-2 * {scale} and the plain path's bf16 error {noise}")
@@ -637,12 +665,14 @@ def serve_smollm(dev) -> tuple[dict, dict]:
           f"greedy tokens agreeing with full {agree:.4f}; launches "
           f"flash_attention {launches['flash_attention']} (by design "
           f"{dict(routes['flash_attention'])}), decode_attention "
-          f"{launches['decode_attention']}", flush=True)
+          f"{launches['decode_attention']} (by design "
+          f"{dict(routes['decode_attention'])})", flush=True)
     cp = dataclasses.replace(cfg, attn_impl="pallas")
     with torch.inference_mode():
         logits, cache = prefill(params, tokens, cp, MAX_LEN)
-        busy, wall, _ = device_busy_ms(lambda: decode_step(
-            params, logits.argmax(-1), cache, PROMPT_LEN, cp), "decode_step")
+        busy, wall, dec_attn = device_busy_ms(lambda: decode_step(
+            params, logits.argmax(-1), cache, PROMPT_LEN, cp), "decode_step",
+            "decode_kernel")
         pre_busy, pre_wall, pre_attn = device_busy_ms(
             lambda: prefill(params, tokens, cp, MAX_LEN), "prefill",
             "prefill_mma_kernel")
@@ -651,7 +681,9 @@ def serve_smollm(dev) -> tuple[dict, dict]:
           + ("device busy not measured (no device spans in the trace)"
              if busy is None else f"device busy {busy:.3f} ms = "
              f"{100 * busy / decode_ms:.1f} % of the untraced "
-             f"{decode_ms:.3f} ms step"), flush=True)
+             f"{decode_ms:.3f} ms step, of which the "
+             f"{cfg.num_layers} decode_attention kernels {dec_attn:.4f} ms"),
+          flush=True)
     print(f"[6b] one prefill under torch.profiler: host {pre_wall:.3f} ms "
           f"with the profiler's cost, "
           + ("device busy not measured (no device spans in the trace)"
@@ -864,15 +896,18 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
 
 
 def check_sass() -> str:
-    """Phase 1: count the tensor-core instructions in the SASS of the
-    built libraries; each tensor-core route must have compiled to them."""
+    """Phase 1: count the Hopper instructions in the SASS of the built
+    libraries: each tensor-core route must have compiled to its matrix
+    instructions, and each ring to the bulk copy (``UBLKCP``)."""
     from repro_torch.kernels import _lib
     tool = os.path.join(os.path.dirname(_lib._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return "SASS not checked (no cuobjdump beside nvcc)"
     found = []
-    for name, op in (("dataflow_matmul", "HGMMA"), ("flash_attention",
-                                                    "HMMA")):
+    for name, op in (("dataflow_matmul", "HGMMA"),
+                     ("flash_attention", "HMMA"),
+                     ("flash_attention", "UBLKCP"),
+                     ("spmv_bsr", "UBLKCP")):
         sass = subprocess.run([tool, "-sass", str(_lib._lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout

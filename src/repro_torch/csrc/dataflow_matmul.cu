@@ -64,6 +64,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 16;  // output tile and k step
@@ -294,44 +296,6 @@ struct Cfg {
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + 1024-B alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // One 2-D TMA box of `map` at (c0 innermost, c1) into shared memory; the
 // bytes complete a transaction on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -449,7 +413,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const int s = kt % STAGES;
         mbar_wait(smem_u32(&empty[s]), ((kt / STAGES) & 1) ^ 1);
         const uint32_t a = ring + s * STAGE, bar = smem_u32(&full[s]);
-        mbar_expect_tx(bar, STAGE);
+        mbar_arrive_expect_tx(bar, STAGE);
         tma_load(a, &xmap, bar, kt * BK, m0);
 #pragma unroll
         for (int j = 0; j < NB; ++j)

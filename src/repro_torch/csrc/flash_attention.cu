@@ -14,7 +14,7 @@
 // 9 query heads over 3 kv heads, d = 64, 512-token prompts) prefill reads
 // ~12.6 MB and does ~2.4 GFLOP, so the least time is set by the bytes and
 // is a few microseconds; a one-token decode step reads the valid cache
-// prefix (~3.2 MB at batch 8), under a microsecond.
+// prefix (~3.2 MB at batch 8), under a microsecond at the HBM rate.
 //
 // The TPU kernel walks the KV axis as the last, sequential grid dimension
 // and carries (m, l, acc) in VMEM scratch from one step to the next.
@@ -49,23 +49,44 @@
 // contiguous span of a tile row and the shared-memory loads are free of
 // bank conflicts.
 //
-// Decode design.  Scalar prefetch of the lengths becomes a plain load of
-// lengths[b] by the block.  One block per (query head, batch), sixteen
-// warps; warp w takes the 32-key tiles w, w+16, ... below the length
-// (tiles at or past it are never touched), one key per lane for the dot
-// product, then the warp's online-softmax update and its P·V with each
-// lane owning DMAX/32 output dims, its V loads batched so they are in
-// flight together.  The warps' (m, l, acc) are combined in shared memory
-// at the end.  A length of 0 gives zeros, as the Pallas kernel does.
+// Decode design.  A one-token step is bound by the bytes of the valid
+// cache prefix, and at serving sizes by the latency of reading them: few
+// blocks, or reads repeated per query head, leave the card waiting.  One
+// thread-block cluster of C <= 8 CTAs serves one (kv head, sequence) and
+// the query heads of its group (the whole group up to 4, else 8 at a
+// time: the head count is a template parameter, so the per-head loops
+// unroll without branches), so each cache byte is read once per group
+// and B*Hkv*C CTAs fill the card (C from the wrapper's `decode_split`).
+// Scalar prefetch of the lengths becomes a load of lengths[b] by each
+// CTA; rank r takes the contiguous keys [r*chunk, min((r+1)*chunk, len)),
+// chunk = ceil(len / C) rounded up to 8 keys, and never touches a key at
+// or past the length.  A producer warp streams the range's K and V tiles
+// of up to 64 keys (contiguous in the (B, Hkv, S, d) caches) through a
+// ring of 2-4 stages in shared memory by 1-D bulk copies (cp.async.bulk)
+// on full/empty mbarriers, its first copies issued before anything else,
+// so every load of a short range is in flight at once.  The arithmetic
+// stays fp32 on the CUDA cores: each of eight compute warps takes 8 keys
+// of every tile (four lanes a key for the scores, the K row read once for
+// all heads), keeps its own online-softmax (m, l, acc) per head in
+// registers, and needs no block barrier inside the key loop.  The warps
+// are combined in shared memory; each rank pushes its (m, l, acc) into
+// rank 0's shared memory (distributed shared memory) and arrives at a
+// cluster barrier; rank 0 waits, combines the ranks and writes the
+// output.  One launch, no workspace in device memory, no atomics; an
+// empty range leaves (mask, 0, 0), and a length of 0 gives zeros, as the
+// Pallas kernel does.
 //
 // Every entry point takes device pointers and a stream, launches on that
 // stream without synchronising, and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -278,15 +299,11 @@ struct MmaPrefill {
   static constexpr int SMEM = 5 * TILE * 2;            // Q, K[2], V[2]
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared; `bytes` 0 zero-fills the chunk.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(smem)),
+                   smem_u32(smem)),
                "l"(gmem), "r"(bytes)
                : "memory");
 }
@@ -420,7 +437,7 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       // Q's A fragments: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15)
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(smem_addr(qs + (16 * warp + lane % 8 + 8 * (lane / 8 % 2)) *
+        ldsm_x4(smem_u32(qs + (16 * warp + lane % 8 + 8 * (lane / 8 % 2)) *
                                    LD +
                           16 * kk + 8 * (lane / 16)),
                 qf[kk]);
@@ -439,7 +456,7 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j2 = 0; j2 < 4; ++j2) {
         uint32_t r[4];  // keys 16j2 + (0-7 | 8-15) x d (lo | hi)
-        ldsm_x4(smem_addr(kt + (16 * j2 + lane % 8 + 8 * (lane / 16)) * LD +
+        ldsm_x4(smem_u32(kt + (16 * j2 + lane % 8 + 8 * (lane / 16)) * LD +
                           16 * kk + 8 * (lane / 8 % 2)),
                 r);
         mma_16816(s[2 * j2], qf[kk], r[0], r[1]);
@@ -500,7 +517,7 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int j2 = 0; j2 < ND / 2; ++j2) {
         uint32_t r[4];  // keys 16kk + (0-7 | 8-15) x d 16j2 + (lo | hi)
-        ldsm_x4_trans(smem_addr(vt + (16 * kk + lane % 8 +
+        ldsm_x4_trans(smem_u32(vt + (16 * kk + lane % 8 +
                                       8 * (lane / 8 % 2)) * LD +
                                 16 * j2 + 8 * (lane / 16)),
                       r);
@@ -582,137 +599,363 @@ int launch_prefill_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// Decode
+// Decode: one thread-block cluster per (kv head, sequence), split over S
 // ---------------------------------------------------------------------------
 
-constexpr int kDecodeWarps = 16;
-constexpr int kVRows = 16;  // V rows a lane holds in registers at once
+constexpr int kDecodeWarps = 8;  // compute warps; one more fills the ring
+constexpr int kDecodeThreads = 32 * (kDecodeWarps + 1);
+constexpr int kDecodeTile = 64;  // keys per ring stage
+constexpr int kWarpKeys = kDecodeTile / kDecodeWarps;  // 8: four lanes a key
+constexpr int kMaxCluster = 8;
+constexpr int kKeyGranule = 8;   // a CTA's key range starts on 8 keys
+constexpr int kDecodeRing = 64 * 1024;  // ring bytes aimed at
+constexpr int kMaxStages = 4;
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Shared memory of one decode CTA, in bytes from its base: the full and
+// empty barriers, the K/V ring, fp32 q of the cluster's GM heads, each
+// compute warp's probabilities and (m, l, acc), and — used in rank 0 —
+// every rank's (m, l, acc).
+struct DecodeSmem {
+  int stages, stage, ring, q, p, wm, wl, wacc, cm, cl, cacc, bytes;
+};
+
+__host__ __device__ inline DecodeSmem decode_smem(int GM, int d, int esize) {
+  constexpr int NW = kDecodeWarps, KW = kWarpKeys, CM = kMaxCluster;
+  DecodeSmem L;
+  L.stage = 2 * kDecodeTile * d * esize;  // K and V tiles
+  L.stages = kDecodeRing / L.stage;
+  L.stages = L.stages < 2 ? 2 : (L.stages > kMaxStages ? kMaxStages
+                                                       : L.stages);
+  L.ring = 128;  // after 2 * kMaxStages barriers
+  L.q = L.ring + L.stages * L.stage;
+  L.p = L.q + 4 * GM * d;
+  L.wm = L.p + 4 * NW * KW * GM;
+  L.wl = L.wm + 4 * NW * GM;
+  L.wacc = L.wl + 4 * NW * GM;
+  L.cm = L.wacc + 4 * NW * GM * d;
+  L.cl = L.cm + 4 * CM * GM;
+  L.cacc = L.cl + 4 * CM * GM;
+  L.bytes = L.cacc + 4 * CM * GM * d;
+  return L;
+}
+
+// grid (C, Hkv * ceil(G / GM), B), clusters of (C, 1, 1): the cluster of
+// (kv head hk, head chunk, sequence b) carries GM query heads of hk's group
+// (those past the group compute on zeros and are not written); its rank r
+// takes the keys [r*chunk, min((r+1)*chunk, len)), chunk = ceil(len / C)
+// rounded up to kKeyGranule.
+template <typename T, int DMAX, int GM>
+__global__ void __launch_bounds__(kDecodeThreads, 1)  // no spills at GM = 8
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lengths,
               T* __restrict__ o, int Hq, int Hkv, int S, int d, float scale) {
-  constexpr int NW = kDecodeWarps, DPL = DMAX / 32;  // output dims per lane
-  __shared__ __align__(16) float qs[DMAX];
-  __shared__ float wm[NW], wl[NW];
-  __shared__ float wacc[NW][DMAX];
+  constexpr int NW = kDecodeWarps, NT = kDecodeThreads, TK = kDecodeTile;
+  constexpr int KW = kWarpKeys;
+  constexpr int DQ = DMAX / 4;    // score pass: dims of a lane (4 a key)
+  constexpr int DPL = DMAX / 32;  // P.V: output dims a lane owns
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) unsigned char smem[];
 
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = Hq / Hkv, chunks = (G + GM - 1) / GM;
+  const int hk = blockIdx.y / chunks, h0 = blockIdx.y % chunks * GM;
+  const int Gc = min(GM, G - h0), b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int hk = h / (Hq / Hkv);
+  const DecodeSmem L = decode_smem(GM, d, sizeof(T));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  float* p_s = reinterpret_cast<float*>(smem + L.p);
+  float* wm_s = reinterpret_cast<float*>(smem + L.wm);
+  float* wl_s = reinterpret_cast<float*>(smem + L.wl);
+  float* wacc_s = reinterpret_cast<float*>(smem + L.wacc);
+  float* cm_s = reinterpret_cast<float*>(smem + L.cm);
+  float* cl_s = reinterpret_cast<float*>(smem + L.cl);
+  float* cacc_s = reinterpret_cast<float*>(smem + L.cacc);
+  // paired with the wait before the push into rank 0: every CTA of the
+  // cluster has started before any writes into another's shared memory
+  cluster_arrive_relaxed();
+
+  // this CTA's keys: the length stays on the device
   const int len = min(max(lengths[b], 0), S);
-  const T* qp = q + static_cast<size_t>(b * Hq + h) * d;
-  const T* kp = kc + static_cast<size_t>(b * Hkv + hk) * S * d;
-  const T* vp = vc + static_cast<size_t>(b * Hkv + hk) * S * d;
-  for (int i = tid; i < DMAX; i += NW * 32)
-    qs[i] = i < d ? to_float(qp[i]) : 0.f;
+  const int chunk =
+      ((len + C - 1) / C + kKeyGranule - 1) / kKeyGranule * kKeyGranule;
+  const int k0 = min(rank * chunk, len), k1 = min(k0 + chunk, len);
+  const int ntiles = (k1 - k0 + TK - 1) / TK;
+  const size_t slab = static_cast<size_t>(b * Hkv + hk) * S * d;
+  const uint32_t row_bytes = d * sizeof(T);
+  // the access stage: tile t, keys [k0 + t*TK, ...) of both caches, by 1-D
+  // bulk copies into stage t % stages
+  const auto issue = [&](int t) {
+    const int st = t % L.stages, first = k0 + t * TK;
+    const uint32_t bytes = min(TK, k1 - first) * row_bytes;
+    const uint32_t bar = smem_u32(&full[st]);
+    const uint32_t dst = smem_u32(smem + L.ring + st * L.stage);
+    mbar_arrive_expect_tx(bar, 2 * bytes);
+    bulk_copy(dst, kc + slab + static_cast<size_t>(first) * d, bytes, bar);
+    bulk_copy(dst + L.stage / 2, vc + slab + static_cast<size_t>(first) * d,
+              bytes, bar);
+  };
+
+  if (warp == NW) {
+    if (lane == 0) {  // the first loads go out before anything else
+      for (int st = 0; st < L.stages; ++st) {
+        mbar_init(smem_u32(&full[st]), 1);    // the producer
+        mbar_init(smem_u32(&empty[st]), NW);  // lane 0 of each warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int t = 0; t < min(ntiles, L.stages); ++t) issue(t);
+    }
+  } else {
+    const T* qp = q + (static_cast<size_t>(b) * Hq + hk * G + h0) * d;
+    for (int i = tid; i < GM * d; i += NW * 32)
+      q_s[i] = i < Gc * d ? to_float(qp[i]) : 0.f;
+  }
   __syncthreads();
 
-  float m = kMask, l = 0.f, acc[DPL];
+  if (warp == NW) {
+    if (lane == 0) {
+      for (int t = L.stages; t < ntiles; ++t) {
+        mbar_wait(smem_u32(&empty[t % L.stages]), ((t / L.stages) & 1) ^ 1);
+        issue(t);
+      }
+    }
+  } else {
+    // -- execute stage: warp w takes keys [8w, 8w+8) of every tile, four
+    // lanes a key in the score pass, and keeps its own (m, l, acc) for
+    // every head in registers: no block barrier inside the key loop
+    const int kk = lane / 4, dq = lane % 4 * DQ;
+    float* pw = p_s + warp * KW * GM;  // the warp's probabilities [key][g]
+    float m[GM], l[GM], acc[GM][DPL];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  const int dim0 = lane * DPL;
-
-  for (int t0 = warp * 32; t0 < len; t0 += NW * 32) {
-    const int j = t0 + lane;
-    float s = kMask;
-    if (j < len) {
-      const T* kr = kp + static_cast<size_t>(j) * d;
-      float dot = 0.f;
+    for (int g = 0; g < GM; ++g) {
+      m[g] = kMask;
+      l[g] = 0.f;
 #pragma unroll
-      for (int c = 0; c < DMAX; c += 8) {
-        if (c < d) {
-          float kt[8];
-          load8(kr + c, kt);
+      for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % L.stages, j0 = warp * KW;
+      const int n = min(TK, k1 - k0 - t * TK);
+      mbar_wait(smem_u32(&full[st]), (t / L.stages) & 1);
+      if (j0 < n) {
+        const T* kt =
+            reinterpret_cast<const T*>(smem + L.ring + st * L.stage);
+        const T* vt = kt + TK * d;
+        const int j = j0 + kk;
+        float dot[GM];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qs[c + e], kt[e], dot);
+        for (int g = 0; g < GM; ++g) dot[g] = 0.f;
+#pragma unroll
+        for (int c = 0; c < DQ; c += 8) {
+          if (dq + c < d) {
+            float kv[8];
+            load8(kt + j * d + dq + c, kv);  // rows past n are masked below
+#pragma unroll
+            for (int g = 0; g < GM; ++g) {
+              float qv[8];
+              load8(q_s + g * d + dq + c, qv);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) dot[g] = fmaf(qv[e], kv[e], dot[g]);
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          float s = dot[g];
+          s += __shfl_xor_sync(kFull, s, 1);
+          s += __shfl_xor_sync(kFull, s, 2);
+          s = j < n ? s * scale : kMask;
+          float mt = s;
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
+          const float m_new = fmaxf(m[g], mt);  // key j0 < n is real
+          const float p = expf(s - m_new);      // 0 past n
+          float ps = p;
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            ps += __shfl_xor_sync(kFull, ps, off);
+          const float alpha = expf(m[g] - m_new);
+          l[g] = l[g] * alpha + ps;
+          m[g] = m_new;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) acc[g][i] *= alpha;
+          if (lane % 4 == 0) pw[kk * GM + g] = p;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int x = 0; x < KW; ++x) {  // all eight rows' loads at once
+          float v[DPL];  // rows past n: p is 0, and their bytes are unused
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            const int dim = lane * DPL + i;
+            const float vx = to_float(vt[(j0 + x) * d + min(dim, d - 1)]);
+            v[i] = j0 + x < n && dim < d ? vx : 0.f;
+          }
+#pragma unroll
+          for (int g = 0; g < GM; ++g) {
+            const float pk = pw[x * GM + g];
+#pragma unroll
+            for (int i = 0; i < DPL; ++i)
+              acc[g][i] = fmaf(pk, v[i], acc[g][i]);
+          }
         }
       }
-      s = dot * scale;
+      __syncwarp();  // the stage and pw are read: both may be rewritten
+      if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
     }
-    float mt = s;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
-    const float m_new = fmaxf(m, mt);  // real: key t0 < len is in the tile
-    const float p = expf(s - m_new);   // 0 for positions at or past len
-    float ps = p;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      ps += __shfl_xor_sync(kFull, ps, off);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + ps;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-    // P·V in two halves of kVRows keys: each half's V loads are issued
-    // together, ahead of its FMAs, so their latencies overlap
-#pragma unroll
-    for (int j0 = 0; j0 < 32; j0 += kVRows) {
-      float vv[kVRows][DPL];
-#pragma unroll
-      for (int jj = 0; jj < kVRows; ++jj) {
-        const bool ok = t0 + j0 + jj < len && dim0 < d;
-        const T* vr = vp + static_cast<size_t>(t0 + j0 + jj) * d + dim0;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) vv[jj][i] = ok ? to_float(vr[i]) : 0.f;
+    for (int g = 0; g < GM; ++g) {
+      if (lane == 0) {
+        wm_s[warp * GM + g] = m[g];  // a warp that saw no key: mask, 0, 0
+        wl_s[warp * GM + g] = l[g];
       }
 #pragma unroll
-      for (int jj = 0; jj < kVRows; ++jj) {
-        const float pj = __shfl_sync(kFull, p, j0 + jj);  // 0 past len
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pj, vv[jj][i], acc[i]);
+      for (int i = 0; i < DPL; ++i) {
+        const int dim = lane * DPL + i;
+        if (dim < d) wacc_s[(warp * GM + g) * d + dim] = acc[g][i];
       }
     }
-    m = m_new;
   }
-
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) wacc[warp][dim0 + i] = acc[i];
   __syncthreads();
-  if (tid < d) {
+
+  // the CTA's (m, l, acc) — its warps' combined — pushed into rank 0's
+  // shared memory (distributed shared memory); the barrier's release and
+  // acquire make the pushes visible to rank 0, and only rank 0 reads
+  cluster_wait();
+  float* cm0 = cluster.map_shared_rank(cm_s, 0);
+  float* cl0 = cluster.map_shared_rank(cl_s, 0);
+  float* cacc0 = cluster.map_shared_rank(cacc_s, 0);
+  for (int e = tid; e < Gc * d; e += NT) {
+    const int g = e / d, i = e - g * d;
     float mx = kMask;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, wm[w]);
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, wm_s[w * GM + g]);
     float lsum = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float f = expf(wm[w] - mx);  // 0 for a warp that saw no key
-      lsum += wl[w] * f;
-      a += wacc[w][tid] * f;
+      const float f = expf(wm_s[w * GM + g] - mx);
+      lsum += wl_s[w * GM + g] * f;
+      a += wacc_s[(w * GM + g) * d + i] * f;
     }
-    o[static_cast<size_t>(b * Hq + h) * d + tid] =
+    cacc0[rank * GM * d + e] = a;
+    if (i == 0) {
+      cm0[rank * GM + g] = mx;
+      cl0[rank * GM + g] = lsum;
+    }
+  }
+  cluster_arrive();
+  if (rank != 0) return;  // nothing reads this CTA's shared memory
+  cluster_wait();
+  for (int e = tid; e < Gc * d; e += NT) {
+    const int g = e / d;
+    float mx = kMask;
+    for (int r = 0; r < C; ++r) mx = fmaxf(mx, cm_s[r * GM + g]);
+    float lsum = 0.f, a = 0.f;
+    for (int r = 0; r < C; ++r) {
+      const float f = expf(cm_s[r * GM + g] - mx);  // 0 for an empty range
+      lsum += cl_s[r * GM + g] * f;
+      a += cacc_s[r * GM * d + e] * f;
+    }
+    o[(static_cast<size_t>(b) * Hq + hk * G + h0) * d + e] =
         from_float<T>(a / fmaxf(lsum, 1e-20f));
+  }
+}
+
+template <typename T, int DMAX, int GM>
+int launch_decode_g(const T* q, const T* k, const T* v, const int* lengths,
+                    T* o, int B, int Hq, int Hkv, int S, int d, float scale,
+                    int C, cudaStream_t st) {
+  auto kernel = decode_kernel<T, DMAX, GM>;
+  const DecodeSmem L = decode_smem(GM, d, sizeof(T));
+  // the opt-in to more than 48 KB of shared memory (as much as d = DMAX
+  // takes), once per device
+  static unsigned ready = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && !(ready >> dev & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_smem(GM, DMAX, sizeof(T)).bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready |= 1u << dev;
+  }
+  const int chunks = (Hq / Hkv + GM - 1) / GM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, Hkv * chunks, B);
+  cfg.blockDim = dim3(kDecodeThreads);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, q, k, v, lengths, o, Hq, Hkv, S, d,
+                         scale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the group's heads per cluster: the whole group up to 4 (the serving
+// path's 3 exactly), else clusters of 8
+template <typename T, int DMAX>
+int launch_decode_d(const T* q, const T* k, const T* v, const int* lengths,
+                    T* o, int B, int Hq, int Hkv, int S, int d, float scale,
+                    int C, cudaStream_t st) {
+  switch (Hq / Hkv) {
+#define DECODE_GROUP_CASE(N)                                                \
+  case N:                                                                   \
+    return launch_decode_g<T, DMAX, N>(q, k, v, lengths, o, B, Hq, Hkv, S, \
+                                       d, scale, C, st);
+    DECODE_GROUP_CASE(1)
+    DECODE_GROUP_CASE(2)
+    DECODE_GROUP_CASE(3)
+    DECODE_GROUP_CASE(4)
+#undef DECODE_GROUP_CASE
+    default:
+      return launch_decode_g<T, DMAX, 8>(q, k, v, lengths, o, B, Hq, Hkv, S,
+                                         d, scale, C, st);
   }
 }
 
 template <typename T>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* lengths, void* o, int B, int Hq, int Hkv, int S,
-                  int d, float scale, void* stream) {
+                  int d, float scale, int C, void* stream) {
+  if (C < 1 || C > 8) return static_cast<int>(cudaErrorInvalidValue);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const int* lt = static_cast<const int*>(lengths);
   T* ot = static_cast<T*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Hq, B);
-  const int threads = kDecodeWarps * 32;
-  if (d <= 32) {
-    decode_kernel<T, 32><<<grid, threads, 0, st>>>(qt, kt, vt, lt, ot, Hq,
-                                                   Hkv, S, d, scale);
-  } else if (d <= 64) {
-    decode_kernel<T, 64><<<grid, threads, 0, st>>>(qt, kt, vt, lt, ot, Hq,
-                                                   Hkv, S, d, scale);
-  } else {
-    decode_kernel<T, 128><<<grid, threads, 0, st>>>(qt, kt, vt, lt, ot, Hq,
-                                                    Hkv, S, d, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d <= 32)
+    return launch_decode_d<T, 32>(qt, kt, vt, lt, ot, B, Hq, Hkv, S, d,
+                                  scale, C, st);
+  if (d <= 64)
+    return launch_decode_d<T, 64>(qt, kt, vt, lt, ot, B, Hq, Hkv, S, d,
+                                  scale, C, st);
+  return launch_decode_d<T, 128>(qt, kt, vt, lt, ot, B, Hq, Hkv, S, d, scale,
+                                 C, st);
 }
 
 }  // namespace
@@ -737,18 +980,21 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                causal, stream);
 }
 
+// Decode in clusters of C in [1, 8] CTAs per (kv head, sequence), C chosen
+// by the wrapper (`decode_split`).
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const void* lengths,
                                      void* o, int B, int Hq, int Hkv, int S,
-                                     int d, float scale, void* stream) {
+                                     int d, float scale, int C,
+                                     void* stream) {
   return launch_decode<__nv_bfloat16>(q, k, v, lengths, o, B, Hq, Hkv, S, d,
-                                      scale, stream);
+                                      scale, C, stream);
 }
 
 extern "C" int decode_attention_f32(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* o, int B, int Hq, int Hkv, int S,
-                                    int d, float scale, void* stream) {
+                                    int d, float scale, int C, void* stream) {
   return launch_decode<float>(q, k, v, lengths, o, B, Hq, Hkv, S, d, scale,
-                              stream);
+                              C, stream);
 }

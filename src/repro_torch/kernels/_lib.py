@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Libraries go under ``build/repro_torch/<hash>/`` at
 the repository root (``.gitignore`` lists ``build/``), keyed by a hash of
-the source and the flags, and are built at first use.  :func:`build_all`
+the source, the shared headers (``csrc/*.cuh``) and the flags, and are
+built at first use.  :func:`build_all`
 starts one ``nvcc`` per source at once.
 
 Every C entry point takes device pointers and a stream as ``c_void_p``
@@ -13,7 +14,9 @@ raises on anything but 0.  ``LAUNCHES`` counts wrapper calls that launch
 a kernel, one entry per kernel, and ``ROUTES`` the same launches by the
 design they took, for the kernels with more than one (``dataflow_matmul``:
 ``"wgmma+tma"`` or ``"cuda-core fp32"``; ``flash_attention``:
-``"mma.sync"`` or ``"cuda-core fp32"``).  One source may hold several
+``"mma.sync"`` or ``"cuda-core fp32"``; ``spmv_bsr``: ``"bulk-copy ring"``
+or ``"scalar loads"``; ``decode_attention``: ``"cluster split-S ×C"``, C
+CTAs per cluster).  One source may hold several
 kernels (``flash_attention.cu`` holds prefill and decode attention).
 """
 
@@ -40,9 +43,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _PREFILL = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
-_DECODE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+_DECODE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
+_SPMV = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 SIGNATURES: dict[str, dict[str, list]] = {
-    "spmv_bsr": {"spmv_bsr_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "spmv_bsr": {"spmv_bsr_f32": _SPMV, "spmv_bsr_ring_f32": _SPMV},
     "running_max": {"running_max_i64": [_P, _P, _P, _L, _P],
                     "running_max_i32": [_P, _P, _P, _L, _P]},
     "flash_attention": {"flash_attention_bf16": _PREFILL,
@@ -67,8 +71,9 @@ SOURCES: dict[str, str] = {"decode_attention": "flash_attention"}
 #: launches per kernel since the last :func:`reset_counts`
 LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
 #: the same launches by design, for the kernels with more than one
-ROUTES: dict[str, Counter[str]] = {"dataflow_matmul": Counter(),
-                                   "flash_attention": Counter()}
+ROUTES: dict[str, Counter[str]] = {
+    k: Counter() for k in ("dataflow_matmul", "flash_attention",
+                           "decode_attention", "spmv_bsr")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -104,7 +109,9 @@ def _source(name: str) -> str:
 
 
 def _lib_path(source: str) -> Path:
-    src = (CSRC / f"{source}.cu").read_bytes()
+    # the headers every source may include (csrc/*.cuh) are part of the key
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{source}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(),
                           digest_size=8).hexdigest()
     return BUILD_ROOT / key / f"lib{source}.so"

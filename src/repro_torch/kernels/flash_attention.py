@@ -3,14 +3,22 @@
 Attention is the model stack's dominant "memory operation" in the
 paper's sense: at decode time the KV cache read is a long HBM stream
 feeding little compute.  The kernels stream K/V tiles through shared
-memory (the access stage) into an online softmax whose running state
-(m, l, acc) stays in registers (the execute stage), and read each KV
-head once per query head of its group.  See ``csrc/flash_attention.cu``.
+memory (the access stage) into an online softmax in fp32 (the execute
+stage): prefill reads each KV head once per query head of its group,
+decode once per group.  See ``csrc/flash_attention.cu``.
 
 Prefill has two designs, chosen by :func:`prefill_route` from the dtype:
 bf16 multiplies on the tensor cores (``"mma.sync"``, P rounded to bf16
 before P·V, as SDPA does), fp32 on the CUDA cores (``"cuda-core fp32"``,
 the serving path's exactness check).
+
+Decode runs one thread-block cluster per (sequence, kv head): its C CTAs
+split the valid keys into C contiguous ranges, stream each range's K and
+V through a bulk-copy ring once for the query heads of the group (the
+whole group up to 4 heads, else 8 at a time), and each rank pushes its
+(m, l, acc) into rank 0's shared memory (distributed shared memory),
+where rank 0 combines them, all in one launch.  :func:`decode_split`
+chooses C before the launch, from the shapes and the SM count.
 
 A CPU tensor takes the plain version (:func:`ref.flash_attention_ref`,
 :func:`ref.decode_attention_ref`); a CUDA tensor launches the kernel or
@@ -30,12 +38,37 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 MMA = "mma.sync"
 CUDA_CORE = "cuda-core fp32"
 
+#: keys per stage of the decode kernel's ring (``kDecodeTile``)
+DECODE_TILE = 64
+#: the most CTAs of one cluster that every Hopper card schedules
+MAX_CLUSTER = 8
+
 
 def prefill_route(dtype: torch.dtype) -> str:
     """The prefill design a CUDA launch takes: every bf16 shape the kernels
     take (d a multiple of 8 in [8, 128]) runs on the tensor cores, fp32 on
     the CUDA cores."""
     return MMA if dtype == torch.bfloat16 else CUDA_CORE
+
+
+def decode_split(B: int, Hkv: int, S: int, sm_count: int) -> int:
+    """CTAs per cluster of the decode kernel (one cluster per sequence and
+    kv head): the fewest, in powers of two, whose ``B * Hkv * C`` CTAs
+    fill ``sm_count`` SMs, while each CTA keeps at least one tile of
+    ``S`` (``C * DECODE_TILE <= S``), and never more than ``MAX_CLUSTER``.
+    The lengths stay on the card, so the split sees the cache's capacity
+    ``S``, not the valid keys."""
+    c = 1
+    while c < MAX_CLUSTER and B * Hkv * c < sm_count:
+        c *= 2
+    while c > 1 and c * DECODE_TILE > S:
+        c //= 2
+    return c
+
+
+def decode_design(c: int) -> str:
+    """The name ``_lib.ROUTES`` counts a decode launch under."""
+    return f"cluster split-S ×{c}"
 
 
 def _check_cuda(name: str, tensors: dict[str, torch.Tensor],
@@ -133,12 +166,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    c = decode_split(B, Hkv, S, sms)
     with torch.cuda.device(q.device):
         err = getattr(_lib.lib("decode_attention"),
                       f"decode_attention_{_SUFFIX[q.dtype]}")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, d, scale,
+            lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, d, scale, c,
             _lib.stream())
         _lib.LAUNCHES["decode_attention"] += 1
+        _lib.ROUTES["decode_attention"][decode_design(c)] += 1
     _lib.check("decode_attention", err)
     return out

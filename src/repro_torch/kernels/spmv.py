@@ -3,10 +3,20 @@
 The paper's CSR SpMV decouples into (1) index fetch → (2) value/x gather
 → (3) FMA.  As in the reference package, the matrix is re-blocked into
 BSR (block-sparse rows) once on the host (:func:`csr_to_bsr`), and
-:func:`spmv_bsr` runs the three stages per block row on the card: the
-block loads its row of block-column ids (index fetch), gathers the x
-tile each id names (data-dependent gather) and accumulates the
-``(bm, bk)`` block products in fp32 (FMA).  See ``csrc/spmv_bsr.cu``.
+:func:`spmv_bsr` runs the three stages per block row on the card.  Two
+designs, see ``csrc/spmv_bsr.cu``; :func:`spmv_route` picks one from the
+shape and the alignment, before the launch:
+
+* ``"bulk-copy ring"`` — the template itself: a producer warp reads the
+  column ids (index fetch) and issues bulk copies of each slot's value
+  block and the x tile it names (gather) into an mbarrier-guarded ring in
+  shared memory (the FIFO), which consumer warps drain into fp32 sums
+  (FMA); a persistent grid keeps the ring running across block rows;
+* ``"scalar loads"`` — every shape the ring cannot take (bk not a
+  multiple of 4, bases not 16-byte aligned, two stages too large for
+  shared memory): a block per block row, warps walking the slots.
+
+Neither limits bm or the slots per block row, as the reference does not.
 """
 
 from __future__ import annotations
@@ -15,6 +25,33 @@ import numpy as np
 import torch
 
 from . import _lib, ref
+
+
+RING = "bulk-copy ring"
+SCALAR = "scalar loads"
+#: shared memory one block may use on the H100 (232,448 bytes)
+MAX_SMEM = 227 * 1024
+
+
+def spmv_route(values: torch.Tensor, x: torch.Tensor) -> str:
+    """The design ``spmv_bsr`` takes on the card, from the shape and the
+    alignment alone (values, x contiguous).
+
+    The bulk-copy ring needs whole 16-byte rows (bk a multiple of 4),
+    16-byte-aligned ``values`` and ``x``, and two stages (each up to
+    16 KB of value blocks, or one larger block, with their x tiles), the
+    ring's header and the lanes' row sums in a block's shared memory;
+    everything else takes the scalar loads.
+    """
+    bm, bk = values.shape[2], values.shape[3]
+    tile = 4 * bm * bk
+    slots = max(1, min(32, 16384 // tile)) if tile else 1
+    stage = slots * (tile + 4 * bk)
+    fits = 2 * stage + 128 * bm + 256 <= MAX_SMEM  # + 32 lane sums a row
+    if bk % 4 == 0 and values.data_ptr() % 16 == 0 \
+            and x.data_ptr() % 16 == 0 and fits:
+        return RING
+    return SCALAR
 
 
 def spmv_bsr(values: torch.Tensor, col_ids: torch.Tensor,
@@ -27,7 +64,7 @@ def spmv_bsr(values: torch.Tensor, col_ids: torch.Tensor,
     returns (n_block_rows * bm,) float32
 
     A CPU tensor takes the plain version (:func:`ref.spmv_bsr_ref`); a
-    CUDA tensor launches the kernel or raises.
+    CUDA tensor launches the kernel of its :func:`spmv_route` or raises.
     """
     nbr, nnz, bm, bk = values.shape
     if x.shape[0] % bk:
@@ -49,15 +86,23 @@ def spmv_bsr(values: torch.Tensor, col_ids: torch.Tensor,
     if not (values.is_contiguous() and col_ids.is_contiguous()
             and x.is_contiguous()):
         raise ValueError("spmv_bsr kernel takes contiguous tensors")
-    if not 1 <= bm <= 32 or nnz * 4 > 48 * 1024:
-        raise ValueError(f"spmv_bsr kernel needs 1 <= bm <= 32 and at most "
-                         f"12288 slots per block row (bm={bm}, nnz={nnz})")
+    return _launch(values, col_ids, x, spmv_route(values, x))
+
+
+def _launch(values: torch.Tensor, col_ids: torch.Tensor, x: torch.Tensor,
+            design: str) -> torch.Tensor:
+    """Launch the kernel of ``design`` on checked CUDA tensors."""
+    nbr, nnz, bm, bk = values.shape
     y = torch.empty(nbr * bm, dtype=torch.float32, device=values.device)
+    if y.numel() == 0:
+        return y
+    entry = "spmv_bsr_ring_f32" if design == RING else "spmv_bsr_f32"
     with torch.cuda.device(values.device):
-        err = _lib.lib("spmv_bsr").spmv_bsr_f32(
+        err = getattr(_lib.lib("spmv_bsr"), entry)(
             values.data_ptr(), col_ids.data_ptr(), x.data_ptr(),
             y.data_ptr(), nbr, nnz, bm, bk, _lib.stream())
         _lib.LAUNCHES["spmv_bsr"] += 1
+        _lib.ROUTES["spmv_bsr"][design] += 1
     _lib.check("spmv_bsr", err)
     return y
 

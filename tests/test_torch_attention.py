@@ -23,8 +23,9 @@ import torch
 import repro_torch
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import _lib, ops, ref
-from repro_torch.kernels.flash_attention import (CUDA_CORE, MMA,
-                                                decode_attention,
+from repro_torch.kernels.flash_attention import (CUDA_CORE, DECODE_TILE,
+                                                MMA, decode_attention,
+                                                decode_design, decode_split,
                                                 flash_attention,
                                                 prefill_route)
 
@@ -225,6 +226,103 @@ def test_wrappers_reject_bad_shapes():
     assert _lib._libs == {}
 
 
+def _split_decode_model(q, k_cache, v_cache, lengths, C, *, warps=8):
+    """The cluster decode kernel's arithmetic in plain PyTorch, fp32: rank r
+    of C takes keys [r·chunk, min((r+1)·chunk, len)), chunk = ceil(len / C)
+    rounded up to 8 keys; its range streams in tiles of DECODE_TILE keys,
+    of which warp w takes keys [8w, 8w+8) and keeps its own online-softmax
+    (m, l, acc) across the tiles; a rank combines its warps, and rank 0
+    combines the ranks.  Output in q's dtype."""
+    B, Hq, d = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    G, KW = Hq // Hkv, DECODE_TILE // warps
+    mask = -0.7 * float(np.finfo(np.float32).max)
+    scale = 1.0 / math.sqrt(d)
+
+    def combine(states):
+        ms = torch.stack([st[0] for st in states])          # (n, G)
+        mx = torch.maximum(ms.amax(0), torch.tensor(mask))
+        f = torch.exp(ms - mx)
+        l = (torch.stack([st[1] for st in states]) * f).sum(0)
+        acc = (torch.stack([st[2] for st in states]) * f[..., None]).sum(0)
+        return mx, l, acc
+
+    out = torch.zeros(B, Hq, d)
+    for b in range(B):
+        n_len = int(min(max(int(lengths[b]), 0), S))
+        chunk = -(-(-(-n_len // C)) // 8) * 8
+        for hk in range(Hkv):
+            qg = q[b, hk * G:(hk + 1) * G].float()           # (G, d)
+            kf, vf = k_cache[b, hk].float(), v_cache[b, hk].float()
+            ranks = []
+            for r in range(C):
+                k0 = min(r * chunk, n_len)
+                k1 = min(k0 + chunk, n_len)
+                wst = [[torch.full((G,), mask), torch.zeros(G),
+                        torch.zeros(G, d)] for _ in range(warps)]
+                for t0 in range(k0, k1, DECODE_TILE):
+                    for w, st in enumerate(wst):
+                        a = t0 + w * KW
+                        e = min(a + KW, k1, t0 + DECODE_TILE)
+                        if a >= e:
+                            continue
+                        s = qg @ kf[a:e].T * scale              # (G, keys)
+                        m_new = torch.maximum(st[0], s.amax(1))
+                        p = torch.exp(s - m_new[:, None])
+                        alpha = torch.exp(st[0] - m_new)
+                        st[1] = st[1] * alpha + p.sum(1)
+                        st[2] = st[2] * alpha[:, None] + p @ vf[a:e]
+                        st[0] = m_new
+                ranks.append(combine(wst))
+            _, l, acc = combine(ranks)
+            out[b, hk * G:(hk + 1) * G] = acc / l.clamp_min(1e-20)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=["9-3-d64", "4-1-d16"])
+@pytest.mark.parametrize("C", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_arithmetic_matches_reference(layout, C, dtype):
+    """The cluster decode's split (C contiguous key ranges, 64-key tiles,
+    8-key warp slices, each with its own (m, l, acc), combined per rank and
+    then across ranks) against the reference's Pallas decode kernel
+    (interpret mode), at lengths 0, 1, fewer than C, exactly C·64, S and
+    ragged: fp32 1e-4, bf16 2e-2."""
+    _, Hq, Hkv, d = layout
+    S = 552
+    lengths = np.array([0, 1, max(C - 1, 1), C * DECODE_TILE, S, 300, 77],
+                       np.int32)
+    B = len(lengths)
+    rng = np.random.default_rng(C * 10 + d)
+    arrays = [_normal(rng, B, Hq, d), _normal(rng, B, Hkv, S, d),
+              _normal(rng, B, Hkv, S, d)]
+    q, kc, vc = (torch.from_numpy(a).to(dtype) for a in arrays)
+    got = _split_decode_model(q, kc, vc, torch.from_numpy(lengths), C)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = ref_ops.decode_attention(
+        *(jnp.asarray(a, dtype=jdt) for a in arrays), jnp.asarray(lengths))
+    tol = BF16 if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    assert got.dtype == dtype and got.shape == (B, Hq, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, dtype=np.float32), **tol)
+
+
+@pytest.mark.parametrize("B,Hkv,S,sms,want", [
+    (8, 3, 552, 132, 8),        # the serving path: 24 clusters x 8 CTAs
+    (40, 3, 552, 132, 2),       # 120 clusters: two CTAs each fill the card
+    (66, 2, 552, 132, 1),       # B·Hkv >= the SM count: one CTA a cluster
+    (8, 3, 61, 132, 1),         # less than a tile per CTA: no split
+    (8, 3, 200, 132, 2),        # three tiles of S at most: two CTAs
+    (1, 1, 1 << 20, 132, 8),    # a huge cache: never more than 8
+    (8, 3, 552, 24, 1),         # a smaller card already filled
+])
+def test_decode_split_fills_the_card(B, Hkv, S, sms, want):
+    c = decode_split(B, Hkv, S, sms)
+    assert c == want
+    assert c & (c - 1) == 0 and c * DECODE_TILE <= max(S, DECODE_TILE)
+    assert decode_design(c) == f"cluster split-S ×{c}"
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels against their plain versions (skip without a card)
 # ---------------------------------------------------------------------------
@@ -300,6 +398,8 @@ def test_flash_attention_kernel_takes_its_route(dtype):
     (3, 4, 1, 24, 16),
     (2, 8, 2, 300, 128),
     (2, 2, 1, 61, 40),
+    (4, 9, 3, 4096, 64),         # long caches: many tiles per CTA
+    (2, 8, 2, 8192, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(B, Hq, Hkv, S, d, dtype):
@@ -313,6 +413,37 @@ def test_decode_attention_kernel_matches_plain(B, Hq, Hkv, S, d, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert _lib.counts()["decode_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [552, 4096, 61])
+@pytest.mark.parametrize("d", [16, 40, 64, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_one_hot_values_bit_for_bit(S, d, group, dtype):
+    """K = 0 makes every score 0 and every weight of a valid key exactly 1,
+    and V's rows are one-hot: each output is exactly (keys below the
+    length hot in that dim) / length, rounded once to the output type.
+    A key counted twice across the cluster's ranks, or lost at a range,
+    tile or warp edge, moves a bit."""
+    dev = _needs_card()
+    rng = np.random.default_rng(S + d + group)
+    lengths = [min(n, S) for n in (0, 1, 7, 65, 513, S)]
+    B, Hkv = len(lengths), 2
+    hot = torch.from_numpy(rng.integers(0, d, size=(B, Hkv, S)))
+    v = torch.nn.functional.one_hot(hot, d).float()
+    q = torch.from_numpy(_normal(rng, B, Hkv * group, d))
+    k = torch.zeros(B, Hkv, S, d)
+    got = decode_attention(*(t.to(dev, dtype) for t in (q, k, v)),
+                           torch.tensor(lengths, dtype=torch.int32,
+                                        device=dev))
+    counts = torch.stack([v[b, :, :n].sum(1) for b, n in enumerate(lengths)])
+    want = counts / torch.tensor(lengths).float().clamp_min(1)[:, None, None]
+    want = want.repeat_interleave(group, 1).to(dtype)
+    assert torch.equal(got.cpu(), want)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _lib.routes()["decode_attention"] == {
+        decode_design(decode_split(B, Hkv, S, sms)): 1}
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ from repro_torch.workloads import make_spmv
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 
 
 @pytest.fixture(autouse=True)

@@ -10,6 +10,8 @@ tests marked ``cuda`` hold each CUDA kernel against its plain version and
 skip where there is no card.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,10 @@ from repro.kernels import spmv as ref_spmv
 from repro_torch import interop
 from repro_torch.core import engine as port_engine
 from repro_torch.kernels import _lib, csr_to_bsr, ref, running_max, spmv
+from repro_torch.kernels.spmv import RING, SCALAR, spmv_route
 
+#: the reference's Pallas module (its package exports ``spmv`` from ops)
+ref_spmv_mod = importlib.import_module("repro.kernels.spmv")
 _RNG = np.random.default_rng(42)
 
 
@@ -130,6 +135,49 @@ def test_reference_state_carries_across_to_tensors():
         interop.spmv_state_to_torch({"csr": indptr}, "cpu")
 
 
+def _aligned_view(shape, offset_floats):
+    """A contiguous float32 tensor of ``shape`` whose data starts
+    ``offset_floats`` floats past a 64-byte-aligned base."""
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 32)
+    skip = (-base.data_ptr() // 4) % 16 + offset_floats
+    return base[skip:skip + n].view(shape)
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((512, 32, 8, 128), 0, RING),     # Table-I: 4 KB blocks, 16-byte rows
+    ((4, 3, 8, 130), 0, SCALAR),      # bk = 130: rows not 16-byte multiples
+    ((4, 3, 8, 128), 1, SCALAR),      # a view 4 bytes past an aligned base
+    ((2, 2, 64, 32), 0, RING),        # bm > 32
+    ((2, 2, 64, 1024), 0, SCALAR),    # a 256 KB block: two do not fit
+])
+def test_spmv_route(shape, offset, want):
+    values = _aligned_view(shape, offset)
+    x = _aligned_view((4 * shape[3],), 0)
+    assert spmv_route(values, x) == want
+    assert spmv_route(values, _aligned_view((4 * shape[3],), 2)) == SCALAR
+
+
+@pytest.mark.parametrize("nbr,nnz,bm,bk", [
+    (3, 5, 64, 8),        # bm = 64, past the old kernel's 32
+    (2, 12_300, 1, 4),    # more slots per block row than the old 12,288
+])
+def test_spmv_takes_any_bm_and_nnz(nbr, nnz, bm, bk):
+    """No limit on bm or slots per block row: the wrapper matches the
+    reference's Pallas kernel (interpret mode) where it computes."""
+    rng = np.random.default_rng(nnz)
+    vals = rng.normal(size=(nbr, nnz, bm, bk)).astype(np.float32)
+    cols = rng.integers(-1, nnz + 2, size=(nbr, nnz)).astype(np.int32)
+    x = rng.normal(size=((nnz + 2) * bk,)).astype(np.float32)
+    got = spmv(torch.from_numpy(vals), torch.from_numpy(cols),
+               torch.from_numpy(x)).numpy()
+    want = np.asarray(ref_spmv_mod.spmv_bsr(
+        jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(x),
+        interpret=True))
+    assert got.shape == (nbr * bm,)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # running max
 # ---------------------------------------------------------------------------
@@ -202,6 +250,56 @@ def test_spmv_bsr_kernel_matches_plain():
     want = ref.spmv_bsr_ref(*args, vals.shape[0] * 8)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert _lib.counts()["spmv_bsr"] == 1
+
+
+def _one_hot_bsr(nbr, nnz, bm, bk, seed):
+    """BSR blocks with distinct block columns per row, about a fifth of the
+    slots padding (−1), and x one-hot on one column: y is exactly that
+    column of A."""
+    rng = np.random.default_rng(seed)
+    nbc = nnz + 3
+    vals = rng.normal(size=(nbr, nnz, bm, bk)).astype(np.float32)
+    cols = np.stack([rng.permutation(nbc)[:nnz] for _ in range(nbr)])
+    cols[rng.random((nbr, nnz)) < 0.2] = -1
+    hot = int(rng.integers(0, nbc * bk))
+    x = np.zeros(nbc * bk, np.float32)
+    x[hot] = 1.0
+    column = np.zeros((nbr, bm), np.float32)
+    br, slot = np.nonzero(cols == hot // bk)
+    column[br] = vals[br, slot, :, hot % bk]
+    return vals, cols.astype(np.int32), x, column.reshape(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [RING, SCALAR])
+@pytest.mark.parametrize("bm", [1, 8, 32, 64])
+@pytest.mark.parametrize("nbr", [5, 1000])
+def test_spmv_one_hot_x_bit_for_bit(design, bm, nbr):
+    """x one-hot on column c makes y exactly column c of A: a slot lost or
+    read twice at a stage, ring-wrap or block-row edge, or a row owned by
+    the wrong warp, moves a bit.  37 slots (not a multiple of any ring
+    depth) with padding, fewer and far more block rows than SMs."""
+    from repro_torch.kernels.spmv import _launch
+    dev = _needs_card()
+    vals, cols, x, want = _one_hot_bsr(nbr, 37, bm, 32, seed=bm + nbr)
+    args = [torch.from_numpy(a).to(dev) for a in (vals, cols, x)]
+    got = _launch(*args, design)
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
+    assert _lib.routes()["spmv_bsr"] == {design: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbr,nnz,bm,bk,want", [
+    (512, 32, 8, 128, RING),      # the Table-I shape
+    (7, 13_000, 2, 8, RING),      # more slots than the old kernel took
+    (9, 5, 64, 130, SCALAR),      # bk = 130
+])
+def test_spmv_bsr_kernel_takes_its_route(nbr, nnz, bm, bk, want):
+    dev = _needs_card()
+    vals, cols, x, column = _one_hot_bsr(nbr, nnz, bm, bk, seed=nnz)
+    args = [torch.from_numpy(a).to(dev) for a in (vals, cols, x)]
+    assert torch.equal(spmv(*args).cpu(), torch.from_numpy(column))
+    assert _lib.routes()["spmv_bsr"] == {want: 1}
 
 
 @pytest.mark.cuda
