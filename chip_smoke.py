@@ -11,18 +11,21 @@ Phases, one line (or block) each:
    instructions the Hopper designs compile to: ``cuobjdump -sass`` (beside
    ``nvcc``) must find ``HGMMA`` in ``dataflow_matmul``'s library (its
    wgmma route), ``HMMA`` in ``flash_attention``'s (its bf16 prefill) and
-   the bulk copy ``UBLKCP`` in ``spmv_bsr``'s and ``flash_attention``'s
-   (the SpMV ring and the decode ring); without ``cuobjdump`` it prints
-   "SASS not checked";
+   the bulk copy ``UBLKCP`` in ``spmv_bsr``'s, ``flash_attention``'s and
+   ``decoupled_gather``'s (the SpMV ring, the decode ring and the gather
+   ring); without ``cuobjdump`` it prints "SASS not checked";
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes (kernel times are CUDA-graph replays, so the
    host's enqueue time is left out) — ``spmv_bsr`` on the Table-I BSR matrix
    (512, 32, 8, 128), which must take the bulk-copy ring
    (``spmv_route``), within rtol=atol=1e-4 (fp32 sums in another order),
    ``running_max`` bit for bit at 2^20 and odd sizes, int32 and int64,
-   values above 2^31 — with median CUDA-event times of the kernel, the
-   plain version and one PyTorch library call (``torch.mv`` on the dense
-   matrix, ``torch.cummax``), and the engine's host round trip;
+   values above 2^31, one kernel launch per call — with median CUDA-event
+   times of the kernel, the plain version and one PyTorch library call
+   (``torch.mv`` on the dense matrix, ``torch.cummax``); then the
+   engine's chunked host round trip at 2^20 int32, bit for bit, on the
+   host clock, and one round trip under ``torch.profiler`` split into its
+   uploads, scans and downloads on the card;
 3. the main path: Table-I SpMV (dim 4096, density 0.25) built on the
    card, ``compile(..., loop=True)``, ``report()`` (5 stages), the
    ``sequential`` and ``emulated`` backends over the first row's
@@ -71,8 +74,10 @@ Phases, one line (or block) each:
    output weight (1536 x 576).  Then each kernel against its plain
    version: ``decoupled_gather`` rtol 2**-7 / atol 0 in bf16 (one bf16
    ulp: both sides compute tanh in fp32 and round once) and 1e-6 in fp32,
-   with ``fn="identity"`` bit for bit ``table[idx]``; ``rmsnorm`` 2e-2
-   bf16, 1e-5 fp32; both products rtol 1e-2 / atol 5e-2 in bf16 (one
+   with ``fn="identity"`` bit for bit ``table[idx]`` and, on indices past
+   both ends of the table, bit for bit its wrapped-and-clamped rows (the
+   path's gather must take the bulk-copy ring, ``gather_route``);
+   ``rmsnorm`` 2e-2 bf16, 1e-5 fp32; both products rtol 1e-2 / atol 5e-2 in bf16 (one
    rounding of fp32 sums taken in another order) and 2e-5 / 3e-4 in
    fp32 (tests/test_kernels.py's); both bf16 products of the path must
    take the ``wgmma+tma`` route.  ``decoupled_gather_staged``
@@ -132,6 +137,11 @@ BF16_ULP = 2 ** -7
 #: channel bytes per token, pipeline II, total latency
 REF_QUICKSTART_PLAN = (4, 3, 96, 1, 15)
 
+#: the running max's previous design on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W (PERF.md §6): three kernel passes at 2^20 int32, and the
+#: engine's pageable copies up and down, host clock
+PARENT_RMAX_MS, PARENT_H2D_MS, PARENT_D2H_MS = 0.0091, 0.483, 0.461
+
 #: the reference's recorded Fig. 5 SpMV cells on ACP (BENCH_sim.json)
 REF_DATAFLOW_CYCLES = 16_517_754
 REF_CONVENTIONAL_CYCLES = 318_747_791
@@ -176,14 +186,14 @@ def cuda_ms(fn, reps: int = 20, per_graph: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_busy_ms(fn, name: str,
-                   kernel: str = "") -> tuple[float | None, float, float]:
-    """(device busy ms, host wall ms, ms of the kernels named like
-    ``kernel``) of one call of ``fn`` under ``torch.profiler``: the union
-    of the kernel, memcpy and memset spans of its trace (None where the
-    trace holds no device span), the host clock, which includes the
-    profiler's own cost, and the summed spans of the kernels whose name
-    holds ``kernel``.  The trace goes to ``build/<name>_trace.json``."""
+def profiled(fn, name: str, kernel: str = "") -> dict:
+    """One call of ``fn`` under ``torch.profiler``, in ms: ``busy``, the
+    union of the kernel, memcpy and memset spans of its trace (None where
+    the trace holds no device span); ``wall``, the host clock, which
+    includes the profiler's own cost; ``named``, the summed spans of the
+    kernels whose name holds ``kernel``; ``kernels``, ``h2d`` and ``d2h``,
+    the summed spans of all kernels and of the copies each way.  The trace
+    goes to ``build/<name>_trace.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -197,20 +207,26 @@ def device_busy_ms(fn, name: str,
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                   and "dur" in e)
-    named = sum(e["dur"] for e in events if e.get("cat") == "kernel"
-                and kernel and kernel in e.get("name", "")) / 1e3
-    if not spans:
-        return None, wall, named
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def total(keep) -> float:
+        return sum(e["dur"] for e in events if keep(e)) / 1e3
+
+    out = {"wall": wall, "busy": None,
+           "named": total(lambda e: e["cat"] == "kernel" and kernel
+                          and kernel in e.get("name", "")),
+           "kernels": total(lambda e: e["cat"] == "kernel"),
+           "h2d": total(lambda e: "HtoD" in e.get("name", "")),
+           "d2h": total(lambda e: "DtoH" in e.get("name", ""))}
     busy, end = 0.0, float("-inf")
-    for a, b in spans:
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e3, wall, named
+    if events:
+        out["busy"] = busy / 1e3
+    return out
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -235,7 +251,7 @@ def main() -> None:
     from repro_torch.core import engine
     from repro_torch.core.simulator import acp
     from repro_torch.kernels import _lib, ops, ref
-    from repro_torch.kernels.scan import running_max
+    from repro_torch.kernels.scan import CHUNK, running_max
     from repro_torch.kernels.spmv import RING, csr_to_bsr, spmv_bsr, spmv_route
     from repro_torch.workloads import make_spmv
 
@@ -324,7 +340,11 @@ def main() -> None:
     rmax_err = 0
     for label, a in cases.items():
         t = torch.from_numpy(a).to(dev)
-        got_k, got_p = running_max(t), ref.running_max_ref(t)
+        before = _lib.counts()["running_max"]
+        got_k = running_max(t)
+        require(_lib.counts()["running_max"] - before == 1,
+                f"running_max {label}: not one kernel launch per call")
+        got_p = ref.running_max_ref(t)
         torch.cuda.synchronize()
         rmax_err = max(rmax_err, int((got_k.long() - got_p.long()).abs()
                                      .max()))
@@ -333,12 +353,12 @@ def main() -> None:
         require(np.array_equal(got_k.cpu().numpy(),
                                np.maximum.accumulate(a)),
                 f"running_max {label}: kernel != np.maximum.accumulate")
-        print(f"[2] running_max {label}: bit-identical to the plain version "
-              f"and np.maximum.accumulate", flush=True)
+        print(f"[2] running_max {label}: one launch, bit-identical to the "
+              f"plain version and np.maximum.accumulate", flush=True)
     a_main = cases["i32 2^20 trending"]
     t_main = torch.from_numpy(a_main).to(dev)
     rmax_row = {
-        "name": "running_max", "route": "cuda", "design": "cuda-core int",
+        "name": "running_max", "route": "cuda", "design": "look-back",
         "source": "src/repro_torch/csrc/running_max.cu",
         "replaces": "src/repro/core/engine.py:477",
         "max_abs_err": float(rmax_err),
@@ -347,15 +367,29 @@ def main() -> None:
         "library_ms": cuda_ms(lambda: torch.cummax(t_main, 0)),
         **_bound(2 * a_main.nbytes, a_main.size),
     }
-    h2d = host_ms(lambda: torch.from_numpy(a_main).to(dev))
-    d2h = host_ms(lambda: t_main.cpu())
-    with engine.use("torch"):
-        trip = host_ms(lambda: engine.running_max(a_main.copy()))
-    print(f"[2] running_max i32 2^20: kernel {rmax_row['ms']:.4f} ms, plain "
-          f"{rmax_row['plain_ms']:.4f} ms, torch.cummax "
+    print(f"[2] running_max i32 2^20 (look-back, one launch): kernel "
+          f"{rmax_row['ms']:.4f} ms (the previous design's three passes: "
+          f"{PARENT_RMAX_MS} ms, PERF.md; scripts/kernel_times.py times two "
+          f"trees side by side), plain {rmax_row['plain_ms']:.4f} "
+          f"ms, torch.cummax "
           f"{rmax_row['library_ms']:.4f} ms, bound {rmax_row['bound_ms']:.4f}"
-          f" ms ({rmax_row['bound_by']}); engine round trip {trip:.3f} ms "
-          f"(H2D {h2d:.3f} ms, D2H {d2h:.3f} ms, host clock)", flush=True)
+          f" ms ({rmax_row['bound_by']})", flush=True)
+    buf = a_main.copy()
+    with engine.use("torch"):
+        engine.running_max(buf)
+        require(np.array_equal(buf, np.maximum.accumulate(a_main)),
+                "engine round trip != np.maximum.accumulate")
+        # in place and idempotent: every call repeats the same work
+        trip = host_ms(lambda: engine.running_max(buf))
+        p = profiled(lambda: engine.running_max(buf), "round_trip")
+    print(f"[2] engine round trip, i32 2^20 in {-(-buf.size // CHUNK)} chunks "
+          f"of {CHUNK}: {trip:.3f} ms on the host clock (the previous "
+          f"design's pageable copies alone: H2D {PARENT_H2D_MS} + D2H "
+          f"{PARENT_D2H_MS} ms, PERF.md); one under torch.profiler: "
+          + ("no device spans in the trace (not measured)"
+             if p["busy"] is None else f"H2D {p['h2d']:.4f} ms, scan "
+             f"{p['kernels']:.4f} ms, D2H {p['d2h']:.4f} ms of device time, "
+             f"{p['busy']:.4f} ms busy in all"), flush=True)
 
     # -- 3. the main path -----------------------------------------------------
     _lib.reset_counts()
@@ -670,12 +704,13 @@ def serve_smollm(dev) -> tuple[dict, dict]:
     cp = dataclasses.replace(cfg, attn_impl="pallas")
     with torch.inference_mode():
         logits, cache = prefill(params, tokens, cp, MAX_LEN)
-        busy, wall, dec_attn = device_busy_ms(lambda: decode_step(
+        step = profiled(lambda: decode_step(
             params, logits.argmax(-1), cache, PROMPT_LEN, cp), "decode_step",
             "decode_kernel")
-        pre_busy, pre_wall, pre_attn = device_busy_ms(
-            lambda: prefill(params, tokens, cp, MAX_LEN), "prefill",
-            "prefill_mma_kernel")
+        pre = profiled(lambda: prefill(params, tokens, cp, MAX_LEN),
+                       "prefill", "prefill_mma_kernel")
+    busy, wall, dec_attn = step["busy"], step["wall"], step["named"]
+    pre_busy, pre_wall, pre_attn = pre["busy"], pre["wall"], pre["named"]
     print(f"[6b] one decode step under torch.profiler: host {wall:.3f} ms "
           f"with the profiler's cost, "
           + ("device busy not measured (no device spans in the trace)"
@@ -712,6 +747,7 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
     from repro_torch.kernels.dataflow_matmul import (BLOCK_M, BLOCK_NS,
                                                      WGMMA, Route, _launch,
                                                      route)
+    from repro_torch.kernels.decoupled_gather import BULK, gather_route
 
     tokens, table = model["tokens"], model["table"]
     norm_w, w_in, w_out = model["norm"], model["w_in"], model["w_out"]
@@ -731,6 +767,9 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
     require(_lib.routes()["dataflow_matmul"] == {"wgmma+tma": 2},
             f"the path's bf16 products by design: "
             f"{_lib.routes()['dataflow_matmul']}, expected both on wgmma+tma")
+    require(_lib.routes()["decoupled_gather"] == {BULK: 1},
+            f"the path's gather by design: "
+            f"{_lib.routes()['decoupled_gather']}, expected {BULK}")
 
     def held(name, got, want, rtol, atol):
         torch.cuda.synchronize()
@@ -747,6 +786,14 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
     require(torch.equal(decoupled_gather(idx, table, fn="identity"),
                         table[idx]),
             "decoupled_gather fn='identity' != table[idx]")
+    rows = table.shape[0]
+    wild = torch.tensor([0, rows, rows + 7, -1, -rows, -rows - 1, -3 * rows,
+                         5, 1 << 30], dtype=torch.int32, device=dev)
+    clamped = torch.where(wild < 0, wild + rows, wild).clamp(0, rows - 1)
+    require(torch.equal(decoupled_gather(wild, table, fn="identity"),
+                        table[clamped.long()]),
+            "decoupled_gather fn='identity' on indices out of range != the "
+            "wrapped-and-clamped rows")
     t32 = table.float()
     g_err = held("decoupled_gather bf16", gathered,
                  decoupled_gather_ref(idx, table), BF16_ULP, 0.0)
@@ -764,7 +811,9 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
                      ref.matmul_ref(a.float(), b.float()), 2e-5, 3e-4)
                 for label, a, b in (("in", x, w_in), ("out", up, w_out))]
     print(f"[7] kernel API path (smollm-135m bf16, {n} tokens): "
-          f"decoupled_gather fn='identity' == table[idx]; "
+          f"decoupled_gather ({gather_route(table)!r}) fn='identity' == "
+          f"table[idx], and on {wild.numel()} indices past both ends == the "
+          f"wrapped-and-clamped rows; "
           f"max|kernel-plain| decoupled_gather {g_err:.3g} (rtol 2**-7, "
           f"one bf16 ulp; fp32 {g_err32:.3g} at 1e-6), rmsnorm "
           f"{tuple(emb.shape)} {r_err:.3g} (2e-2; fp32 {r_err32:.3g} at "
@@ -825,7 +874,7 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
     floor = cuda_ms(lambda: torch.index_select(table, 0, idx))
     gather_row = {
         "name": "decoupled_gather", "route": "cuda",
-        "design": "cuda-core fp32",
+        "design": gather_route(table),
         "source": "src/repro_torch/csrc/decoupled_gather.cu",
         "replaces": "src/repro/kernels/decoupled_gather.py:71",
         "max_abs_err": g_err,
@@ -889,9 +938,10 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
               + (f"; the same product in fp32 (cuda-core fp32) "
                  f"{row['fp32_ms']:.4f} ms" if "fp32_ms" in row else ""),
               flush=True)
-    print(f"[7] decoupled_gather floor: torch.index_select of the same rows "
-          f"{floor:.4f} ms (no PyTorch call computes tanh(2*table[idx]))",
-          flush=True)
+    print(f"[7] decoupled_gather ({gather_row['design']!r}): kernel "
+          f"{gather_row['ms']:.4f} ms, floor torch.index_select of the same "
+          f"rows {floor:.4f} ms (no PyTorch call computes tanh(2*table[idx]))"
+          f", bound {gather_row['bound_ms']:.4f} ms", flush=True)
     return [gather_row, mm_row, rms_row], launches
 
 
@@ -907,7 +957,8 @@ def check_sass() -> str:
     for name, op in (("dataflow_matmul", "HGMMA"),
                      ("flash_attention", "HMMA"),
                      ("flash_attention", "UBLKCP"),
-                     ("spmv_bsr", "UBLKCP")):
+                     ("spmv_bsr", "UBLKCP"),
+                     ("decoupled_gather", "UBLKCP")):
         sass = subprocess.run([tool, "-sass", str(_lib._lib_path(name))],
                               capture_output=True, text=True,
                               check=True).stdout

@@ -135,7 +135,7 @@ def load_config(arch: str) -> ModelConfig:
         raise NotImplementedError(
             f"{arch}: the port serves {', '.join(PORTED_ARCHS)} so far; the "
             f"other architectures arrive with their mixers and MLPs "
-            f"(ROADMAP, open item 3: int8 KV cache, MLA, MoE, SSM)")
+            f"(ROADMAP: \"The rest of the model stack\")")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG

@@ -421,15 +421,47 @@ def _aval_of(node: fx.Node) -> Aval:
     return Aval(tuple(meta.shape), meta.dtype)
 
 
+class _MetaShapeProp(ShapeProp):
+    """``ShapeProp`` on meta tensors: shapes and dtypes without the data,
+    so no index is checked against its array — an out-of-range index
+    traces, and the lowered program clamps it as the reference's
+    ``gather`` / ``dynamic_slice`` do.  ``x[j]`` with a 0-d integer ``j``
+    would need ``j``'s value, and its shape does not: it is taken as
+    ``x[0]``'s."""
+
+    def call_function(self, target: Any, args: Any, kwargs: Any) -> Any:
+        if target is operator.getitem and _scalar_index(args):
+            return args[0].select(0, 0)
+        return super().call_function(target, args, kwargs)
+
+    def call_method(self, target: Any, args: Any, kwargs: Any) -> Any:
+        if target == "__getitem__" and _scalar_index(args):
+            return args[0].select(0, 0)
+        return super().call_method(target, args, kwargs)
+
+    def fetch_attr(self, target: str) -> Any:
+        return _to_meta(super().fetch_attr(target))
+
+
+def _scalar_index(args: Any) -> bool:
+    i = args[1]
+    return isinstance(i, torch.Tensor) and i.ndim == 0 \
+        and not i.is_floating_point() and i.dtype != torch.bool
+
+
+def _to_meta(x: Any) -> Any:
+    return x.to("meta") if isinstance(x, torch.Tensor) else x
+
+
 def trace(fn: Callable, *example_args: Any) -> tuple[Graph, Any]:
     """Trace ``fn`` with ``torch.fx.symbolic_trace``, propagate shapes on
-    ``example_args`` and lower to a :class:`Graph`.  Returns the graph and
-    the output structure (``None`` for a single output, else the tuple
-    length).  Closed-over tensors must be module globals or closure
-    variables: ``symbolic_trace`` does not accept tensor default
-    arguments."""
+    meta copies of ``example_args`` and lower to a :class:`Graph`.
+    Returns the graph and the output structure (``None`` for a single
+    output, else the tuple length).  Closed-over tensors must be module
+    globals or closure variables: ``symbolic_trace`` does not accept
+    tensor default arguments."""
     gm = fx.symbolic_trace(fn)
-    ShapeProp(gm).propagate(*example_args)
+    _MetaShapeProp(gm).propagate(*map(_to_meta, example_args))
     graph = _Lowering(gm).run()
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
     outs = out_node.args[0]

@@ -184,20 +184,17 @@ def _running_max_np(a: np.ndarray) -> np.ndarray:
 def running_max(a: np.ndarray) -> np.ndarray:
     """In-place inclusive running maximum of a 1-D integer array.
 
-    On the torch engine (at or above ``JIT_MIN_ELEMS``) the array is
-    copied to the port's device, scanned by the CUDA kernel (its plain
-    version when the device is the CPU) and copied back into ``a`` —
-    there is no fallback: a failed launch raises.  Otherwise the
-    dominated-block numpy form runs; both are exact, so results never
+    On the torch engine (at or above ``JIT_MIN_ELEMS``) the array makes
+    the chunked round trip of :func:`~repro_torch.kernels.scan.running_max_host`
+    to the port's device: pinned staging, uploads and downloads
+    overlapped with the CUDA kernel's scans (on the CPU, the plain
+    version's) — there is no fallback: a failed launch raises.  Otherwise
+    the dominated-block numpy form runs; both are exact, so results never
     depend on the engine.
     """
     if a.size >= JIT_MIN_ELEMS and current() == "torch":
-        import torch
-
-        from ..kernels.scan import running_max as _kernel
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(get_device())
-        a[:] = _kernel(t).cpu().numpy()
-        return a
+        from ..kernels.scan import running_max_host
+        return running_max_host(a, get_device())
     return _running_max_np(a)
 
 

@@ -8,30 +8,57 @@
 // starts the DMA of row idx[i+1] into the free slot of a two-slot VMEM
 // ring (one DMA semaphore per slot), then waits on slot i's semaphore and
 // computes row i while row i+1 is in flight; the indices are scalar-
-// prefetched.  Here:
+// prefetched.
 //
+// What bounds it on the card: bytes.  It reads N rows and the indices and
+// writes N rows: at 4096 rows of 576 bf16, 9.45 MB, 2.8 us at 3.35 TB/s.
+// Reaching that rate takes tens of KB in flight on every SM, where a
+// two-slot ring per warp keeps one or two rows.  Two designs; the wrapper
+// (kernels/decoupled_gather.py, `gather_route`) picks one before the
+// launch.
+//
+// The bulk-copy ring (rows a multiple of 16 bytes, 16-byte-aligned table
+// and output): the template on Hopper's bulk-copy engine.
+//  * The grid is persistent, two CTAs per SM; each CTA owns a contiguous
+//    run of output rows (16 rows at 4096 rows on 132 SMs).
+//  * The producer warp is the access stage: lane l owns ring slot l of
+//    32.  It loads its rows' indices (the scalar prefetch), wraps negative
+//    ones as Python indexing does and clamps the rest into [0, R), and
+//    issues each row as one 1-D bulk copy (cp.async.bulk) into its slot,
+//    completed on the slot's "full" mbarrier with expect_tx.  A slot holds
+//    2 KB; wider rows go in 2 KB pieces, one piece a slot.  All 32 slots
+//    are in flight at once: ~37 KB a CTA at 1,152-byte rows, the whole
+//    run at the shape above.
+//  * Eight consumer warps are the execute stage: warp w drains slots w,
+//    w + 8, ...; it waits on the slot's full barrier, computes fn in fp32
+//    on each 16-byte word, writes the output row with 16-byte stores and
+//    releases the slot on its "empty" mbarrier, which the producer lane
+//    waits on before its next copy into the slot.
+//
+// The cp.async ring (rows a multiple of 4 bytes, other alignments):
 //  * each warp walks its own contiguous run of output rows (4 to 32 rows,
 //    so a 4096-row gather keeps ~1024 warps in flight) with its own
 //    two-slot ring in shared memory;
-//  * index fetch: the warp loads its run's indices once, one per lane (the
-//    scalar prefetch), wraps negative ones as Python indexing does and
-//    clamps the rest into [0, R) so no copy leaves the table;
+//  * index fetch: the warp loads its run's indices once, one per lane,
+//    and wraps and clamps them as above;
 //  * access stage: row i+1's copy into slot (i+1)%2 is issued with
-//    cp.async, 16-byte chunks spread over the lanes, before row i's compute
-//    waits on its own slot (cp.async.wait_group 1: one group per row, so
-//    the wait is the slot's semaphore);
-//  * execute stage: each lane computes the chunks it copied itself, so no
+//    4-byte cp.async, spread over the lanes, before row i's compute waits
+//    on its own slot (cp.async.wait_group 1: one group per row, so the
+//    wait is the slot's semaphore);
+//  * execute stage: each lane computes the words it copied itself, so no
 //    lane waits on another, and writes the output row once.
+//  Its rows must fit the ring: 8 rows (4 warps x 2 slots) in a block's
+//  shared memory, 29,056 bytes a row at most.
 //
 // `fn` is a named set, because a kernel cannot run a Python callable:
 // 0 is the reference's default, tanh(2*row) computed in fp32 and rounded
 // once to the table's type; 1 is the plain gather.  Types: f32, bf16.
-//
-// What bounds it on the card: bytes.  It reads N rows and the indices and
-// writes N rows: at 4096 rows of 576 bf16, 9.45 MB, 2.8 us at 3.35 TB/s.
-// Each warp has at most two rows in flight, so the run is latency-bound
-// unless enough warps run at once; the warp count is what the design
-// spends on that.
+// For bf16 the tanh is the hardware's (tanh.approx.f32, one instruction,
+// relative error about 2^-11), which rounds to within one bf16 ulp of
+// tanhf's result — the tests check every bf16 value; tanhf takes some 20
+// instructions, and on an NVIDIA H100 80GB HBM3 at 700 W they cost the
+// bulk ring 1.4 us of its 5.6 at the shape above.  An fp32 table keeps
+// tanhf.
 //
 // Every entry point takes device pointers and a stream, launches on that
 // stream without synchronising, and returns cudaGetLastError().
@@ -41,12 +68,24 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 4;          // warps per block, one ring each
+
+// the bulk-copy ring
+constexpr int kSlots = 32;     // ring slots, one per producer lane
+constexpr int kConsumers = 8;  // consumer warps
+constexpr int kBulkThreads = 32 * (kConsumers + 1);
+constexpr int kPiece = 2048;   // bytes a slot holds
+constexpr int kBlocksPerSm = 2;
+constexpr int kRingOffset = 2 * kSlots * 8;  // after full[], empty[]
+
+// the cp.async ring
+constexpr int kWarps = 4;  // warps per block, one ring each
 constexpr int kTargetWarps = 1024;
-constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
+constexpr int kMaxSmem = 232448;  // a block's shared memory on sm_90
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -62,17 +101,129 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch rounds
 }
 
-template <int CHUNK>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (CHUNK == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(gmem));
+// tanh(2x) in fp32, as the table's type takes it
+__device__ __forceinline__ float tanh2(float x, float) {
+  return tanhf(2.0f * x);
+}
+__device__ __forceinline__ float tanh2(float x, __nv_bfloat16) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(2.0f * x));
+  return y;
+}
+
+// fn on one word of row values
+template <typename T, int FN, typename W>
+__device__ __forceinline__ W apply(W word) {
+  if constexpr (FN == 0) {
+    T* v = reinterpret_cast<T*>(&word);
+#pragma unroll
+    for (int e = 0; e < static_cast<int>(sizeof(W) / sizeof(T)); ++e) {
+      v[e] = from_float<T>(tanh2(to_float(v[e]), T{}));
+    }
   }
+  return word;
+}
+
+// Python's wrap of a negative index, then a clamp into [0, R)
+__device__ __forceinline__ int wrap_clamp(int r, int R) {
+  r = r < 0 ? r + R : r;
+  return min(max(r, 0), R - 1);
+}
+
+// -- the bulk-copy ring ------------------------------------------------------
+
+template <typename T, int FN>
+__global__ void __launch_bounds__(kBulkThreads)
+gather_bulk_kernel(const int* __restrict__ idx,
+                   const unsigned char* __restrict__ table,
+                   unsigned char* __restrict__ out, int N, int R,
+                   int row_bytes, int piece, int pieces, int run) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kSlots;
+  unsigned char* ring = smem + kRingOffset;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = blockIdx.x * run;
+  const int items = min(run, N - first) * pieces;  // (row, piece) pairs
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);   // the producer lane's arrival
+      mbar_init(smem_u32(&empty[s]), 1);  // the consumer warp's release
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // -- access stage: lane l fills slot l with items l, l + 32, ... -------
+    const uint32_t full_bar = smem_u32(&full[lane]);
+    const uint32_t empty_bar = smem_u32(&empty[lane]);
+    const uint32_t slot = smem_u32(ring + lane * piece);
+    for (int k = lane; k < items; k += kSlots) {
+      const int i = k / pieces, off = (k - i * pieces) * piece;
+      const int bytes = min(piece, row_bytes - off);
+      const int r = wrap_clamp(idx[first + i], R);
+      mbar_wait(empty_bar, ((k / kSlots) & 1) ^ 1);  // first pass: at once
+      mbar_arrive_expect_tx(full_bar, bytes);
+      bulk_copy(slot, table + static_cast<size_t>(r) * row_bytes + off,
+                bytes, full_bar);
+    }
+  } else {
+    // -- execute stage: warp w drains slots w, w + 8, ... ------------------
+    for (int k0 = 0; k0 < items; k0 += kSlots) {
+      const uint32_t parity = (k0 / kSlots) & 1;
+      for (int s = warp; s < kSlots && k0 + s < items; s += kConsumers) {
+        const int k = k0 + s;
+        const int i = k / pieces, off = (k - i * pieces) * piece;
+        const int words = min(piece, row_bytes - off) / 16;
+        mbar_wait(smem_u32(&full[s]), parity);
+        const uint4* src = reinterpret_cast<const uint4*>(ring + s * piece);
+        uint4* dst = reinterpret_cast<uint4*>(
+            out + static_cast<size_t>(first + i) * row_bytes + off);
+        for (int c = lane; c < words; c += 32) dst[c] = apply<T, FN>(src[c]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+      }
+    }
+  }
+}
+
+template <typename T, int FN>
+int launch_bulk(const int* idx, const void* table, void* out, int N, int R,
+                int row_bytes, cudaStream_t s) {
+  const int piece = row_bytes < kPiece ? row_bytes : kPiece;
+  const int pieces = (row_bytes + piece - 1) / piece;
+  const int smem = kRingOffset + kSlots * piece;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // the opt-in to more than 48 KB of shared memory, once per device
+  static unsigned ready = 0;
+  if (dev < 32 && !(ready >> dev & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gather_bulk_kernel<T, FN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kRingOffset +
+        kSlots * kPiece);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready |= 1u << dev;
+  }
+  const int ctas = kBlocksPerSm * sms;
+  const int run = (N + ctas - 1) / ctas;
+  const int grid = (N + run - 1) / run;
+  gather_bulk_kernel<T, FN><<<grid, kBulkThreads, smem, s>>>(
+      idx, static_cast<const unsigned char*>(table),
+      static_cast<unsigned char*>(out), N, R, row_bytes, piece, pieces, run);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- the cp.async ring -------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -81,55 +232,28 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// CHUNK bytes of row values, viewed as a word of the chunk's size
-template <int CHUNK>
-struct Word;
-template <>
-struct Word<16> { using type = uint4; };
-template <>
-struct Word<4> { using type = unsigned; };
-
-template <typename T, int CHUNK, int FN>
-__device__ __forceinline__ void execute(const unsigned char* src,
-                                        unsigned char* dst) {
-  using W = typename Word<CHUNK>::type;
-  W word = *reinterpret_cast<const W*>(src);
-  if constexpr (FN == 0) {
-    T* v = reinterpret_cast<T*>(&word);
-#pragma unroll
-    for (int e = 0; e < CHUNK / static_cast<int>(sizeof(T)); ++e) {
-      v[e] = from_float<T>(tanhf(2.0f * to_float(v[e])));
-    }
-  }
-  *reinterpret_cast<W*>(dst) = word;
-}
-
-template <typename T, int CHUNK, int FN>
+template <typename T, int FN>
 __global__ void __launch_bounds__(kWarps * 32)
-gather_kernel(const int* __restrict__ idx, const T* __restrict__ table,
-              T* __restrict__ out, int N, int R, int D, int run) {
+gather_cp_async_kernel(const int* __restrict__ idx,
+                       const unsigned char* __restrict__ table,
+                       unsigned char* __restrict__ out, int N, int R,
+                       int row_bytes, int run) {
   extern __shared__ __align__(16) unsigned char ring[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int first = (blockIdx.x * kWarps + warp) * run;
   if (first >= N) return;
   const int count = min(run, N - first);
-  const int row_bytes = D * static_cast<int>(sizeof(T));
-  const int nchunks = row_bytes / CHUNK;
+  const int words = row_bytes / 4;
   unsigned char* slots = ring + static_cast<size_t>(warp) * 2 * row_bytes;
 
   // index fetch: lane j holds the row index of output row first + j
-  int r = lane < count ? idx[first + lane] : 0;
-  r = r < 0 ? r + R : r;
-  r = min(max(r, 0), R - 1);
+  const int r = wrap_clamp(lane < count ? idx[first + lane] : 0, R);
 
   auto issue = [&](int i, int slot) {  // access stage: row i into a slot
-    const int row = __shfl_sync(kFull, r, i);
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(
-        table + static_cast<size_t>(row) * D);
+    const unsigned char* src =
+        table + static_cast<size_t>(__shfl_sync(kFull, r, i)) * row_bytes;
     unsigned char* dst = slots + slot * row_bytes;
-    for (int c = lane; c < nchunks; c += 32) {
-      cp_async<CHUNK>(dst + c * CHUNK, src + c * CHUNK);
-    }
+    for (int c = lane; c < words; c += 32) cp_async4(dst + 4 * c, src + 4 * c);
   };
 
   issue(0, 0);
@@ -137,62 +261,62 @@ gather_kernel(const int* __restrict__ idx, const T* __restrict__ table,
   for (int i = 0; i < count; ++i) {
     if (i + 1 < count) issue(i + 1, (i + 1) & 1);  // runs ahead
     cp_async_commit();    // one group per row (empty after the last)
-    cp_async_wait_one();  // FIFO pop: this lane's chunks of row i landed
-    const unsigned char* src = slots + (i & 1) * row_bytes;
-    unsigned char* dst = reinterpret_cast<unsigned char*>(
-        out + static_cast<size_t>(first + i) * D);
-    for (int c = lane; c < nchunks; c += 32) {
-      execute<T, CHUNK, FN>(src + c * CHUNK, dst + c * CHUNK);
-    }
+    cp_async_wait_one();  // FIFO pop: this lane's words of row i landed
+    const unsigned* src =
+        reinterpret_cast<const unsigned*>(slots + (i & 1) * row_bytes);
+    unsigned* dst = reinterpret_cast<unsigned*>(
+        out + static_cast<size_t>(first + i) * row_bytes);
+    for (int c = lane; c < words; c += 32) dst[c] = apply<T, FN>(src[c]);
   }
 }
 
-template <typename T, int CHUNK, int FN>
-int launch_chunk(const int* idx, const T* table, T* out, int N, int R, int D,
-                 cudaStream_t s) {
+template <typename T, int FN>
+int launch_cp_async(const int* idx, const void* table, void* out, int N,
+                    int R, int row_bytes, cudaStream_t s) {
   const int run = min(32, max(4, (N + kTargetWarps - 1) / kTargetWarps));
   const int warps = (N + run - 1) / run;
   const int blocks = (warps + kWarps - 1) / kWarps;
-  const size_t smem = static_cast<size_t>(kWarps) * 2 * D * sizeof(T);
+  const size_t smem = static_cast<size_t>(kWarps) * 2 * row_bytes;
   if (smem > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gather_kernel<T, CHUNK, FN>,
+        gather_cp_async_kernel<T, FN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  gather_kernel<T, CHUNK, FN><<<blocks, kWarps * 32, smem, s>>>(
-      idx, table, out, N, R, D, run);
+  gather_cp_async_kernel<T, FN><<<blocks, kWarps * 32, smem, s>>>(
+      idx, static_cast<const unsigned char*>(table),
+      static_cast<unsigned char*>(out), N, R, row_bytes, run);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int FN>
-int launch_fn(const int* idx, const T* table, T* out, int N, int R, int D,
-              cudaStream_t s) {
-  const size_t row_bytes = static_cast<size_t>(D) * sizeof(T);
-  const auto aligned = [&](size_t a) {
-    return row_bytes % a == 0 && reinterpret_cast<uintptr_t>(table) % a == 0
-           && reinterpret_cast<uintptr_t>(out) % a == 0;
-  };
-  if (aligned(16)) return launch_chunk<T, 16, FN>(idx, table, out, N, R, D, s);
-  if (aligned(4)) return launch_chunk<T, 4, FN>(idx, table, out, N, R, D, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, bool BULK, int FN>
+int launch_fn(const int* idx, const void* table, void* out, int N, int R,
+              int row_bytes, cudaStream_t s) {
+  if constexpr (BULK) {
+    return launch_bulk<T, FN>(idx, table, out, N, R, row_bytes, s);
+  } else {
+    return launch_cp_async<T, FN>(idx, table, out, N, R, row_bytes, s);
+  }
 }
 
-template <typename T>
+template <typename T, bool BULK>
 int launch(const void* idx, const void* table, void* out, int N, int R,
            int D, int fn, void* stream) {
   if (N <= 0 || D <= 0) return 0;
-  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int row_bytes = D * static_cast<int>(sizeof(T));
+  const int align = BULK ? 16 : 4;
+  if (R <= 0 || row_bytes % align != 0 ||
+      reinterpret_cast<uintptr_t>(table) % align != 0 ||
+      reinterpret_cast<uintptr_t>(out) % align != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* ip = static_cast<const int*>(idx);
-  const T* tp = static_cast<const T*>(table);
-  T* op = static_cast<T*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fn) {
-    case 0: return launch_fn<T, 0>(ip, tp, op, N, R, D, s);
-    case 1: return launch_fn<T, 1>(ip, tp, op, N, R, D, s);
+    case 0: return launch_fn<T, BULK, 0>(ip, table, out, N, R, row_bytes, s);
+    case 1: return launch_fn<T, BULK, 1>(ip, table, out, N, R, row_bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -200,13 +324,17 @@ int launch(const void* idx, const void* table, void* out, int N, int R,
 }  // namespace
 
 // idx (N,) int32, table (R, D), out (N, D) of the table's type; fn 0 is
-// tanh(2*row), 1 the plain gather.  Rows must be a multiple of 4 bytes and
-// at most kMaxSmem / (2 * kWarps) bytes; otherwise cudaErrorInvalidValue.
-#define GATHER_ENTRY(NAME, T)                                               \
+// tanh(2*row), 1 the plain gather.  `_bulk_`: rows a multiple of 16 bytes
+// on 16-byte-aligned table and out, any width.  `_cp_async_`: rows a
+// multiple of 4 bytes at most 29,056 bytes wide.  Otherwise
+// cudaErrorInvalidValue.
+#define GATHER_ENTRY(NAME, T, BULK)                                         \
   extern "C" int NAME(const void* idx, const void* table, void* out, int N, \
                       int R, int D, int fn, void* stream) {                 \
-    return launch<T>(idx, table, out, N, R, D, fn, stream);                 \
+    return launch<T, BULK>(idx, table, out, N, R, D, fn, stream);           \
   }
 
-GATHER_ENTRY(decoupled_gather_f32, float)
-GATHER_ENTRY(decoupled_gather_bf16, __nv_bfloat16)
+GATHER_ENTRY(decoupled_gather_bulk_f32, float, true)
+GATHER_ENTRY(decoupled_gather_bulk_bf16, __nv_bfloat16, true)
+GATHER_ENTRY(decoupled_gather_cp_async_f32, float, false)
+GATHER_ENTRY(decoupled_gather_cp_async_bf16, __nv_bfloat16, false)

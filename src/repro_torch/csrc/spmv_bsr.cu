@@ -22,8 +22,9 @@
 //  * The grid is persistent, two blocks per SM, each walking block rows
 //    blockIdx.x + k*gridDim.x.
 //  * One producer warp is the access stage: it reads the row's column ids
-//    from device memory 32 at a time (any nnz) and skips -1 slots
-//    outright.  Its lane 0 packs the valid slots of a row into stages of
+//    from device memory 32 at a time (any nnz), skips -1 slots outright
+//    and clamps ids past the last block column to it, as the reference's
+//    indexing does.  Its lane 0 packs the valid slots of a row into stages of
 //    up to ~16 KB of value blocks (4 blocks at Table-I size) and fills
 //    each by 1-D bulk copies (cp.async.bulk) — one copy for a run of
 //    consecutive slots, whose blocks are contiguous, and one for a run of
@@ -43,7 +44,8 @@
 //
 // Scalar loads (every other shape): one block per block row, up to 32
 // warps; warp w owns rows w, w+32, ... and walks the row's slots,
-// reading each slot's id from device memory and skipping -1, its lanes
+// reading each slot's id from device memory, skipping -1 and clamping
+// ids past the last block column as the ring does, its lanes
 // striding over bk with 4-byte loads; a shuffle reduction, then lane 0
 // writes y.
 //
@@ -179,7 +181,8 @@ struct Producer {
 __global__ void __launch_bounds__(kRingThreads)
 spmv_ring_kernel(const float* __restrict__ values,
                  const int* __restrict__ col_ids, const float* __restrict__ x,
-                 float* __restrict__ y, int nbr, int nnz, int bm, int bk) {
+                 float* __restrict__ y, int nbr, int nnz, int bm, int bk,
+                 int nbc) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RingLayout L = ring_layout(bm, bk);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -205,8 +208,9 @@ spmv_ring_kernel(const float* __restrict__ values,
     for (int br = blockIdx.x; br < nbr; br += gridDim.x) {
       const int* ids = col_ids + static_cast<size_t>(br) * nnz;
       for (int j0 = 0; j0 < nnz; j0 += 32) {
-        const int c = j0 + lane < nnz ? ids[j0 + lane] : -1;
-        unsigned valid = __ballot_sync(kFull, c >= 0);
+        const int id = j0 + lane < nnz ? ids[j0 + lane] : -1;
+        const int c = min(id, nbc - 1);  // past the last column: the last
+        unsigned valid = __ballot_sync(kFull, id >= 0);
         while (valid) {
           const int src = __ffs(valid) - 1;
           valid &= valid - 1;
@@ -275,7 +279,7 @@ __global__ void spmv_scalar_kernel(const float* __restrict__ values,
                                    const int* __restrict__ col_ids,
                                    const float* __restrict__ x,
                                    float* __restrict__ y, int nnz, int bm,
-                                   int bk) {
+                                   int bk, int nbc) {
   const int br = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -286,8 +290,9 @@ __global__ void spmv_scalar_kernel(const float* __restrict__ values,
                             static_cast<size_t>(r) * bk;
     float acc = 0.f;
     for (int j = 0; j < nnz; ++j) {
-      const int c = __ldg(ids + j);
+      int c = __ldg(ids + j);
       if (c < 0) continue;  // padding slot: contributes nothing
+      c = min(c, nbc - 1);
       const float* v = row_vals + j * tile;
       const float* xt = x + static_cast<size_t>(c) * bk;
       for (int k = lane; k < bk; k += 32) acc = fmaf(v[k], xt[k], acc);
@@ -299,17 +304,18 @@ __global__ void spmv_scalar_kernel(const float* __restrict__ values,
 
 }  // namespace
 
-// values (nbr, nnz, bm, bk) f32, col_ids (nbr, nnz) int32 (-1 = padding),
-// x (K,) f32 with K = n_block_cols * bk, y (nbr * bm,) f32; contiguous.
+// values (nbr, nnz, bm, bk) f32, col_ids (nbr, nnz) int32 (-1 = padding;
+// ids >= nbc read the last x tile), x (K,) f32 with K = nbc * bk, nbc >= 1,
+// y (nbr * bm,) f32; contiguous.
 
 // The bulk-copy ring: bk % 4 == 0, values and x 16-byte aligned, and a
 // ring of two stages within a block's shared memory.
 extern "C" int spmv_bsr_ring_f32(const void* values, const void* col_ids,
                                  const void* x, void* y, int nbr, int nnz,
-                                 int bm, int bk, void* stream) {
+                                 int bm, int bk, int nbc, void* stream) {
   if (nbr <= 0 || bm <= 0) return 0;
   const RingLayout L = ring_layout(bm, bk);
-  if (bk <= 0 || bk % 4 != 0 || L.bytes > kMaxSmem ||
+  if (bk <= 0 || bk % 4 != 0 || nbc <= 0 || L.bytes > kMaxSmem ||
       reinterpret_cast<uintptr_t>(values) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -330,19 +336,21 @@ extern "C" int spmv_bsr_ring_f32(const void* values, const void* col_ids,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(values), static_cast<const int*>(col_ids),
       static_cast<const float*>(x), static_cast<float*>(y), nbr, nnz, bm,
-      bk);
+      bk, nbc);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Scalar loads: any bm, bk and alignment.
 extern "C" int spmv_bsr_f32(const void* values, const void* col_ids,
                             const void* x, void* y, int nbr, int nnz,
-                            int bm, int bk, void* stream) {
+                            int bm, int bk, int nbc, void* stream) {
   if (nbr <= 0 || bm <= 0) return 0;
+  if (nbc <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int warps = bm < 32 ? bm : 32;
   spmv_scalar_kernel<<<nbr, 32 * warps, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(values), static_cast<const int*>(col_ids),
-      static_cast<const float*>(x), static_cast<float*>(y), nnz, bm, bk);
+      static_cast<const float*>(x), static_cast<float*>(y), nnz, bm, bk,
+      nbc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,8 @@ a kernel, one entry per kernel, and ``ROUTES`` the same launches by the
 design they took, for the kernels with more than one (``dataflow_matmul``:
 ``"wgmma+tma"`` or ``"cuda-core fp32"``; ``flash_attention``:
 ``"mma.sync"`` or ``"cuda-core fp32"``; ``spmv_bsr``: ``"bulk-copy ring"``
-or ``"scalar loads"``; ``decode_attention``: ``"cluster split-S ×C"``, C
+or ``"scalar loads"``; ``decoupled_gather``: ``"bulk-copy ring"`` or
+``"cp.async ring"``; ``decode_attention``: ``"cluster split-S ×C"``, C
 CTAs per cluster).  One source may hold several
 kernels (``flash_attention.cu`` holds prefill and decode attention).
 """
@@ -44,11 +45,16 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _PREFILL = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
 _DECODE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
-_SPMV = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SPMV = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 SIGNATURES: dict[str, dict[str, list]] = {
     "spmv_bsr": {"spmv_bsr_f32": _SPMV, "spmv_bsr_ring_f32": _SPMV},
-    "running_max": {"running_max_i64": [_P, _P, _P, _L, _P],
-                    "running_max_i32": [_P, _P, _P, _L, _P]},
+    "running_max": {
+        **{f"running_max_{t}": [_P, _P, _P, _P, _L, _L, _P]
+           for t in ("i64", "i32")},
+        **{f"running_max_round_trip_{t}": [_P, _P, _P, _P, _P, _L, _L, _L, _P,
+                                           _P, _P, _P, _P,
+                                           ctypes.POINTER(_I)]
+           for t in ("i64", "i32")}},
     "flash_attention": {"flash_attention_bf16": _PREFILL,
                         "flash_attention_f32": _PREFILL},
     "decode_attention": {"decode_attention_bf16": _DECODE,
@@ -60,8 +66,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
            for a in ("f32", "bf16") for o in ("f32", "bf16")},
         **{f"dataflow_matmul_wgmma_bf16_{o}": [_P, _P, _P, _I, _I, _I, _I, _P]
            for o in ("f32", "bf16")}},
-    "decoupled_gather": {f"decoupled_gather_{t}": [_P, _P, _P, _I, _I, _I,
-                                                     _I, _P]
+    "decoupled_gather": {f"decoupled_gather_{r}_{t}": [_P, _P, _P, _I, _I,
+                                                         _I, _I, _P]
+                         for r in ("bulk", "cp_async")
                          for t in ("f32", "bf16")},
 }
 
@@ -73,7 +80,8 @@ LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
 #: the same launches by design, for the kernels with more than one
 ROUTES: dict[str, Counter[str]] = {
     k: Counter() for k in ("dataflow_matmul", "flash_attention",
-                           "decode_attention", "spmv_bsr")}
+                           "decode_attention", "spmv_bsr",
+                           "decoupled_gather")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

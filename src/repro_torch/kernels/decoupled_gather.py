@@ -1,18 +1,23 @@
 """Decoupled gather: the paper's template made explicit inside one kernel.
 
 ``out[i] = fn(table[idx[i]])`` with the three template roles written out
-by hand, as in the reference's Pallas kernel:
+by hand, as in the reference's Pallas kernel: an **access stage** that
+loads the indices and issues the row copies ahead, a **FIFO channel** of
+row slots in shared memory guarded per slot, and an **execute stage**
+that computes each resident row while later ones are in flight.  Two
+designs, see ``csrc/decoupled_gather.cu``; :func:`gather_route` picks one
+from the row width and the alignment, before the launch:
 
-* **access stage**: row ``idx[i+1]``'s copy is issued (``cp.async``)
-  before row ``i`` is computed — the memory stage running ahead;
-* **FIFO channel**: a two-slot ring in shared memory, one copy group per
-  slot — the bounded queue between the stages;
-* **execute stage**: waits on its own slot and computes the resident row
-  while the next one is in flight.
+* ``"bulk-copy ring"`` — rows a multiple of 16 bytes on a 16-byte-aligned
+  table: a persistent grid whose producer warp issues one 1-D bulk copy
+  (``cp.async.bulk``) per row (2 KB pieces of wider rows) into a 32-slot
+  ring guarded by full / empty mbarriers, drained by eight consumer warps;
+* ``"cp.async ring"`` — other rows of a multiple of 4 bytes: each warp
+  walks its own run of rows through a two-slot ``cp.async`` ring; its
+  rows must fit the ring (29,056 bytes at most).
 
-Each warp runs that pipeline over its own run of rows and loads the
-run's indices first, so the address stream is ahead of the data stream.
-See ``csrc/decoupled_gather.cu``.
+Indices wrap (negative ones, once, by R) and then clamp into [0, R), as
+the reference's jnp indexing does, on every path.
 
 A kernel cannot run a Python callable, so on the card ``fn`` is one of a
 named set (:data:`ROW_FNS`): ``None``, the reference's default
@@ -33,6 +38,10 @@ from .._device import get_device
 from . import _lib
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+BULK = "bulk-copy ring"
+CP_ASYNC = "cp.async ring"
+_ENTRY = {BULK: "decoupled_gather_bulk", CP_ASYNC: "decoupled_gather_cp_async"}
 
 
 def _tanh2(row: torch.Tensor) -> torch.Tensor:
@@ -61,10 +70,26 @@ def _row_fn(fn: str | Callable | None) -> Callable:
 
 def decoupled_gather_ref(idx: torch.Tensor, table: torch.Tensor,
                          fn: str | Callable | None = None) -> torch.Tensor:
-    """Plain version: ``fn(table[idx])``.  ``fn`` is a name of
-    :data:`ROW_FNS` or an elementwise callable (as the reference's ``vmap``
-    of a row function is, for an elementwise one)."""
-    return _row_fn(fn)(table[idx])
+    """Plain version: ``fn(table[idx])``, each index wrapped by R if it is
+    negative and then clamped into [0, R), as the reference's jnp indexing
+    is.  ``fn`` is a name of :data:`ROW_FNS` or an elementwise callable (as
+    the reference's ``vmap`` of a row function is, for an elementwise
+    one)."""
+    R = table.shape[0]
+    rows = idx.long()
+    rows = torch.where(rows < 0, rows + R, rows).clamp(0, max(R - 1, 0))
+    return _row_fn(fn)(table[rows])
+
+
+def gather_route(table: torch.Tensor) -> str:
+    """The design ``decoupled_gather`` takes on the card for a contiguous
+    ``table`` whose rows are a multiple of 4 bytes: the bulk-copy ring for
+    rows of a multiple of 16 bytes on a 16-byte-aligned base, else the
+    ``cp.async`` ring."""
+    row_bytes = table.shape[1] * table.element_size()
+    if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0:
+        return BULK
+    return CP_ASYNC
 
 
 def decoupled_gather(idx: torch.Tensor, table: torch.Tensor, *,
@@ -72,13 +97,16 @@ def decoupled_gather(idx: torch.Tensor, table: torch.Tensor, *,
     """``out[i] = fn(table[idx[i]])`` with explicit access/execute
     decoupling.  idx: (N,) integer, cast to int32 as the reference casts
     it; table: (R, D) float32 or bfloat16; returns (N, D) in the table's
-    dtype.  Negative indices wrap as in Python.
+    dtype.  Negative indices wrap once, then every index clamps into
+    [0, R), as in the reference.
 
     A CPU tensor takes the plain version, with any ``fn``; a CUDA tensor
-    launches the kernel, which computes ``fn=None`` (``tanh(2·row)`` in
-    fp32, rounded once) or ``fn="identity"``, and raises on anything else.
-    The kernel's rows must fit its shared-memory ring; it reports a CUDA
-    error (raised here) for wider ones.
+    launches the kernel of its :func:`gather_route`, which computes
+    ``fn=None`` (``tanh(2·row)`` in fp32, rounded once; for bf16 by the
+    hardware's tanh, within one bf16 ulp of the plain version) or
+    ``fn="identity"``, and raises on anything else.  The ``cp.async``
+    ring's rows must fit its shared memory; it reports a CUDA error
+    (raised here) for wider ones.
     """
     if idx.ndim != 1 or table.ndim != 2:
         raise ValueError(f"decoupled_gather: idx {tuple(idx.shape)} is not "
@@ -97,24 +125,30 @@ def decoupled_gather(idx: torch.Tensor, table: torch.Tensor, *,
     if table.dtype not in _SUFFIX:
         raise TypeError(f"decoupled_gather kernel takes a float32 or "
                         f"bfloat16 table, got {table.dtype}")
-    R, D = table.shape
-    row_bytes = D * table.element_size()
+    row_bytes = table.shape[1] * table.element_size()
     if not table.is_contiguous() or row_bytes % 4 \
             or table.data_ptr() % 4:
         raise ValueError("decoupled_gather kernel takes a contiguous table "
                          "whose rows are a multiple of 4 bytes")
-    out = torch.empty((idx.shape[0], D), dtype=table.dtype,
-                      device=table.device)
+    return _launch(idx, table, fn, gather_route(table))
+
+
+def _launch(idx: torch.Tensor, table: torch.Tensor, fn: str | None,
+            design: str) -> torch.Tensor:
+    """Launch the kernel of ``design`` on checked CUDA tensors."""
+    (R, D), N = table.shape, idx.shape[0]
+    out = torch.empty((N, D), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
     if R == 0:
         raise IndexError("decoupled_gather: gather from an empty table")
     with torch.cuda.device(table.device):
         err = getattr(_lib.lib("decoupled_gather"),
-                      f"decoupled_gather_{_SUFFIX[table.dtype]}")(
-            idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.shape[0],
-            R, D, _FN_CODE[fn], _lib.stream())
+                      f"{_ENTRY[design]}_{_SUFFIX[table.dtype]}")(
+            idx.data_ptr(), table.data_ptr(), out.data_ptr(), N, R, D,
+            _FN_CODE[fn], _lib.stream())
         _lib.LAUNCHES["decoupled_gather"] += 1
+        _lib.ROUTES["decoupled_gather"][design] += 1
     _lib.check("decoupled_gather", err)
     return out
 

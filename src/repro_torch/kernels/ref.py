@@ -28,20 +28,23 @@ def spmv_bsr_ref(values: torch.Tensor, col_ids: torch.Tensor,
 
     values : (n_block_rows, nnz_blocks, bm, bk) stored blocks
     col_ids: (n_block_rows, nnz_blocks) int32 — block-column of each stored
-             block; −1 marks padding blocks (contribute zero).
+             block; −1 marks padding blocks (contribute zero); an id past
+             the last block column reads the last x tile, as the
+             reference's jnp indexing clamps it.
     x      : (K,) dense vector; K = n_block_cols * bk
     returns: (nrows,) = A @ x with fp32 accumulation.
     """
     bk = values.shape[3]
     xb = x.reshape(-1, bk)                            # (n_block_cols, bk)
     valid = col_ids >= 0
-    gathered = xb[torch.where(valid, col_ids, 0).long()]   # (nbr, nnz, bk)
+    cols = torch.where(valid, col_ids.clamp(max=xb.shape[0] - 1), 0)
+    gathered = xb[cols.long()]                        # (nbr, nnz, bk)
     gathered = torch.where(valid[..., None], gathered, 0)
     y = torch.einsum("rnmk,rnk->rm", values.float(), gathered.float())
     return y.reshape(-1)[:nrows].to(x.dtype)
 
 
-#: tile width of the blocked scan (the CUDA kernel's 1024-value tile)
+#: tile width of the plain version's blocked scan
 SCAN_TILE = 1024
 
 
@@ -56,19 +59,23 @@ def _doubling_max_scan(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def running_max_ref(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive running maximum of a 1-D integer tensor, blocked as the
-    kernel is: per-tile maxima, an exclusive scan of them into per-tile
-    carries, then a scan of each tile folded with its carry.  Exact."""
+def running_max_ref(x: torch.Tensor,
+                    carry: torch.Tensor | None = None) -> torch.Tensor:
+    """Inclusive running maximum of a 1-D integer tensor, blocked: per-tile
+    maxima, an exclusive scan of them into each tile's prefix (what the
+    kernel's look-back computes), then a scan of each tile folded with its
+    prefix.  ``carry`` (one value of x's dtype, or None) is folded in front
+    of x.  Exact."""
     n = x.shape[0]
     low = torch.iinfo(x.dtype).min
     nt = -(-n // SCAN_TILE)
     tiles = torch.full((nt * SCAN_TILE,), low, dtype=x.dtype, device=x.device)
     tiles[:n] = x
     tiles = tiles.reshape(nt, SCAN_TILE)
-    incl = _doubling_max_scan(tiles.amax(dim=1))
-    carry = torch.cat([incl.new_full((1,), low), incl[:-1]])
-    out = torch.maximum(_doubling_max_scan(tiles), carry[:, None])
+    head = tiles.new_full((1,), low) if carry is None \
+        else carry.reshape(1).to(x.dtype)
+    incl = _doubling_max_scan(torch.cat([head, tiles.amax(dim=1)]))
+    out = torch.maximum(_doubling_max_scan(tiles), incl[:-1, None])
     return out.reshape(-1)[:n]
 
 

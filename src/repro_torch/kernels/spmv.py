@@ -59,7 +59,9 @@ def spmv_bsr(values: torch.Tensor, col_ids: torch.Tensor,
     """Block-sparse-row SpMV.
 
     values : (n_block_rows, nnz_blocks, bm, bk) float32
-    col_ids: (n_block_rows, nnz_blocks) int32, −1 = padding
+    col_ids: (n_block_rows, nnz_blocks) int32, −1 = padding; ids past
+             the last block column read the last x tile, as the
+             reference's indexing clamps them
     x      : (K,) float32 with K divisible by bk
     returns (n_block_rows * bm,) float32
 
@@ -100,7 +102,7 @@ def _launch(values: torch.Tensor, col_ids: torch.Tensor, x: torch.Tensor,
     with torch.cuda.device(values.device):
         err = getattr(_lib.lib("spmv_bsr"), entry)(
             values.data_ptr(), col_ids.data_ptr(), x.data_ptr(),
-            y.data_ptr(), nbr, nnz, bm, bk, _lib.stream())
+            y.data_ptr(), nbr, nnz, bm, bk, x.shape[0] // bk, _lib.stream())
         _lib.LAUNCHES["spmv_bsr"] += 1
         _lib.ROUTES["spmv_bsr"][design] += 1
     _lib.check("spmv_bsr", err)

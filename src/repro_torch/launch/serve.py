@@ -26,9 +26,10 @@ import numpy as np
 import torch
 
 _REPORT_LATER = ("the decode-step dataflow report needs torch.fx lowering "
-                 "rules for the transformer step (ROADMAP, open item 2)")
+                 "rules for the transformer step (ROADMAP: \"The "
+                 "decode-step dataflow report\")")
 _DAEMON_LATER = ("the resolution daemon is the serving-tier slice "
-                 "(ROADMAP, open item 8)")
+                 "(ROADMAP: \"core/chunkgraph.py and the serving tier\")")
 
 
 @dataclasses.dataclass
@@ -53,12 +54,16 @@ def _sync(device: torch.device) -> None:
 
 class BatchedServer:
     """Static-batch server: groups requests, prefills once, decodes in
-    lockstep.  Runs on the device that holds ``params``."""
+    lockstep.  Runs on the device that holds ``params``.  ``greedy`` is
+    the reference's flag: both of its settings take the argmax there, and
+    so here."""
 
-    def __init__(self, cfg, params, *, max_len: int = 256):
+    def __init__(self, cfg, params, *, max_len: int = 256,
+                 greedy: bool = True):
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.greedy = greedy
         self.device = params["embed"]["table"].device
 
     def dataflow_report(self, requests: list[Request]) -> str:

@@ -16,7 +16,8 @@ a small amount of compute.  Unlike the reference's functional update,
 :func:`gqa_decode` appends the new key and value to the cache in place
 and returns the same tensors, so decoding allocates no new cache.
 
-MLA and the int8 KV cache wait for a later slice (ROADMAP, open item 3).
+MLA and the int8 KV cache wait for a later slice (ROADMAP: "The rest of
+the model stack").
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def _check_supported(cfg) -> None:
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
             "the int8 KV cache (kv_cache_dtype='int8') is not ported yet "
-            "(ROADMAP, open item 3: int8 KV cache, MLA, MoE, SSM)")
+            "(ROADMAP: \"The rest of the model stack\")")
 
 
 # ---------------------------------------------------------------------------

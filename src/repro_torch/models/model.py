@@ -2,7 +2,7 @@
 
 The port of the reference's ``models/model.py`` — the public modelling
 API the server, ``chip_smoke.py`` and the tests use.  ``loss_fn`` and
-``input_specs`` wait for the training slice (ROADMAP, open item 4).
+``input_specs`` wait for the training slice (ROADMAP: "Training").
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     """Random parameters from ``gen`` on ``device`` (default: the card)."""
     if cfg.mtp_depth > 0:
         raise NotImplementedError("multi-token-prediction heads wait for "
-                                  "the training slice (ROADMAP, open item 4)")
+                                  "the training slice (ROADMAP: "
+                                  "\"Training\")")
     return transformer.init_params(gen, cfg, device)
 
 

@@ -15,7 +15,7 @@ them to and from the reference's stacked trees).
 
 This slice carries the ``mixer="attn"`` / ``mlp="dense"`` layer, with
 the ``parallel_block`` variant; ``mla``, ``mamba``, ``rwkv``, ``moe`` and
-``rwkv_cmix`` layers raise (ROADMAP, open item 3).
+``rwkv_cmix`` layers raise (ROADMAP: "The rest of the model stack").
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def _check_spec(spec: LayerSpec) -> None:
     if spec.mixer != "attn" or spec.mlp != "dense":
         raise NotImplementedError(
             f"mixer={spec.mixer!r}, mlp={spec.mlp!r} is not ported yet "
-            f"(ROADMAP, open item 3: int8 KV cache, MLA, MoE, SSM)")
+            f"(ROADMAP: \"The rest of the model stack\")")
 
 
 # ---------------------------------------------------------------------------

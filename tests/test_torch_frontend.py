@@ -211,6 +211,34 @@ def test_negative_index_vector_wraps_as_reference():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("index", [
+    np.asarray([16, 40, -17, -1, 3, -100], np.int32),   # x[idx]: gather
+    np.asarray(20, np.int32),                           # x[j]: dynamic_slice
+], ids=["vector", "scalar"])
+def test_out_of_range_indices_trace_and_clamp_as_reference(index):
+    """Shapes propagate on meta tensors, so example indices past either
+    end of the table trace (eager indexing would raise on them), and the
+    lowered program clamps them as the reference's gather and
+    dynamic_slice do."""
+    rng = np.random.default_rng(4)
+    table = rng.normal(size=(16, 4)).astype(np.float32)
+
+    def ref_fn(t, i):
+        return t[i] * 3.0
+
+    def port_fn(t, i):
+        return t[i] * 3.0
+
+    ref = ref_compile(ref_fn, jnp.asarray(table), jnp.asarray(index))
+    args = (torch.from_numpy(table), torch.from_numpy(index))
+    port = port_compile(port_fn, *args, device="cpu")
+    assert _plan(port) == _plan(ref)
+    want = np.asarray(ref(jnp.asarray(table), jnp.asarray(index)))
+    for backend in ("sequential", "emulated"):
+        np.testing.assert_array_equal(port(*args, backend=backend).numpy(),
+                                      want)
+
+
 def test_unlowered_operations_raise():
     x = torch.arange(8.0)
 

@@ -29,6 +29,7 @@ from repro_torch.kernels import (_lib, decoupled_gather, decoupled_gather_ref,
                                  decoupled_gather_staged, matmul, ops, ref,
                                  rmsnorm)
 from repro_torch.kernels import dataflow_matmul as dm
+from repro_torch.kernels.decoupled_gather import BULK, CP_ASYNC, gather_route
 
 _RNG = np.random.default_rng(42)
 _DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -142,6 +143,37 @@ def test_decoupled_gather_repeated_indices_match_reference(fn):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GATHER_TOL)
 
 
+#: indices past both ends of a 4-row table: ≥ R, −1 and < −R
+OUT_OF_RANGE = np.asarray([0, 3, 5, -1, -6, 9, -4, 2, -100, 4], np.int32)
+
+
+@pytest.mark.parametrize("fn", sorted(GATHER_FNS))
+def test_decoupled_gather_out_of_range_indices_match_reference(fn):
+    """Negative indices wrap once by R, then every index clamps into
+    [0, R): the reference's Pallas kernel (interpret mode) and its oracle
+    give rows [0, 3, 3, 3, 0, 3, 0, 2, 0, 3]; so do the port's plain
+    version and its staged form on both backends."""
+    tj, tt = _pair((4, 8), "f32")
+    ij = jnp.asarray(OUT_OF_RANGE)
+    it = torch.from_numpy(OUT_OF_RANGE)
+    ref_fn, port_fn = GATHER_FNS[fn]
+    want = ref_gather_kernel(ij, tj, fn=ref_fn, interpret=True)
+    np.testing.assert_array_equal(
+        np.asarray(want), np.asarray(ref_api.decoupled_gather_ref(
+            ij, tj, fn=ref_fn)))
+    rows = torch.tensor([0, 3, 3, 3, 0, 3, 0, 2, 0, 3])
+    plain = decoupled_gather(it, tt, fn=port_fn)
+    assert torch.equal(plain, decoupled_gather_ref(it, tt, fn=port_fn))
+    assert torch.equal(plain, decoupled_gather_ref(rows, tt, fn=port_fn))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), **GATHER_TOL)
+    for backend in ("sequential", "emulated"):
+        staged = decoupled_gather_staged(it, tt, fn=port_fn, backend=backend)
+        assert torch.equal(staged, plain), backend
+        np.testing.assert_allclose(
+            staged.numpy(), np.asarray(ref_api.decoupled_gather_staged(
+                ij, tj, fn=ref_fn, backend=backend)), **GATHER_TOL)
+
+
 def test_decoupled_gather_takes_any_index_dtype_and_callable_on_the_cpu():
     _, tt = _pair((16, 32), "f32")
     idx = torch.tensor([1, -1, 15, 0])                 # int64, one negative
@@ -215,8 +247,24 @@ def test_wrappers_reject_bad_shapes():
 
 
 def _misaligned(rows, cols, dtype):
-    """A contiguous (rows, cols) view whose base is 2 bytes past 16."""
+    """A contiguous (rows, cols) view whose base is one element past 16
+    bytes."""
     return torch.empty(rows * cols + 1, dtype=dtype)[1:].view(rows, cols)
+
+
+@pytest.mark.parametrize("shape,dtype,misaligned,want", [
+    ((49152, 576), torch.bfloat16, False, BULK),   # phase 7: smollm's table
+    ((4, 8192), torch.float32, False, BULK),       # 32 KB rows: in pieces
+    ((9, 8), torch.bfloat16, False, BULK),         # one 16-byte word a row
+    ((50, 7), torch.float32, False, CP_ASYNC),     # 28-byte rows
+    ((9, 6), torch.bfloat16, False, CP_ASYNC),     # 12-byte rows
+    ((64, 8), torch.float32, True, CP_ASYNC),      # base 4 bytes past 16
+], ids=["phase7", "wide", "narrow", "28B", "12B", "misaligned"])
+def test_gather_route_is_chosen_from_row_width_and_alignment(
+        shape, dtype, misaligned, want):
+    table = (_misaligned(*shape, dtype) if misaligned
+             else torch.empty(shape, dtype=dtype))
+    assert gather_route(table) == want
 
 
 @pytest.mark.parametrize("x,w,want", [
@@ -390,13 +438,73 @@ def test_decoupled_gather_kernel_takes_strided_indices(view, index_dtype):
 
 @pytest.mark.cuda
 def test_decoupled_gather_kernel_reports_rows_too_wide_for_its_ring():
+    """The bulk-copy ring takes rows of any width, in 2 KB pieces (32 KB
+    rows: 16 pieces); the cp.async ring, which takes rows that are not
+    16-byte multiples, still reports rows wider than its 8 slots fit in
+    shared memory (8191 floats) as a CUDA error, and takes 7263."""
     dev = _needs_card()
-    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    idx = torch.tensor([0, 3, -1, 9], dtype=torch.int32, device=dev)
+    wide = _cuda_pair(dev, (4, 8192), "f32", 1)
+    assert gather_route(wide) == BULK
+    assert torch.equal(decoupled_gather(idx, wide, fn="identity"),
+                       wide[[0, 3, 3, 3]])
     with pytest.raises(RuntimeError, match="decoupled_gather"):
-        decoupled_gather(idx, torch.zeros(4, 8192, device=dev))
+        decoupled_gather(idx, torch.zeros(4, 8191, device=dev))
     torch.testing.assert_close(
-        decoupled_gather(idx, torch.zeros(4, 7264, device=dev)),
-        torch.zeros(2, 7264, device=dev), rtol=0, atol=0)
+        decoupled_gather(idx, torch.zeros(4, 7263, device=dev)),
+        torch.zeros(4, 7263, device=dev), rtol=0, atol=0)
+    assert _lib.routes()["decoupled_gather"] == {BULK: 1, CP_ASYNC: 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [BULK, CP_ASYNC])
+def test_decoupled_gather_tanh_on_every_bf16_value(design):
+    """The bf16 kernels take tanh(2·x) from the hardware's tanh: on every
+    finite bf16 value (all 65,536 bit patterns, the others as 0) it is
+    within one bf16 ulp of the plain version's fp32 tanh, rounded once."""
+    from repro_torch.kernels.decoupled_gather import _launch
+    dev = _needs_card()
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    vals = bits.view(torch.bfloat16)
+    vals = torch.where(torch.isfinite(vals.float()), vals,
+                       torch.zeros_like(vals))
+    table = vals.reshape(8192, 8).to(dev)
+    idx = torch.arange(8192, dtype=torch.int32, device=dev)
+    got = _launch(idx, table, None, design)
+    torch.testing.assert_close(got.float(),
+                               decoupled_gather_ref(idx, table).float(),
+                               **KERNEL_GATHER_TOL["bf16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design,N,R,D,dtype", [
+    (BULK, 5, 7, 64, "bf16"),           # fewer rows than SMs: one a CTA
+    (CP_ASYNC, 5, 7, 64, "bf16"),
+    (BULK, 4133, 300, 576, "bf16"),     # not a multiple of the 32 slots
+    (CP_ASYNC, 4133, 300, 576, "bf16"),
+    (BULK, 40_000, 97, 64, "f32"),      # several rounds of the ring a CTA
+    (CP_ASYNC, 40_000, 97, 64, "f32"),
+    (BULK, 300, 6, 4104, "f32"),        # 16,416-byte rows: 9 pieces
+])
+def test_decoupled_gather_routes_bit_for_bit(design, N, R, D, dtype):
+    """Both designs on repeated and out-of-range indices (≥ R, −1, < −R):
+    ``identity`` is bit for bit the table's wrapped-and-clamped rows, and
+    tanh(2·row) within one bf16 ulp (fp32: 1e-6) of the plain version."""
+    from repro_torch.kernels.decoupled_gather import _launch
+    dev = _needs_card()
+    table = _cuda_pair(dev, (R, D), dtype, N + D)
+    rng = np.random.default_rng(N)
+    idx = rng.integers(-2 * R, 2 * R, N).astype(np.int32)
+    idx[rng.random(N) < 0.3] = 1                  # runs of one row
+    rows = np.clip(np.where(idx < 0, idx + R, idx), 0, R - 1)
+    it = torch.from_numpy(idx).to(dev)
+    got = _launch(it, table, "identity", design)
+    assert torch.equal(got, table[torch.from_numpy(rows).to(dev)])
+    got = _launch(it, table, None, design)
+    torch.testing.assert_close(got.float(),
+                               decoupled_gather_ref(it, table).float(),
+                               **KERNEL_GATHER_TOL[dtype])
+    assert _lib.routes()["decoupled_gather"] == {design: 2}
 
 
 @pytest.mark.cuda

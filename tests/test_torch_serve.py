@@ -208,6 +208,28 @@ def test_server_tokens_identical_to_reference(model):
         assert [len(r.tokens) for r in got] == gens
 
 
+@pytest.mark.parametrize("greedy", [True, False])
+def test_server_takes_the_reference_greedy_flag(model, greedy):
+    """The reference's ``BatchedServer(..., greedy=...)`` argmaxes either
+    way: both settings serve the same tokens as the reference's server
+    with that flag and as the port's server without it."""
+    ref_cfg, cfg, ref_params, params = model
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(7,)).astype(np.int32)
+               for _ in range(2)]
+    want = RefServer(ref_cfg, ref_params, max_len=MAX_LEN,
+                     greedy=greedy).serve(
+        [RefRequest(i, p, 4) for i, p in enumerate(prompts)])
+    reqs = [port_serve.Request(i, p, 4) for i, p in enumerate(prompts)]
+    server = port_serve.BatchedServer(cfg, params, max_len=MAX_LEN,
+                                      greedy=greedy)
+    assert server.greedy is greedy
+    got = [r.tokens for r in server.serve(reqs)]
+    assert got == [r.tokens for r in want]
+    assert got == [r.tokens for r in port_serve.BatchedServer(
+        cfg, params, max_len=MAX_LEN).serve(reqs)]
+
+
 def test_demo_cli_serves_on_the_cpu(capsys):
     port_serve.main(["--arch", "smollm-135m", "--reduced", "--requests", "2",
                      "--prompt-len", "6", "--gen", "3", "--device", "cpu"])
