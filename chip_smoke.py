@@ -32,11 +32,34 @@ Phases, one line (or block) each:
    nonzeros against the plain loop, and ``ops.spmv`` on the whole matrix
    against a float64 dense product on the host (rtol=atol=1e-4); every
    ``spmv_bsr`` launch of phases 3-4 on the bulk-copy ring;
+3b. the other Table-I bodies at Table-I size on the card — knapsack (W
+   3200, N 200), Floyd–Warshall (n 1024), DFS (4000 x 200) — each
+   compiled in loop mode to the reference's recorded plan (nodes, stages,
+   channels, bytes per token, II, latency, ops per stage) and simulator
+   stages (II, latency, memory-in-SCC, trace regions), then run by the
+   ``sequential`` and ``emulated`` backends bit for bit the plain loop
+   body over a window: knapsack's item row 0 (3,201 steps, also against
+   numpy), Floyd–Warshall's first 1,024 steps (k = i = 0, also against
+   numpy), DFS's first 1,000 steps; then ``at_set`` and its lowered
+   scatter on indices past both ends, eagerly and on both backends: a
+   negative index wraps once, one still out of range drops the write;
 4. Fig. 5, SpMV, ACP: the dataflow and conventional machines simulated
    over all 4,194,304 iterations with the ``torch`` engine (the solver's
    running max on the card), again with the ``numpy`` engine; the cycles
    must be identical and equal the reference's recorded
    16,517,754 / 318,747,791;
+4b. the Fig. 5 grid through the port's harness
+   (``repro_torch.workloads.fig5.run_all``, in this process) on the
+   ``torch`` engine with the resolution cache off: SpMV, knapsack and DFS
+   at all their Table-I iterations, Floyd–Warshall at its first 2^22 of
+   2^30 (the whole of it takes over 20 minutes of host time), each on
+   ACP, ACP+64KB, HP and HP+64KB through the dataflow and conventional
+   machines and the processor baseline; the 36 cycle counts must equal
+   the reference's recorded grid (``REF_FIG5``).  Per cell df/base,
+   conv/base and df/conv; per kernel the wall, its tasks' walls, the
+   engine's phase walls and the ``running_max`` launches (at least one
+   per kernel); then each kernel's best dataflow vs best conventional
+   gain;
 5. the attention kernels against their plain versions on the card, at
    the serving path's shapes in bf16 (rtol=atol=2e-2, the bf16 tolerance
    of tests/test_kernels.py) and once in fp32 (rtol=atol=1e-4) —
@@ -95,7 +118,7 @@ Phases, one line (or block) each:
    route chooses among; the matmul's row in the kernels line sums the
    path's two products;
 8. one JSON line listing every kernel with its launches on its main path
-   (phases 3-4 for the SpMV kernels, run (b) of phase 6 for attention,
+   (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), the design those launches took, its error
    against the plain version, its times and its bound; then the
    ``nvidia-smi`` line; then the result line.
@@ -147,6 +170,51 @@ REF_DATAFLOW_CYCLES = 16_517_754
 REF_CONVENTIONAL_CYCLES = 318_747_791
 FIFO_DEPTH = 256
 MAX_OUTSTANDING = 16
+
+#: the reference's plans of the other Table-I bodies
+#: (repro.dataflow.compile(..., loop=True, nonaliasing_carries=...), jax
+#: 0.9.0, on the CPU; held against the reference by
+#: tests/test_torch_fig5.py::test_chip_smoke_plans_are_the_reference):
+#: nodes, stages, channels, bytes per token, pipeline II, total latency,
+#: ops per stage; then each simulator stage's (II, latency,
+#: memory-in-SCC, trace regions)
+REF_TABLE1_PLANS = {
+    "knapsack": ((35, 6, 11, 36, 1, 41, [4, 5, 6, 5, 7, 8]),
+                 [(1, 5, False, ["dp_load"]), (1, 6, False, ["dp_load2"]),
+                  (1, 7, False, ["dp_store"]), (1, 6, False, []),
+                  (1, 8, False, []), (1, 9, False, [])]),
+    "floyd_warshall": ((30, 8, 13, 40, 1, 46, [1, 5, 2, 5, 2, 5, 4, 6]),
+                       [(1, 4, False, []), (1, 6, False, ["d_ij"]),
+                        (1, 5, False, []), (1, 6, False, ["d_ik"]),
+                        (1, 5, False, []), (1, 6, False, ["d_kj"]),
+                        (1, 7, False, []), (1, 7, False, ["d_store"])]),
+    "dfs": ((30, 1, 0, 0, 38, 38, [30]),
+            [(38, 38, True, ["stack", "adj", "visited"])]),
+}
+
+#: the reference's Fig. 5 grid (benchmarks/paper_fig5.py, numpy engine,
+#: jax 0.9.0, rescache off; FIFO 256, 16 outstanding requests; held
+#: against the reference by
+#: tests/test_torch_fig5.py::test_chip_smoke_cycles_are_the_reference): per
+#: kernel the simulated iterations, then (dataflow, conventional) cycles
+#: on ACP, ACP+64KB, HP, HP+64KB, then the processor baseline's cycles.
+#: Floyd–Warshall is its first 2^22 of 2^30 iterations.
+FIG5_MEMS = ("ACP", "ACP+64KB", "HP", "HP+64KB")
+REF_FIG5 = {
+    "spmv": (4_194_304, ((16_517_754, 318_747_791), (4_196_075, 34_614_417),
+                         (20_902_216, 432_013_335), (4_196_580, 47_824_056)),
+             55_472_158),
+    "knapsack": (640_000, ((640_807, 32_627_621), (640_798, 649_631),
+                           (640_976, 44_160_041), (640_976, 653_274)),
+                 6_800_030),
+    "floyd_warshall": (1 << 22, ((4_206_778, 318_735_634),
+                                 (4_206_548, 16_248_450),
+                                 (4_210_939, 432_013_358),
+                                 (4_210_845, 21_483_182)), 47_174_400),
+    "dfs": (800_000, ((152_820_165, 90_410_178), (66_229_666, 43_236_008),
+                      (198_399_790, 112_000_038), (76_817_296, 48_808_791)),
+            14_021_984),
+}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -275,12 +343,14 @@ def main() -> None:
     # -- the Table-I workload on the card ------------------------------------
     t0 = time.perf_counter()
     w = make_spmv(1.0, device=dev)
-    dim = w.dim
-    bvals, bcols = csr_to_bsr(w.indptr, w.indices, w.data, (dim, dim),
+    csr_ptr, csr_cols, csr_vals, csr_x = (
+        w.data[k] for k in ("indptr", "indices", "values", "x"))
+    dim = csr_x.size
+    bvals, bcols = csr_to_bsr(csr_ptr, csr_cols, csr_vals, (dim, dim),
                               bm=8, bk=128)
     state = interop.spmv_state_to_torch(
-        {"bsr_values": bvals, "bsr_col_ids": bcols, "x": w.x}, dev)
-    print(f"[setup] Table-I SpMV: dim {dim}, {len(w.data)} nonzeros, BSR "
+        {"bsr_values": bvals, "bsr_col_ids": bcols, "x": csr_x}, dev)
+    print(f"[setup] Table-I SpMV: dim {dim}, {len(csr_vals)} nonzeros, BSR "
           f"{tuple(bvals.shape)}, built in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -297,11 +367,11 @@ def main() -> None:
     require(torch.allclose(y_k, y_p, rtol=1e-4, atol=1e-4),
             f"spmv_bsr disagrees with its plain version (max err "
             f"{spmv_err})")
-    rows = np.repeat(np.arange(dim), np.diff(w.indptr))
+    rows = np.repeat(np.arange(dim), np.diff(csr_ptr))
     dense = torch.zeros(dim, dim, device=dev)
     dense[torch.from_numpy(rows).to(dev),
-          torch.from_numpy(w.indices.astype(np.int64)).to(dev)] = \
-        torch.from_numpy(w.data).to(dev)
+          torch.from_numpy(csr_cols.astype(np.int64)).to(dev)] = \
+        torch.from_numpy(csr_vals).to(dev)
     valid = int((bcols >= 0).sum())
     spmv_bytes = (valid * bm * bk * 4 + bcols.size * 4 + x.numel() * 4
                   + nbr * bm * 4)
@@ -400,7 +470,7 @@ def main() -> None:
     print(c.report(), flush=True)
     require(c.num_stages == 5, f"expected 5 stages, got {c.num_stages}")
     require(c.device.type == "cuda", "the program did not compile for CUDA")
-    lo, hi = int(w.indptr[0]), int(w.indptr[1])
+    lo, hi = int(csr_ptr[0]), int(csr_ptr[1])
     plain = torch.zeros((), device=dev)
     accs = {b: torch.zeros((), device=dev) for b in ("sequential", "emulated")}
     t0 = time.perf_counter()
@@ -422,13 +492,16 @@ def main() -> None:
           flush=True)
     y = ops.spmv(vals, cols, x)[:dim].cpu().numpy()
     dense64 = np.zeros((dim, dim))
-    dense64[rows, w.indices] = w.data
-    want = dense64 @ w.x.astype(np.float64)
+    dense64[rows, csr_cols] = csr_vals
+    want = dense64 @ csr_x.astype(np.float64)
     require(np.allclose(y, want, rtol=1e-4, atol=1e-4),
             f"ops.spmv vs float64 dense: max err {np.abs(y - want).max()}")
     print(f"[3] ops.spmv on the whole matrix == float64 dense product "
           f"(max err {np.abs(y - want).max():.3g}, rtol=atol=1e-4)",
           flush=True)
+
+    # -- 3b. the other Table-I bodies on the card ------------------------------
+    table1_bodies(dev)
 
     # -- 4. Fig. 5, SpMV, ACP --------------------------------------------------
     mem = acp()
@@ -467,9 +540,12 @@ def main() -> None:
     require((df, cv) == (REF_DATAFLOW_CYCLES, REF_CONVENTIONAL_CYCLES),
             "Fig. 5 cycles differ from the reference's")
 
+    # -- 4b. the Fig. 5 grid, four kernels x four memories --------------------
+    fig5_grid()
+
     spmv_launches = _lib.counts()
     require(_lib.routes()["spmv_bsr"] == {RING: spmv_launches["spmv_bsr"]},
-            f"phases 3-4 spmv_bsr launches by design: "
+            f"phases 3-4b spmv_bsr launches by design: "
             f"{_lib.routes()['spmv_bsr']}, expected all on {RING}")
 
     # -- 5. the attention kernels against their plain versions ---------------
@@ -943,6 +1019,159 @@ def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:
           f"rows {floor:.4f} ms (no PyTorch call computes tanh(2*table[idx]))"
           f", bound {gather_row['bound_ms']:.4f} ms", flush=True)
     return [gather_row, mm_row, rms_row], launches
+
+
+def table1_bodies(dev) -> None:
+    """Phase 3b: knapsack, Floyd–Warshall and DFS at Table-I size on the
+    card — each compiled in loop mode to the reference's plan and
+    simulator stages, then run over a window by the ``sequential`` and
+    ``emulated`` backends, bit for bit the plain loop body; the stores
+    drop an index out of range on the card as the reference's do."""
+    import torch
+    import repro_torch
+    from repro_torch import at_set
+    from repro_torch.workloads import ALL_KERNELS
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    zero = i32(0)
+    windows = {   # the loop's xs for each step of the window
+        "knapsack": lambda w: [((zero, j),) for j in torch.arange(
+            w.carry_example.shape[0] - 1, -1, -1, dtype=torch.int32,
+            device=dev)],                          # item row 0, j = W .. 0
+        "floyd_warshall": lambda w: [((zero, zero, j),) for j in torch.arange(
+            1024, dtype=torch.int32, device=dev)],     # k = i = 0
+        "dfs": lambda w: [(s,) for s in torch.arange(
+            1000, dtype=torch.int32, device=dev)],     # the first steps
+    }
+    for name, (plan_ref, sim_ref) in REF_TABLE1_PLANS.items():
+        t0 = time.perf_counter()
+        w = ALL_KERNELS[name](1.0, device=dev)
+        c = repro_torch.compile(w.loop_body, w.carry_example, *w.body_args,
+                                loop=True,
+                                nonaliasing_carries=w.nonaliasing_carries)
+        sch = c.schedule
+        plan = (len(c.cdfg.nodes), sch.num_stages, sch.num_channels,
+                sch.channel_bytes, sch.pipeline_ii, sch.total_latency,
+                [sp.eqn_count for sp in c.program.stages])
+        require(c.device.type == "cuda", f"{name}: not compiled for CUDA")
+        require(plan == plan_ref, f"{name}: plan {plan} != the reference's "
+                f"{plan_ref}")
+        sim = [(s.ii, s.latency, s.mem_in_scc,
+                [a.region for a in s.accesses])
+               for s in c.sim_stages(traces=list(w.full_traces.values()))]
+        require(sim == sim_ref, f"{name}: simulator stages {sim} != the "
+                f"reference's {sim_ref}")
+        t_compile = time.perf_counter() - t0
+        carry = w.carry_example
+        steps = windows[name](w)
+        secs = {}
+        runs = {}
+        for b in ("plain", "sequential", "emulated"):
+            state = carry
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for xs in steps:
+                state = w.loop_body(state, *xs) if b == "plain" \
+                    else c(state, *xs, backend=b)
+            torch.cuda.synchronize()
+            secs[b] = time.perf_counter() - t0
+            runs[b] = state if isinstance(state, tuple) else (state,)
+        for b in ("sequential", "emulated"):
+            require(all(torch.equal(x, y) for x, y in
+                        zip(runs[b], runs["plain"])),
+                    f"{name}: {b} backend != plain loop over the window")
+        got = runs["plain"][0].cpu().numpy()
+        if name == "knapsack":
+            w0, v0 = int(w.data["weights"][0]), int(w.data["values"][0])
+            want = np.where(np.arange(got.size) >= w0, v0, 0)
+            require(np.array_equal(got, want), "knapsack: row 0 != numpy")
+        elif name == "floyd_warshall":
+            d = w.data["dist0"].copy()
+            d[0] = np.minimum(d[0], d[0, 0] + d[0])
+            require(np.array_equal(got, d.reshape(-1)),
+                    "Floyd–Warshall: the first k = 0 row != numpy")
+        took = ", ".join(f"{b} {v:.2f} s" for b, v in secs.items())
+        print(f"[3b] {name}: plan {plan[:6]} and {len(sim)} simulator "
+              f"stages == the reference's (built and compiled in "
+              f"{t_compile:.2f} s); {len(steps)} steps, sequential and "
+              f"emulated == plain loop bit for bit ({took})", flush=True)
+
+    x = np.arange(10, 16, dtype=np.int32)
+    xt = torch.from_numpy(x).to(dev)
+    store = repro_torch.compile(lambda a, i: at_set(a, i, -7), xt, zero)
+    for index in (0, -1, -6, 6, 9, -7, -18):
+        want = x.copy()
+        k = index + 6 if index < 0 else index
+        if 0 <= k < 6:
+            want[k] = -7
+        for b, got in (("eager", at_set(xt, i32(index), -7)),
+                       ("sequential", store(xt, i32(index),
+                                            backend="sequential")),
+                       ("emulated", store(xt, i32(index),
+                                          backend="emulated"))):
+            require(np.array_equal(got.cpu().numpy(), want),
+                    f"at_set {b} at {index} on the card: "
+                    f"{got.cpu().numpy()} != {want}")
+    print("[3b] at_set and its lowered scatter on the card: a negative "
+          "index wraps once, one still out of range drops the write "
+          "(indices 0, -1, -6, 6, 9, -7, -18; eager, sequential, emulated)",
+          flush=True)
+
+
+def fig5_grid() -> None:
+    """Phase 4b: the Fig. 5 grid through the port's harness on the
+    ``torch`` engine — SpMV, knapsack and DFS at all their Table-I
+    iterations, Floyd–Warshall at its first 2^22 — each on all four
+    memories, dataflow, conventional and processor, cycles equal to the
+    reference's recorded grid."""
+    from repro_torch.core import engine, rescache
+    from repro_torch.kernels import _lib
+    from repro_torch.workloads import fig5
+    rescache.configure(enabled=False)
+    gains = {}
+    with engine.use("torch"):
+        for kn, (n_ref, cells_ref, base_ref) in REF_FIG5.items():
+            engine.reset_walls()
+            before = _lib.counts()["running_max"]
+            t0 = time.perf_counter()
+            res, task_s, _ = fig5.run_all(full=True, jobs=1, kernels=(kn,),
+                                          max_iters=1 << 22)
+            wall = time.perf_counter() - t0
+            launched = _lib.counts()["running_max"] - before
+            r = res[kn]
+            got = tuple((r[m]["dataflow_cycles"], r[m]["conventional_cycles"])
+                        for m in FIG5_MEMS)
+            for m in FIG5_MEMS:
+                print(f"[4b] {kn:<15}{m:<9} df/base "
+                      f"{r[m]['dataflow_vs_baseline']:8.3f}  conv/base "
+                      f"{r[m]['conventional_vs_baseline']:8.3f}  df/conv "
+                      f"{r[m]['dataflow_vs_conventional']:8.3f}  (cycles "
+                      f"{r[m]['dataflow_cycles']} / "
+                      f"{r[m]['conventional_cycles']})", flush=True)
+            walls = ", ".join(f"{k} {v:.2f} s" for k, v in
+                              sorted(engine.walls().items()))
+            tasks = ", ".join(f"{k.split('/')[1]} {v['total']:.2f} s"
+                              for k, v in task_s.items())
+            print(f"[4b] {kn}: {r['n_iters_simulated']} of "
+                  f"{r['n_iters_full']} iterations in {wall:.2f} s ({tasks}; "
+                  f"engine phases: {walls}; {launched} running_max "
+                  f"launches); processor {r['baseline_cycles']} cycles",
+                  flush=True)
+            require(launched > 0, f"{kn}: the torch engine launched no "
+                    f"running_max")
+            require(r["n_iters_simulated"] == n_ref,
+                    f"{kn}: {r['n_iters_simulated']} iterations simulated")
+            require(got == cells_ref and r["baseline_cycles"] == base_ref,
+                    f"{kn}: cycles {got} / {r['baseline_cycles']} differ "
+                    f"from the reference's {cells_ref} / {base_ref}")
+            gains[kn] = fig5.best_vs_best(r)
+    print("[4b] 36 cycle counts == the reference's; best dataflow vs best "
+          "conventional: " + ", ".join(
+              f"{kn} {g:.2f}x" + (" (first 2^22 iterations)"
+                                  if kn == "floyd_warshall" else "")
+              for kn, g in gains.items()), flush=True)
 
 
 def check_sass() -> str:

@@ -11,6 +11,7 @@ Entry points run on the CUDA card unless the caller asks for the CPU
 """
 
 from ._device import get_device, set_device
+from .core.cdfg import at_set
 from .dataflow.driver import compile, dataflow_jit
 
-__all__ = ["compile", "dataflow_jit", "get_device", "set_device"]
+__all__ = ["at_set", "compile", "dataflow_jit", "get_device", "set_device"]

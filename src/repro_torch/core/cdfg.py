@@ -14,6 +14,10 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   with a 1-D integer index vector, into those of ``x[idx]`` — ``lt, add,
   select_n, broadcast_in_dim, gather`` (the wrap, the (N, 1) index, then
   a gather of whole rows);
+* :func:`at_set` (the port's ``x.at[i].set(v)``) into the five
+  equations of the jaxpr's out-of-place store — ``lt, add, select_n,
+  broadcast_in_dim, scatter`` (the wrap, the (1,) index, then a scatter
+  that drops an index still out of range);
 * ``operator.mul`` → ``mul``, ``operator.add`` → ``add``, and so on.
 
 So :data:`MEMORY_PRIMITIVES`, :data:`DEFAULT_LATENCY`,
@@ -23,6 +27,8 @@ compiles to the same plan as its JAX twin.  The lowered program is a
 ``Var`` carries an :class:`Aval` (``shape`` and a ``torch.dtype``, whose
 ``itemsize`` is all the partitioner reads).  Closed-over tensors become
 constants named ``const{k}`` in first-use order, as in the reference.
+A tuple argument is flattened into one input per leaf, in order, as the
+jaxpr's invars are; outputs are flattened likewise.
 
 Two views are provided:
 
@@ -41,11 +47,13 @@ annotation — the analogue of the paper's user-guided alias results.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import operator
 from typing import Any, Callable, Iterable, Mapping, Sequence
 
 import torch
 import torch.fx as fx
+import torch.utils._pytree as pytree
 from torch.fx.passes.shape_prop import ShapeProp
 
 # ---------------------------------------------------------------------------
@@ -254,6 +262,38 @@ def _gather(operand: torch.Tensor, indices: torch.Tensor, *,
     return torch.index_select(operand, 0, rows.long())
 
 
+def _scatter(operand: torch.Tensor, indices: torch.Tensor,
+             updates: Any) -> torch.Tensor:
+    # one row along axis 0 at a (1,) index, out of place (the lowering of
+    # at_set); an index out of range after the wrap is dropped, like the
+    # reference's FILL_OR_DROP scatter: the row at the clamped index is
+    # written back unchanged, so no value goes to the host
+    idx = indices[0]
+    keep = (idx >= 0) & (idx < operand.shape[0])
+    row = torch.clamp(idx, 0, operand.shape[0] - 1).reshape(1).long()
+    new = torch.where(keep, updates, operand.index_select(0, row)[0])
+    return torch.index_put(operand, (row,), new.to(operand.dtype)[None])
+
+
+def at_set(x: torch.Tensor, i: torch.Tensor, v: Any) -> torch.Tensor:
+    """``x`` with row ``i`` set to ``v``, out of place: the port's
+    ``x.at[i].set(v)``.  A negative ``i`` wraps once; an index still out
+    of range drops the write (the reference's ``scatter`` mode
+    ``FILL_OR_DROP``; loads clamp instead).  ``i`` is a 0-d integer
+    tensor and ``v`` a tensor or a Python scalar.
+
+    Under ``torch.fx`` tracing the call is one node, whatever name the
+    caller reached it by (``torch.fx.wrap`` patches only the defining
+    module's globals), and the front end lowers it to the jaxpr's five
+    equations."""
+    if any(isinstance(a, fx.Proxy) for a in (x, i, v)):
+        tracer = next(a for a in (x, i, v) if isinstance(a, fx.Proxy)).tracer
+        return tracer.create_proxy("call_function", at_set, (x, i, v), {})
+    i = torch.as_tensor(i, device=x.device)
+    idx = torch.where(i < 0, i + x.shape[0], i)
+    return _scatter(x, idx.reshape(1), v)
+
+
 #: FX node (call_function target, or call_method name) -> primitive name
 _BINARY: dict[Any, str] = {
     operator.add: "add", torch.add: "add", "add": "add",
@@ -294,7 +334,7 @@ _IMPL: dict[str, Callable[..., Any]] = {
     "sin": torch.sin, "cos": torch.cos,
     "select_n": _select_n, "dynamic_slice": _dynamic_slice,
     "squeeze": _squeeze, "broadcast_in_dim": _broadcast_in_dim,
-    "gather": _gather,
+    "gather": _gather, "scatter": _scatter,
 }
 
 
@@ -308,6 +348,11 @@ class _Lowering:
         self.invars: list[Var] = []
         self.constvars: list[Var] = []
         self.consts: list[torch.Tensor] = []
+        #: get_attr target -> its constvar: fx emits one get_attr node per
+        #: use of a closed-over tensor, the jaxpr one constvar per tensor
+        self.const_of: dict[str, Var] = {}
+        #: the output structure (a pytree spec over the flat outvars)
+        self.out_tree: Any = None
 
     def emit(self, prim: str, invars: list[Any], aval: Aval, source: str,
              **params: Any) -> Var:
@@ -332,17 +377,22 @@ class _Lowering:
                 self.invars.append(v)
                 self.env[node] = v
             elif node.op == "get_attr":
-                val = operator.attrgetter(node.target)(self.gm)
-                v = Var(_aval_of(node), node.name)
-                self.constvars.append(v)
-                self.consts.append(val)
+                v = self.const_of.get(node.target)
+                if v is None:
+                    v = Var(_aval_of(node), node.name)
+                    self.constvars.append(v)
+                    self.consts.append(
+                        operator.attrgetter(node.target)(self.gm))
+                    self.const_of[node.target] = v
                 self.env[node] = v
             elif node.op in ("call_function", "call_method"):
                 self.env[node] = self.lower(node)
             elif node.op == "output":
-                outs = node.args[0]
-                flat = list(outs) if isinstance(outs, (tuple, list)) \
-                    else [outs]
+                info = getattr(self.gm.graph._codegen, "pytree_info", None)
+                if info is not None:   # traced with tuple arguments
+                    flat, self.out_tree = list(node.args[0]), info.out_spec
+                else:
+                    flat, self.out_tree = pytree.tree_flatten(node.args[0])
                 outvars = [self.read(o) for o in flat]
             else:
                 raise NotImplementedError(
@@ -358,6 +408,8 @@ class _Lowering:
                 f"keyword arguments on {target!r} are not lowered yet")
         if target in (operator.getitem, "__getitem__"):
             return self.lower_getitem(node)
+        if target is at_set:
+            return self.lower_at_set(node)
         aval = _aval_of(node)
         if target in _BINARY and len(node.args) == 2:
             a, b = node.args
@@ -412,6 +464,31 @@ class _Lowering:
         return self.emit("squeeze", [row], Aval(sizes[1:], arr.aval.dtype),
                          src, dimensions=(0,))
 
+    def lower_at_set(self, node: fx.Node) -> Var:
+        """``at_set(x, i, v)`` with a 0-d integer tensor ``i`` → the
+        jaxpr's five equations of ``x.at[i].set(v)``: wrap a negative
+        index, make it a (1,) index, scatter ``v`` (a Python scalar stays
+        a literal).  The scatter drops an index still out of range."""
+        arr_n, idx_n, val_n = node.args
+        arr, idx = self.env[arr_n], self.read(idx_n)
+        if not (isinstance(idx, Var) and idx.aval.shape == ()
+                and not idx.aval.dtype.is_floating_point
+                and idx.aval.dtype != torch.bool):
+            raise NotImplementedError(
+                f"at_set({arr_n.name}, {idx_n!r}, ...): only a 0-d integer "
+                f"tensor index is lowered yet")
+        it, src = idx.aval.dtype, node.name
+        scalar = Aval((), it)
+        neg = self.emit("lt", [idx, Literal(0, scalar)],
+                        Aval((), torch.bool), src)
+        wrapped = self.emit("add", [idx, Literal(arr.aval.shape[0], scalar)],
+                            scalar, src)
+        sel = self.emit("select_n", [neg, idx, wrapped], scalar, src)
+        col = self.emit("broadcast_in_dim", [sel], Aval((1,), it), src,
+                        shape=(1,), broadcast_dimensions=())
+        val = self.read(val_n, Aval((), arr.aval.dtype))
+        return self.emit("scatter", [arr, col, val], arr.aval, src)
+
 
 def _aval_of(node: fx.Node) -> Aval:
     meta = node.meta.get("tensor_meta")
@@ -432,6 +509,8 @@ class _MetaShapeProp(ShapeProp):
     def call_function(self, target: Any, args: Any, kwargs: Any) -> Any:
         if target is operator.getitem and _scalar_index(args):
             return args[0].select(0, 0)
+        if target is at_set:
+            return torch.empty_like(args[0])
         return super().call_function(target, args, kwargs)
 
     def call_method(self, target: Any, args: Any, kwargs: Any) -> Any:
@@ -455,18 +534,32 @@ def _to_meta(x: Any) -> Any:
 
 def trace(fn: Callable, *example_args: Any) -> tuple[Graph, Any]:
     """Trace ``fn`` with ``torch.fx.symbolic_trace``, propagate shapes on
-    meta copies of ``example_args`` and lower to a :class:`Graph`.
-    Returns the graph and the output structure (``None`` for a single
-    output, else the tuple length).  Closed-over tensors must be module
-    globals or closure variables: ``symbolic_trace`` does not accept
-    tensor default arguments."""
-    gm = fx.symbolic_trace(fn)
-    _MetaShapeProp(gm).propagate(*map(_to_meta, example_args))
-    graph = _Lowering(gm).run()
-    out_node = next(n for n in gm.graph.nodes if n.op == "output")
-    outs = out_node.args[0]
-    out_tree = len(outs) if isinstance(outs, (tuple, list)) else None
-    return graph, out_tree
+    meta copies of ``example_args`` and lower to a :class:`Graph`.  A
+    tuple (or list) argument, nested or not, becomes one input per leaf
+    (``concrete_args`` of placeholders), so the graph's inputs are the
+    leaves of ``example_args`` in order.  Returns the graph and the
+    output structure (a ``torch.utils._pytree`` spec over
+    ``graph.outvars``).  Closed-over tensors must be module globals or
+    closure variables: ``symbolic_trace`` does not accept default
+    arguments, which would become inputs."""
+    params = list(inspect.signature(fn).parameters)
+    concrete = {name: pytree.tree_map(lambda _: fx.PH, a)
+                for name, a in zip(params, example_args)
+                if isinstance(a, (tuple, list))}
+    gm = fx.symbolic_trace(fn, concrete_args=concrete or None)
+    _MetaShapeProp(gm).propagate(*pytree.tree_map(_to_meta, example_args))
+    lowering = _Lowering(gm)
+    graph = lowering.run()
+    return graph, lowering.out_tree
+
+
+def carry_pairs(carry_example: Any, nonaliasing_carries: Sequence[int] = ()
+                ) -> list[tuple[int, int]]:
+    """One ``(output, input)`` pair per leaf of the carry, minus the
+    leaves listed in ``nonaliasing_carries`` — the reference's rule."""
+    skip = set(nonaliasing_carries)
+    n_carry = len(pytree.tree_leaves(carry_example))
+    return [(i, i) for i in range(n_carry) if i not in skip]
 
 
 @dataclasses.dataclass
@@ -610,24 +703,24 @@ class CDFG:
     def from_loop_body(
         cls,
         body_fn: Callable,
-        carry_example: torch.Tensor,
+        carry_example: Any,
         *xs_example: Any,
         latency_model: LatencyModel | None = None,
         regions: Mapping[int, str] | None = None,
         nonaliasing_carries: Sequence[int] = (),
     ) -> "CDFG":
-        """Trace ``body_fn(carry, *xs) -> new_carry`` and add the carry
-        back-edge so loop-carried dependence becomes a real cycle.
+        """Trace ``body_fn(carry, *xs) -> new_carry`` and add carry
+        back-edges so loop-carried dependence becomes a real cycle.
 
-        The carry is one tensor in this slice (tuple carries arrive with
-        the other Table-I loop bodies).  ``nonaliasing_carries`` is the
-        paper's §III-A *user annotation*: carries whose back-edge is
-        dropped so Algorithm 1 can pipeline across a false dependence.
+        ``carry_example`` may be a tuple: every leaf becomes one carry
+        pair.  ``nonaliasing_carries`` is the paper's §III-A *user
+        annotation*: carry leaves whose back-edge is dropped so Algorithm
+        1 can pipeline across a false dependence.
         """
         graph, _ = trace(body_fn, carry_example, *xs_example)
-        carry_pairs = [(0, 0)] if 0 not in set(nonaliasing_carries) else []
-        return cls.from_graph(graph, latency_model=latency_model,
-                              regions=regions, carry_pairs=carry_pairs)
+        return cls.from_graph(
+            graph, latency_model=latency_model, regions=regions,
+            carry_pairs=carry_pairs(carry_example, nonaliasing_carries))
 
     # -- queries ------------------------------------------------------------
 

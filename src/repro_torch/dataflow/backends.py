@@ -106,7 +106,8 @@ class SequentialBackend(Backend):
     name = "sequential"
 
     def execute(self, compiled: Any, args: Sequence[Any]) -> Any:
-        outs = run_stages_sequential(compiled.program, *args)
+        outs = run_stages_sequential(compiled.program,
+                                     *compiled.flatten_inputs(args))
         return compiled.unflatten_outputs(outs)
 
 
@@ -115,13 +116,13 @@ class EmulatedBackend(Backend):
     name = "emulated"
 
     def execute(self, compiled: Any, args: Sequence[Any]) -> Any:
-        # single-shot call → one-microbatch stream: stream args gain a
-        # leading axis of 1
-        args = list(args)
-        for i in compiled.options.stream_argnums:
-            if i < len(args):
-                args[i] = torch.as_tensor(args[i])[None]
-        outs = compiled.schedule.pipeline.run_emulated(*args)
+        # single-shot call → one-microbatch stream: the leaves of stream
+        # args gain a leading axis of 1
+        flat = compiled.flatten_inputs(args)
+        for i in compiled.schedule.stream_argnums:
+            if i < len(flat):
+                flat[i] = torch.as_tensor(flat[i])[None]
+        outs = compiled.schedule.pipeline.run_emulated(*flat)
         return compiled.unflatten_outputs([o[0] for o in outs])
 
 

@@ -23,17 +23,14 @@ import logging
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.utils._pytree as pytree
 
 from .._device import get_device
 from .backends import available_backends, get_backend
 from .options import CompileOptions
-from .passes import CompileContext, PassPipeline, default_pipeline
+from .passes import (CompileContext, PassPipeline, default_pipeline,
+                     to_device)
 from .schedule import SimReport, simulate_schedule
-
-
-def _to_device(args: Sequence[Any], device: torch.device) -> tuple:
-    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a
-                 for a in args)
 
 
 class Compiled:
@@ -91,24 +88,33 @@ class Compiled:
 
     def __call__(self, *args: Any, backend: str | None = None) -> Any:
         return get_backend(backend or self.options.backend).execute(
-            self, _to_device(args, self.device))
+            self, to_device(args, self.device))
 
     def stream(self, *args: Any) -> Any:
         """Run a stream of microbatches through the emulated systolic
         executor; args at ``options.stream_argnums`` have a leading
-        microbatch axis, outputs are stacked along it."""
+        microbatch axis (on every leaf of a tuple argument), outputs are
+        stacked along it."""
         outs = self.schedule.pipeline.run_emulated(
-            *_to_device(args, self.device))
+            *self.flatten_inputs(to_device(args, self.device)))
         return self.unflatten_outputs(list(outs))
+
+    def flatten_inputs(self, args: Sequence[Any]) -> list[Any]:
+        """The leaves of ``args``, which are the program's inputs; the
+        structure must be the example arguments'."""
+        flat, spec = pytree.tree_flatten(tuple(args))
+        if spec != self.context.in_tree:
+            raise TypeError(
+                f"arguments of structure {spec} do not match the compiled "
+                f"structure {self.context.in_tree}")
+        return flat
 
     def backends(self) -> tuple[str, ...]:
         """Backends available for this artifact in this environment."""
         return available_backends(self)
 
     def unflatten_outputs(self, flat: Sequence[Any]) -> Any:
-        if self.context.out_tree is None:
-            return flat[0]
-        return tuple(flat)
+        return pytree.tree_unflatten(list(flat), self.context.out_tree)
 
     # -- analysis -------------------------------------------------------------
 
@@ -229,7 +235,7 @@ def _cache_key(ctx: CompileContext, pipeline: PassPipeline) -> tuple:
         g.code,
         tuple(str(v.aval) for v in g.invars),
         tuple(id(c) for c in g.consts),
-        ctx.out_tree,
+        str(ctx.in_tree), str(ctx.out_tree),
         str(ctx.device),
         ctx.options,
         pipeline.signature(),
@@ -295,8 +301,10 @@ def compile(  # noqa: A001 - deliberate: repro_torch.compile
 
 
 def _abstract_key(args: tuple) -> tuple:
-    return tuple((tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor)
-                 else (type(a).__name__,) for a in args)
+    flat, spec = pytree.tree_flatten(args)
+    return str(spec), tuple(
+        (tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor)
+        else (type(a).__name__,) for a in flat)
 
 
 _log = logging.getLogger("repro_torch.dataflow")

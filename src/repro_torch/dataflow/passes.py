@@ -23,10 +23,11 @@ import time
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.utils._pytree as pytree
 
 from .._device import get_device
 from ..core.cdfg import (CDFG, Graph, add_memory_order_edges,
-                         annotate_memory_regions, trace)
+                         annotate_memory_regions, carry_pairs, trace)
 from ..core.decouple import decouple
 from ..core.partition import (duplicate_cheap_rewrite,
                               materialize, merge_costly_boundaries,
@@ -46,7 +47,10 @@ class CompileContext:
     #: which is the card unless the caller asked for the CPU
     device: torch.device = dataclasses.field(default_factory=get_device)
     graph: Graph | None = None
-    out_tree: Any = None        # None (one output) or the tuple length
+    #: pytree specs of the example arguments (whose leaves are
+    #: ``graph.invars``, in order) and of the outputs
+    in_tree: Any = None
+    out_tree: Any = None
     cdfg: CDFG | None = None
     plan: Any = None            # StagePlan from the partition pass
     partition: Any = None
@@ -56,6 +60,25 @@ class CompileContext:
     timings: dict[str, float] = dataclasses.field(default_factory=dict)
     #: pass name -> verifier findings recorded by the inter-pass hook
     diagnostics: dict[str, list] = dataclasses.field(default_factory=dict)
+
+
+def to_device(args: Any, device: torch.device) -> Any:
+    """``args`` with every tensor leaf moved to ``device`` (tuples and
+    lists kept, nested or not)."""
+    return pytree.tree_map(
+        lambda a: a.to(device) if isinstance(a, torch.Tensor) else a, args)
+
+
+def flat_argnums(args: Sequence[Any], argnums: Sequence[int]) -> tuple:
+    """The positions among the leaves of ``args`` of the leaves of the
+    arguments at ``argnums`` (a tuple argument spans several)."""
+    out, start = [], 0
+    for i, a in enumerate(args):
+        n = len(pytree.tree_leaves(a))
+        if i in argnums:
+            out.extend(range(start, start + n))
+        start += n
+    return tuple(out)
 
 
 class Pass:
@@ -75,37 +98,34 @@ class TracePass(Pass):
     edges only).  Example tensors are moved to the compile device, and
     every closed-over tensor must already live there.
 
-    With ``options.loop`` the function is a loop body ``body(carry, *xs)``
-    with one tensor carry, and a carry back-edge is added unless the carry
-    is listed in ``nonaliasing_carries`` (the §III-A user annotation) —
-    the cyclic §III view.
+    Tuple arguments (nested or not) are flattened, one graph input per
+    leaf.  With ``options.loop`` the function is a loop body
+    ``body(carry, *xs)``, and carry back-edges are added per leaf of the
+    carry example, minus ``nonaliasing_carries`` (the §III-A user
+    annotation) — the cyclic §III view.
     """
 
     name = "trace"
 
     def run(self, ctx: CompileContext) -> None:
         opts = ctx.options
-        args = tuple(a.to(ctx.device) if isinstance(a, torch.Tensor) else a
-                     for a in ctx.example_args)
-        if opts.loop and not (args and isinstance(args[0], torch.Tensor)):
-            raise NotImplementedError(
-                "loop=True takes one tensor carry in this slice; tuple "
-                "carries arrive with the other Table-I loop bodies")
+        args = to_device(ctx.example_args, ctx.device)
         ctx.graph, ctx.out_tree = trace(ctx.fn, *args)
+        ctx.in_tree = pytree.tree_structure(args)
         for cv, c in zip(ctx.graph.constvars, ctx.graph.consts):
             if c.device.type != ctx.device.type:
                 raise ValueError(
                     f"closed-over tensor {cv.name} lies on {c.device}, but "
                     f"the program is compiled for {ctx.device}")
-        carry_pairs: Sequence[tuple[int, int]] = ()
-        if opts.loop and 0 not in set(opts.nonaliasing_carries):
-            carry_pairs = [(0, 0)]
+        pairs: Sequence[tuple[int, int]] = ()
+        if opts.loop and args:
+            pairs = carry_pairs(args[0], opts.nonaliasing_carries)
         ctx.cdfg = CDFG.from_graph(
             ctx.graph,
             latency_model=opts.latency_model(),
             add_memory_edges=False,
             annotate_regions=False,
-            carry_pairs=carry_pairs,
+            carry_pairs=pairs,
         )
 
 
@@ -205,7 +225,8 @@ class SchedulePass(Pass):
 
     def run(self, ctx: CompileContext) -> None:
         ctx.schedule = Schedule.from_program(
-            ctx.program, stream_argnums=ctx.options.stream_argnums)
+            ctx.program, stream_argnums=flat_argnums(
+                ctx.example_args, ctx.options.stream_argnums))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,61 +10,26 @@ chosen device.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Callable
-
 import numpy as np
 import torch
 
 from .._device import get_device
 from ..core.simulator import MemAccess
+from .base import PaperWorkload
+from .hashing import hash_ints
 
 #: Table-I scale: dim 4096, density 0.25 → 4,194,304 nonzeros (≈16 MB)
 FULL_DIM = 4096
 DENSITY = 0.25
 
 
-@dataclasses.dataclass
-class SpmvWorkload:
-    dim: int
-    indptr: np.ndarray
-    indices: np.ndarray          # int32 column ids
-    data: np.ndarray             # float32 values
-    x: np.ndarray                # float32 dense vector
-    expected: np.ndarray         # float32 A @ x (reduceat order)
-    device: torch.device
-    tensors: dict[str, torch.Tensor]   # cols / vals / x on ``device``
-    loop_body: Callable          # (acc, j) -> acc + vals[j] * x[cols[j]]
-    carry_example: torch.Tensor
-    body_args: tuple
-    traces: dict[str, MemAccess]       # the n_iters_sim window
-    full_traces: dict[str, MemAccess]  # window generators, all iterations
-    n_iters_full: int
-    n_iters_sim: int
-
-
-def _mix64(x: np.ndarray) -> np.ndarray:
-    """SplitMix64 finalizer: a pure hash of the iteration index, so any
-    trace window can be generated independently and reproducibly."""
-    x = (x + np.uint64(0x9E3779B97F4A7C15))
-    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-    return x ^ (x >> np.uint64(31))
-
-
-def _hash_ints(lo: int, hi: int, bound: int, salt: int) -> np.ndarray:
-    """Uniform ints in [0, bound) for iterations [lo, hi)."""
-    idx = np.arange(lo, hi, dtype=np.uint64)
-    with np.errstate(over="ignore"):
-        h = _mix64(idx + np.uint64(salt) * np.uint64(0xD1342543DE82EF95))
-    return (h % np.uint64(bound)).astype(np.int64)
-
-
 def make_spmv(scale: float = 0.125, seed: int = 0,
-              device: str | torch.device | None = None) -> SpmvWorkload:
+              device: str | torch.device | None = None) -> PaperWorkload:
     """The SpMV workload; ``scale=1.0`` is Table-I size.  ``scale`` only
     shrinks the correctness data: the traces are always full-scale, so
-    the cache models see the real working set."""
+    the cache models see the real working set.  ``data`` holds the CSR
+    matrix (``indptr``, int32 ``indices``, float32 ``values``) and the
+    float32 vector ``x``; ``expected`` is A @ x in reduceat order."""
     dev = get_device(device)
     dim = max(64, int(FULL_DIM * scale))
     rng = np.random.default_rng(seed)
@@ -103,17 +68,22 @@ def make_spmv(scale: float = 0.125, seed: int = 0,
             "vals", gen=lambda lo, hi: np.arange(lo, hi) * 4 + (1 << 24),
             length=n_full),
         "x": MemAccess(
-            "x", gen=lambda lo, hi: _hash_ints(lo, hi, FULL_DIM, seed + 100)
+            "x", gen=lambda lo, hi: hash_ints(lo, hi, FULL_DIM, seed + 100)
             * 4 + (1 << 25), length=n_full),
     }
     expected = np.add.reduceat(data * x[indices],
                                indptr[:-1].astype(np.int64))
-    return SpmvWorkload(
-        dim=dim, indptr=indptr, indices=indices, data=data, x=x,
-        expected=expected.astype(np.float32), device=dev,
-        tensors={"cols": cols, "vals": vals, "x": xv},
+    return PaperWorkload(
+        name="spmv",
         loop_body=loop_body,
         carry_example=torch.zeros((), dtype=torch.float32, device=dev),
         body_args=(torch.zeros((), dtype=torch.int32, device=dev),),
-        traces=traces, full_traces=full_traces,
-        n_iters_full=n_full, n_iters_sim=n_sim)
+        traces=traces,
+        full_traces=full_traces,
+        n_iters_full=n_full,
+        n_iters_sim=n_sim,
+        instrs_per_iter=9.0,
+        device=dev,
+        data={"indptr": indptr, "indices": indices, "values": data, "x": x},
+        expected=expected.astype(np.float32),
+    )

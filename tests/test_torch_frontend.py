@@ -81,7 +81,8 @@ def test_backends_return_the_plain_result(spmv_pair, backend):
     bit for bit, and the CSR row product within fp32 summation order."""
     _, port, w = spmv_pair
     acc = plain = torch.zeros(())
-    for j in range(int(w.indptr[0]), int(w.indptr[1])):
+    indptr = w.data["indptr"]
+    for j in range(int(indptr[0]), int(indptr[1])):
         jt = torch.tensor(j, dtype=torch.int32)
         acc = port(acc, jt, backend=backend)
         plain = w.loop_body(plain, jt)
