@@ -55,11 +55,22 @@ Phases, one line (or block) each:
    2^30 (the whole of it takes over 20 minutes of host time), each on
    ACP, ACP+64KB, HP and HP+64KB through the dataflow and conventional
    machines and the processor baseline; the 36 cycle counts must equal
-   the reference's recorded grid (``REF_FIG5``).  Per cell df/base,
-   conv/base and df/conv; per kernel the wall, its tasks' walls, the
-   engine's phase walls and the ``running_max`` launches (at least one
-   per kernel); then each kernel's best dataflow vs best conventional
-   gain;
+   the reference's recorded grid (``REF_FIG5``).  The processor
+   baseline's 4-way L1 and 8-way L2 replay through the engine's torch
+   N-way core on the card (``engine.counts()["nway_core"]``, at least
+   one call per kernel).  Per cell df/base, conv/base and df/conv; per
+   kernel the wall, its tasks' walls (the processor's beside its wall
+   before the torch core, ``NUMPY_CORE_PROCESSOR_S``), the engine's phase
+   walls, the ``running_max`` launches (at least one per kernel) and
+   the N-way core's calls; then each kernel's best dataflow vs best
+   conventional gain;
+4c. the N-way core on the card: the inputs of SpMV's first 8-way L2
+   replay in 4b (one full 2^20-iteration chunk, captured on the way)
+   through the torch form on the card and the numpy form on the host,
+   hit flags and stacks bit for bit, with both host-clock times and the
+   CUDA-event time around the torch call; then SpMV's whole processor
+   baseline on the numpy and the torch engine in turn, same cycles, both
+   walls;
 5. the attention kernels against their plain versions on the card, at
    the serving path's shapes in bf16 (rtol=atol=2e-2, the bf16 tolerance
    of tests/test_kernels.py) and once in fp32 (rtol=atol=1e-4) —
@@ -117,7 +128,23 @@ Phases, one line (or block) each:
    also in fp32 (the CUDA-core route) and at every tile width the wgmma
    route chooses among; the matmul's row in the kernels line sums the
    path's two products;
-8. one JSON line listing every kernel with its launches on its main path
+8. the design-space explorer on the torch engine: knapsack's Table-I
+   body and traces explored at 2^17 iterations (12 candidates, rescache
+   off) through ``Compiled.explore``; the Pareto front (stages, FIFO
+   bits, cycles) must equal the reference's recorded one (``REF_DSE``)
+   and the solver's ``running_max`` must launch on the card; the wall
+   and the engine's phase walls;
+9. sharding and serving on the Fig. 5 SpMV ACP cell (all 4,194,304
+   iterations, FIFO 256, torch engine): ``simulate_dataflow_many(...,
+   workers=4)`` through the chunk-graph pool must give 16,517,754
+   dataflow cycles; then a resolution daemon started through
+   ``serve.ensure_daemon`` on a fresh store (``python -m
+   repro_torch.launch.serve daemon``, on this process's device and
+   engine) must give the same through ``server=``, its stats must show
+   the request accepted and resolved cold by the daemon and the job
+   completed, and ``shutdown`` must end the daemon's process; both walls,
+   the daemon's set-up and a spawned worker's set-up;
+10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), the design those launches took, its error
    against the plain version, its times and its bound; then the
@@ -215,6 +242,25 @@ REF_FIG5 = {
                       (198_399_790, 112_000_038), (76_817_296, 48_808_791)),
             14_021_984),
 }
+
+
+#: phase 8: the reference's design-space exploration of knapsack's
+#: Table-I body and traces at 2^17 iterations (repro.dataflow ``explore``,
+#: numpy engine, jax 0.9.0, rescache off; 12 candidates, FIFO depth 8,
+#: ACP; held against the reference by
+#: tests/test_torch_dse.py::test_chip_smoke_dse_front_is_the_reference):
+#: its Pareto front as (stages, FIFO bits, cycles), and the candidates it
+#: simulated
+DSE_ITERS = 1 << 17
+REF_DSE = ((1, 0, 393_494), (5, 1_536, 135_572), (7, 2_368, 135_532),
+           (35, 6_528, 134_453), (35, 8_128, 134_399))
+REF_DSE_EVALUATED = 12
+
+#: each kernel's processor-baseline task in phase 4b when its caches
+#: replayed through the numpy N-way core: NVIDIA H100 80GB HBM3 at
+#: 700.00 W, host clock (PERF.md §5)
+NUMPY_CORE_PROCESSOR_S = {"spmv": 3.37, "knapsack": 0.16,
+                          "floyd_warshall": 2.11, "dfs": 0.70}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -541,7 +587,10 @@ def main() -> None:
             "Fig. 5 cycles differ from the reference's")
 
     # -- 4b. the Fig. 5 grid, four kernels x four memories --------------------
-    fig5_grid()
+    l2_chunk = fig5_grid()
+
+    # -- 4c. the N-way core on the card ----------------------------------------
+    nway_on_card(l2_chunk)
 
     spmv_launches = _lib.counts()
     require(_lib.routes()["spmv_bsr"] == {RING: spmv_launches["spmv_bsr"]},
@@ -559,7 +608,13 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
 
-    # -- 8. the kernels line --------------------------------------------------
+    # -- 8. the design-space explorer on the torch engine ----------------------
+    explore_knapsack(dev)
+
+    # -- 9. sharding and serving the Fig. 5 SpMV ACP cell ----------------------
+    shard_and_serve(c, traces, mem, n)
+
+    # -- 10. the kernels line ---------------------------------------------------
     rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
     for row, launches in zip(rows, (spmv_launches, spmv_launches,
                                     serve_launches, serve_launches,
@@ -1120,58 +1175,303 @@ def table1_bodies(dev) -> None:
           flush=True)
 
 
-def fig5_grid() -> None:
+def fig5_grid() -> tuple:
     """Phase 4b: the Fig. 5 grid through the port's harness on the
     ``torch`` engine — SpMV, knapsack and DFS at all their Table-I
     iterations, Floyd–Warshall at its first 2^22 — each on all four
     memories, dataflow, conventional and processor, cycles equal to the
-    reference's recorded grid."""
+    reference's recorded grid.  Returns the inputs of SpMV's first 8-way
+    (L2) N-way replay, copied on the way for phase 4c."""
     from repro_torch.core import engine, rescache
-    from repro_torch.kernels import _lib
-    from repro_torch.workloads import fig5
     rescache.configure(enabled=False)
     gains = {}
-    with engine.use("torch"):
-        for kn, (n_ref, cells_ref, base_ref) in REF_FIG5.items():
-            engine.reset_walls()
-            before = _lib.counts()["running_max"]
-            t0 = time.perf_counter()
-            res, task_s, _ = fig5.run_all(full=True, jobs=1, kernels=(kn,),
-                                          max_iters=1 << 22)
-            wall = time.perf_counter() - t0
-            launched = _lib.counts()["running_max"] - before
-            r = res[kn]
-            got = tuple((r[m]["dataflow_cycles"], r[m]["conventional_cycles"])
-                        for m in FIG5_MEMS)
-            for m in FIG5_MEMS:
-                print(f"[4b] {kn:<15}{m:<9} df/base "
-                      f"{r[m]['dataflow_vs_baseline']:8.3f}  conv/base "
-                      f"{r[m]['conventional_vs_baseline']:8.3f}  df/conv "
-                      f"{r[m]['dataflow_vs_conventional']:8.3f}  (cycles "
-                      f"{r[m]['dataflow_cycles']} / "
-                      f"{r[m]['conventional_cycles']})", flush=True)
-            walls = ", ".join(f"{k} {v:.2f} s" for k, v in
-                              sorted(engine.walls().items()))
-            tasks = ", ".join(f"{k.split('/')[1]} {v['total']:.2f} s"
-                              for k, v in task_s.items())
-            print(f"[4b] {kn}: {r['n_iters_simulated']} of "
-                  f"{r['n_iters_full']} iterations in {wall:.2f} s ({tasks}; "
-                  f"engine phases: {walls}; {launched} running_max "
-                  f"launches); processor {r['baseline_cycles']} cycles",
-                  flush=True)
-            require(launched > 0, f"{kn}: the torch engine launched no "
-                    f"running_max")
-            require(r["n_iters_simulated"] == n_ref,
-                    f"{kn}: {r['n_iters_simulated']} iterations simulated")
-            require(got == cells_ref and r["baseline_cycles"] == base_ref,
-                    f"{kn}: cycles {got} / {r['baseline_cycles']} differ "
-                    f"from the reference's {cells_ref} / {base_ref}")
-            gains[kn] = fig5.best_vs_best(r)
+    captured: list = []
+    nway_core = engine.nway_core
+
+    def capture(T, seg_grp, seg_first, carried, max_run):
+        if not captured and carried.shape[1] == 8:
+            captured.append((T.copy(), seg_grp.copy(), seg_first.copy(),
+                             carried.copy(), max_run))
+        return nway_core(T, seg_grp, seg_first, carried, max_run)
+
+    engine.nway_core = capture
+    try:
+        with engine.use("torch"):
+            for kn, ref in REF_FIG5.items():
+                gains[kn] = _fig5_kernel(kn, ref)
+    finally:
+        engine.nway_core = nway_core
     print("[4b] 36 cycle counts == the reference's; best dataflow vs best "
           "conventional: " + ", ".join(
               f"{kn} {g:.2f}x" + (" (first 2^22 iterations)"
                                   if kn == "floyd_warshall" else "")
               for kn, g in gains.items()), flush=True)
+    require(len(captured) == 1, "SpMV's processor baseline made no 8-way "
+            "replay")
+    return captured[0]
+
+
+def _fig5_kernel(kn: str, ref: tuple) -> float:
+    """One kernel of phase 4b; returns its best-vs-best gain."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import _lib
+    from repro_torch.workloads import fig5
+    n_ref, cells_ref, base_ref = ref
+    engine.reset_walls()
+    engine.reset_counts()
+    before = _lib.counts()["running_max"]
+    t0 = time.perf_counter()
+    # workers=1: each task resolves in this process (the sharded
+    # executor is phase 9's)
+    res, task_s, _ = fig5.run_all(full=True, jobs=1, kernels=(kn,),
+                                  max_iters=1 << 22, workers=1)
+    wall = time.perf_counter() - t0
+    launched = _lib.counts()["running_max"] - before
+    nway = engine.counts()["nway_core"]
+    r = res[kn]
+    got = tuple((r[m]["dataflow_cycles"], r[m]["conventional_cycles"])
+                for m in FIG5_MEMS)
+    for m in FIG5_MEMS:
+        print(f"[4b] {kn:<15}{m:<9} df/base "
+              f"{r[m]['dataflow_vs_baseline']:8.3f}  conv/base "
+              f"{r[m]['conventional_vs_baseline']:8.3f}  df/conv "
+              f"{r[m]['dataflow_vs_conventional']:8.3f}  (cycles "
+              f"{r[m]['dataflow_cycles']} / "
+              f"{r[m]['conventional_cycles']})", flush=True)
+    walls = ", ".join(f"{k} {v:.2f} s" for k, v in
+                      sorted(engine.walls().items()))
+    tasks = ", ".join(f"{k.split('/')[1]} {v['total']:.2f} s"
+                      for k, v in task_s.items())
+    print(f"[4b] {kn}: {r['n_iters_simulated']} of {r['n_iters_full']} "
+          f"iterations in {wall:.2f} s ({tasks}; the processor's on the "
+          f"numpy N-way core: {NUMPY_CORE_PROCESSOR_S[kn]} s, PERF.md; engine "
+          f"phases: {walls}; {launched} running_max launches, {nway} "
+          f"torch N-way core calls); processor {r['baseline_cycles']} "
+          f"cycles", flush=True)
+    require(launched > 0, f"{kn}: the torch engine launched no running_max")
+    require(nway > 0, f"{kn}: the processor baseline did not replay "
+            f"through the torch N-way core")
+    require(r["n_iters_simulated"] == n_ref,
+            f"{kn}: {r['n_iters_simulated']} iterations simulated")
+    require(got == cells_ref and r["baseline_cycles"] == base_ref,
+            f"{kn}: cycles {got} / {r['baseline_cycles']} differ from the "
+            f"reference's {cells_ref} / {base_ref}")
+    return fig5.best_vs_best(r)
+
+
+def nway_on_card(args: tuple) -> None:
+    """Phase 4c: one full chunk of SpMV's 8-way L2 replay through the torch
+    N-way core on the card and the numpy core on the host, bit for bit;
+    host-clock times of both (median of 3, after one warm-up) and the
+    CUDA-event time around the torch call."""
+    import torch
+    from repro_torch.core import engine
+    T, seg_grp, seg_first, carried, max_run = args
+    want = engine._nway_core_np(*args)
+    got = engine._nway_core_torch(*args)               # warm-up
+    for part, a, b in (("hit flags", got[0], want[0]),
+                       ("stacks", got[1], want[1])):
+        require(a.dtype == b.dtype and np.array_equal(a, b),
+                f"the torch N-way core's {part} differ from numpy's on the "
+                f"card")
+    np_s, torch_s, event_ms = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine._nway_core_np(*args)
+        np_s.append(time.perf_counter() - t0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        engine._nway_core_torch(*args)
+        end.record()
+        end.synchronize()
+        torch_s.append(time.perf_counter() - t0)
+        event_ms.append(start.elapsed_time(end))
+    W, G = T.shape
+    print(f"[4c] SpMV's first 8-way L2 replay (one 2^20-iteration chunk: "
+          f"{W} x {G} tag table {T.dtype}, {len(carried)} sets, longest run "
+          f"{max_run} segments): torch core on the card == numpy core, hit "
+          f"flags and stacks bit for bit; numpy "
+          f"{statistics.median(np_s) * 1e3:.2f} ms, torch "
+          f"{statistics.median(torch_s) * 1e3:.2f} ms on the host clock "
+          f"(copies in and out included), "
+          f"{statistics.median(event_ms):.2f} ms between CUDA events around "
+          f"the call", flush=True)
+    # the whole of SpMV's processor baseline on each core, in this call
+    from repro_torch.core.simulator import simulate_processor
+    from repro_torch.workloads import fig5
+    k = fig5.make_kernel("spmv")
+    traces = list(k.full_traces.values())
+    secs = {}
+    for eng in ("numpy", "torch"):
+        t0 = time.perf_counter()
+        with engine.use(eng):
+            r = simulate_processor(k.instrs_per_iter, traces, k.n_iters_full)
+        secs[eng] = time.perf_counter() - t0
+        require(r.cycles == REF_FIG5["spmv"][2], f"SpMV's processor baseline "
+                f"on the {eng} engine: {r.cycles} cycles")
+    print(f"[4c] SpMV's whole processor baseline ({k.n_iters_full} "
+          f"iterations, {REF_FIG5['spmv'][2]} cycles on both): numpy engine "
+          f"{secs['numpy']:.2f} s, torch engine {secs['torch']:.2f} s (host "
+          f"clock)", flush=True)
+
+
+def explore_knapsack(dev) -> None:
+    """Phase 8: ``Compiled.explore`` on knapsack's Table-I body at 2^17
+    iterations on the torch engine; the front must be the reference's."""
+    import repro_torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import _lib
+    from repro_torch.workloads import fig5
+    w = fig5.make_kernel("knapsack", dev)
+    c = repro_torch.compile(w.loop_body, w.carry_example, *w.body_args,
+                            loop=True,
+                            nonaliasing_carries=w.nonaliasing_carries)
+    _lib.reset_counts()
+    engine.reset_walls()
+    t0 = time.perf_counter()
+    with engine.use("torch"):
+        res = c.explore(traces=list(w.full_traces.values()),
+                        n_iters=DSE_ITERS, max_candidates=12,
+                        use_rescache=False)
+    wall = time.perf_counter() - t0
+    launched = _lib.counts()["running_max"]
+    front = tuple((x.resources["num_stages"], x.fifo_bits, x.cycles)
+                  for x in res.front)
+    walls = ", ".join(f"{k} {v:.2f} s" for k, v in
+                      sorted(engine.walls().items()))
+    print(f"[8] explore(knapsack, {DSE_ITERS} iterations, 12 candidates, "
+          f"torch engine): {len(res.evaluated())} simulated, front (stages, "
+          f"FIFO bits, cycles) {list(front)} in {wall:.2f} s (engine "
+          f"phases: {walls}; {launched} running_max launches)", flush=True)
+    require(front == REF_DSE, f"the DSE front {front} != the reference's "
+            f"{REF_DSE}")
+    require(len(res.evaluated()) == REF_DSE_EVALUATED,
+            f"{len(res.evaluated())} candidates simulated, the reference "
+            f"{REF_DSE_EVALUATED}")
+    require(launched > 0, "the DSE launched no running_max on the card")
+    require(all(f.compiled is not None and f.compiled.device.type == "cuda"
+                for f in res.front), "a front point has no CUDA artifact")
+
+
+def _spawned_setup(q) -> None:
+    """A spawned process's set-up: what a pool or daemon worker imports
+    before its first chunk."""
+    import repro_torch.core.chunkgraph  # noqa: F401
+    import repro_torch.serve.worker  # noqa: F401
+    q.put(time.time())
+
+
+def shard_and_serve(c, traces: list, mem, n: int) -> None:
+    """Phase 9: the Fig. 5 SpMV ACP cell through the chunk-graph pool
+    (``workers=4``) and through a resolution daemon (``server=``), each
+    equal to the reference's cycles; the daemon must have served the
+    request and must exit on ``shutdown``."""
+    import multiprocessing
+    import shutil
+    from repro_torch import serve
+    from repro_torch.core import chunkgraph, engine, rescache
+    from repro_torch.core.simulator import simulate_dataflow_many
+    stages = c.sim_stages(traces=traces)
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.time()
+    probe = ctx.Process(target=_spawned_setup, args=(q,))
+    probe.start()
+    spawn_s = q.get(timeout=120) - t0
+    probe.join(timeout=60)
+    with engine.use("torch"):
+        runs = chunkgraph._POOL_RUNS
+        engine.reset_walls()
+        t0 = time.perf_counter()
+        sharded = simulate_dataflow_many(
+            stages, {"ACP": mem}, n, fifo_depths=(FIFO_DEPTH,), workers=4,
+            use_rescache=False, collect_stalls=False)[("ACP", FIFO_DEPTH)]
+        shard_s = time.perf_counter() - t0
+        require(chunkgraph._POOL_RUNS == runs + 1,
+                "workers=4: the chunk-graph pool did not engage")
+        print(f"[9] SpMV ACP, {n} iterations, workers=4 (chunk-graph pool, "
+              f"torch engine): dataflow {sharded.cycles} cycles (reference "
+              f"{REF_DATAFLOW_CYCLES}) in {shard_s:.2f} s (engine phases, "
+              f"the workers' summed in: {_walls()}); a spawned worker's "
+              f"set-up (imports) {spawn_s:.2f} s", flush=True)
+        require(sharded.cycles == REF_DATAFLOW_CYCLES,
+                "workers=4: cycles differ from the reference's")
+
+        store = os.path.join(ROOT, "build", "serve_store")
+        shutil.rmtree(store, ignore_errors=True)
+        rescache.clear()
+        rescache.configure(enabled=True, directory=store)
+        addr, pid = None, None
+        try:
+            t0 = time.perf_counter()
+            addr = serve.ensure_daemon(workers=4)
+            setup_s = time.perf_counter() - t0
+            with open(addr + ".pid") as f:
+                pid = int(f.read().split(".")[0])
+            engine.reset_walls()
+            t0 = time.perf_counter()
+            served = simulate_dataflow_many(
+                stages, {"ACP": mem}, n, fifo_depths=(FIFO_DEPTH,),
+                collect_stalls=False, server=addr)[("ACP", FIFO_DEPTH)]
+            serve_s = time.perf_counter() - t0
+            st = serve.get_stats(addr)
+            print(f"[9] the same through a resolution daemon "
+                  f"(ensure_daemon: 4 workers, torch engine, a fresh store; "
+                  f"up in {setup_s:.2f} s): dataflow {served.cycles} cycles "
+                  f"in {serve_s:.2f} s (this client's engine phases: "
+                  f"{_walls()}); daemon stats: accepted "
+                  f"{st['admission']['accepted']}, chunks cold "
+                  f"{st['dedup']['cold_chunks']} / store "
+                  f"{st['dedup']['store_chunks']} / in flight "
+                  f"{st['dedup']['inflight_chunks']}, jobs completed "
+                  f"{st['jobs_completed']}", flush=True)
+            require(served.cycles == REF_DATAFLOW_CYCLES,
+                    "server=: cycles differ from the reference's")
+            require(st["admission"]["accepted"] >= 1
+                    and st["dedup"]["cold_chunks"] >= 1
+                    and st["jobs_completed"] >= 1,
+                    "the daemon did not resolve the request (resolved "
+                    "locally?)")
+            stopped = serve.shutdown(addr)
+            addr = None
+            require(stopped, "the daemon did not acknowledge shutdown")
+            require(_reaped(pid, 60), "the daemon did not exit")
+            pid = None
+            print("[9] shutdown acknowledged; the daemon's process exited",
+                  flush=True)
+        finally:
+            if addr is not None:
+                serve.shutdown(addr)
+            if pid is not None and not _reaped(pid, 10):
+                os.kill(pid, 9)
+                _reaped(pid, 10)
+            rescache.clear()
+            rescache.configure(enabled=False)
+
+
+def _walls() -> str:
+    from repro_torch.core import engine
+    return ", ".join(f"{k} {v:.2f} s" for k, v in
+                     sorted(engine.walls().items())) or "none"
+
+
+def _reaped(pid: int, timeout: float) -> bool:
+    """Wait up to ``timeout`` s for this process's child ``pid`` to exit,
+    reaping it."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            done, _ = os.waitpid(pid, os.WNOHANG)
+        except ChildProcessError:         # already reaped
+            return True
+        if done:
+            return True
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.1)
 
 
 def check_sass() -> str:

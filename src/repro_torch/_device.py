@@ -21,6 +21,12 @@ def set_device(device: str | torch.device | None) -> None:
     _default = None if device is None else torch.device(device)
 
 
+def policy() -> torch.device | None:
+    """What :func:`set_device` last set (``None``: the default, the card)
+    — handed to spawned workers, which start with the defaults."""
+    return _default
+
+
 def default_device_type() -> str:
     """The configured device type, without checking it exists."""
     return _default.type if _default is not None else "cuda"

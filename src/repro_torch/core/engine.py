@@ -15,11 +15,14 @@ implementation of each per backend and a tiny selection layer:
   caller asked for the CPU, and an error when CUDA is asked for and absent.
 
 Every kernel here is exact integer arithmetic; backends may only differ
-in wall clock, never in results.  Arrays below ``JIT_MIN_ELEMS`` keep the
-numpy form on every backend (the host↔device round trip dominates tiny
-calls).  In this slice only the running max has a torch form;
-``lru_insert``, ``stack_compose`` and ``nway_core`` run the numpy form on
-every backend.
+in wall clock, never in results.  The running max and the N-way replay
+core have torch forms.  Below ``JIT_MIN_ELEMS`` scan elements the running
+max keeps the numpy form on every backend (the host↔device round trip
+dominates tiny calls); below ``JIT_MIN_SEGMENTS`` segments the N-way core
+does so when the engine was auto-selected, while a torch engine asked
+for by name (:func:`use`, :func:`select`, ``$REPRO_TORCH_ENGINE``) takes
+the torch core at every size.  ``lru_insert`` and ``stack_compose`` are
+the numpy monoid the other simulator paths share.
 
 The module also owns the per-phase wall-clock accounting
 (:func:`phase` / :func:`walls`) that attributes time to the effect /
@@ -40,6 +43,7 @@ __all__ = [
     "current", "select", "use",
     "phase", "walls", "reset_walls", "merge_walls",
     "running_max", "nway_core", "lru_insert", "stack_compose",
+    "counts", "reset_counts",
 ]
 
 _VALID = ("auto", "numpy", "torch")
@@ -51,6 +55,14 @@ _forced: str | None = None
 #: below this many scan elements the numpy running max is kept on every
 #: backend (the host↔device round trip outweighs the kernel)
 JIT_MIN_ELEMS = 1 << 15
+
+#: below this many segments the numpy N-way core is kept likewise, unless
+#: torch was asked for by name
+JIT_MIN_SEGMENTS = 1 << 9
+
+#: calls of each torch form since :func:`reset_counts` (the smoke reads
+#: them to prove that a path went through the torch core)
+_COUNTS: dict[str, int] = {"nway_core": 0}
 
 
 def _env_choice() -> str:
@@ -72,6 +84,22 @@ def current() -> str:
             return "torch"
         return "numpy"
     return choice
+
+
+def _explicit() -> bool:
+    """True when torch was asked for by name (override or env) rather
+    than auto-selected: explicit selections bypass the size thresholds
+    of the N-way core."""
+    return (_forced or _env_choice()) == "torch"
+
+
+def counts() -> dict[str, int]:
+    return dict(_COUNTS)
+
+
+def reset_counts() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
 
 
 def select(name: str | None) -> None:
@@ -245,23 +273,11 @@ def stack_compose(older: np.ndarray, newer: np.ndarray) -> np.ndarray:
 # The segmented N-way replay core
 # ---------------------------------------------------------------------------
 
-def nway_core(T: np.ndarray, seg_grp: np.ndarray, seg_first: np.ndarray,
-              carried: np.ndarray, max_run: int,
-              ) -> tuple[np.ndarray, np.ndarray]:
-    """The segmented N-way LRU replay over pre-cut segments.
-
-    ``T`` is ``(W, G)``: per-segment tag columns, −2 where inactive;
-    ``seg_grp`` maps each segment to its touched-set row in ``carried``
-    (the incoming recency stacks, MRU first); ``seg_first`` flags each
-    set's first segment; ``max_run`` is the longest per-set segment
-    run.  Returns ``(HIT, final)`` — per-position hit flags and each
-    segment's outgoing stack (the caller keeps only each set's last).
-
-    Pass A replays each segment's own stack from empty, a segmented
-    Hillis–Steele compose gives each segment its incoming stack, and
-    pass B replays from there recording hits.  numpy on every backend in
-    this slice.
-    """
+def _nway_core_np(T: np.ndarray, seg_grp: np.ndarray,
+                  seg_first: np.ndarray, carried: np.ndarray,
+                  max_run: int) -> tuple[np.ndarray, np.ndarray]:
+    """numpy form of :func:`nway_core` (see there for the contract) —
+    pass A, the segmented Hillis–Steele compose, pass B."""
     W, G = T.shape
     ways = carried.shape[1]
     # pass A: per-segment own stacks, replayed from empty
@@ -287,3 +303,102 @@ def nway_core(T: np.ndarray, seg_grp: np.ndarray, seg_first: np.ndarray,
         HIT[r] = (stk == x[:, None]).any(axis=1) & (x != -2)
         stk = lru_insert(stk, x)
     return HIT, stk
+
+
+def _insert_torch(stk, x, ways_ar):
+    """:func:`lru_insert` on tensors; also returns the per-row "tag
+    present" flags, which pass B records as hits."""
+    import torch
+    cmp = stk == x[:, None]
+    found = cmp.any(dim=1)
+    # argmax takes no bool on CUDA; a stack's valid tags are distinct, so
+    # a found row has exactly one match
+    j = torch.where(found, cmp.to(torch.uint8).argmax(dim=1),
+                    stk.shape[1] - 1)
+    j = torch.where(x == -2, -1, j)
+    shifted = torch.cat([x[:, None], stk[:, :-1]], dim=1)
+    return torch.where(ways_ar[None, :] <= j[:, None], shifted, stk), found
+
+
+def _compose_torch(older, newer, ways_ar):
+    """:func:`stack_compose` in the gather form: ``out[:, w]`` takes the
+    one column of ``older`` kept at target ``w``, else ``newer[:, w]`` —
+    no boolean-mask indexing, so no shape depends on the data."""
+    import torch
+    ways = newer.shape[1]
+    nb = (newer >= 0).sum(dim=1)
+    in_newer = (older[:, :, None] == newer[:, None, :]).any(dim=2)
+    keep = (older >= 0) & ~in_newer
+    tgt = nb[:, None] + keep.cumsum(dim=1) - 1
+    sel = keep & (tgt < ways)
+    hitm = sel[:, None, :] & (tgt[:, None, :] == ways_ar[None, :, None])
+    has = hitm.any(dim=2)
+    src = hitm.to(torch.uint8).argmax(dim=2)
+    return torch.where(has, torch.gather(older, 1, src), newer)
+
+
+def _nway_core_torch(T: np.ndarray, seg_grp: np.ndarray,
+                     seg_first: np.ndarray, carried: np.ndarray,
+                     max_run: int) -> tuple[np.ndarray, np.ndarray]:
+    """The torch form of :func:`nway_core` on the port's device: the same
+    pass A, segmented Hillis–Steele compose and pass B as the numpy form,
+    on tensors of ``T``'s dtype (int32, or int64 once tags pass 2^31).
+    The inputs go to the device once and ``HIT`` and the stacks come back
+    once; nothing in between waits for the host."""
+    import torch
+    dev = get_device()
+    _COUNTS["nway_core"] += 1
+    W, G = T.shape
+    ways = carried.shape[1]
+    Tt = torch.from_numpy(np.ascontiguousarray(T)).to(dev)
+    sg = torch.from_numpy(seg_grp.astype(np.int64)).to(dev)
+    sf = torch.from_numpy(np.ascontiguousarray(seg_first)).to(dev)
+    ca = torch.from_numpy(np.ascontiguousarray(carried)).to(dev)
+    ways_ar = torch.arange(ways, device=dev)
+    # pass A: per-segment own stacks, replayed from empty
+    stk = torch.full((G, ways), -1, dtype=Tt.dtype, device=dev)
+    for r in range(W):
+        stk, _ = _insert_torch(stk, Tt[r], ways_ar)
+    # incoming stacks: carried at set-first segments, own[g-1] elsewhere,
+    # then the segmented scan
+    E = torch.cat([stk[:1], stk[:-1]], dim=0)
+    E = torch.where(sf[:, None], ca[sg], E)
+    d = 1
+    while d < max_run:
+        valid = sg[d:] == sg[:-d]
+        E[d:] = torch.where(valid[:, None],
+                            _compose_torch(E[:-d], E[d:], ways_ar), E[d:])
+        d *= 2
+    # pass B: replay from the incoming stacks, recording hits
+    HIT = torch.empty((W, G), dtype=torch.bool, device=dev)
+    stk = E
+    for r in range(W):
+        x = Tt[r]
+        stk, found = _insert_torch(stk, x, ways_ar)
+        HIT[r] = found & (x != -2)
+    return HIT.cpu().numpy(), stk.cpu().numpy()
+
+
+def nway_core(T: np.ndarray, seg_grp: np.ndarray, seg_first: np.ndarray,
+              carried: np.ndarray, max_run: int,
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """The segmented N-way LRU replay over pre-cut segments.
+
+    ``T`` is ``(W, G)``: per-segment tag columns, −2 where inactive;
+    ``seg_grp`` maps each segment to its touched-set row in ``carried``
+    (the incoming recency stacks, MRU first); ``seg_first`` flags each
+    set's first segment; ``max_run`` is the longest per-set segment
+    run.  Returns ``(HIT, final)`` — per-position hit flags and each
+    segment's outgoing stack (the caller keeps only each set's last).
+
+    Pass A replays each segment's own stack from empty, a segmented
+    Hillis–Steele compose gives each segment its incoming stack, and
+    pass B replays from there recording hits.  The torch engine runs the
+    torch form at ``JIT_MIN_SEGMENTS`` segments or more, and at every
+    size when torch was asked for by name; both forms are bit-identical
+    (integer compares and shifts only).
+    """
+    G = T.shape[1]
+    if current() == "torch" and (G >= JIT_MIN_SEGMENTS or _explicit()):
+        return _nway_core_torch(T, seg_grp, seg_first, carried, max_run)
+    return _nway_core_np(T, seg_grp, seg_first, carried, max_run)

@@ -219,7 +219,7 @@ def note_chunks(*, cold: int = 0, served: int = 0) -> None:
 def note_worker_retries(n: int = 1) -> None:
     """Census hook: a pool master re-dispatched ``n`` chunks after a
     worker died (respawn-and-retry; see the chunk-graph executor and
-    the serving tier).  Surfaced by :func:`census` and the daemon's
+    :mod:`repro_torch.serve`).  Surfaced by :func:`census` and the daemon's
     ``stats`` endpoint so silent worker churn is visible."""
     _stats["worker_retries"] += n
 
@@ -227,7 +227,7 @@ def note_worker_retries(n: int = 1) -> None:
 def note_speculation(n: int = 1) -> None:
     """Census hook: a pool master issued ``n`` speculative duplicate
     dispatches for straggling chunks (see
-    the reference package's ``runtime.fault_tolerance.SpeculationPolicy``)."""
+    :class:`repro_torch.runtime.fault_tolerance.SpeculationPolicy`)."""
     _stats["speculated"] += n
 
 

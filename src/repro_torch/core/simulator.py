@@ -383,8 +383,8 @@ class BatchedCacheSim:
         seg_len = np.diff(np.append(np.nonzero(seg_first)[0], G))
         max_run = int(seg_len.max(initial=1))
         # pass A (own stacks from empty), the segmented compose scan and
-        # pass B (hit replay) run on the selected engine (the numpy core
-        # on every engine in this slice; see core/engine.py)
+        # pass B (hit replay) run on the selected engine — numpy or the
+        # torch core, bit-identical by construction
         HIT, stk = _engine.nway_core(T, seg_grp, seg_first, carried,
                                      max_run)
         # write back carried state from each set's last segment: slot k of
@@ -2305,13 +2305,18 @@ def simulate_dataflow_many(
     completed chunk; ``use_rescache=False`` bypasses the cache
     (``None`` = global default).
 
-    ``depth_incremental`` (default) solves the FIFO-depth lanes
-    deepest-first and warm-starts each shallower lane from the adjacent
-    deeper fixed point.
+    ``workers > 1`` shards the resolution across a process pool — the
+    chunk-graph executor of :mod:`repro_torch.core.chunkgraph` — with
+    bit-identical results; ``depth_incremental`` (default) solves the
+    FIFO-depth lanes deepest-first and warm-starts each shallower lane
+    from the adjacent deeper fixed point.
 
-    ``workers > 1`` (the sharded chunk-graph executor) and ``server``
-    (the resolution daemon) raise ``NotImplementedError``: both arrive
-    with the serving-tier slice of the port.
+    ``server`` delegates resolution to a running resolution daemon
+    (:mod:`repro_torch.serve`) instead: ``"auto"`` targets the store's
+    canonical socket, anything else is an explicit address.  The daemon
+    is a scheduling layer only — results stay bit-identical — and when
+    serving is impossible (no daemon, unpicklable traces, rescache
+    disabled) the call silently falls back to the local engines.
 
     ``engine`` overrides the resolution-engine backend for this call
     (``"numpy"`` / ``"torch"`` / ``"auto"``; default: ``$REPRO_TORCH_ENGINE``,
@@ -2336,13 +2341,24 @@ def simulate_dataflow_many(
             {st.name: dict.fromkeys(STALL_BUCKETS, 0) for st in stages})
             for mn in mems for d in fifo_depths}
     if server:
-        raise NotImplementedError(
-            "server=: the resolution daemon (serve/client) is not ported "
-            "yet; it arrives with the serving-tier slice")
+        from ..serve.client import ServeUnavailable, \
+            simulate_dataflow_served
+        try:
+            return simulate_dataflow_served(
+                stages, mems, n_iters, fifo_depths=fifo_depths,
+                freq_mhz=freq_mhz, seed=seed,
+                collect_stalls=collect_stalls,
+                depth_incremental=depth_incremental,
+                address=None if server == "auto" else server)
+        except ServeUnavailable:
+            pass  # no daemon / unservable request: resolve locally
     if workers is not None and workers > 1:
-        raise NotImplementedError(
-            "workers>1: the sharded chunk-graph executor is not ported "
-            "yet; it arrives with the chunkgraph/serving slice")
+        from .chunkgraph import simulate_dataflow_sharded
+        return simulate_dataflow_sharded(
+            stages, mems, n_iters, fifo_depths=fifo_depths,
+            freq_mhz=freq_mhz, seed=seed, workers=workers,
+            collect_stalls=collect_stalls, use_rescache=use_rescache,
+            depth_incremental=depth_incremental)
     try:
         return _dataflow_many_stream(
             stages, mems, n_iters, fifo_depths=fifo_depths,

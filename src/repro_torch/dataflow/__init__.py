@@ -18,6 +18,8 @@ Internals (all public, all swappable):
   (``sequential`` / ``emulated`` / ``eager`` / ``simulate``).
 * :mod:`~repro_torch.dataflow.schedule` — static schedule analysis and the
   Fig. 2/5 simulation report.
+* :mod:`~repro_torch.dataflow.dse` — the partition-space design-space
+  explorer (``Compiled.explore``, the ``dse`` pass).
 * :mod:`~repro_torch.dataflow.transforms` — the HLS transformation catalog.
 * :mod:`~repro_torch.dataflow.verify` — the static dataflow verifier.
 """
@@ -27,6 +29,8 @@ from .backends import (Backend, BackendUnavailableError, available_backends,
                        registered_backends, unregister_backend)
 from .driver import (Compiled, cache_stats, clear_cache, compile,
                      dataflow_jit)
+from .dse import (DseCandidate, DseResult, enumerate_plans, explore,
+                  explore_plans, partition_resources)
 from .options import CompileOptions, ResourceConstraints, ServeOptions
 from .passes import (CompileContext, DecouplePass, DsePass, MemoryDepPass,
                      Pass, PartitionPass, PassPipeline, RewritePass,
@@ -45,6 +49,8 @@ __all__ = [
     "execute_backends", "get_backend", "register_backend",
     "registered_backends", "unregister_backend",
     "Compiled", "cache_stats", "clear_cache", "compile", "dataflow_jit",
+    "DseCandidate", "DseResult", "enumerate_plans", "explore",
+    "explore_plans", "partition_resources",
     "CompileOptions", "ResourceConstraints", "ServeOptions",
     "CompileContext", "Pass", "PassPipeline", "TracePass", "MemoryDepPass",
     "PartitionPass", "RewritePass", "DsePass", "DecouplePass",

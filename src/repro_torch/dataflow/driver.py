@@ -118,12 +118,17 @@ class Compiled:
 
     # -- analysis -------------------------------------------------------------
 
-    def _check_serve(self, kwargs: dict) -> dict:
-        if getattr(self.options, "serve", None) is not None \
-                or kwargs.get("server"):
-            raise NotImplementedError(
-                "serving options: the resolution daemon is not ported "
-                "yet; it arrives with the serving-tier slice")
+    def _serve_defaults(self, kwargs: dict) -> dict:
+        """Apply ``options.serve`` (a
+        :class:`~repro_torch.dataflow.options.ServeOptions`): default the
+        ``server`` argument to its address and install its
+        timeout/backoff knobs as the serve-client configuration.  An
+        explicit ``server=`` argument still wins."""
+        sv = getattr(self.options, "serve", None)
+        if sv is not None:
+            kwargs.setdefault("server", sv.address or "auto")
+            from ..serve import client as _serve_client
+            _serve_client.configure_timeouts(sv.timeouts())
         return kwargs
 
     def simulate(self, n_iters: int = 2048, **kwargs: Any) -> SimReport:
@@ -131,21 +136,41 @@ class Compiled:
         fused conventional engine (see
         :func:`repro_torch.dataflow.schedule.simulate_schedule`).  The
         ``engine=`` keyword picks the resolution engine (``"torch"`` runs
-        the solver's running max on the card)."""
+        the solver's running max and the N-way cache replay on the
+        card).  Pass ``server="auto"`` (or an address) to pre-resolve
+        traces through a running resolution daemon."""
         return simulate_schedule(self.schedule, n_iters=n_iters,
-                                 **self._check_serve(kwargs))
+                                 **self._serve_defaults(kwargs))
 
     def sweep(self, **kwargs: Any) -> Any:
         """Design-space sweep: grid the cycle simulator over memory models
         × FIFO depths × ``mem_in_scc`` modes, fully simulated (see
         :func:`repro_torch.dataflow.schedule.sweep_schedule`; dispatched
-        through the ``simulate`` backend)."""
-        return get_backend("simulate").sweep(self, **self._check_serve(kwargs))
+        through the ``simulate`` backend).  ``workers=N`` shards the trace
+        resolution over the chunk-graph process pool and
+        ``server="auto"`` (or an address) delegates it to a running
+        resolution daemon; results stay bit-identical."""
+        return get_backend("simulate").sweep(
+            self, **self._serve_defaults(kwargs))
 
     def explore(self, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "explore(): the design-space explorer (dse.py) is not ported "
-            "yet; it arrives with the DSE slice")
+        """Partition-space DSE (see
+        :func:`repro_torch.dataflow.dse.explore`): enumerate legal
+        merge/split/duplicate re-partitionings of this kernel, prune
+        against a :class:`~repro_torch.dataflow.options.ResourceConstraints`
+        resource model, simulate every survivor, and return a
+        :class:`~repro_torch.dataflow.dse.DseResult` whose
+        cycles-vs-FIFO-bits Pareto front carries full ``Compiled``
+        artifacts.  ``fifo_depths=[...]`` makes the FIFO depth a search
+        axis; ``server="auto"`` resolves candidate traces through a
+        running resolution daemon first."""
+        from . import dse as _dse
+        return _dse.explore(self, **self._serve_defaults(kwargs))
+
+    @property
+    def dse_result(self):
+        """The ``dse`` pass's exploration (None unless ``options.dse``)."""
+        return self.context.dse_result
 
     @property
     def transform_signature(self) -> str:
@@ -164,7 +189,8 @@ class Compiled:
         """Run the static dataflow verifier over this artifact: IR
         invariants (plan/partition/program), the decoupled-access race
         detector, and the FIFO deadlock analysis against
-        ``fifo_depths`` (default: the simulator default of 8).  Returns
+        ``fifo_depths`` (default: the DSE constraints' depth axis, else
+        the simulator default of 8).  Returns
         the :class:`~repro_torch.dataflow.verify.Diagnostic` list — empty
         means clean; ``raise_on_error=True`` raises
         :class:`~repro_torch.dataflow.verify.VerifyError` on any

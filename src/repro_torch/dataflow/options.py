@@ -120,10 +120,15 @@ class ServeOptions:
     deadline_s: float | None = None
 
     def timeouts(self) -> Any:
-        """The equivalent ``serve.client.ServeTimeouts`` (not ported yet)."""
-        raise NotImplementedError(
-            "ServeOptions: the serve client is not ported yet; it arrives "
-            "with the serving-tier slice")
+        """The equivalent :class:`repro_torch.serve.client.ServeTimeouts`."""
+        from ..serve.client import ServeTimeouts
+        return ServeTimeouts(
+            connect_timeout_s=self.connect_timeout_s,
+            request_timeout_s=self.request_timeout_s,
+            max_wait_s=self.max_wait_s,
+            backoff_base_s=self.backoff_base_s,
+            backoff_cap_s=self.backoff_cap_s,
+            deadline_s=self.deadline_s)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,9 +8,9 @@ the paper's flow —
 
 (``transform`` is a no-op unless ``options.transforms`` activates the
 HLS transformation catalog — see ``repro_torch.dataflow.transforms`` — and
-``dse`` is a no-op unless ``options.dse`` is set, which raises until the
-design-space explorer is ported) — with each step delegating to the
-corresponding ``repro_torch.core`` function.  Pipelines are ordinary
+``dse`` is a no-op unless ``options.dse`` opts into partition-space
+exploration) — with each step delegating to the corresponding
+``repro_torch.core`` function.  Pipelines are ordinary
 immutable value objects: ``default_pipeline().replace("partition",
 MyPartitionPass())`` swaps a pass, ``.without("rewrite")`` drops one,
 ``.insert_after(...)`` adds one.
@@ -195,16 +195,39 @@ class RewritePass(Pass):
 
 class DsePass(Pass):
     """Partition-space design-space exploration (no-op unless
-    ``options.dse`` is set).  The explorer (``dataflow/dse.py``) is not
-    ported yet, so a set ``options.dse`` raises."""
+    ``options.dse`` is set): enumerate legal merge/split/duplicate
+    re-partitionings of the Algorithm 1 plan, prune against the
+    :class:`~repro_torch.dataflow.options.ResourceConstraints` resource
+    model, simulate every survivor (synthetic per-region traces — supply
+    real traces through ``Compiled.explore``), and re-partition onto the
+    constrained-best candidate.  The full exploration is kept on
+    ``ctx.dse_result`` / ``Compiled.dse_result``."""
 
     name = "dse"
 
     def run(self, ctx: CompileContext) -> None:
-        if ctx.options.dse is not None:
-            raise NotImplementedError(
-                "options.dse: the design-space explorer (dse.py) is not "
-                "ported yet; it arrives with the DSE slice")
+        rc = ctx.options.dse
+        if rc is None:
+            return
+        from . import dse as _dse
+        result = _dse.explore_plans(
+            ctx.cdfg, ctx.plan, constraints=rc,
+            duplicate_base=ctx.options.duplicate_cheap)
+        ctx.dse_result = result
+        best = result.best()
+        if best.plan is not None and best is not result.baseline:
+            from ..core.partition import (duplicate_cheap_rewrite,
+                                          materialize)
+            from .transforms import IDENTITY
+            ctx.plan = best.plan
+            tf = getattr(best, "tf", None)
+            ctx.cdfg.transforms = tf if tf is not None \
+                and not tf.is_identity else None
+            ctx.partition = materialize(
+                ctx.cdfg, best.plan,
+                transforms=tf if tf is not None else IDENTITY)
+            if best.duplicate:
+                duplicate_cheap_rewrite(ctx.partition)
 
 
 class DecouplePass(Pass):

@@ -315,9 +315,15 @@ def simulate_schedule(
     base_stages = stages if not transformed else schedule.sim_stages(
         traces, n_iters=n_iters, seed=seed, apply_transforms=False)
     if server:
-        raise NotImplementedError(
-            "server=: the resolution daemon (serve/client) is not ported "
-            "yet; it arrives with the serving-tier slice")
+        # resolve through the daemon first (shared pool, in-flight
+        # dedup); the local run below then serves from the store —
+        # best-effort, so a missing daemon costs nothing
+        from ..serve.client import ServeUnavailable, prefetch
+        try:
+            prefetch(stages, {"mem": mem}, n_df, seed=seed,
+                     address=None if server == "auto" else server)
+        except ServeUnavailable:
+            pass
     df = simulate_dataflow(stages, mem, n_df, fifo_depth=fifo_depth,
                            seed=seed, use_rescache=use_rescache,
                            engine=engine)
@@ -451,12 +457,15 @@ def sweep_schedule(
     across calls, iteration counts (prefix serving), and processes via
     :mod:`repro_torch.core.rescache` (``use_rescache=False`` opts out).
 
+    ``workers > 1`` shards the dataflow resolution across a process
+    pool (the chunk-graph executor — bit-identical, multi-core);
     ``depth_incremental`` (default) warm-starts each FIFO-depth lane
-    from the adjacent deeper lane's fixed point; ``workers > 1`` and
-    ``server`` raise ``NotImplementedError`` until the serving-tier
-    slice ports the sharded executor and the daemon.  Each row records
-    the engine that ran in ``resolution_mode`` (``"streaming"``) and, in
-    ``resilience``, the
+    from the adjacent deeper lane's fixed point; ``server`` delegates
+    resolution to a running resolution daemon (:mod:`repro_torch.serve` —
+    ``"auto"`` or an explicit address), falling back to the local
+    engines when none answers.  Each row records the engine that
+    actually ran in ``resolution_mode`` (``"served:ADDR"`` /
+    ``"sharded:N"`` / ``"streaming"``) and, in ``resilience``, the
     fault/retry counters its grid pass incurred (worker retries,
     quarantined store records, serve failovers) — a sweep that silently
     recovered from faults says so in its own output.
@@ -501,9 +510,12 @@ def sweep_schedule(
     resolution_mode = "streaming" if not workers or workers < 2 \
         else f"sharded:{workers}"
     if server:
-        raise NotImplementedError(
-            "server=: the resolution daemon (serve/client) is not ported "
-            "yet; it arrives with the serving-tier slice")
+        from ..serve import client as _serve_client
+        addr = None if server == "auto" else server
+        if _serve_client.ping(addr):
+            from ..serve import protocol as _serve_protocol
+            resolution_mode = "served:" + (
+                addr or _serve_protocol.default_address())
 
     # resilience observability (chaos-harness satellite): each row
     # carries the store/serve fault counters its grid pass incurred, so

@@ -10,15 +10,25 @@ every attention call on the hand-written kernels (``attn_impl="pallas"``).
 
 The demo is the template end to end: prefill is the burst-access stage,
 the KV cache is the customized memory partition, and decode steps stream
-it back.  The decode-step dataflow report and the resolution daemon's
-subcommands (``daemon``, ``stats``, ``shutdown``) are not ported yet and
-raise.
+it back.  The decode-step dataflow report is not ported yet and raises.
+
+The resolution daemon's control commands::
+
+    python -m repro_torch.launch.serve daemon [--store-dir D] [--device cpu]
+    python -m repro_torch.launch.serve stats
+    python -m repro_torch.launch.serve shutdown
+
+``daemon`` serves the resolution store in the foreground; its workers run
+on its device (``--device``, default the card) and engine
+(``$REPRO_TORCH_ENGINE``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import logging
 import sys
 import time
 
@@ -28,8 +38,8 @@ import torch
 _REPORT_LATER = ("the decode-step dataflow report needs torch.fx lowering "
                  "rules for the transformer step (ROADMAP: \"The "
                  "decode-step dataflow report\")")
-_DAEMON_LATER = ("the resolution daemon is the serving-tier slice "
-                 "(ROADMAP: \"core/chunkgraph.py and the serving tier\")")
+
+log = logging.getLogger("repro_torch.serve")
 
 
 @dataclasses.dataclass
@@ -102,6 +112,85 @@ class BatchedServer:
                        decode_s / gen) for i, r in enumerate(requests)]
 
 
+# ---------------------------------------------------------------------------
+# Resolution daemon CLI
+# ---------------------------------------------------------------------------
+
+def _serve_cli(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="resolution daemon control")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    d = sub.add_parser("daemon", help="run the resolution daemon in "
+                                      "the foreground")
+    d.add_argument("--socket", default=None,
+                   help="AF_UNIX path or host:port (default: the "
+                        "store's canonical socket)")
+    d.add_argument("--workers", type=int, default=None,
+                   help="pool width (default: cores - 1, min 2)")
+    d.add_argument("--store-dir", default=None,
+                   help="rescache store directory to serve")
+    d.add_argument("--device", default=None,
+                   help="'cuda' (the default) or 'cpu': the device of the "
+                        "daemon and its workers")
+    d.add_argument("--max-queued-chunks", type=int, default=4096,
+                   help="global admission cap on queued chunks")
+    d.add_argument("--max-client-chunks", type=int, default=4096,
+                   help="per-client outstanding-chunks budget")
+    d.add_argument("--retry-budget", type=int, default=None,
+                   help="chunk re-dispatches tolerated per job after "
+                        "worker deaths")
+    d.add_argument("--throttle", type=float, default=0.0,
+                   help="seconds to sleep before each chunk dispatch "
+                        "(test/debug knob)")
+    d.add_argument("--no-journal", action="store_true",
+                   help="disable the append-only journal (stats reset "
+                        "on restart; in-flight jobs are not resumed)")
+    d.add_argument("--speculate-after", type=float, default=None,
+                   help="floor seconds before a straggling chunk earns "
+                        "a speculative duplicate dispatch (0 disables; "
+                        "default REPRO_SPECULATE_AFTER_S or 30)")
+    d.add_argument("--speculate-factor", type=float, default=4.0,
+                   help="chunk is a straggler past this multiple of "
+                        "the observed median chunk wall")
+    for name in ("stats", "shutdown"):
+        sp = sub.add_parser(name)
+        sp.add_argument("--socket", default=None)
+    args = p.parse_args(argv)
+    if args.cmd == "daemon":
+        from .._device import get_device, set_device
+        from ..core import rescache
+        from ..serve import ResolutionDaemon
+        set_device(get_device(args.device))
+        if args.store_dir:
+            rescache.configure(enabled=True, directory=args.store_dir)
+        daemon = ResolutionDaemon(
+            address=args.socket, workers=args.workers,
+            max_queued_chunks=args.max_queued_chunks,
+            max_client_chunks=args.max_client_chunks,
+            retry_budget=args.retry_budget, throttle_s=args.throttle,
+            journal=not args.no_journal,
+            speculate_after_s=args.speculate_after,
+            speculate_factor=args.speculate_factor)
+        log.info("resolution daemon at %s (%d workers, store %s)",
+                 daemon.address, daemon.workers, daemon.store_dir)
+        daemon.serve_forever()
+        return 0
+    if args.cmd == "stats":
+        from ..serve import ServeUnavailable, get_stats
+        try:
+            print(json.dumps(get_stats(args.socket), indent=2,
+                             sort_keys=True))
+        except ServeUnavailable as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        return 0
+    from ..serve import shutdown
+    ok = shutdown(args.socket)
+    print("daemon stopped" if ok else "no daemon answered")
+    return 0 if ok else 1
+
+
 def _demo_main(argv: list[str]) -> None:
     from .._device import get_device
     from ..configs.base import load_config, reduced as reduce_config
@@ -146,7 +235,8 @@ def _demo_main(argv: list[str]) -> None:
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in ("daemon", "stats", "shutdown"):
-        raise NotImplementedError(f"{argv[0]}: {_DAEMON_LATER}")
+        logging.basicConfig(level=logging.INFO)
+        raise SystemExit(_serve_cli(argv))
     _demo_main(argv)
 
 

@@ -15,14 +15,19 @@ port's compiler driver, simulator and resolution engine.  Per kernel:
 Cycles equal the reference's numpy engine on every engine: the engine
 (``$REPRO_TORCH_ENGINE``, see :mod:`repro_torch.core.engine`) changes
 only the wall clock — ``torch`` runs the wavefront solver's running max
-on the card.  Per kernel, one task simulates the dataflow machine on all
-four memory configs at once, one the conventional engine, and one the
-processor baseline; tasks run longest-first in a spawn pool of ``--jobs``
-processes, each set up with the parent's device and engine.
+and the N-way cache replay on the card.  Per kernel, one task simulates
+the dataflow machine on all four memory configs at once, one the
+conventional engine, and one the processor baseline; tasks run
+longest-first in a spawn pool of ``--jobs`` processes, each set up with
+the parent's device and engine.  ``--workers N`` shards each dataflow
+task's resolution over the chunk-graph executor, ``--server auto`` sends
+it to the resolution daemon.
 
 Run::
 
     python -m repro_torch.workloads.fig5                    # on the card
+    python -m repro_torch.workloads.fig5 --workers 4        # sharded
+    python -m repro_torch.workloads.fig5 --server auto      # via the daemon
     python -m repro_torch.workloads.fig5 --quick --kernels knapsack dfs \\
         --device cpu
 
@@ -58,9 +63,6 @@ SPMV_SCALE = 0.125  # correctness-data scale; traces are full-size anyway
 FIFO_DEPTH = 256
 MAX_OUTSTANDING = 16  # the paper's "multiple outstanding requests"
 DEFAULT_OUT = os.path.join("build", "paper_fig5_torch.json")
-
-_NOT_PORTED = ("not ported yet: it arrives with ROADMAP \"core/chunkgraph.py "
-               "and the serving tier\"")
 
 
 def _dataflow_mems() -> dict:
@@ -150,7 +152,7 @@ def _sim_task(task: tuple) -> tuple:
     Returns the results, the task's seconds and the part of them spent
     before simulating (building the workload and compiling its body; in
     a fresh process also the imports and the device's start-up)."""
-    kname, what, full, max_iters = task
+    kname, what, full, max_iters, workers, server = task
     t0 = time.perf_counter()
     k = make_kernel(kname)
     n = _n_iters(k, full, max_iters)
@@ -162,7 +164,8 @@ def _sim_task(task: tuple) -> tuple:
     elif what == "dataflow":
         grid = simulate_dataflow_many(stages[0], _dataflow_mems(), n,
                                       fifo_depths=(FIFO_DEPTH,),
-                                      collect_stalls=False)
+                                      collect_stalls=False,
+                                      workers=workers, server=server)
         r = {mn: grid[(mn, FIFO_DEPTH)] for mn in MEM_NAMES}
     else:
         r = simulate_conventional_many(
@@ -189,21 +192,25 @@ def run_all(*, full: bool = True, jobs: int | None = None,
     the prefix's).  Each kernel's result adds its cycle counts to the
     reference's fields (``dataflow_cycles``, ``conventional_cycles`` per
     memory, ``baseline_cycles``).  ``jobs=1`` runs in this process.
-    ``workers > 1`` and ``server`` raise until the chunk-graph executor
-    and the resolution daemon are ported."""
-    if workers is not None and workers > 1:
-        raise NotImplementedError(f"workers > 1: the sharded chunk-graph "
-                                  f"executor is {_NOT_PORTED}")
-    if server:
-        raise NotImplementedError(f"server=: the resolution daemon is "
-                                  f"{_NOT_PORTED}")
+
+    ``workers`` shards each dataflow task's trace resolution over the
+    chunk-graph executor (default: the reference's heuristic,
+    :func:`~repro_torch.core.chunkgraph.default_workers` — the cores left
+    over by the task pool, 1 below 4 cores or in quick mode); ``server``
+    resolves them through the resolution daemon (``"auto"`` finds or
+    spawns the store's daemon).  Cycles are the same either way."""
+    from ..core.chunkgraph import default_workers
     kernels = tuple(kernels or ALL_KERNELS)
     if jobs is None:
         jobs = min(multiprocessing.cpu_count() + 1, 4) if full \
             else min(2, multiprocessing.cpu_count())
+    workers = default_workers(jobs=jobs, explicit=workers, full=full)
+    if server == "auto":
+        from ..serve import ensure_daemon
+        server = ensure_daemon()
     sizes = {kn: make_kernel(kn, "cpu").n_iters_full if full else 1
              for kn in kernels}
-    tasks = [(kn, what, full, max_iters) for kn in kernels
+    tasks = [(kn, what, full, max_iters, workers, server) for kn in kernels
              for what in ("dataflow", "conventional", "processor")]
     tasks.sort(key=lambda t: -min(sizes[t[0]], max_iters or sizes[t[0]])
                * _MACHINE_WEIGHT[t[1]])
@@ -291,7 +298,8 @@ def summarize(results: dict) -> dict:
 
 def main(out_path: str | None = DEFAULT_OUT, *, quick: bool = False,
          jobs: int | None = None, kernels: tuple[str, ...] | None = None,
-         rescache: bool = True, workers: int | None = None, server: str | None = None) -> dict:
+         rescache: bool = True, workers: int | None = None,
+         server: str | None = None) -> dict:
     if not rescache:
         # spawn-pool workers inherit the environment, not configure()
         os.environ["REPRO_RESCACHE"] = "0"
@@ -340,9 +348,12 @@ def cli(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--workers", type=int, default=None,
-                    help="shard resolution over N processes (not ported)")
+                    help="shard each dataflow task's resolution over N "
+                         "processes (default: the cores the task pool "
+                         "leaves; 1 below 4 cores or with --quick)")
     ap.add_argument("--server", default=None,
-                    help="the resolution daemon (not ported)")
+                    help="resolve through the resolution daemon: 'auto' "
+                         "(find or spawn the store's) or an address")
     a = ap.parse_args(argv)
     if a.device:
         _device.set_device(a.device)

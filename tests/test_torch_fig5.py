@@ -222,11 +222,24 @@ def test_dfs_paper_claims_on_the_port():
         assert r[m]["dataflow_vs_conventional"] < 1.5
 
 
-def test_unported_options_raise():
-    for kw in ({"workers": 2}, {"server": "auto"}):
-        with pytest.raises(NotImplementedError,
-                           match="core/chunkgraph.py and the serving tier"):
-            fig5.run_all(full=False, jobs=1, kernels=("dfs",), **kw)
+def test_unported_options_raise(tmp_path):
+    """The options that raised before the chunk-graph executor and the
+    daemon were ported now run: ``workers=2`` and ``server=`` (an
+    address where no daemon answers: resolved locally) give the cycles
+    of a plain run."""
+    from repro_torch.serve import client
+    plain, _, _ = fig5.run_all(full=False, jobs=1, kernels=("dfs",))
+    client.configure_timeouts(max_wait_s=0.5, backoff_cap_s=0.1)
+    try:
+        for kw in ({"workers": 2},
+                   {"server": str(tmp_path / "absent.sock")}):
+            got, _, _ = fig5.run_all(full=False, jobs=1, kernels=("dfs",),
+                                     **kw)
+            for m in fig5.MEM_NAMES:
+                for key in ("dataflow_cycles", "conventional_cycles"):
+                    assert got["dfs"][m][key] == plain["dfs"][m][key], kw
+    finally:
+        client.configure_timeouts(None)
 
 
 def test_cli_spawn_pool_passes_device_and_engine(tmp_path, monkeypatch):

@@ -252,10 +252,22 @@ def test_unlowered_operations_raise():
 
 
 def test_dse_option_raises_until_ported(spmv_pair):
+    """``options.dse`` raised until the explorer was ported; now the dse
+    pass explores and re-partitions onto the same plan as the
+    reference's."""
+    from repro.dataflow import ResourceConstraints as RefConstraints
     _, _, w = spmv_pair
-    with pytest.raises(NotImplementedError):
-        port_compile(w.loop_body, w.carry_example, *w.body_args, loop=True,
-                     device="cpu", dse=ResourceConstraints())
+    k = ref_make_spmv(0.125)
+    rc = {"n_iters": 512, "max_candidates": 4, "max_fifo_bits": 4096}
+    ref = ref_compile(k.loop_body, k.carry_example, *k.body_args, loop=True,
+                      dse=RefConstraints(**rc))
+    port = port_compile(w.loop_body, w.carry_example, *w.body_args,
+                        loop=True, device="cpu",
+                        dse=ResourceConstraints(**rc))
+    assert port.dse_result is not None
+    assert [c.cycles for c in port.dse_result.candidates] == \
+        [c.cycles for c in ref.dse_result.candidates]
+    assert port.context.plan.groups == ref.context.plan.groups
 
 
 def test_compile_cache_returns_the_same_artifact(spmv_pair):

@@ -2,9 +2,13 @@
 its entry points run on the card unless the caller asks for the CPU."""
 
 import ast
+import json
 import pathlib
+import re
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -44,6 +48,55 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     return roots
 
 
+#: a ``-m`` argument naming the reference package inside one string
+_DASH_M = re.compile(r"(^|\s)-m\s+repro(\.|\s|$)")
+
+
+def _leading_text(node: ast.AST) -> str | None:
+    """The text a string expression starts with: a literal's value, or an
+    f-string's leading literal parts (None for anything else)."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    if isinstance(node, ast.JoinedStr):
+        lead = ""
+        for part in node.values:
+            if not (isinstance(part, ast.Constant)
+                    and isinstance(part.value, str)):
+                break
+            lead += part.value
+        return lead
+    return None
+
+
+def _names_reference(text: str | None) -> bool:
+    return text is not None and text.strip().split(".")[0] == "repro"
+
+
+def _executed_reference_strings(source: str) -> list[str]:
+    """String literals that would run a module of the reference package:
+    the argument of ``importlib.import_module`` / ``__import__``, the
+    element after ``"-m"`` in a command list, or ``-m repro...`` inside
+    one string."""
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Call) and node.args:
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) \
+                else getattr(f, "id", None)
+            if name in ("import_module", "__import__") \
+                    and _names_reference(_leading_text(node.args[0])):
+                bad.append(f"{name}({_leading_text(node.args[0])!r})")
+        elif isinstance(node, (ast.List, ast.Tuple)):
+            texts = [_leading_text(e) for e in node.elts]
+            for a, b in zip(texts, texts[1:]):
+                if a == "-m" and _names_reference(b):
+                    bad.append(f"-m {b}")
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _DASH_M.search(node.value):
+            bad.append(node.value)
+    return bad
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_reference_import(path):
@@ -51,17 +104,95 @@ def test_no_jax_or_reference_import(path):
     assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_string_runs_a_reference_module(path):
+    """No port file names a module of ``repro`` in a string that it
+    executes: ``python -m``, ``importlib.import_module``, ``__import__``."""
+    assert not _executed_reference_strings(path.read_text()), path
+
+
+@pytest.mark.parametrize("snippet", [
+    'cmd = [sys.executable, "-m", "repro.launch.serve", "daemon"]',
+    'cmd = (exe, "-m", f"repro.launch.{name}")',
+    'importlib.import_module("repro.core.engine")',
+    'import_module(f"repro.configs.{arch}")',
+    '__import__("repro")',
+    'os.system("python -m repro.launch.serve stats")',
+])
+def test_string_scan_catches_reference_modules(snippet):
+    assert _executed_reference_strings(snippet), snippet
+
+
+def test_string_scan_passes_the_ports_modules():
+    for snippet in ('cmd = [exe, "-m", "repro_torch.launch.serve"]',
+                    'importlib.import_module(f"repro_torch.configs.{a}")',
+                    '"python -m repro_torch.workloads.fig5"'):
+        assert not _executed_reference_strings(snippet), snippet
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.kernels, "
             "repro_torch.workloads, repro_torch.interop, "
             "repro_torch.models, repro_torch.configs, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.serve, "
+            "repro_torch.runtime, repro_torch.core.chunkgraph, "
+            "repro_torch.dataflow.dse; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_daemon_process_leaves_jax_and_the_reference_out(tmp_path):
+    """``python -m repro_torch.launch.serve daemon --device cpu`` serves a
+    request and shuts down without loading ``jax`` or ``repro``: the
+    process writes what it holds of them to a file at exit."""
+    from repro_torch.core import rescache
+    from repro_torch.core import simulator as sim
+    from repro_torch.serve import client
+    sock = str(pathlib.Path(tempfile.mkdtemp(prefix="iso-")) / "d.sock")
+    dump = tmp_path / "modules.json"
+    store = tmp_path / "store"
+    code = (
+        "import atexit, json, runpy, sys\n"
+        "def dump():\n"
+        f"    with open({str(dump)!r}, 'w') as f:\n"
+        "        json.dump(sorted(m for m in sys.modules\n"
+        "                         if m.split('.')[0] in ('jax', 'repro')), f)\n"
+        "atexit.register(dump)\n"
+        "sys.argv = ['serve', 'daemon', '--socket', "
+        f"{sock!r}, '--workers', '1', '--store-dir', {str(store)!r}, "
+        "'--device', 'cpu']\n"
+        "runpy.run_module('repro_torch.launch.serve', run_name='__main__')\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "REPRO_CHUNK_ITERS": str(rescache.CHUNK_ITERS)}
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    timeouts = client.ServeTimeouts(max_wait_s=2.0, backoff_cap_s=0.1)
+    try:
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not client.ping(sock):
+            assert proc.poll() is None, proc.stderr.read()
+            time.sleep(0.2)
+        rescache.configure(enabled=True, directory=str(store))
+        rng = np.random.default_rng(0)
+        stages = [sim.SimStage("ld", ii=1, latency=2, accesses=[
+            sim.MemAccess("x", rng.integers(0, 1 << 16, 2000) * 4)])]
+        served = client.simulate_dataflow_served(
+            stages, {"ACPC": sim.acp_cache()}, 2000, fifo_depths=(8,),
+            address=sock, timeouts=timeouts)
+        assert served[("ACPC", 8)].cycles > 0
+        assert client.shutdown(sock)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        rescache.configure(enabled=False)
+        if proc.poll() is None:
+            proc.kill()
+    assert json.loads(dump.read_text()) == []
 
 
 def test_compile_without_cuda_raises_unless_cpu_is_asked_for():

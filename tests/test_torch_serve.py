@@ -241,7 +241,7 @@ def test_demo_cli_serves_on_the_cpu(capsys):
 # what this slice does not carry raises
 # ---------------------------------------------------------------------------
 
-def test_unported_features_raise(model):
+def test_unported_features_raise(model, tmp_path):
     _, cfg, _, params = model
     gen = torch.Generator().manual_seed(0)
     mla = dataclasses.replace(cfg, segments=(
@@ -263,6 +263,14 @@ def test_unported_features_raise(model):
     server = port_serve.BatchedServer(cfg, params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         server.dataflow_report([])
-    for sub in ("daemon", "stats", "shutdown"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_serve.main([sub])
+    # the daemon's control commands are ported: with no daemon at the
+    # socket, ``stats`` and ``shutdown`` report it and exit 1
+    absent = str(tmp_path / "absent.sock")
+    for sub in ("stats", "shutdown"):
+        with pytest.raises(SystemExit) as stop:
+            port_serve.main([sub, "--socket", absent])
+        assert stop.value.code == 1
+    if not torch.cuda.is_available():     # a daemon on the card needs one
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_serve.main(["daemon", "--socket", absent,
+                             "--device", "cuda"])

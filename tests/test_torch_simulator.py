@@ -146,12 +146,23 @@ def test_rescache_store_is_the_ports_own(monkeypatch, tmp_path):
     assert port_rescache._dir() == "experiments/.rescache_torch"
 
 
-def test_later_slice_paths_raise(ref_stages):
+def test_later_slice_paths_raise(ref_stages, tmp_path):
+    """``server=`` and ``workers=`` raised until the serving tier was
+    ported; now they run: with no daemon at the address the call resolves
+    locally, and 100 iterations are one chunk, which the sharded executor
+    hands to the streaming engine — the reference's cycles either way."""
+    from repro_torch.serve import client
     port_df = interop.stages_from_records(
         interop.stage_records(ref_stages, 100))
-    with pytest.raises(NotImplementedError):
-        port_sim.simulate_dataflow_many(port_df, _mems(port_sim, ["ACP"]),
-                                        100, server="auto")
-    with pytest.raises(NotImplementedError):
-        port_sim.simulate_dataflow_many(port_df, _mems(port_sim, ["ACP"]),
-                                        100, workers=2)
+    want = ref_sim.simulate_dataflow_many(ref_stages, _mems(ref_sim, ["ACP"]),
+                                          100, use_rescache=False)
+    client.configure_timeouts(max_wait_s=0.5, backoff_cap_s=0.1)
+    try:
+        for kw in ({"server": str(tmp_path / "absent.sock")},
+                   {"workers": 2}):
+            got = port_sim.simulate_dataflow_many(
+                port_df, _mems(port_sim, ["ACP"]), 100, **kw)
+            assert {k: v.cycles for k, v in got.items()} == \
+                {k: v.cycles for k, v in want.items()}, kw
+    finally:
+        client.configure_timeouts(None)
