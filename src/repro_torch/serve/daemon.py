@@ -46,6 +46,7 @@ construction.
 from __future__ import annotations
 
 import multiprocessing
+import multiprocessing.connection as mp_connection
 import os
 import queue
 import threading
@@ -261,22 +262,17 @@ class ResolutionDaemon:
         self._guard_pidfile()
         ctx = multiprocessing.get_context("spawn")
         self._ctx = ctx
-        self._result_q = ctx.Queue()
-        cfg = _mk_rescache_cfg()
-        self._cfg = cfg
+        self._cfg = _mk_rescache_cfg()
         # spawned workers start with the port's defaults: hand them the
         # daemon's device policy and engine
         from .. import _device
         from ..core import engine as _engine
         self._setup = (_device.policy(), _engine.current())
         self._task_qs = [ctx.Queue() for _ in range(self.workers)]
-        self._procs = [ctx.Process(
-            target=worker_main,
-            args=(w, self.C, self._task_qs[w], self._result_q, cfg,
-                  *self._setup),
-            daemon=True) for w in range(self.workers)]
-        for p in self._procs:
-            p.start()
+        self._procs: list = [None] * self.workers
+        self._replies: list = [None] * self.workers
+        for w in range(self.workers):
+            self._spawn_worker(w)
         self._known = [set() for _ in range(self.workers)]
         self._load = [0] * self.workers
         self._busy_s = [0.0] * self.workers
@@ -291,6 +287,38 @@ class ResolutionDaemon:
             threading.Thread(target=self._run, daemon=True)]
         for t in self._threads:
             t.start()
+
+    def _spawn_worker(self, w: int) -> None:
+        """Start slot ``w`` with a reply pipe of its own.  Replies never
+        share a channel: a worker killed while writing one (its queue
+        feeder holding a shared queue's write lock, or half a message
+        on the wire) would otherwise wedge every other worker's replies
+        and the daemon's reader with them.  Only the worker holds the
+        write end, so its death reads as EOF here."""
+        reader, writer = self._ctx.Pipe(duplex=False)
+        self._procs[w] = self._ctx.Process(
+            target=worker_main,
+            args=(w, self.C, self._task_qs[w], writer, self._cfg,
+                  *self._setup),
+            daemon=True)
+        self._procs[w].start()
+        writer.close()
+        self._replies[w] = reader
+
+    def _drain(self, timeout: float) -> None:
+        """Handle every whole reply waiting on the workers' pipes,
+        waiting up to ``timeout`` for the first.  A pipe at EOF (its
+        worker died, perhaps mid-reply) is closed and left for
+        :meth:`_check_workers` to replace."""
+        live = [c for c in self._replies if c is not None]
+        for c in mp_connection.wait(live, timeout):
+            w = self._replies.index(c)
+            try:
+                while c.poll():
+                    self._on_worker_msg(c.recv())
+            except (EOFError, OSError):
+                c.close()
+                self._replies[w] = None
 
     def _recover_journal(self) -> None:
         """Load the previous lifetime's state: counter totals, the
@@ -385,6 +413,9 @@ class ResolutionDaemon:
             p.join(timeout=5)
             if p.is_alive():
                 p.terminate()
+        for c in getattr(self, "_replies", []):
+            if c is not None:
+                c.close()
         for q in getattr(self, "_task_qs", []):
             # a worker that died without draining leaves the feeder
             # blocked; don't let its exit finalizer hang the process
@@ -428,17 +459,7 @@ class ResolutionDaemon:
         while not self._stop_evt.is_set():
             busy = any(j.live() for j in self._jobs.values()) \
                 or self._inflight
-            try:
-                msg = self._result_q.get(timeout=0.05 if busy else 0.25)
-            except queue.Empty:
-                msg = None
-            if msg is not None:
-                self._on_worker_msg(msg)
-            while True:
-                try:
-                    self._on_worker_msg(self._result_q.get_nowait())
-                except queue.Empty:
-                    break
+            self._drain(0.05 if busy else 0.25)
             while True:
                 try:
                     ev = self._events.get_nowait()
@@ -947,6 +968,18 @@ class ResolutionDaemon:
         if not dead or self._stop_evt.is_set():
             return
         self._stats["worker_restarts"] += len(dead)
+        # what a dead worker answered in whole before it died still
+        # counts; a torn last reply ends at EOF
+        for w in dead:
+            c = self._replies[w]
+            if c is not None:
+                try:
+                    while c.poll():
+                        self._on_worker_msg(c.recv())
+                except (EOFError, OSError):
+                    pass
+                c.close()
+                self._replies[w] = None
         # a dead speculative copy just disappears (the primary is still
         # on it); a dead *primary* with a live speculative copy promotes
         # the copy instead of re-dispatching
@@ -971,12 +1004,7 @@ class ResolutionDaemon:
             old.cancel_join_thread()
             old.close()
             self._task_qs[w] = self._ctx.Queue()
-            self._procs[w] = self._ctx.Process(
-                target=worker_main,
-                args=(w, self.C, self._task_qs[w], self._result_q,
-                      self._cfg, *self._setup),
-                daemon=True)
-            self._procs[w].start()
+            self._spawn_worker(w)
             self._known[w] = set()
             self._load[w] = 0
         over_budget = set()

@@ -16,6 +16,8 @@ plan is armed** (a cached module check, no I/O):
 kind                      site / effect
 ========================  =====================================================
 ``worker_kill``           pool worker, start of a chunk task: SIGKILL itself
+``reply_kill``            pool worker, replying on chunk N: write half the
+                          reply to the daemon, then SIGKILL itself
 ``straggler``             pool worker, start of phase C: sleep ``delay_s``
 ``daemon_kill``           daemon, after committing chunk N: SIGKILL itself
 ``corrupt_chunk``         rescache ``put_chunk``: bit-flip bytes of the
@@ -42,7 +44,7 @@ import signal
 import time
 from typing import Any
 
-KINDS = ("worker_kill", "daemon_kill", "corrupt_chunk", "truncate_chunk",
+KINDS = ("worker_kill", "reply_kill", "daemon_kill", "corrupt_chunk", "truncate_chunk",
          "drop_socket", "delay_socket", "straggler")
 
 ENV = "REPRO_FAULT_PLAN"
@@ -225,6 +227,22 @@ def maybe_kill(kind: str, **ctx: Any) -> None:
         return
     if p.check(kind, **ctx) is not None:
         os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_cut_reply(conn: Any, msg: Any, **ctx: Any) -> None:
+    """SIGKILL the current process with ``msg`` half-written to the
+    pipe ``conn`` if a ``reply_kill`` spec fires: the length header and
+    the first half of the pickle reach the reader, the rest never
+    does."""
+    p = plan()
+    if p is None or p.check("reply_kill", **ctx) is None:
+        return
+    import struct
+    from multiprocessing.reduction import ForkingPickler
+    buf = bytes(ForkingPickler.dumps(msg))
+    os.write(conn.fileno(),
+             struct.pack("!i", len(buf)) + buf[:len(buf) // 2])
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 def maybe_sleep(kind: str, **ctx: Any) -> float:

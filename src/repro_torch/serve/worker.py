@@ -47,12 +47,23 @@ import numpy as np
 from . import faults
 
 
-def worker_main(wid: int, C: int, task_q, result_q,
+def _reply(conn, msg: tuple, wid: int, k: int) -> None:
+    """Write one reply whole to this worker's own channel before the
+    next message is taken: a worker that dies later loses nothing it
+    has answered, and one that dies mid-write breaks only its own
+    channel, which the daemon replaces when it respawns the slot."""
+    if faults.active():  # chaos: die with the reply half-written
+        faults.maybe_cut_reply(conn, msg, worker=wid, chunk=k)
+    conn.send(msg)
+
+
+def worker_main(wid: int, C: int, task_q, reply,
                 rescache_cfg: dict, device=None,
                 engine: str | None = None) -> None:
     """One pool worker of the daemon; ``device`` and ``engine`` are the
     daemon's, installed before anything else (a spawned process starts
-    with the port's defaults)."""
+    with the port's defaults).  ``reply`` is the write end of this
+    worker's own one-way pipe to the daemon."""
     from .. import _device
     from ..core import engine as _engine
     _device.set_device(device)
@@ -65,7 +76,8 @@ def worker_main(wid: int, C: int, task_q, result_q,
         _rc.configure(**rescache_cfg)
         _rc.CHUNK_ITERS = C
     except Exception:  # noqa: BLE001 — forwarded verbatim
-        result_q.put(("error", wid, jid, k, traceback.format_exc()))
+        _reply(reply, ("error", wid, jid, k, traceback.format_exc()),
+               wid, k)
         return
     jobs: dict[int, dict] = {}
     scratch: dict[tuple[int, int], dict] = {}
@@ -122,8 +134,8 @@ def worker_main(wid: int, C: int, task_q, result_q,
                     "flat_p": r._flat_p,
                     "burst_words": r._burst_words,
                 }
-                result_q.put(("effect", wid, jid, k, effects, n_addrs,
-                              time.perf_counter() - t0))
+                _reply(reply, ("effect", wid, jid, k, effects, n_addrs,
+                               time.perf_counter() - t0), wid, k)
             elif op == "state":
                 _, jid, k, lo, hi, st = m
                 r = jobs[jid]["resolver"]
@@ -141,8 +153,8 @@ def worker_main(wid: int, C: int, task_q, result_q,
                 sc["end"] = {geo: sim.export_stacks()
                              for geo, sim in r.caches.items()}
                 sc.pop("fused", None)
-                result_q.put(("replay", wid, jid, k, deltas,
-                              time.perf_counter() - t0))
+                _reply(reply, ("replay", wid, jid, k, deltas,
+                               time.perf_counter() - t0), wid, k)
             elif op == "draws":
                 _, jid, k, msg = m
                 if faults.active():
@@ -194,8 +206,8 @@ def worker_main(wid: int, C: int, task_q, result_q,
                         inline[mn] = {
                             "ops": _rc.shrink_ops(r.last_ops[mn]),
                             "hits": hb, "visits": vb}
-                result_q.put(("done", wid, jid, k, cums, inline,
-                              time.perf_counter() - t0))
+                _reply(reply, ("done", wid, jid, k, cums, inline,
+                               time.perf_counter() - t0), wid, k)
         except Exception:  # noqa: BLE001 — the daemon fails the job,
-            result_q.put(  # the worker keeps serving its other jobs
-                ("error", wid, jid, k, traceback.format_exc()))
+            _reply(reply,  # the worker keeps serving its other jobs
+                   ("error", wid, jid, k, traceback.format_exc()), wid, k)

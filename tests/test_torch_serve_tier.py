@@ -233,6 +233,66 @@ def test_worker_death_recovery_and_stats(store):
     assert st["census"]["worker_retries"] >= 1
 
 
+def _arm(monkeypatch, tmp_path, specs):
+    """Arm a fault plan through the environment (it reaches the spawned
+    workers) with a log file as the cross-process firing registry."""
+    log = str(tmp_path / "plan.log")
+    monkeypatch.setenv(faults.ENV, json.dumps({"faults": specs,
+                                               "log": log}))
+    faults.reset()
+    return log
+
+
+def _served_under_fault(monkeypatch, tmp_path, spec, request_timeout_s):
+    """One 5000-iteration request through a two-worker daemon with
+    ``spec`` armed: the results, the daemon's stats and the fault log."""
+    log = _arm(monkeypatch, tmp_path, [spec])
+    client.configure_timeouts(client.ServeTimeouts(
+        connect_timeout_s=2.0, request_timeout_s=request_timeout_s,
+        max_wait_s=1.0, backoff_base_s=0.02, backoff_cap_s=0.1))
+    with daemon() as d:
+        got = client.simulate_dataflow_served(
+            pipeline(port_sim), {"ACPC": port_sim.acp_cache()}, N,
+            fifo_depths=(8,), address=d.address)
+        st = d.stats()
+    return got, st, faults.log_counts(log)
+
+
+def test_worker_killed_mid_reply_does_not_wedge_the_daemon(
+        store, monkeypatch, tmp_path):
+    """A worker killed with its reply for chunk 3 half-written: only its
+    own channel breaks, the daemon respawns the slot and replays its
+    chunks, and the request is served within a short timeout with the
+    library's result.  A channel shared by all workers stalls here: the
+    torn reply (or the dead writer's lock) holds every other reply back
+    until the request times out."""
+    ref = _library()
+    got, st, fired = _served_under_fault(
+        monkeypatch, tmp_path, {"kind": "reply_kill", "chunk": 3}, 30.0)
+    for k in ref:
+        assert _key(got[k]) == _key(ref[k]), k
+    assert fired == {"reply_kill": 1}
+    assert st["failures"]["worker_restarts"] >= 1
+    assert st["failures"]["chunk_retries"] >= 1
+    assert st["jobs_completed"] == 1
+
+
+def test_chaos_worker_sigkill_mid_chunk(store, monkeypatch, tmp_path):
+    """The reference's chaos case: a pool worker SIGKILLs itself at the
+    start of chunk 3's task; the daemon respawns the slot, replays its
+    in-flight chunks, and the served result is the library's bit for
+    bit.  The kill shows in the stats and the fault log."""
+    ref = _library()
+    got, st, fired = _served_under_fault(
+        monkeypatch, tmp_path, {"kind": "worker_kill", "chunk": 3}, 60.0)
+    for k in ref:
+        assert _key(got[k]) == _key(ref[k]), k
+    assert fired == {"worker_kill": 1}
+    assert st["failures"]["worker_restarts"] >= 1
+    assert st["failures"]["chunk_retries"] >= 1
+    assert st["jobs_completed"] == 1
+
+
 def test_sweep_rows_record_resolution_mode(store):
     """``sweep_schedule`` rows name the resolution that ran: streaming,
     then served through the daemon, with the same cycles."""
