@@ -98,6 +98,37 @@ Phases, one line (or block) each:
    busy share, and its ``decode_attention`` kernels' time is printed; one
    prefill is traced too, for its device busy time and its attention
    kernels' share of it;
+6c. Qwen2.5-14B at full width and depth (48 layers, 40 query heads over
+   8 kv heads of dim 128) on phase 6's traffic: (a) in fp32 (59 GB),
+   ``"pallas"`` against ``"full"``, greedy tokens identical and prefill
+   logits within rtol=atol=1e-3; (b) in bf16, the kernels' path timed and
+   held to phase 6b's logits bar against the bf16 ``"full"`` path (the
+   fp32 logits of (a) give the plain path's own error), all 48 prefill
+   launches on ``mma.sync`` and all 48 × 32 decode launches on the
+   cluster split; one decode step traced; (c) ``kv_cache_dtype="int8"``:
+   the first decode step's softmax within 0.05 of the bf16 cache's and
+   the same greedy tokens (tests/test_perf_features.py's tolerance), then
+   served once; (d) phase 5's kernel checks and times at this shape;
+6d. DeepSeek-V3 at full width: (a) in fp32, cut to 1 dense + 1 MoE layer
+   with no MTP head (56 GB), absorbed and naive MLA decode with the same
+   greedy tokens and first-step logits within rtol=atol=2e-3 (the
+   reference's ``test_mla_absorbed_matches_naive``); (b) in bf16, its 3
+   dense layers, 1 of its 58 MoE layers and the MTP head's parameters
+   (26.7 B), served with naive and with absorbed decode; the sigmoid
+   top-8-of-256 router with its shared expert, the card's top-8 equal to
+   the host's on the prefill's MoE input; ``dropped_frac`` of the prefill
+   and of one decode step;
+6e. RWKV-6 1.6B at full width and depth: in fp32, prefill of the 512
+   tokens then 32 decode steps equal ``forward`` over the 544 tokens
+   (rtol=atol=2e-3, the reference's ``test_arch_smoke`` bar); in bf16,
+   served and timed;
+6f. one Jamba-1.5-Large Mamba layer at full width in fp32 (d_model
+   8192, d_inner 16384, d_state 16, dt_rank 512), batch 8:
+   ``mamba_apply`` over 512 tokens then 32 ``mamba_decode`` steps equal
+   ``mamba_apply`` over 544, and the chunked scan equals the sequential
+   one (rtol=atol=1e-3); their host-clock times.  Phases 6c-6f print
+   each model's parameter count and its peak allocated memory; whole
+   Jamba, Llama-4-Scout and DeepSeek-V3 need more than one card;
 7. the kernel API at SmolLM-135M's full width, on phase 6's bf16 model
    (seed 0) and prompt tokens.  Driven once with the launch counts set
    to 0: ``decoupled_gather`` of the 4,096 tokens' rows of the embedding
@@ -147,7 +178,8 @@ Phases, one line (or block) each:
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), the design those launches took, its error
-   against the plain version, its times and its bound; then the
+   against the plain version, its times and its bound (the attention
+   rows also at Qwen2.5-14B's shape, with 6c's launches); then the
    ``nvidia-smi`` line; then the result line.
 
 Any failed phase exits non-zero before the result line.  Without a CUDA
@@ -603,6 +635,12 @@ def main() -> None:
     # -- 6. the serving path ----------------------------------------------------
     serve_launches, model = serve_smollm(dev)
 
+    # -- 6c-6f. the rest of the model stack at full width ----------------------
+    qwen_rows = serve_qwen(dev)
+    serve_deepseek(dev)
+    serve_rwkv(dev)
+    mamba_layer(dev)
+
     # -- 7. the kernel API ----------------------------------------------------
     api_rows, api_launches = kernel_api(dev, model)
     del model
@@ -625,7 +663,13 @@ def main() -> None:
     keys = ("name", "route", "design", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+    for row in (fa_row, da_row):
+        # the same kernel at Qwen2.5-14B's heads, launches on 6c's batch
+        row["qwen2.5-14b"] = {k: qwen_rows[row["name"]][k] for k in keys
+                              if k not in ("name", "route", "source",
+                                           "replaces")}
+    print(json.dumps({"kernels": [{k: row[k] for k in
+                                   (*keys, "qwen2.5-14b") if k in row}
                                   for row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -633,9 +677,12 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def attention_kernels(dev) -> tuple[dict, dict]:
-    """Phase 5: each attention kernel against its plain version at the
-    serving path's shapes; times of kernel, plain version and SDPA."""
+def attention_kernels(dev, HQ: int = 9, HKV: int = 3, D: int = 64,
+                      tag: str = "5") -> tuple[dict, dict]:
+    """Phase 5 (and 6c at Qwen2.5-14B's heads): each attention kernel
+    against its plain version at a serving path's shapes, ``HQ`` query
+    heads over ``HKV`` kv heads of dim ``D``; times of kernel, plain
+    version and SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -645,7 +692,7 @@ def attention_kernels(dev) -> tuple[dict, dict]:
                                                     flash_attention)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    B, HQ, HKV, S, D = SERVE_BATCH, 9, 3, PROMPT_LEN, 64
+    B, S = SERVE_BATCH, PROMPT_LEN
     bf16, f32 = torch.bfloat16, torch.float32
 
     def randn(*shape):
@@ -682,7 +729,7 @@ def attention_kernels(dev) -> tuple[dict, dict]:
     }
     q32, k32, v32 = q.float(), k.float(), v.float()
     fp32_ms = cuda_ms(lambda: flash_attention(q32, k32, v32, causal=True))
-    print(f"[5] flash_attention bf16 q {tuple(q.shape)} k/v "
+    print(f"[{tag}] flash_attention bf16 q {tuple(q.shape)} k/v "
           f"{tuple(k.shape)} causal: max|kernel-plain| {errs[bf16]:.3g} "
           f"(rtol=atol=2e-2; fp32 {errs[f32]:.3g} at 1e-4), kernel "
           f"{fa_row['ms']:.4f} ms, plain {fa_row['plain_ms']:.4f} ms, SDPA "
@@ -722,7 +769,7 @@ def attention_kernels(dev) -> tuple[dict, dict]:
         **_bound(2 * (2 * qd.numel() + 2 * valid * HKV * D) + 4 * B,
                  4 * HQ * valid * D, BF16_TC_OPS_PER_S),
     }
-    print(f"[5] decode_attention bf16 q {tuple(qd.shape)} caches "
+    print(f"[{tag}] decode_attention bf16 q {tuple(qd.shape)} caches "
           f"{tuple(kc.shape)}, {da_row['design']!r} ({split} CTAs per "
           f"cluster on {sms} SMs): max|kernel-plain| {errs[bf16, '513']:.3g} at "
           f"length 513, {errs[bf16, 'ragged']:.3g} ragged {ragged.tolist()} "
@@ -742,40 +789,19 @@ def serve_smollm(dev) -> tuple[dict, dict]:
 
     import torch
     from repro_torch.configs import load_config
-    from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import (decode_design,
                                                     decode_split)
-    from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models import decode_step, init_params, prefill
 
     cfg = load_config("smollm-135m")
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
-    reqs = [Request(i, prompts[i], GEN) for i in range(SERVE_BATCH)]
-    tokens = torch.from_numpy(prompts).to(dev)
-
-    def run(c, params, impl):
-        """Prefill logits, then one served batch with its kernel launches
-        counted from 0 and its host-clock wall."""
-        c = dataclasses.replace(c, attn_impl=impl)
-        with torch.inference_mode():
-            logits, _ = prefill(params, tokens, c, MAX_LEN)
-        server = BatchedServer(c, params, max_len=MAX_LEN)
-        _lib.reset_counts()
-        t0 = time.perf_counter()
-        res = server.serve(reqs)
-        wall = time.perf_counter() - t0
-        launches = _lib.counts()
-        return (logits.float(), np.array([r.tokens for r in res]), res, wall,
-                launches, _lib.routes())
+    tokens, reqs = _traffic(cfg, dev)
 
     # (a) fp32: the kernels' path against the plain path
     c32 = dataclasses.replace(cfg, dtype="float32")
     params = init_params(torch.Generator(device=dev).manual_seed(0), c32, dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    lp, tp, *_ = run(c32, params, "pallas")
-    lf, tf, *_ = run(c32, params, "full")
+    lp, tp, *_ = _served(c32, params, tokens, reqs, "pallas")
+    lf, tf, *_ = _served(c32, params, tokens, reqs, "full")
     logits32 = lf
     err = float((lp - lf).abs().max())
     require(bool(torch.isfinite(lp).all()) and lp.shape == (SERVE_BATCH,
@@ -793,9 +819,9 @@ def serve_smollm(dev) -> tuple[dict, dict]:
 
     # (b) the published bf16: the kernels' path, timed and counted
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    lf, tf, *_ = run(cfg, params, "full")
-    run(cfg, params, "pallas")                      # warm-up
-    lp, tp, res, wall, launches, routes = run(cfg, params, "pallas")
+    lf, tf, *_ = _served(cfg, params, tokens, reqs, "full")
+    _served(cfg, params, tokens, reqs, "pallas")                      # warm-up
+    lp, tp, res, wall, launches, routes = _served(cfg, params, tokens, reqs, "pallas")
     err = float((lp - lf).abs().max())
     scale = float(lf.abs().max())
     # the bf16 plain path's own error: its distance to the fp32 logits of
@@ -863,6 +889,408 @@ def serve_smollm(dev) -> tuple[dict, dict]:
     del params, cache
     torch.cuda.empty_cache()
     return launches, model
+
+
+def _traffic(cfg, dev) -> tuple:
+    """The serving phases' traffic for ``cfg``: ``SERVE_BATCH`` prompts of
+    ``PROMPT_LEN`` tokens from seed 0 (on the card) and their requests of
+    ``GEN`` new tokens each."""
+    import torch
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
+    reqs = [Request(i, prompts[i], GEN) for i in range(SERVE_BATCH)]
+    return torch.from_numpy(prompts).to(dev), reqs
+
+
+def _served(cfg, params, tokens, reqs, impl: str | None = None) -> tuple:
+    """Prefill logits, then one served batch with its kernel launches
+    counted from 0 and its host-clock wall: (fp32 prefill logits, greedy
+    tokens, results, wall, launches, launches by design)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import prefill
+    if impl is not None:
+        cfg = dataclasses.replace(cfg, attn_impl=impl)
+    with torch.inference_mode():
+        logits, _ = prefill(params, tokens, cfg, MAX_LEN)
+    server = BatchedServer(cfg, params, max_len=MAX_LEN)
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    res = server.serve(reqs)
+    wall = time.perf_counter() - t0
+    launches = _lib.counts()
+    return (logits.float(), np.array([r.tokens for r in res]), res, wall,
+            launches, _lib.routes())
+
+
+def _serving_line(res, wall: float) -> str:
+    """Prefill s, decode ms a step and tok/s of one served batch, host
+    clock."""
+    n_tok = SERVE_BATCH * GEN
+    return (f"prefill {res[0].prefill_s:.4f} s, decode "
+            f"{res[0].decode_s * 1e3:.3f} ms/step ({SERVE_BATCH} sequences), "
+            f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s "
+            f"(host clock)")
+
+
+def _memory(dev) -> str:
+    import torch
+    return (f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+            f"allocated")
+
+
+def _free() -> None:
+    """Return the dropped models' memory to the card."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_qwen(dev) -> dict:
+    """Phase 6c: Qwen2.5-14B at full width and depth (48 layers, 40 query
+    heads over 8 kv heads of dim 128); returns the attention kernels'
+    rows at its shape, with their launches on its served batch."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import load_config
+    from repro_torch.kernels.flash_attention import (decode_design,
+                                                    decode_split)
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = load_config("qwen2.5-14b")
+    tokens, reqs = _traffic(cfg, dev)
+    gen = torch.Generator(device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) fp32 at full depth (59 GB): the kernels' path against the plain
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(gen.manual_seed(0), c32, dev)
+    lp, tp, *_ = _served(c32, params, tokens, reqs, "pallas")
+    lf, tf, *_ = _served(c32, params, tokens, reqs, "full")
+    err = float((lp - lf).abs().max())
+    require(bool(torch.isfinite(lp).all()) and lp.shape == (SERVE_BATCH,
+                                                            cfg.vocab_size),
+            f"6c fp32 prefill logits: shape {tuple(lp.shape)} or not finite")
+    require(torch.allclose(lp, lf, rtol=1e-3, atol=1e-3),
+            f"6c fp32 prefill logits, pallas vs full: max err {err}")
+    require(np.array_equal(tp, tf), "6c fp32 greedy tokens, pallas != full")
+    print(f"[6c] qwen2.5-14b fp32, all {cfg.num_layers} layers "
+          f"({cfg.param_count()} params, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}): "
+          f"pallas == full greedy tokens over {GEN} steps; prefill logits "
+          f"max|Δ| {err:.3g} (rtol=atol=1e-3); {_memory(dev)}", flush=True)
+    logits32 = lf
+    del params
+    _free()
+
+    # (b) bf16: the kernels' path timed and counted, against the plain
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(gen.manual_seed(0), cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    lf, tf, *_ = _served(cfg, params, tokens, reqs, "full")
+    _served(cfg, params, tokens, reqs, "pallas")          # warm-up
+    lp, tp, res, wall, launches, routes = _served(cfg, params, tokens, reqs,
+                                                  "pallas")
+    err = float((lp - lf).abs().max())
+    scale = float(lf.abs().max())
+    noise = float((lf - logits32).abs().max())
+    require(bool(torch.isfinite(lp).all()), "6c bf16 logits not finite")
+    require(err <= max(2e-2 * scale, noise),
+            f"6c bf16 prefill logits, pallas vs full: max |Δ| {err} > both "
+            f"2e-2 * {scale} and the plain path's bf16 error {noise}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = decode_design(decode_split(SERVE_BATCH, cfg.num_kv_heads,
+                                       MAX_LEN, sms))
+    n_fa, n_da = launches["flash_attention"], launches["decode_attention"]
+    require(n_fa == cfg.num_layers and routes["flash_attention"]
+            == {"mma.sync": n_fa},
+            f"6c prefill launches {n_fa} by design "
+            f"{routes['flash_attention']}, expected {cfg.num_layers} on "
+            f"mma.sync")
+    require(n_da == cfg.num_layers * GEN and routes["decode_attention"]
+            == {split: n_da},
+            f"6c decode launches {n_da} by design "
+            f"{routes['decode_attention']}, expected "
+            f"{cfg.num_layers * GEN} on {split!r}")
+    print(f"[6c] qwen2.5-14b bf16 ({n_params} params), attn_impl='pallas': "
+          f"{_serving_line(res, wall)}; {_memory(dev)}; prefill logits "
+          f"max|Δ| vs full {err:.4g} (max|logits| {scale:.4g}; limit the "
+          f"larger of 2e-2 of it and the plain bf16 path's max|Δ| to fp32, "
+          f"{noise:.4g}); greedy tokens agreeing with full "
+          f"{float((tp == tf).mean()):.4f}; launches flash_attention {n_fa} "
+          f"(mma.sync), decode_attention {n_da} ({split!r})", flush=True)
+    cp = dataclasses.replace(cfg, attn_impl="pallas")
+    with torch.inference_mode():
+        logits, cache = prefill(params, tokens, cp, MAX_LEN)
+        first = logits.argmax(-1)
+        step = profiled(lambda: decode_step(params, first, cache, PROMPT_LEN,
+                                            cp), "qwen_decode_step",
+                        "decode_kernel")
+        del cache
+        # (c) the int8 cache against the bf16 cache, at the reference's
+        # tolerance: softmax within 0.05, the same greedy token
+        c8 = dataclasses.replace(cp, kv_cache_dtype="int8")
+        _, cache = prefill(params, tokens, cp, MAX_LEN)
+        base, _ = decode_step(params, first, cache, PROMPT_LEN, cp)
+        del cache
+        _, cache = prefill(params, tokens, c8, MAX_LEN)
+        require(cache["segment_0"][0][0]["mixer"]["k"].dtype == torch.int8,
+                "6c: the int8 cache is not int8")
+        quant, _ = decode_step(params, first, cache, PROMPT_LEN, c8)
+        del cache
+    dp = float((F.softmax(base.float(), -1)
+                - F.softmax(quant.float(), -1)).abs().max())
+    require(dp < 0.05 and torch.equal(base.argmax(-1), quant.argmax(-1)),
+            f"6c int8 cache: softmax max|Δ| {dp} (< 0.05) or greedy tokens "
+            f"differ from the bf16 cache's")
+    t0 = time.perf_counter()
+    res8 = BatchedServer(c8, params, max_len=MAX_LEN).serve(reqs)
+    wall8 = time.perf_counter() - t0
+    tq = np.array([r.tokens for r in res8])
+    busy = step["busy"]
+    decode_ms = res[0].decode_s * 1e3
+    print(f"[6c] int8 KV cache: first decode step's softmax max|Δ| to the "
+          f"bf16 cache's {dp:.4g} (< 0.05), same greedy tokens; served: "
+          f"{_serving_line(res8, wall8)}, greedy tokens agreeing with the "
+          f"bf16 cache's {float((tq == tp).mean()):.4f}", flush=True)
+    print(f"[6c] one bf16 decode step under torch.profiler: host "
+          f"{step['wall']:.3f} ms with the profiler's cost, "
+          + ("device busy not measured (no device spans in the trace)"
+             if busy is None else f"device busy {busy:.3f} ms = "
+             f"{100 * busy / decode_ms:.1f} % of the untraced {decode_ms:.3f}"
+             f" ms step, of which the {cfg.num_layers} decode_attention "
+             f"kernels {step['named']:.4f} ms"), flush=True)
+    del params
+    _free()
+    fa_row, da_row = attention_kernels(dev, cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.head_dim, "6c")
+    fa_row["launches"], da_row["launches"] = n_fa, n_da
+    return {"flash_attention": fa_row, "decode_attention": da_row}
+
+
+def serve_deepseek(dev) -> None:
+    """Phase 6d: DeepSeek-V3 at full width, depth cut to its 3 dense
+    layers and 1 of its 58 MoE layers, with the MTP head's parameters."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import LayerSpec, Segment, load_config
+    from repro_torch.interop import _tree_map
+    from repro_torch.models import decode_step, init_params, moe, prefill
+
+    full = load_config("deepseek-v3-671b")
+    dense, sparse = LayerSpec("mla", "dense"), LayerSpec("mla", "moe")
+    tokens, reqs = _traffic(full, dev)
+    gen = torch.Generator(device=dev)
+
+    # (a) fp32, cut to 1 dense + 1 MoE layer and no MTP head (13.9 B
+    # params, 56 GB): naive and absorbed MLA decode
+    torch.cuda.reset_peak_memory_stats(dev)
+    c32 = dataclasses.replace(
+        full, dtype="float32", num_layers=2, mtp_depth=0,
+        segments=(Segment((dense,), 1), Segment((sparse,), 1)))
+    params = init_params(gen.manual_seed(0), c32, dev)
+    absorbed = dataclasses.replace(c32, mla_absorbed=True)
+    with torch.inference_mode():
+        logits, cache = prefill(params, tokens, c32, MAX_LEN)
+        first = logits.argmax(-1)
+        naive_l, _ = decode_step(params, first,
+                                 _tree_map(torch.clone, cache), PROMPT_LEN,
+                                 c32)
+        abs_l, _ = decode_step(params, first, cache, PROMPT_LEN, absorbed)
+        del cache
+    err = float((abs_l - naive_l).abs().max())
+    require(torch.allclose(abs_l, naive_l, rtol=2e-3, atol=2e-3),
+            f"6d fp32 absorbed vs naive MLA decode logits: max err {err}")
+    _, tn, res_n, wall_n, *_ = _served(c32, params, tokens, reqs)
+    _, ta, res_a, wall_a, *_ = _served(absorbed, params, tokens, reqs)
+    require(np.array_equal(tn, ta), "6d fp32 greedy tokens, absorbed != "
+            "naive MLA decode")
+    print(f"[6d] deepseek-v3-671b fp32 cut to 1 dense + 1 MoE layer, no MTP "
+          f"head ({c32.param_count()} params): absorbed == naive MLA decode "
+          f"greedy tokens over {GEN} steps, first step's logits max|Δ| "
+          f"{err:.3g} (rtol=atol=2e-3); {_memory(dev)}", flush=True)
+    del params
+    _free()
+
+    # (b) bf16, 3 dense + 1 MoE layer + the MTP head: served and timed
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(
+        full, num_layers=4,
+        segments=(Segment((dense,), 3), Segment((sparse,), 1)))
+    params = init_params(gen.manual_seed(0), cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    require("mtp" in params, "6d: no MTP head")
+    dropped, inputs = [], []
+    apply = moe.moe_apply
+
+    def recorded(p, x, c):
+        y, aux = apply(p, x, c)
+        dropped.append(float(aux["dropped_frac"]))
+        inputs.append(x)
+        return y, aux
+
+    moe.moe_apply = recorded
+    try:
+        with torch.inference_mode():
+            logits, cache = prefill(params, tokens, cfg, MAX_LEN)
+            decode_step(params, logits.argmax(-1), cache, PROMPT_LEN, cfg)
+            del cache
+    finally:
+        moe.moe_apply = apply
+    require(len(dropped) == 2, f"6d: {len(dropped)} MoE calls recorded")
+    # the router on the card: sigmoid scores, top-8 of 256 lower index
+    # first among ties, as on the host
+    m = cfg.moe
+    layer = params["segment_1"][0][0]["mlp"]
+    xt = inputs[0].reshape(-1, cfg.d_model)
+    scores = torch.sigmoid(xt.float() @ layer["router"])
+    _, ids = moe._top_k(scores, m.top_k)
+    _, ids_host = moe._top_k(scores.cpu(), m.top_k)
+    require(torch.equal(ids.cpu(), ids_host),
+            "6d: the card's top-8 routing differs from the host's")
+    require(m.router_fn == "sigmoid" and m.num_shared == 1
+            and "shared" in layer, "6d: not the sigmoid router with a "
+            "shared expert")
+    del inputs, scores, ids, ids_host
+    _served(cfg, params, tokens, reqs)                     # warm-up
+    _, tn, res_n, wall_n, *_ = _served(cfg, params, tokens, reqs)
+    _, ta, res_a, wall_a, *_ = _served(
+        dataclasses.replace(cfg, mla_absorbed=True), params, tokens, reqs)
+    print(f"[6d] deepseek-v3-671b bf16, full width, 3 dense + 1 of 58 MoE "
+          f"layers + the MTP head's parameters ({n_params} params; sigmoid "
+          f"top-{m.top_k} of {m.num_experts} experts + {m.num_shared} shared, "
+          f"the card's routing == the host's): naive MLA decode "
+          f"{_serving_line(res_n, wall_n)}; absorbed "
+          f"{_serving_line(res_a, wall_a)}; greedy tokens agreeing "
+          f"{float((tn == ta).mean()):.4f};"
+          f" dropped_frac prefill {dropped[0]:.4f}, one decode step "
+          f"{dropped[1]:.4f}; {_memory(dev)}", flush=True)
+    del params
+    _free()
+
+
+def serve_rwkv(dev) -> None:
+    """Phase 6e: RWKV-6 1.6B at full width and depth."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import load_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    cfg = load_config("rwkv6-1.6b")
+    tokens, reqs = _traffic(cfg, dev)
+    gen = torch.Generator(device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # fp32, all 24 layers: prefill then decode == forward on the extended
+    # sequence (the reference's 2e-3)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(gen.manual_seed(0), c32, dev)
+    more = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(SERVE_BATCH, GEN)).astype(np.int32)).to(dev)
+    seq = torch.cat([tokens, more], 1)
+    with torch.inference_mode():
+        want, _ = forward(params, seq, c32)
+        got, cache = prefill(params, tokens, c32, MAX_LEN)
+        worst = float((got - want[:, PROMPT_LEN - 1]).abs().max())
+        ok = torch.allclose(got, want[:, PROMPT_LEN - 1], rtol=2e-3,
+                            atol=2e-3)
+        for i in range(GEN):
+            got, cache = decode_step(params, more[:, i], cache,
+                                     PROMPT_LEN + i, c32)
+            w = want[:, PROMPT_LEN + i]
+            worst = max(worst, float((got - w).abs().max()))
+            ok = ok and torch.allclose(got, w, rtol=2e-3, atol=2e-3)
+        del cache, want
+    require(ok, f"6e fp32 prefill + decode vs forward: max err {worst}")
+    print(f"[6e] rwkv6-1.6b fp32, all {cfg.num_layers} layers: prefill "
+          f"{PROMPT_LEN} + {GEN} decode steps == forward over "
+          f"{PROMPT_LEN + GEN} tokens (max|Δ| {worst:.3g}, rtol=atol=2e-3); "
+          f"{_memory(dev)}", flush=True)
+    del params
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(gen.manual_seed(0), cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    _served(cfg, params, tokens, reqs)                     # warm-up
+    logits, toks, res, wall, *_ = _served(cfg, params, tokens, reqs)
+    require(bool(torch.isfinite(logits).all()), "6e bf16 logits not finite")
+    print(f"[6e] rwkv6-1.6b bf16 ({n_params} params): "
+          f"{_serving_line(res, wall)}; {_memory(dev)}", flush=True)
+    del params
+    _free()
+
+
+def mamba_layer(dev) -> None:
+    """Phase 6f: one Jamba-1.5-Large Mamba layer at full width, fp32."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import load_config
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(load_config("jamba-1.5-large-398b"),
+                              dtype="float32")
+    s = cfg.ssm
+    seq = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        s, scan_impl="sequential"))
+    chunked = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        s, scan_impl="chunked"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = ssm.mamba_init(gen, cfg, dev)
+    n_params = sum(t.numel() for t in p.values())
+    n = PROMPT_LEN + GEN
+    x = torch.randn((SERVE_BATCH, n, cfg.d_model), generator=gen,
+                    device=dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        whole = ssm.mamba_apply(p, x, seq)
+        torch.cuda.synchronize()
+        t_seq = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole_c = ssm.mamba_apply(p, x, chunked)
+        torch.cuda.synchronize()
+        t_chunk = time.perf_counter() - t0
+        head, cache = ssm.mamba_apply(p, x[:, :PROMPT_LEN], seq,
+                                      return_cache=True)
+        worst = float((head - whole[:, :PROMPT_LEN]).abs().max())
+        ok = torch.allclose(head, whole[:, :PROMPT_LEN], rtol=1e-3, atol=1e-3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(GEN):
+            y, cache = ssm.mamba_decode(p, x[:, PROMPT_LEN + i:PROMPT_LEN
+                                             + i + 1], cache, seq)
+            w = whole[:, PROMPT_LEN + i:PROMPT_LEN + i + 1]
+            worst = max(worst, float((y - w).abs().max()))
+            ok = ok and torch.allclose(y, w, rtol=1e-3, atol=1e-3)
+        t_dec = (time.perf_counter() - t0) / GEN
+    err_c = float((whole_c - whole).abs().max())
+    require(ok, f"6f mamba_apply {PROMPT_LEN} + {GEN} mamba_decode != "
+            f"mamba_apply {n}: max err {worst}")
+    require(torch.allclose(whole_c, whole, rtol=1e-3, atol=1e-3),
+            f"6f chunked scan != sequential: max err {err_c}")
+    print(f"[6f] jamba-1.5-large-398b Mamba layer, fp32, full width "
+          f"(d_model {cfg.d_model}, d_inner {s.d_inner}, d_state "
+          f"{s.d_state}, dt_rank {s.dt_rank}; {n_params} params), batch "
+          f"{SERVE_BATCH}: mamba_apply over {PROMPT_LEN} then {GEN} "
+          f"mamba_decode steps == mamba_apply over {n} (max|Δ| {worst:.3g}), "
+          f"chunked scan == sequential (max|Δ| {err_c:.3g}; rtol=atol=1e-3);"
+          f" mamba_apply over {n}: sequential {t_seq:.3f} s, chunked "
+          f"{t_chunk:.3f} s; decode {t_dec * 1e3:.3f} ms/step (host clock, "
+          f"one layer); {_memory(dev)}", flush=True)
+    del p, x, whole, whole_c, head, cache
+    _free()
 
 
 def kernel_api(dev, model: dict) -> tuple[list[dict], dict]:

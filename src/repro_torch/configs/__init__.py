@@ -1,8 +1,9 @@
-"""Architecture configs (exact public numbers); the port carries
-``smollm-135m``."""
+"""Architecture configs (exact public numbers) + shape registry."""
 
-from .base import (LayerSpec, MLAConfig, ModelConfig, MoEConfig,
-                   PORTED_ARCHS, Segment, SSMConfig, load_config, reduced)
+from .base import (ARCH_IDS, SHAPES, InputShape, LayerSpec, MLAConfig,
+                   ModelConfig, MoEConfig, Segment, SSMConfig,
+                   cell_is_applicable, load_config, reduced)
 
-__all__ = ["LayerSpec", "MLAConfig", "ModelConfig", "MoEConfig",
-           "PORTED_ARCHS", "Segment", "SSMConfig", "load_config", "reduced"]
+__all__ = ["ARCH_IDS", "SHAPES", "InputShape", "LayerSpec", "MLAConfig",
+           "ModelConfig", "MoEConfig", "Segment", "SSMConfig",
+           "cell_is_applicable", "load_config", "reduced"]

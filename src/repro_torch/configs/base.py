@@ -6,10 +6,8 @@ a repeating unit of layer specs run ``repeats`` times.  ``LayerSpec``
 picks the sequence mixer (attn / mla / mamba / rwkv) and the MLP kind
 (dense / moe / rwkv_cmix) per layer.  The field names and defaults are
 the reference's, so a config compares field for field across the two
-packages.
-
-This slice of the port serves ``smollm-135m`` only: :func:`load_config`
-raises for any other architecture.
+packages.  ``ARCH_IDS`` names the ten architectures, one config module
+each, and ``SHAPES`` the input shapes every LM architecture is assigned.
 """
 
 from __future__ import annotations
@@ -22,10 +20,6 @@ import torch
 
 Mixer = Literal["attn", "mla", "mamba", "rwkv"]
 MLPKind = Literal["dense", "moe", "rwkv_cmix"]
-
-#: architectures whose config module the port carries
-PORTED_ARCHS = ("smollm-135m",)
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
@@ -128,17 +122,118 @@ class ModelConfig:
         ``np_dtype``)."""
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if decode state does not grow with context (SSM/hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for 6·N·D roofline math)."""
+        return self._param_count_exact()
+
+    def _param_count_exact(self) -> int:
+        d = self.d_model
+        n = self.vocab_size * d
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+
+        def layer_params(spec: LayerSpec) -> int:
+            p = 0
+            if spec.mixer == "attn":
+                p += d * self.num_heads * self.head_dim
+                p += 2 * d * self.num_kv_heads * self.head_dim
+                p += self.num_heads * self.head_dim * d
+            elif spec.mixer == "mla":
+                m = self.mla
+                qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                p += d * m.q_lora_rank + m.q_lora_rank * self.num_heads * qk
+                p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                p += m.kv_lora_rank * self.num_heads * (
+                    m.qk_nope_head_dim + m.v_head_dim)
+                p += self.num_heads * m.v_head_dim * d
+            elif spec.mixer == "mamba":
+                s = self.ssm
+                p += d * 2 * s.d_inner
+                p += s.d_inner * (s.dt_rank + 2 * s.d_state)
+                p += s.dt_rank * s.d_inner + s.d_inner * d
+            elif spec.mixer == "rwkv":
+                p += 5 * d * d + 2 * d * self.rwkv_decay_lora
+            if spec.mlp == "dense":
+                p += (3 if self.act == "silu" else 2) * d * self.d_ff
+            elif spec.mlp == "moe":
+                m = self.moe
+                p += d * m.num_experts
+                p += m.num_experts * 3 * d * m.d_ff
+                p += m.num_shared * 3 * d * m.d_ff
+            elif spec.mlp == "rwkv_cmix":
+                p += 2 * d * int(3.5 * d) + d * d
+            return p
+
+        for seg in self.segments:
+            n += seg.repeats * sum(layer_params(s) for s in seg.unit)
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k + shared experts)."""
+        if self.moe is None:
+            return self._param_count_exact()
+        d = self.d_model
+        m = self.moe
+        full_expert = m.num_experts * 3 * d * m.d_ff
+        active_expert = m.top_k * 3 * d * m.d_ff
+        n_moe_layers = sum(
+            seg.repeats * sum(1 for s in seg.unit if s.mlp == "moe")
+            for seg in self.segments)
+        return (self._param_count_exact()
+                - n_moe_layers * (full_expert - active_expert))
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned to every LM arch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str           # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+ARCH_IDS = [
+    "jamba-1.5-large-398b",
+    "qwen2.5-14b",
+    "olmo-1b",
+    "smollm-135m",
+    "command-r-plus-104b",
+    "rwkv6-1.6b",
+    "deepseek-v3-671b",
+    "llama4-scout-17b-a16e",
+    "musicgen-large",
+    "chameleon-34b",
+]
+
 
 def load_config(arch: str) -> ModelConfig:
     """``repro_torch/configs/<arch>.py``'s CONFIG (dashes → underscores)."""
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: the port serves {', '.join(PORTED_ARCHS)} so far; the "
-            f"other architectures arrive with their mixers and MLPs "
-            f"(ROADMAP: \"The rest of the model stack\")")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG
+
+
+def cell_is_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    """long_500k requires sub-quadratic decode state (SSM/hybrid)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False
+    return True
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 64,

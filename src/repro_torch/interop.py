@@ -16,8 +16,12 @@ imports the reference package:
 * :func:`lm_params_to_torch` turns the reference's LM parameter tree
   (nested dicts and lists of numpy arrays, each segment's leaves stacked
   over its repeats) into the port's tree, one entry per repeat, and
-  :func:`lm_cache_to_numpy` stacks the port's KV cache back into the
+  :func:`lm_cache_to_numpy` stacks the port's decode cache back into the
   reference's layout, so weights and caches compare across packages.
+  Both keep each leaf's dtype: the reference's fp32 leaves (a MoE
+  router, Mamba's ``A_log``, RWKV's decay, the SSM states) stay fp32 in
+  a bf16 model, and an int8 cache keeps its int8 codes and float16
+  scales.
 """
 
 from __future__ import annotations
@@ -100,7 +104,14 @@ def _stack_trees(trees: Sequence[Any]) -> Any:
     if isinstance(first, (list, tuple)):
         return [_stack_trees([t[i] for t in trees])
                 for i in range(len(first))]
-    return np.stack([t.detach().float().cpu().numpy() for t in trees])
+    return np.stack([_to_numpy(t) for t in trees])
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy in its own dtype; bfloat16, which numpy lacks,
+    as float32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def lm_params_to_torch(params: Mapping[str, Any], cfg,
@@ -112,16 +123,18 @@ def lm_params_to_torch(params: Mapping[str, Any], cfg,
     (``jax.tree_util.tree_map(np.asarray, params)``): ``segment_<i>`` is
     a list over the unit's layers whose leaves carry a leading ``repeats``
     axis.  Returns ``segment_<i>[repeat][unit_index]`` trees of tensors on
-    ``device`` (default: the port's device policy) in ``cfg``'s dtype.
+    ``device`` (default: the port's device policy) in the reference's
+    dtypes; every other subtree (embeddings, norms, the ``mtp`` head) is
+    carried leaf for leaf.
     """
     dev = get_device(device)
 
     def leaf(a) -> torch.Tensor:
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":   # numpy has no bfloat16 of its own
-            a = a.astype(np.float32)
-        return torch.from_numpy(np.array(a, order="C")).to(
-            dev, cfg.torch_dtype)
+            return torch.from_numpy(a.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a, order="C")).to(dev)
 
     out: dict[str, Any] = {}
     segments = {f"segment_{si}": seg for si, seg in enumerate(cfg.segments)}
@@ -144,6 +157,6 @@ def lm_params_to_torch(params: Mapping[str, Any], cfg,
 def lm_cache_to_numpy(cache: Mapping[str, Any]) -> dict[str, Any]:
     """The reference's cache layout from the port's: each
     ``segment_<i>[repeat][unit_index]`` tree stacked over its repeats into
-    ``segment_<i>[unit_index]`` with a leading repeats axis, as float32
-    numpy arrays."""
+    ``segment_<i>[unit_index]`` with a leading repeats axis, as numpy
+    arrays in the cache's dtypes (bfloat16 as float32)."""
     return {key: _stack_trees(reps) for key, reps in cache.items()}

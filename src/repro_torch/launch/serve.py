@@ -3,10 +3,12 @@ decode in lockstep — the port of the reference's ``launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
 
-serves random-weight SmolLM-135M at full width on the CUDA card, with
-every attention call on the hand-written kernels (``attn_impl="pallas"``).
+serves a random-weight model of any of the ten architectures
+(``configs.ARCH_IDS``) at full width on the CUDA card, with every GQA
+attention call on the hand-written kernels (``attn_impl="pallas"``).
 ``--reduced`` shrinks the model as the reference's tests do, and
 ``--device cpu`` runs on the CPU through the kernels' plain versions.
+The largest models need more than one card at full depth (ROADMAP).
 
 The demo is the template end to end: prefill is the burst-access stage,
 the KV cache is the customized memory partition, and decode steps stream
@@ -197,7 +199,8 @@ def _demo_main(argv: list[str]) -> None:
     from ..models import init_params
 
     p = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="one of configs.ARCH_IDS, e.g. qwen2.5-14b")
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--requests", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)

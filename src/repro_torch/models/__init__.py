@@ -1,8 +1,9 @@
-"""Model zoo: the config-driven decoder LM, for the layer kinds the port
-carries so far (dense GQA attention, dense MLP)."""
+"""Model zoo: config-driven dense / MoE / hybrid / SSM decoder LMs."""
 
-from . import attention, layers, model, transformer
-from .model import decode_step, forward, init_cache, init_params, prefill
+from . import attention, layers, model, moe, ssm, transformer
+from .model import (decode_step, forward, init_cache, init_params,
+                    input_specs, loss_fn, prefill)
 
-__all__ = ["attention", "layers", "model", "transformer", "decode_step",
-           "forward", "init_cache", "init_params", "prefill"]
+__all__ = ["attention", "layers", "model", "moe", "ssm", "transformer",
+           "decode_step", "forward", "init_cache", "init_params",
+           "input_specs", "loss_fn", "prefill"]

@@ -1,0 +1,275 @@
+"""State-space sequence mixers: Mamba-1 (Jamba) and RWKV-6 "Finch".
+
+The port of the reference's ``models/ssm.py``.  Both recurrences are
+loop-carried SCCs in the paper's terms: the state update
+``h_t = f(h_{t-1}, x_t)`` is a dependence cycle that Algorithm 1 keeps
+inside one stage.  The reference computes them outside any Pallas
+kernel, so plain PyTorch is their port: Python loops over time (or
+chunks) of tensor ops on the port's device.
+
+Two Mamba scans, by ``cfg.ssm.scan_impl``:
+
+* ``sequential`` — a loop over time with O(B·d_inner·N) state; the
+  default and the decode path;
+* ``chunked``    — a loop over chunks with an in-chunk parallel prefix
+  (materializes (B, chunk, chunk, d_inner, N) per chunk).
+
+Prompts are padded on the right by the server, so the state a prefill
+hands to decode has seen the padding, as the reference's does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (selective SSM) — arXiv:2312.00752 as used by Jamba (2403.19887)
+# ---------------------------------------------------------------------------
+
+def mamba_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
+    s, d, dt = cfg.ssm, cfg.d_model, cfg.torch_dtype
+    d_in = s.d_inner
+    A = torch.arange(1, s.d_state + 1, dtype=torch.float32,
+                     device=device).expand(d_in, s.d_state)
+    return {
+        "w_in": layers._dense_init(gen, d, 2 * d_in, dt, device),
+        "conv_w": (layers._normal(gen, (s.d_conv, d_in)) * 0.1).to(device,
+                                                                    dt),
+        "conv_b": torch.zeros(d_in, dtype=dt, device=device),
+        "w_x": layers._dense_init(gen, d_in, s.dt_rank + 2 * s.d_state, dt,
+                                  device),
+        "w_dt": layers._dense_init(gen, s.dt_rank, d_in, dt, device),
+        "dt_bias": torch.zeros(d_in, dtype=torch.float32, device=device),
+        "A_log": torch.log(A).contiguous(),
+        "D": torch.ones(d_in, dtype=torch.float32, device=device),
+        "w_out": layers._dense_init(gen, d_in, d, dt, device),
+    }
+
+
+def _causal_conv1d(x, w, b, state=None):
+    """x: (B, L, d_in); w: (K, d_in) depthwise.  state: (B, K-1, d_in)
+    carries the last K−1 inputs for decode."""
+    K = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
+    new_state = xp[:, -(K - 1):, :] if K > 1 else None
+    return out + b, new_state
+
+
+def _selective_scan_seq(dt, A, Bc, Cc, x):
+    """Sequential scan.  dt,x: (B,L,dI); A: (dI,N); Bc,Cc: (B,L,N)."""
+    B, L, dI = x.shape
+    h = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(L):
+        da = torch.exp(dt[:, t, :, None] * A)              # (B, dI, N)
+        h = da * h + (dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
+        ys.append((h * Cc[:, t, None, :]).sum(-1))         # (B, dI)
+    return torch.stack(ys, dim=1), h                       # (B,L,dI), h
+
+
+def _selective_scan_chunked(dt, A, Bc, Cc, x, chunk: int = 16):
+    """Chunked scan: sequential over L/chunk, parallel inside the chunk via
+    materialized decay products (the SSD-style formulation)."""
+    B, L, dI = x.shape
+    if L % chunk:
+        raise ValueError(f"chunked scan: length {L} is not a multiple of "
+                         f"the chunk {chunk}")
+    h = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    ys = []
+    for c0 in range(0, L, chunk):
+        dtc, bcc = dt[:, c0:c0 + chunk], Bc[:, c0:c0 + chunk]
+        ccc, xc = Cc[:, c0:c0 + chunk], x[:, c0:c0 + chunk]
+        # log-decay prefix within the chunk
+        cum = torch.cumsum(dtc[..., None] * A, dim=1)      # (B,c,dI,N)
+        # the carried state's contribution to each position
+        h_part = torch.exp(cum) * h[:, None]
+        # pairwise within-chunk contributions j → i (j <= i):
+        # decay(i, j) = exp(cum_i − cum_j)
+        contrib = (dtc * xc)[..., None] * bcc[:, :, None, :]
+        dec = torch.exp(cum[:, :, None] - cum[:, None])    # (B,c,c,dI,N)
+        dec = torch.where(mask[None, :, :, None, None], dec, 0.0)
+        hs = h_part + torch.einsum("bijdn,bjdn->bidn", dec, contrib)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, ccc))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_apply(params: dict, x: torch.Tensor, cfg,
+                return_cache: bool = False):
+    s = cfg.ssm
+    L = x.shape[1]
+    xz = x @ params["w_in"]
+    xin_raw, z = xz.chunk(2, dim=-1)
+    xin, _ = _causal_conv1d(xin_raw, params["conv_w"], params["conv_b"])
+    xin = F.silu(xin.float())
+    proj = (xin.to(x.dtype) @ params["w_x"]).float()
+    dt, Bc, Cc = proj.split([s.dt_rank, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dt @ params["w_dt"].float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    if s.scan_impl == "chunked" and L % s.chunk == 0 and L > s.chunk:
+        y, h_final = _selective_scan_chunked(dt, A, Bc, Cc, xin,
+                                             chunk=s.chunk)
+    else:
+        y, h_final = _selective_scan_seq(dt, A, Bc, Cc, xin)
+    y = y + params["D"] * xin
+    y = y * F.silu(z.float())
+    out = y.to(x.dtype) @ params["w_out"]
+    if return_cache:
+        K = s.d_conv
+        conv_state = xin_raw[:, -(K - 1):, :].to(cfg.torch_dtype)
+        return out, {"h": h_final, "conv": conv_state.contiguous()}
+    return out
+
+
+def mamba_init_cache(cfg, batch: int, device: torch.device) -> dict:
+    s = cfg.ssm
+    return {"h": torch.zeros((batch, s.d_inner, s.d_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, s.d_conv - 1, s.d_inner),
+                                dtype=cfg.torch_dtype, device=device)}
+
+
+def mamba_decode(params: dict, x: torch.Tensor, cache: dict,
+                 cfg) -> tuple[torch.Tensor, dict]:
+    """One-token step.  x: (B, 1, d)."""
+    s = cfg.ssm
+    xz = x @ params["w_in"]
+    xin, z = xz.chunk(2, dim=-1)
+    xin, conv_state = _causal_conv1d(xin, params["conv_w"],
+                                     params["conv_b"], cache["conv"])
+    xin = F.silu(xin.float())[:, 0]                         # (B, dI)
+    proj = (xin.to(x.dtype) @ params["w_x"]).float()
+    dt, Bc, Cc = proj.split([s.dt_rank, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dt @ params["w_dt"].float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    da = torch.exp(dt[..., None] * A)
+    h = da * cache["h"] + (dt * xin)[..., None] * Bc[:, None, :]
+    y = (h * Cc[:, None, :]).sum(-1) + params["D"] * xin
+    y = y * F.silu(z.float()[:, 0])
+    out = (y.to(x.dtype) @ params["w_out"])[:, None, :]
+    return out, {"h": h, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 "Finch" — arXiv:2404.05892 (data-dependent decay)
+# ---------------------------------------------------------------------------
+
+def rwkv6_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
+    d, H, dt = cfg.d_model, cfg.rwkv_heads, cfg.torch_dtype
+    hd = d // H
+    lora = cfg.rwkv_decay_lora
+
+    def half():
+        return torch.full((d,), 0.5, dtype=dt, device=device)
+
+    return {
+        # token-shift mix coefficients (per channel)
+        "mu_r": half(), "mu_k": half(), "mu_v": half(), "mu_w": half(),
+        "mu_g": half(),
+        "w_r": layers._dense_init(gen, d, d, dt, device),
+        "w_k": layers._dense_init(gen, d, d, dt, device),
+        "w_v": layers._dense_init(gen, d, d, dt, device),
+        "w_g": layers._dense_init(gen, d, d, dt, device),
+        "w_o": layers._dense_init(gen, d, d, dt, device),
+        # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
+        "decay_w0": torch.full((d,), -6.0, dtype=torch.float32,
+                               device=device),
+        "decay_A": layers._dense_init(gen, d, lora, dt, device),
+        "decay_B": layers._dense_init(gen, lora, d, dt, device),
+        "bonus_u": (layers._normal(gen, (H, hd)) * 0.1).to(device),
+        "ln_x": layers.layernorm_init(d, dt, device),
+    }
+
+
+def _token_shift(x, prev=None):
+    """RWKV token shift: x_{t-1} (zeros / carried state at t=0)."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, :1])
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _rwkv_mix(x, xs, mu):
+    return x + (xs - x) * mu
+
+
+def _rwkv_projections(params, x, xs):
+    """Receptance, key, value, gate and the fp32 decay of ``x`` shifted
+    by ``xs``."""
+    r = _rwkv_mix(x, xs, params["mu_r"]) @ params["w_r"]
+    k = _rwkv_mix(x, xs, params["mu_k"]) @ params["w_k"]
+    v = _rwkv_mix(x, xs, params["mu_v"]) @ params["w_v"]
+    g = _rwkv_mix(x, xs, params["mu_g"]) @ params["w_g"]
+    xw = _rwkv_mix(x, xs, params["mu_w"])
+    w = params["decay_w0"] + (torch.tanh((xw @ params["decay_A"]).float())
+                              @ params["decay_B"].float())
+    return r, k, v, g, torch.exp(-torch.exp(w))
+
+
+def _rwkv_out(params, y, g, x):
+    y = layers.layernorm_apply(params["ln_x"], y.to(x.dtype))
+    y = y * F.silu(g.float()).to(x.dtype)
+    return y @ params["w_o"]
+
+
+def rwkv6_apply(params: dict, x: torch.Tensor, cfg,
+                return_cache: bool = False):
+    B, L, d = x.shape
+    H = cfg.rwkv_heads
+    hd = d // H
+    r, k, v, g, w = _rwkv_projections(params, x, _token_shift(x))
+    rh = r.reshape(B, L, H, hd).float()
+    kh = k.reshape(B, L, H, hd).float()
+    vh = v.reshape(B, L, H, hd).float()
+    wh = w.reshape(B, L, H, hd)
+    u = params["bonus_u"]                                   # (H, hd)
+    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        kv = kh[:, t, ..., None] * vh[:, t, ..., None, :]   # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, t],
+                               S + u[..., None] * kv))
+        S = wh[:, t, ..., None] * S + kv
+    y = torch.stack(ys, dim=1).reshape(B, L, d)
+    out = _rwkv_out(params, y, g, x)
+    if return_cache:
+        return out, {"S": S, "x_prev": x[:, -1:, :]}
+    return out
+
+
+def rwkv6_init_cache(cfg, batch: int, device: torch.device) -> dict:
+    d, H = cfg.d_model, cfg.rwkv_heads
+    hd = d // H
+    return {"S": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                             device=device),
+            "x_prev": torch.zeros((batch, 1, d), dtype=cfg.torch_dtype,
+                                  device=device)}
+
+
+def rwkv6_decode(params: dict, x: torch.Tensor, cache: dict,
+                 cfg) -> tuple[torch.Tensor, dict]:
+    B, _, d = x.shape
+    H = cfg.rwkv_heads
+    hd = d // H
+    r, k, v, g, w = _rwkv_projections(params, x, cache["x_prev"])
+    w = w.reshape(B, H, hd)
+    r_t = r.reshape(B, H, hd).float()
+    k_t = k.reshape(B, H, hd).float()
+    v_t = v.reshape(B, H, hd).float()
+    u = params["bonus_u"]
+    kv = k_t[..., None] * v_t[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", r_t, cache["S"] + u[..., None] * kv)
+    S = w[..., None] * cache["S"] + kv
+    return _rwkv_out(params, y.reshape(B, 1, d), g, x), {"S": S,
+                                                         "x_prev": x}

@@ -1,4 +1,4 @@
-"""Config-driven decoder LM, for the layer kinds this slice carries.
+"""Config-driven decoder LM: dense / MoE / hybrid / SSM in one builder.
 
 The port of the reference's ``models/transformer.py``.  Layers are
 grouped into config-declared *segments*: a repeating unit of layer
@@ -11,11 +11,12 @@ trees read
     cache["segment_<i>"][repeat][unit_index]  -> layer cache
 
 (``interop.lm_params_to_torch`` and ``interop.lm_cache_to_numpy`` map
-them to and from the reference's stacked trees).
-
-This slice carries the ``mixer="attn"`` / ``mlp="dense"`` layer, with
-the ``parallel_block`` variant; ``mla``, ``mamba``, ``rwkv``, ``moe`` and
-``rwkv_cmix`` layers raise (ROADMAP: "The rest of the model stack").
+them to and from the reference's stacked trees).  A layer's mixer is
+``attn`` (GQA), ``mla``, ``mamba`` or ``rwkv``; its MLP ``dense``,
+``moe`` or ``rwkv_cmix``; ``cfg.parallel_block`` runs mixer and MLP on
+the same normed input (Cohere).  With ``cfg.frontend_stub`` (audio and
+vision front ends), a 3-D input to :func:`forward` or :func:`prefill` is
+embeddings, not tokens.
 """
 
 from __future__ import annotations
@@ -23,84 +24,190 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
-from . import attention, layers
+from . import attention, layers, moe, ssm
 from .._device import get_device
 from ..configs.base import LayerSpec, ModelConfig
 
 
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attn" or spec.mlp != "dense":
-        raise NotImplementedError(
-            f"mixer={spec.mixer!r}, mlp={spec.mlp!r} is not ported yet "
-            f"(ROADMAP: \"The rest of the model stack\")")
+# ---------------------------------------------------------------------------
+# RWKV channel mix (the FFN used with rwkv mixer layers)
+# ---------------------------------------------------------------------------
+
+def _cmix_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
+    d, dt = cfg.d_model, cfg.torch_dtype
+    dh = int(3.5 * d)
+    return {
+        "mu_k": torch.full((d,), 0.5, dtype=dt, device=device),
+        "w_k": layers._dense_init(gen, d, dh, dt, device),
+        "w_v": layers._dense_init(gen, dh, d, dt, device),
+        "w_r": layers._dense_init(gen, d, d, dt, device),
+    }
+
+
+def _cmix_apply(params, x, prev=None):
+    xs = ssm._token_shift(x, prev)
+    xk = ssm._rwkv_mix(x, xs, params["mu_k"])
+    k = torch.square(F.relu((xk @ params["w_k"]).float()))
+    r = torch.sigmoid((x @ params["w_r"]).float())
+    return (r * (k.to(x.dtype) @ params["w_v"]).float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# Sub-layer init/apply
+# Sub-layer init/apply dispatch
 # ---------------------------------------------------------------------------
+
+def _mixer_init(gen, spec: LayerSpec, cfg, device) -> dict:
+    if spec.mixer == "attn":
+        return attention.gqa_init(gen, cfg, device)
+    if spec.mixer == "mla":
+        return attention.mla_init(gen, cfg, device)
+    if spec.mixer == "mamba":
+        return ssm.mamba_init(gen, cfg, device)
+    if spec.mixer == "rwkv":
+        return ssm.rwkv6_init(gen, cfg, device)
+    raise ValueError(spec.mixer)
+
+
+def _mlp_init(gen, spec: LayerSpec, cfg, device) -> dict:
+    if spec.mlp == "dense":
+        return layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                               cfg.torch_dtype, device)
+    if spec.mlp == "moe":
+        return moe.moe_init(gen, cfg, device)
+    if spec.mlp == "rwkv_cmix":
+        return _cmix_init(gen, cfg, device)
+    raise ValueError(spec.mlp)
+
 
 def _layer_init(gen: torch.Generator, spec: LayerSpec, cfg,
                 device: torch.device) -> dict:
-    _check_spec(spec)
     ninit, _ = layers.make_norm(cfg.norm)
     dt = cfg.torch_dtype
     return {
         "norm1": ninit(cfg.d_model, dt, device),
-        "mixer": attention.gqa_init(gen, cfg, device),
+        "mixer": _mixer_init(gen, spec, cfg, device),
         "norm2": ninit(cfg.d_model, dt, device),
-        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
-                               device),
+        "mlp": _mlp_init(gen, spec, cfg, device),
     }
 
 
+def _mlp_apply(params: dict, h: torch.Tensor, spec: LayerSpec, cfg,
+               cache: dict | None, new_cache: dict | None,
+               aux_acc: dict | None) -> torch.Tensor:
+    """The layer's MLP on ``h``.  A MoE's load-balance loss is summed into
+    ``aux_acc`` when given; a channel mix reads its carried input from
+    ``cache`` (decode) and leaves its last input in ``new_cache``."""
+    if spec.mlp == "moe":
+        ff, aux = moe.moe_apply(params["mlp"], h, cfg)
+        if aux_acc is not None:
+            aux_acc["lb_loss"] = aux_acc.get("lb_loss", 0.0) + aux["lb_loss"]
+        return ff
+    if spec.mlp == "rwkv_cmix":
+        prev = cache.get("cmix_prev") if cache is not None else None
+        ff = _cmix_apply(params["mlp"], h, prev=prev)
+        if new_cache is not None:
+            new_cache["cmix_prev"] = h[:, -1:, :]
+        return ff
+    return layers.mlp_apply(params["mlp"], h, cfg.act)
+
+
 def _residual(params: dict, x: torch.Tensor, h1: torch.Tensor,
-              mix: torch.Tensor, cfg, napply) -> torch.Tensor:
+              mix: torch.Tensor, spec: LayerSpec, cfg, napply,
+              cache: dict | None = None, new_cache: dict | None = None,
+              aux_acc: dict | None = None) -> torch.Tensor:
     """The layer's MLP half: ``x + mix + mlp(h1)`` in a parallel block
-    (attention and MLP read the same normed input), else
+    (mixer and MLP read the same normed input), else
     ``x' + mlp(norm2(x'))`` with ``x' = x + mix``."""
     if cfg.parallel_block:
-        return x + mix + layers.mlp_apply(params["mlp"], h1, cfg.act)
+        return x + mix + _mlp_apply(params, h1, spec, cfg, cache,
+                                    new_cache, aux_acc)
     x = x + mix
     h2 = napply(params["norm2"], x)
-    return x + layers.mlp_apply(params["mlp"], h2, cfg.act)
+    return x + _mlp_apply(params, h2, spec, cfg, cache, new_cache, aux_acc)
 
 
-def _layer_apply(params: dict, x: torch.Tensor, spec: LayerSpec,
-                 cfg) -> torch.Tensor:
-    _check_spec(spec)
+def _layer_apply(params: dict, x: torch.Tensor, spec: LayerSpec, cfg,
+                 aux_acc: dict) -> torch.Tensor:
     _, napply = layers.make_norm(cfg.norm)
     h1 = napply(params["norm1"], x)
-    mix = attention.gqa_apply(params["mixer"], h1, cfg)
-    return _residual(params, x, h1, mix, cfg, napply)
+    if spec.mixer == "attn":
+        mix = attention.gqa_apply(params["mixer"], h1, cfg)
+    elif spec.mixer == "mla":
+        mix = attention.mla_apply(params["mixer"], h1, cfg)
+    elif spec.mixer == "mamba":
+        mix = ssm.mamba_apply(params["mixer"], h1, cfg)
+    elif spec.mixer == "rwkv":
+        mix = ssm.rwkv6_apply(params["mixer"], h1, cfg)
+    else:
+        raise ValueError(spec.mixer)
+    return _residual(params, x, h1, mix, spec, cfg, napply, aux_acc=aux_acc)
 
 
 def _layer_prefill(params: dict, x: torch.Tensor, spec: LayerSpec, cfg,
                    max_len: int) -> tuple[torch.Tensor, dict]:
     """Forward over the prompt, emitting this layer's decode cache."""
-    _check_spec(spec)
     _, napply = layers.make_norm(cfg.norm)
     h1 = napply(params["norm1"], x)
-    mix, mcache = attention.gqa_prefill(params["mixer"], h1, cfg, max_len)
-    return _residual(params, x, h1, mix, cfg, napply), {"mixer": mcache}
+    if spec.mixer == "attn":
+        mix, mcache = attention.gqa_prefill(params["mixer"], h1, cfg,
+                                            max_len)
+    elif spec.mixer == "mla":
+        mix, mcache = attention.mla_prefill(params["mixer"], h1, cfg,
+                                            max_len)
+    elif spec.mixer == "mamba":
+        mix, mcache = ssm.mamba_apply(params["mixer"], h1, cfg,
+                                      return_cache=True)
+    elif spec.mixer == "rwkv":
+        mix, mcache = ssm.rwkv6_apply(params["mixer"], h1, cfg,
+                                      return_cache=True)
+    else:
+        raise ValueError(spec.mixer)
+    new_cache: dict[str, Any] = {"mixer": mcache}
+    return _residual(params, x, h1, mix, spec, cfg, napply,
+                     new_cache=new_cache), new_cache
 
 
 def _layer_decode(params: dict, x: torch.Tensor, cache: dict, length: int,
                   spec: LayerSpec, cfg) -> tuple[torch.Tensor, dict]:
-    _check_spec(spec)
     _, napply = layers.make_norm(cfg.norm)
     h1 = napply(params["norm1"], x)
-    mix, mcache = attention.gqa_decode(params["mixer"], h1, cache["mixer"],
-                                       length, cfg)
+    if spec.mixer == "attn":
+        mix, mcache = attention.gqa_decode(params["mixer"], h1,
+                                           cache["mixer"], length, cfg)
+    elif spec.mixer == "mla":
+        mix, mcache = attention.mla_decode(params["mixer"], h1,
+                                           cache["mixer"], length, cfg)
+    elif spec.mixer == "mamba":
+        mix, mcache = ssm.mamba_decode(params["mixer"], h1, cache["mixer"],
+                                       cfg)
+    elif spec.mixer == "rwkv":
+        mix, mcache = ssm.rwkv6_decode(params["mixer"], h1, cache["mixer"],
+                                       cfg)
+    else:
+        raise ValueError(spec.mixer)
     new_cache = dict(cache)
     new_cache["mixer"] = mcache
-    return _residual(params, x, h1, mix, cfg, napply), new_cache
+    return _residual(params, x, h1, mix, spec, cfg, napply, cache=cache,
+                     new_cache=new_cache), new_cache
 
 
 def _layer_init_cache(spec: LayerSpec, cfg, batch: int, max_len: int,
                       device: torch.device) -> dict:
-    _check_spec(spec)
-    return {"mixer": attention.gqa_init_cache(cfg, batch, max_len, device)}
+    c: dict[str, Any] = {}
+    if spec.mixer == "attn":
+        c["mixer"] = attention.gqa_init_cache(cfg, batch, max_len, device)
+    elif spec.mixer == "mla":
+        c["mixer"] = attention.mla_init_cache(cfg, batch, max_len, device)
+    elif spec.mixer == "mamba":
+        c["mixer"] = ssm.mamba_init_cache(cfg, batch, device)
+    elif spec.mixer == "rwkv":
+        c["mixer"] = ssm.rwkv6_init_cache(cfg, batch, device)
+    if spec.mlp == "rwkv_cmix":
+        c["cmix_prev"] = torch.zeros((batch, 1, cfg.d_model),
+                                     dtype=cfg.torch_dtype, device=device)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -136,22 +243,34 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def forward(params: dict, tokens: torch.Tensor,
+def _inputs(params: dict, tokens_or_embeds: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Token ids through the embedding, or (``cfg.frontend_stub``, 3-D)
+    embeddings as they are, in the model's dtype."""
+    if cfg.frontend_stub and tokens_or_embeds.ndim == 3:
+        return tokens_or_embeds.to(cfg.torch_dtype)
+    return layers.embedding_apply(params["embed"], tokens_or_embeds)
+
+
+def forward(params: dict, tokens_or_embeds: torch.Tensor,
             cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """Full-sequence causal forward.  Returns (logits, aux)."""
-    x = layers.embedding_apply(params["embed"], tokens)
+    """Full-sequence causal forward.  Returns (logits, aux), aux holding
+    the MoE layers' summed load-balance loss."""
+    x = _inputs(params, tokens_or_embeds, cfg)
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(cfg.segments):
         for rep_params in params[f"segment_{si}"]:
+            aux_acc: dict[str, Any] = {}
             for j, spec in enumerate(seg.unit):
-                x = _layer_apply(rep_params[j], x, spec, cfg)
-    return _final_logits(params, x, cfg), {
-        "lb_loss": torch.zeros((), device=x.device)}
+                x = _layer_apply(rep_params[j], x, spec, cfg, aux_acc)
+            lb = lb + aux_acc.get("lb_loss", 0.0)
+    return _final_logits(params, x, cfg), {"lb_loss": lb}
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+def prefill(params: dict, tokens_or_embeds: torch.Tensor, cfg: ModelConfig,
             max_len: int) -> tuple[torch.Tensor, dict]:
     """Prompt forward + cache build.  Returns (last-position logits, cache)."""
-    x = layers.embedding_apply(params["embed"], tokens)
+    x = _inputs(params, tokens_or_embeds, cfg)
     cache: dict[str, Any] = {}
     for si, seg in enumerate(cfg.segments):
         seg_cache = []

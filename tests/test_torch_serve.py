@@ -242,27 +242,28 @@ def test_demo_cli_serves_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 def test_unported_features_raise(model, tmp_path):
+    """What still waits raises, naming its ROADMAP item: the decode-step
+    dataflow report, and training's ``loss_fn`` (with DeepSeek-V3's MTP
+    loss) and ``input_specs``.  Every architecture's config loads and
+    its layers build (tests/test_torch_models.py holds them to the
+    reference)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models import input_specs, loss_fn
     _, cfg, _, params = model
-    gen = torch.Generator().manual_seed(0)
-    mla = dataclasses.replace(cfg, segments=(
-        Segment((LayerSpec("mla"),), 2),))
-    moe = dataclasses.replace(cfg, segments=(
-        Segment((LayerSpec("attn", "moe"),), 2),))
-    mamba = dataclasses.replace(cfg, segments=(
-        Segment((LayerSpec("mamba"),), 2),))
-    for c in (mla, moe, mamba):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(gen, c)
-    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        prefill(params, torch.zeros(1, 4, dtype=torch.long), int8, 8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        init_cache(int8, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_config("qwen2.5-14b")
     server = port_serve.BatchedServer(cfg, params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         server.dataflow_report([])
+    batch = {"tokens": torch.zeros(1, 5, dtype=torch.long)}
+    with pytest.raises(NotImplementedError, match="ROADMAP: \"Training\""):
+        loss_fn(params, batch, cfg)
+    mtp = reduced(load_config("deepseek-v3-671b"))
+    with pytest.raises(NotImplementedError, match="MTP loss"):
+        loss_fn({}, batch, mtp)
+    with pytest.raises(NotImplementedError, match="ROADMAP: \"Training\""):
+        input_specs(cfg, "train_4k")
+    assert [load_config(a).name for a in ARCH_IDS] == ARCH_IDS
+    mtp_params = init_params(torch.Generator().manual_seed(0), mtp)
+    assert set(mtp_params["mtp"]) == {"proj", "layer", "norm"}
     # the daemon's control commands are ported: with no daemon at the
     # socket, ``stats`` and ``shutdown`` report it and exit 1
     absent = str(tmp_path / "absent.sock")
