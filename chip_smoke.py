@@ -944,6 +944,23 @@ def _memory(dev) -> str:
             f"allocated")
 
 
+def _traced_step(cfg, params, tokens, step_ms: float, name: str) -> str:
+    """One decode step after a prefill of ``tokens``, under
+    ``torch.profiler``: the card's busy time over the untraced step's
+    host time ``step_ms``."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    with torch.inference_mode():
+        logits, cache = prefill(params, tokens, cfg, MAX_LEN)
+        step = profiled(lambda: decode_step(params, logits.argmax(-1), cache,
+                                            PROMPT_LEN, cfg), name)
+    busy = step["busy"]
+    return ("one decode step traced: device busy not measured (no device "
+            "spans in the trace)" if busy is None else
+            f"one decode step traced: device busy {busy:.3f} ms = "
+            f"{100 * busy / step_ms:.1f} % of the untraced {step_ms:.3f} ms")
+
+
 def _free() -> None:
     """Return the dropped models' memory to the card."""
     import gc
@@ -1167,6 +1184,8 @@ def serve_deepseek(dev) -> None:
     _, tn, res_n, wall_n, *_ = _served(cfg, params, tokens, reqs)
     _, ta, res_a, wall_a, *_ = _served(
         dataclasses.replace(cfg, mla_absorbed=True), params, tokens, reqs)
+    traced = _traced_step(cfg, params, tokens, res_n[0].decode_s * 1e3,
+                          "deepseek_decode_step")
     print(f"[6d] deepseek-v3-671b bf16, full width, 3 dense + 1 of 58 MoE "
           f"layers + the MTP head's parameters ({n_params} params; sigmoid "
           f"top-{m.top_k} of {m.num_experts} experts + {m.num_shared} shared, "
@@ -1175,7 +1194,8 @@ def serve_deepseek(dev) -> None:
           f"{_serving_line(res_a, wall_a)}; greedy tokens agreeing "
           f"{float((tn == ta).mean()):.4f};"
           f" dropped_frac prefill {dropped[0]:.4f}, one decode step "
-          f"{dropped[1]:.4f}; {_memory(dev)}", flush=True)
+          f"{dropped[1]:.4f}; {_memory(dev)}; naive MLA's {traced}",
+          flush=True)
     del params
     _free()
 
@@ -1225,8 +1245,11 @@ def serve_rwkv(dev) -> None:
     _served(cfg, params, tokens, reqs)                     # warm-up
     logits, toks, res, wall, *_ = _served(cfg, params, tokens, reqs)
     require(bool(torch.isfinite(logits).all()), "6e bf16 logits not finite")
+    traced = _traced_step(cfg, params, tokens, res[0].decode_s * 1e3,
+                          "rwkv_decode_step")
     print(f"[6e] rwkv6-1.6b bf16 ({n_params} params): "
-          f"{_serving_line(res, wall)}; {_memory(dev)}", flush=True)
+          f"{_serving_line(res, wall)}; {_memory(dev)}; {traced}",
+          flush=True)
     del params
     _free()
 
