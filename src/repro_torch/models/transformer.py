@@ -1,4 +1,4 @@
-"""Config-driven decoder LM: dense / MoE / hybrid / SSM in one builder.
+"""Config-driven decoder LM: dense / MoE / hybrid / SSM, one code path.
 
 The port of the reference's ``models/transformer.py``.  Layers are
 grouped into config-declared *segments*: a repeating unit of layer
