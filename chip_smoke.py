@@ -175,6 +175,33 @@ Phases, one line (or block) each:
    the request accepted and resolved cold by the daemon and the job
    completed, and ``shutdown`` must end the daemon's process; both walls,
    the daemon's set-up and a spawned worker's set-up;
+11. training on the card (run after 9, before the line of 10):
+   (a) one ``make_train_step`` (warmup 0, so the step takes the whole
+   LR) of each of the ten reduced configs in fp32 on the card and on the
+   CPU from the same params and batch: loss and metrics rtol 1e-4,
+   ``grad_norm`` 1e-3, ``mu`` and ``nu`` rtol 1e-3 plus 1e-4 of each
+   leaf's largest value (the bars of tests/test_torch_train.py's
+   three-step test), the card's params within rtol 1e-6 plus 1e-7 of the
+   plain AdamW step from the card's own moments (``apply_updates``'
+   test bars), each largest |Δ| printed, and the params' card vs CPU;
+   (b) SmolLM-135M whole (30 layers, d_model 576, vocab 49,152, tied)
+   through ``train_loop``: bf16 params, fp32 moments, the
+   synthetic stream at seed 0, 30 steps of 8 x 1,024 tokens, lr 3e-4, a
+   checkpoint every 10 steps into a temporary directory under
+   ``build/``; the loss at steps 0, 10, 20 and 29 (the mean of the last
+   5 must be below that of the first 5), the median step over steps
+   3-29 and tokens/s (host clock), model FLOP/s against the bf16 dense
+   peak (6·N·tokens + 12·L·d·S·tokens), the peak allocated GiB; the
+   path must launch no hand kernel, and the step-30 checkpoint must
+   restore bit for bit; one more step under ``torch.profiler``: the
+   device busy share, its launches and its five longest kernels; (c) the
+   loop again with a failure injected at step 15 (one failure, one
+   restore) and 20 steps resumed to 30 (``schedule_steps=30``): final
+   losses within 1e-3 relative of (b)'s, whether bit for bit printed;
+   (d) a train step with ``attn_impl="pallas"`` raises the kernels'
+   autograd guard, and the same loss under ``torch.no_grad()`` launches
+   ``flash_attention`` once a layer and is within 1e-2 of the plain
+   path's (bf16, 2 x 256 tokens);
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), the design those launches took, its error
@@ -209,6 +236,12 @@ BF16_TC_OPS_PER_S = 989e12
 #: the serving phase: smollm-135m, 8 requests of 512 tokens, 32 new each
 SERVE_BATCH, PROMPT_LEN, GEN = 8, 512, 32
 MAX_LEN = PROMPT_LEN + GEN + 8
+
+#: phase 11: SmolLM-135M trained whole, bf16 params, fp32 moments, the
+#: synthetic stream at seed 0: batch x sequence, steps, LR, checkpoint
+#: period, the step of the injected failure and of the resume's cut
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 30, 3e-4
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_CUT = 10, 15, 20
 
 #: one bf16 unit in the last place, relative: the bound on a kernel's bf16
 #: result against its plain version when both compute in fp32 and round once
@@ -338,8 +371,10 @@ def profiled(fn, name: str, kernel: str = "") -> dict:
     the trace holds no device span); ``wall``, the host clock, which
     includes the profiler's own cost; ``named``, the summed spans of the
     kernels whose name holds ``kernel``; ``kernels``, ``h2d`` and ``d2h``,
-    the summed spans of all kernels and of the copies each way.  The trace
-    goes to ``build/<name>_trace.json``."""
+    the summed spans of all kernels and of the copies each way;
+    ``launches``, the kernel spans counted; ``top``, the five kernels
+    with the longest summed spans, as (name, ms, count).  The trace goes
+    to ``build/<name>_trace.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -364,7 +399,16 @@ def profiled(fn, name: str, kernel: str = "") -> dict:
                           and kernel in e.get("name", "")),
            "kernels": total(lambda e: e["cat"] == "kernel"),
            "h2d": total(lambda e: "HtoD" in e.get("name", "")),
-           "d2h": total(lambda e: "DtoH" in e.get("name", ""))}
+           "d2h": total(lambda e: "DtoH" in e.get("name", "")),
+           "launches": sum(e["cat"] == "kernel" for e in events)}
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e["cat"] == "kernel":
+            acc = by_name.setdefault(e.get("name", "?"), [0.0, 0])
+            acc[0] += e["dur"] / 1e3
+            acc[1] += 1
+    out["top"] = sorted(((n, ms, k) for n, (ms, k) in by_name.items()),
+                        key=lambda t: -t[1])[:5]
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
         if b > end:
@@ -651,6 +695,9 @@ def main() -> None:
 
     # -- 9. sharding and serving the Fig. 5 SpMV ACP cell ----------------------
     shard_and_serve(c, traces, mem, n)
+
+    # -- 11. training on the card ------------------------------------------------
+    train_on_card(dev)
 
     # -- 10. the kernels line ---------------------------------------------------
     rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
@@ -1901,6 +1948,255 @@ def shard_and_serve(c, traces: list, mem, n: int) -> None:
                 _reaped(pid, 10)
             rescache.clear()
             rescache.configure(enabled=False)
+
+
+def _train_batch(cfg, torch) -> dict:
+    """Phase 11a's batch for ``cfg``: the synthetic stream's step 0 at
+    seed 1 (2 x 16 tokens), or seeded embeddings and those labels where
+    the config takes embeddings; on the CPU."""
+    from repro_torch.data import DataConfig, synthetic_stream
+    tokens = next(synthetic_stream(DataConfig(2, 16, cfg.vocab_size,
+                                              seed=1)))["tokens"]
+    if cfg.frontend_stub:
+        emb = np.random.default_rng(1).normal(
+            size=(2, 16, cfg.d_model)).astype(np.float32)
+        return {"embeds": torch.from_numpy(emb),
+                "labels": torch.from_numpy(tokens[:, 1:])}
+    return {"tokens": torch.from_numpy(tokens)}
+
+
+def _max_err(got, want, *, rtol: float, scale_atol: float = 0.0,
+             atol: float = 0.0) -> tuple[float, bool]:
+    """Largest |got − want| over the aligned leaves of two trees, and
+    whether every leaf is within atol + scale_atol·max|want_leaf| +
+    rtol·|want| (the CPU tests' ``_leaves_close``)."""
+    from repro_torch import tree
+    worst, ok = 0.0, True
+    for g, w in zip(tree.leaves(got), tree.leaves(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        bound = atol + scale_atol * float(w.abs().max()) + rtol * w.abs()
+        ok = ok and bool((d <= bound).all())
+    return worst, ok
+
+
+def _adamw_plain(params, mu, nu, opt_cfg):
+    """The first AdamW step (count 1, LR scale 1) from the moments ``mu``
+    and ``nu``, leaf by leaf in fp32 on the CPU: the reference's formula
+    ``(m/b1c)/(sqrt(v/b2c)+eps) + wd·p`` with its decay mask."""
+    from repro_torch import tree
+    from repro_torch.optim.adamw import _decay_mask
+    b1c, b2c = 1 - opt_cfg.b1, 1 - opt_cfg.b2
+    out = []
+    for (path, p), m, v in zip(tree.flatten_with_paths(params),
+                               tree.leaves(mu), tree.leaves(nu)):
+        p32, m, v = p.float().cpu(), m.float().cpu(), v.float().cpu()
+        u = (m / b1c) / ((v / b2c).sqrt() + opt_cfg.eps)
+        if opt_cfg.weight_decay and _decay_mask(path, p):
+            u = u + opt_cfg.weight_decay * p32
+        out.append((p32 - opt_cfg.lr * u).to(p.dtype))
+    return tree.unflatten(params, out)
+
+
+def train_on_card(dev) -> None:
+    """Phase 11: training on the card (see the module docstring)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ARCH_IDS, load_config, reduced
+    from repro_torch.data import DataConfig, synthetic_stream
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cpu = torch.device("cpu")
+
+    # (a) one train step of each reduced config, fp32, card vs CPU
+    opt_cfg = AdamWConfig()
+    for arch in ARCH_IDS:
+        cfg = reduced(load_config(arch))
+        params = init_params(torch.Generator().manual_seed(0), cfg, cpu)
+        batch = _train_batch(cfg, torch)
+        # warmup 0: the first step already takes the whole LR
+        step = make_train_step(cfg, opt_cfg, total_steps=10, warmup_steps=0)
+
+        def run(d):
+            p = tree.tree_map(lambda t: t.to(d), params)
+            st = TrainState(p, init_opt_state(p, opt_cfg),
+                            torch.zeros((), dtype=torch.int32, device=d))
+            return step(st, {k: v.to(d) for k, v in batch.items()})
+
+        (sc, mc), (sg, mg) = run(cpu), run(dev)
+        errs = {}
+        for k, want in mc.items():
+            got = float(mg[k])
+            rtol = 1e-3 if k == "grad_norm" else 1e-4
+            errs[k] = abs(got - float(want))
+            require(errs[k] <= rtol * abs(float(want)) + 1e-12,
+                    f"[11a] {arch}: {k} {got} on the card vs {float(want)} "
+                    f"on the CPU (rtol {rtol})")
+        # the moments carry the grads: card vs CPU at the three-step
+        # test's bars; the card's params against the plain AdamW step
+        # from the card's own moments at apply_updates' test bars (card
+        # vs CPU params are printed: where a grad is within a few eps of
+        # 0, Adam's first step g/(|g|+eps) magnifies its rounding up to
+        # the whole LR)
+        bars = {"mu": (sg.opt["mu"], sc.opt["mu"], dict(rtol=1e-3,
+                                                        scale_atol=1e-4)),
+                "nu": (sg.opt["nu"], sc.opt["nu"], dict(rtol=1e-3,
+                                                        scale_atol=1e-4)),
+                "params vs the plain step": (
+                    sg.params, _adamw_plain(params, sg.opt["mu"],
+                                            sg.opt["nu"], opt_cfg),
+                    dict(rtol=1e-6, atol=1e-7))}
+        for k, (got, want, bar) in bars.items():
+            errs[k], ok = _max_err(got, want, **bar)
+            require(ok, f"[11a] {arch}: {k} after the step, max|Δ| "
+                        f"{errs[k]:.3g} over {bar}")
+        errs["params card vs CPU"], _ = _max_err(sg.params, sc.params,
+                                                 rtol=0.0)
+        print(f"[11a] {arch} (reduced, fp32), one train step card vs CPU: "
+              + ", ".join(f"{k} max|Δ| {v:.3g}" for k, v in errs.items()),
+              flush=True)
+
+    # (b) SmolLM-135M whole, bf16 params, fp32 moments
+    _free()
+    cfg = load_config("smollm-135m")
+    n_params = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6 * n_params * tokens
+             + 12 * cfg.num_layers * cfg.d_model * TRAIN_SEQ * tokens)
+    kw = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+              ckpt_every=TRAIN_CKPT_EVERY, seed=0, device=dev)
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as ckdir:
+        _lib.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = train_loop(cfg, steps=TRAIN_STEPS, ckpt_dir=ckdir, **kw)
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in _lib.counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        losses = out["losses"]
+        require(len(losses) == TRAIN_STEPS
+                and all(np.isfinite(x) for x in losses),
+                f"[11b] losses: {losses}")
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        require(last < first, f"[11b] the loss did not fall: mean of the "
+                              f"first 5 {first}, of the last 5 {last}")
+        require(not launched, f"[11b] the training path launched hand "
+                              f"kernels: {launched}")
+        state = out["state"]
+        restored, at = Checkpointer(ckdir).restore(state)
+        require(at == TRAIN_STEPS and all(
+            torch.equal(a.view(torch.int16), b.view(torch.int16))
+            if a.dtype == torch.bfloat16 else torch.equal(a, b)
+            for a, b in zip(tree.leaves(restored), tree.leaves(state))),
+            "[11b] the restored checkpoint differs from the state in "
+            "memory")
+    med = statistics.median(out["step_s"][3:])
+    print(f"[11b] smollm-135m bf16 ({n_params} params, {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, tied), "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens, lr "
+          f"{TRAIN_LR}, a checkpoint every {TRAIN_CKPT_EVERY} steps: loss "
+          + ", ".join(f"step {i} {losses[i]:.4f}"
+                      for i in (0, 10, 20, TRAIN_STEPS - 1))
+          + f"; mean of the first 5 {first:.4f} > of the last 5 {last:.4f}"
+          f"; {wall:.2f} s in all (host clock)", flush=True)
+    print(f"[11b] median step over steps 3-{TRAIN_STEPS - 1} "
+          f"{med * 1e3:.2f} ms (host clock, the loss read back) = "
+          f"{tokens / med:.0f} tokens/s; model FLOP/s (6*N*tokens + "
+          f"12*L*d*S*tokens = 6*{n_params}*{tokens} + 12*{cfg.num_layers}*"
+          f"{cfg.d_model}*{TRAIN_SEQ}*{tokens} = {flops / 1e12:.3f} TFLOP a "
+          f"step) {flops / med / 1e12:.1f} TFLOP/s = "
+          f"{100 * flops / med / BF16_TC_OPS_PER_S:.1f} % of the bf16 dense "
+          f"peak {BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s; peak allocated "
+          f"{peak:.2f} GiB; no hand kernel launched; the checkpoint of step "
+          f"{TRAIN_STEPS} restores bit for bit", flush=True)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR),
+                              total_steps=TRAIN_STEPS,
+                              warmup_steps=max(1, TRAIN_STEPS // 20))
+    batch = {"tokens": torch.from_numpy(next(synthetic_stream(
+        DataConfig(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size, seed=0),
+        start_step=TRAIN_STEPS))["tokens"]).to(dev)}
+    traced = profiled(lambda: step_fn(state, batch), "train_step")
+    busy = traced["busy"]
+    print("[11b] one train step under torch.profiler: "
+          + ("device busy not measured (no device spans in the trace)"
+             if busy is None else
+             f"device busy {busy:.2f} ms = {100 * busy / (med * 1e3):.1f} % "
+             f"of the untraced median step; {traced['launches']} kernel "
+             f"launches; the five longest device ops: "
+             + "; ".join(f"{n[:110]} {ms:.2f} ms ({k}x)"
+                         for n, ms, k in traced["top"])), flush=True)
+    del state, restored, batch
+
+    # (c) recovery from an injected failure, and a resume
+    with tempfile.TemporaryDirectory(dir=scratch) as ckdir:
+        failed = train_loop(cfg, steps=TRAIN_STEPS, ckpt_dir=ckdir,
+                            fail_at=TRAIN_FAIL_AT, **kw)
+    with tempfile.TemporaryDirectory(dir=scratch) as ckdir:
+        train_loop(cfg, steps=TRAIN_CUT, ckpt_dir=ckdir,
+                   schedule_steps=TRAIN_STEPS, **kw)
+        resumed = train_loop(cfg, steps=TRAIN_STEPS, ckpt_dir=ckdir,
+                             schedule_steps=TRAIN_STEPS, **kw)
+    final = out["final_loss"]
+    require(failed["failures"] == failed["restores"] == 1,
+            f"[11c] failures {failed['failures']}, restores "
+            f"{failed['restores']}")
+    for name, run in (("recovered", failed), ("resumed", resumed)):
+        require(abs(run["final_loss"] - final) <= 1e-3 * abs(final),
+                f"[11c] {name} final loss {run['final_loss']} vs "
+                f"{final} uninterrupted (rtol 1e-3)")
+    print(f"[11c] failure injected at step {TRAIN_FAIL_AT}: failures 1, "
+          f"restores 1 (from step {TRAIN_CKPT_EVERY}), final loss "
+          f"{failed['final_loss']:.6f} (bit for bit the uninterrupted "
+          f"{final:.6f}: {failed['final_loss'] == final}); {TRAIN_CUT} steps "
+          f"then resumed to {TRAIN_STEPS}: final loss "
+          f"{resumed['final_loss']:.6f} (bit for bit: "
+          f"{resumed['final_loss'] == final})", flush=True)
+    del out, failed, resumed
+    _free()
+
+    # (d) the guard: the attention kernel under autograd raises
+    cp = dataclasses.replace(cfg, attn_impl="pallas")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cp, dev)
+    batch = {"tokens": torch.from_numpy(next(synthetic_stream(DataConfig(
+        2, 256, cfg.vocab_size, seed=0)))["tokens"]).to(dev)}
+    st = TrainState(params, init_opt_state(params, opt_cfg),
+                    torch.zeros((), dtype=torch.int32, device=dev))
+    try:
+        make_train_step(cp, opt_cfg)(st, batch)
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    require("reference cannot differentiate" in raised,
+            f"[11d] a train step through the attention kernel did not "
+            f"raise the guard's error ({raised!r})")
+    _lib.reset_counts()
+    with torch.no_grad():
+        lk, _ = loss_fn(params, batch, cp)
+    n_fa = _lib.counts()["flash_attention"]
+    with torch.no_grad():
+        lf, _ = loss_fn(params, batch, cfg)
+    require(n_fa == cfg.num_layers, f"[11d] flash_attention launched {n_fa} "
+                                    f"times, not {cfg.num_layers}")
+    require(abs(float(lk) - float(lf)) <= 1e-2 * abs(float(lf)),
+            f"[11d] loss through the kernels {float(lk)} vs {float(lf)}")
+    print(f"[11d] a train step with attn_impl='pallas' raises "
+          f"NotImplementedError (\"{raised[:60]}...\"); under "
+          f"torch.no_grad() the same loss launches flash_attention {n_fa} "
+          f"times: {float(lk):.5f}, the plain path {float(lf):.5f} (bf16, "
+          f"rtol 1e-2)", flush=True)
+    del params, st
+    _free()
 
 
 def _walls() -> str:

@@ -3,7 +3,8 @@
 Entry points run on the CUDA card unless the caller asks for the CPU:
 ``set_device("cpu")`` process-wide, or ``device="cpu"`` on a call.  A
 CUDA request on a machine without a CUDA device raises; nothing falls
-back to the CPU on its own.
+back to the CPU on its own.  ``"meta"`` builds shapes and dtypes
+without storage (``input_specs``, ``abstract_train_state``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ def get_device(device: str | torch.device | None = None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "present; pass device='cpu' or call "
             "repro_torch.set_device('cpu') to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         f"('meta' for shapes only)")
     return dev

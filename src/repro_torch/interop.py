@@ -16,9 +16,11 @@ imports the reference package:
 * :func:`lm_params_to_torch` turns the reference's LM parameter tree
   (nested dicts and lists of numpy arrays, each segment's leaves stacked
   over its repeats) into the port's tree, one entry per repeat, and
-  :func:`lm_cache_to_numpy` stacks the port's decode cache back into the
-  reference's layout, so weights and caches compare across packages.
-  Both keep each leaf's dtype: the reference's fp32 leaves (a MoE
+  :func:`lm_params_to_numpy` and :func:`lm_cache_to_numpy` stack the
+  port's parameters (or grads, or optimiser moments) and decode cache
+  back into the reference's layout, so weights, training state and
+  caches compare across packages.
+  The first and last keep each leaf's dtype: the reference's fp32 leaves (a MoE
   router, Mamba's ``A_log``, RWKV's decay, the SSM states) stay fp32 in
   a bf16 model, and an int8 cache keeps its int8 codes and float16
   scales.
@@ -152,6 +154,20 @@ def lm_params_to_torch(params: Mapping[str, Any], cfg,
     if missing:
         raise KeyError(f"reference params lack {sorted(missing)}")
     return out
+
+
+def lm_params_to_numpy(params: Mapping[str, Any], cfg) -> dict[str, Any]:
+    """The reference's parameter layout from the port's tree, as numpy:
+    the inverse of :func:`lm_params_to_torch`.  Each ``segment_<i>``'s
+    repeats are stacked on a leading axis (``segment_<i>[unit_index]``);
+    every other subtree is carried leaf for leaf.  Takes any tree of the
+    params' structure (grads, AdamW's ``mu`` and ``nu``), so the port's
+    training state compares leaf by leaf with the reference's; bfloat16
+    as float32."""
+    segments = {f"segment_{si}" for si in range(len(cfg.segments))}
+    return {key: _stack_trees(sub) if key in segments
+            else _tree_map(_to_numpy, sub)
+            for key, sub in params.items()}
 
 
 def lm_cache_to_numpy(cache: Mapping[str, Any]) -> dict[str, Any]:

@@ -87,6 +87,21 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+def forbid_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when ``name``'s kernel would run under autograd: grad mode on
+    and an input that requires grad.  The kernels have no backward, and
+    the ``ctypes`` launch returns a tensor with no ``grad_fn``, so a
+    gradient through one would silently be zero.  The reference cannot
+    differentiate its Pallas kernels either; every device raises, and
+    ``torch.no_grad()`` / ``torch.inference_mode()`` run as before."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the hand-written kernel has no backward, as the "
+            f"reference cannot differentiate its Pallas kernels either "
+            f"(jax.grad through them fails); call it under torch.no_grad(), "
+            f"or train with attn_impl 'auto', 'full' or 'chunked'")
+
+
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0

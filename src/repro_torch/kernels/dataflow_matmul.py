@@ -84,6 +84,7 @@ def dataflow_matmul(x: torch.Tensor, w: torch.Tensor, *,
     A CPU tensor takes the plain version (:func:`ref.matmul_ref`); a CUDA
     tensor launches the kernel of its :func:`route` or raises.
     """
+    _lib.forbid_autograd("dataflow_matmul", x, w)
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"dataflow_matmul: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} are not (M, K) and (K, N)")

@@ -108,6 +108,7 @@ def decoupled_gather(idx: torch.Tensor, table: torch.Tensor, *,
     ring's rows must fit its shared memory; it reports a CUDA error
     (raised here) for wider ones.
     """
+    _lib.forbid_autograd("decoupled_gather", table)
     if idx.ndim != 1 or table.ndim != 2:
         raise ValueError(f"decoupled_gather: idx {tuple(idx.shape)} is not "
                          f"(N,) or table {tuple(table.shape)} is not (R, D)")

@@ -108,6 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's dtype.  Query head h reads kv head ``h // (Hq // Hkv)``; the
     causal mask aligns query and key positions from 0.
     """
+    _lib.forbid_autograd("flash_attention", q, k, v)
     B, Hq, Sq, d = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != d:
@@ -144,6 +145,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     caches' device, each in [0, S].  Positions at or past a sequence's
     length are masked; a length of 0 gives zeros.  Returns (B, Hq, d).
     """
+    _lib.forbid_autograd("decode_attention", q, k_cache, v_cache)
     B, Hq, d = q.shape
     if k_cache.ndim != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != B or k_cache.shape[3] != d \

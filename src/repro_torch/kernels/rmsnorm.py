@@ -25,6 +25,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
     CUDA tensor launches the kernel or raises.  x and weight are float32
     or bfloat16, in any pairing, contiguous.
     """
+    _lib.forbid_autograd("rmsnorm", x, weight)
     if x.ndim != 2 or weight.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} is not (R, D) or "
                          f"weight {tuple(weight.shape)} is not (D,)")

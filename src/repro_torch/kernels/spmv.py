@@ -68,6 +68,7 @@ def spmv_bsr(values: torch.Tensor, col_ids: torch.Tensor,
     A CPU tensor takes the plain version (:func:`ref.spmv_bsr_ref`); a
     CUDA tensor launches the kernel of its :func:`spmv_route` or raises.
     """
+    _lib.forbid_autograd("spmv_bsr", values, x)
     nbr, nnz, bm, bk = values.shape
     if x.shape[0] % bk:
         raise ValueError(f"x length {x.shape[0]} is not a multiple of "

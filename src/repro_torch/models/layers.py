@@ -17,7 +17,13 @@ import torch.nn.functional as F
 from ..kernels.ref import rmsnorm_ref
 
 
-def _normal(gen: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
+def _normal(gen: torch.Generator | None,
+            shape: tuple[int, ...]) -> torch.Tensor:
+    """Standard normal fp32 draws from ``gen``; with no generator, a
+    ``meta`` tensor of the shape (the inits then build shapes only, as
+    the reference's under ``jax.eval_shape``)."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device)
 

@@ -39,6 +39,8 @@ def _expert_stack(gen: torch.Generator, E: int, rows: int, cols: int,
     at a time: one fp32 draw of a whole DeepSeek-V3 stack would take 15
     GB of transient memory."""
     out = torch.empty((E, rows, cols), dtype=dtype, device=device)
+    if gen is None:                      # shapes only (``meta``)
+        return out
     for e in range(E):
         out[e] = (layers._normal(gen, (rows, cols))
                   / math.sqrt(rows)).to(device, dtype)

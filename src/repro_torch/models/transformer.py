@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, layers, moe, ssm
 from .._device import get_device
@@ -214,11 +215,18 @@ def _layer_init_cache(spec: LayerSpec, cfg, batch: int, max_len: int,
 # Whole-model init / forward / decode
 # ---------------------------------------------------------------------------
 
-def _final_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _final_norm(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     _, napply = layers.make_norm(cfg.norm)
-    x = napply(params["final_norm"], x)
+    return napply(params["final_norm"], x)
+
+
+def _unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     emb = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return layers.unembed_apply(emb, x)
+
+
+def _final_logits(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    return _unembed(params, _final_norm(params, x, cfg), cfg)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -252,19 +260,44 @@ def _inputs(params: dict, tokens_or_embeds: torch.Tensor,
     return layers.embedding_apply(params["embed"], tokens_or_embeds)
 
 
+def _repeat_apply(rep_params: list, x: torch.Tensor, unit, cfg
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One repeat of a segment's unit: the output and the repeat's summed
+    load-balance loss (fp32; 0 without MoE layers)."""
+    aux_acc: dict[str, Any] = {}
+    for j, spec in enumerate(unit):
+        x = _layer_apply(rep_params[j], x, spec, cfg, aux_acc)
+    lb = torch.as_tensor(aux_acc.get("lb_loss", 0.0), dtype=torch.float32,
+                         device=x.device)
+    return x, lb
+
+
 def forward(params: dict, tokens_or_embeds: torch.Tensor,
-            cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+            cfg: ModelConfig, *,
+            return_hidden: bool = False) -> tuple[torch.Tensor, dict]:
     """Full-sequence causal forward.  Returns (logits, aux), aux holding
-    the MoE layers' summed load-balance loss."""
+    the MoE layers' summed load-balance loss and, with ``return_hidden``,
+    the final-normed hidden states (DeepSeek-V3's MTP loss reads them).
+
+    With ``cfg.remat`` each repeat of a segment's unit runs under
+    activation checkpointing, as the reference wraps each repeat's body
+    in ``jax.checkpoint``: backward keeps only the repeat's input and
+    recomputes the layers inside."""
     x = _inputs(params, tokens_or_embeds, cfg)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(cfg.segments):
         for rep_params in params[f"segment_{si}"]:
-            aux_acc: dict[str, Any] = {}
-            for j, spec in enumerate(seg.unit):
-                x = _layer_apply(rep_params[j], x, spec, cfg, aux_acc)
-            lb = lb + aux_acc.get("lb_loss", 0.0)
-    return _final_logits(params, x, cfg), {"lb_loss": lb}
+            if cfg.remat:
+                x, rep_lb = checkpoint(_repeat_apply, rep_params, x,
+                                       seg.unit, cfg, use_reentrant=False)
+            else:
+                x, rep_lb = _repeat_apply(rep_params, x, seg.unit, cfg)
+            lb = lb + rep_lb
+    x = _final_norm(params, x, cfg)
+    aux = {"lb_loss": lb}
+    if return_hidden:
+        aux["hidden"] = x
+    return _unembed(params, x, cfg), aux
 
 
 def prefill(params: dict, tokens_or_embeds: torch.Tensor, cfg: ModelConfig,

@@ -243,10 +243,11 @@ def test_demo_cli_serves_on_the_cpu(capsys):
 
 def test_unported_features_raise(model, tmp_path):
     """What still waits raises, naming its ROADMAP item: the decode-step
-    dataflow report, and training's ``loss_fn`` (with DeepSeek-V3's MTP
-    loss) and ``input_specs``.  Every architecture's config loads and
-    its layers build (tests/test_torch_models.py holds them to the
-    reference)."""
+    dataflow report.  Training is ported: ``loss_fn`` (with DeepSeek-V3's
+    MTP loss) gives finite losses and ``input_specs`` meta tensors
+    (tests/test_torch_train.py holds both to the reference).  Every
+    architecture's config loads and its layers build
+    (tests/test_torch_models.py holds them to the reference)."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.models import input_specs, loss_fn
     _, cfg, _, params = model
@@ -254,15 +255,16 @@ def test_unported_features_raise(model, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         server.dataflow_report([])
     batch = {"tokens": torch.zeros(1, 5, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="ROADMAP: \"Training\""):
-        loss_fn(params, batch, cfg)
+    loss, metrics = loss_fn(params, batch, cfg)
+    assert torch.isfinite(loss) and set(metrics) == {"lm_loss", "loss"}
     mtp = reduced(load_config("deepseek-v3-671b"))
-    with pytest.raises(NotImplementedError, match="MTP loss"):
-        loss_fn({}, batch, mtp)
-    with pytest.raises(NotImplementedError, match="ROADMAP: \"Training\""):
-        input_specs(cfg, "train_4k")
-    assert [load_config(a).name for a in ARCH_IDS] == ARCH_IDS
     mtp_params = init_params(torch.Generator().manual_seed(0), mtp)
+    _, metrics = loss_fn(mtp_params, batch, mtp)
+    assert torch.isfinite(metrics["mtp_loss"])
+    specs = input_specs(cfg, "train_4k")
+    assert specs["tokens"].shape == (256, 4097)
+    assert specs["tokens"].device.type == "meta"
+    assert [load_config(a).name for a in ARCH_IDS] == ARCH_IDS
     assert set(mtp_params["mtp"]) == {"proj", "layer", "norm"}
     # the daemon's control commands are ported: with no daemon at the
     # socket, ``stats`` and ``shutdown`` report it and exit 1
