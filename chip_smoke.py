@@ -202,11 +202,28 @@ Phases, one line (or block) each:
    autograd guard, and the same loss under ``torch.no_grad()`` launches
    ``flash_attention`` once a layer and is within 1e-2 of the plain
    path's (bf16, 2 x 256 tokens);
+12. the rest of the port's entry points (run after 11, before the line of
+   10): (a) the decode-step dataflow report of the served SmolLM-135M
+   (phase 6b's bf16 params) and of all ten architectures at full width
+   from abstract params (batch 8, ``max_len`` 552), each held line for
+   line to the reference's (``REF_REPORTS``, read by :func:`report_key`),
+   no kernel launched, and ``dataflow_report([])`` the "unavailable"
+   string; (b) fp32 SmolLM-135M served with ``max_len`` 520 and 32 new
+   tokens (24 steps past the end) on the kernels' and the plain path,
+   identical tokens; token ids V, V + 3, −1, −V − 2 served with no
+   device-side assert, logits card vs CPU within 1e-3; the reduced
+   Qwen2.5 (int8 cache) and DeepSeek-V3 (MLA, naive and absorbed)
+   configs past ``max_len``, card vs CPU; (c) each example's ``main()``
+   (quickstart, spmv_dataflow, serve_decode, train_lm), Fig. 2, Table II
+   and the ``--smoke`` sweep grid with ``measure_perf`` (the
+   worker-scaling probe left out: phase 9 shards already), each held to
+   the reference's constants, with its wall and hand-kernel launches;
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
-   phase 7 for the kernel API), the design those launches took, its error
-   against the plain version, its times and its bound (the attention
-   rows also at Qwen2.5-14B's shape, with 6c's launches); then the
+   phase 7 for the kernel API) and on each path of phase 12, the design
+   those launches took, its error against the plain version, its times
+   and its bound (the attention rows also at Qwen2.5-14B's shape, with
+   6c's launches); then the
    ``nvidia-smi`` line; then the result line.
 
 Any failed phase exits non-zero before the result line.  Without a CUDA
@@ -217,6 +234,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -321,11 +339,293 @@ REF_DSE = ((1, 0, 393_494), (5, 1_536, 135_572), (7, 2_368, 135_532),
            (35, 6_528, 134_453), (35, 8_128, 134_399))
 REF_DSE_EVALUATED = 12
 
+#: phase 12a: the reference's decode-step dataflow reports at full width
+#: (``repro.launch.serve.BatchedServer(cfg, jax.eval_shape(init_params),
+#: max_len=552).dataflow_report`` of 8 requests, jax 0.9.0, on the CPU;
+#: held against the reference by
+#: tests/test_torch_report.py::test_chip_smoke_reports_are_the_reference),
+#: as :func:`report_key` reads them
+REPORT_BATCH, REPORT_MAX_LEN = 8, 552
+REF_REPORTS = {
+    "jamba-1.5-large-398b": (
+        (24, 10, 10, 3407968), (1, 55, "0.53"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 131072, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 131072, 131072, "LONG", ""),
+         ("convert_element_type,mul", 1, 5, 131072, 524288, "LONG", ""),
+         ("reduce_sum", 1, 2, 262144, 32, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("add,rsqrt", 1, 5, 32, 32, "LONG", ""),
+         ("mul", 1, 4, 262176, 262144, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 262144, 262144, "LONG", ""),
+         ("convert_element_type,convert_element_type,"
+          "convert_element_type,dot_general",
+          1, 11, 262144, 2097152, "LONG", ""),
+         ("slice,squeeze", 1, 2, 2097152, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 17: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "qwen2.5-14b": (
+        (24, 10, 10, 5685344), (1, 55, "0.53"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 81920, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 81920, 81920, "LONG", ""),
+         ("convert_element_type,mul", 1, 5, 81920, 327680, "LONG", ""),
+         ("reduce_sum", 1, 2, 163840, 32, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("add,rsqrt", 1, 5, 32, 32, "LONG", ""),
+         ("mul", 1, 4, 163872, 163840, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 163840, 163840, "LONG", ""),
+         ("convert_element_type,convert_element_type,"
+          "convert_element_type,dot_general",
+          1, 11, 163840, 4866048, "LONG", ""),
+         ("slice,squeeze", 1, 2, 4866048, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 17: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "olmo-1b": (
+        (22, 8, 9, 1871968), (1, 47, "0.47"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 32768, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 32768, 32768, "LONG", ""),
+         ("convert_element_type,reduce_sum", 1, 3, 32768, 65568, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("jit,sub,add,rsqrt", 1, 7, 65568, 65568, "LONG", ""),
+         ("mul", 1, 4, 65568, 65536, "LONG", ""),
+         ("convert_element_type,convert_element_type,"
+          "convert_element_type,dot_general",
+          1, 11, 65536, 1609728, "LONG", ""),
+         ("slice,squeeze", 1, 2, 1609728, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 11: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "smollm-135m": (
+        (24, 10, 10, 1665120), (1, 55, "0.53"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 9216, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 9216, 9216, "LONG", ""),
+         ("convert_element_type,mul", 1, 5, 9216, 36864, "LONG", ""),
+         ("reduce_sum", 1, 2, 18432, 32, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("add,rsqrt", 1, 5, 32, 32, "LONG", ""),
+         ("mul", 1, 4, 18464, 18432, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 18432, 18432, "LONG", ""),
+         ("convert_element_type,convert_element_type,"
+          "convert_element_type,dot_general",
+          1, 11, 18432, 1572864, "LONG", ""),
+         ("slice,squeeze", 1, 2, 1572864, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 17: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "command-r-plus-104b": (
+        (28, 9, 10, 10158176), (1, 56, "0.50"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 196608, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 196608, 196608, "LONG", ""),
+         ("convert_element_type,reduce_sum", 1, 3, 196608, 393248, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("jit,sub,add,rsqrt", 1, 7, 393248, 393248, "LONG", ""),
+         ("mul", 1, 4, 393248, 393216, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 393216, 393216, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,add,"
+          "convert_element_type,convert_element_type,convert_element_type…",
+          1, 14, 393216, 8192000, "LONG", ""),
+         ("slice,squeeze", 1, 2, 8192000, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 14: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "rwkv6-1.6b": (
+        (28, 9, 10, 2424928), (1, 56, "0.50"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 32768, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 32768, 32768, "LONG", ""),
+         ("convert_element_type,reduce_sum", 1, 3, 32768, 65568, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("jit,sub,add,rsqrt", 1, 7, 65568, 65568, "LONG", ""),
+         ("mul", 1, 4, 65568, 65536, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 65536, 65536, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,add,"
+          "convert_element_type,convert_element_type,convert_element_type…",
+          1, 14, 65536, 2097152, "LONG", ""),
+         ("slice,squeeze", 1, 2, 2097152, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 14: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "deepseek-v3-671b": (
+        (25, 11, 11, 5398624), (1, 63, "0.56"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 114688, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 114688, 114688, "LONG", ""),
+         ("scan", 1, 8, 114688, 114688, "LONG", ""),
+         ("convert_element_type,mul", 1, 5, 114688, 458752, "LONG", ""),
+         ("reduce_sum", 1, 2, 229376, 32, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("add,rsqrt", 1, 5, 32, 32, "LONG", ""),
+         ("mul", 1, 4, 229408, 229376, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 229376, 229376, "LONG", ""),
+         ("convert_element_type,convert_element_type,"
+          "convert_element_type,dot_general",
+          1, 11, 229376, 4136960, "LONG", ""),
+         ("slice,squeeze", 1, 2, 4136960, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 17: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "llama4-scout-17b-a16e": (
+        (24, 10, 10, 7284832), (1, 55, "0.53"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 81920, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 81920, 81920, "LONG", ""),
+         ("convert_element_type,mul", 1, 5, 81920, 327680, "LONG", ""),
+         ("reduce_sum", 1, 2, 163840, 32, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("add,rsqrt", 1, 5, 32, 32, "LONG", ""),
+         ("mul", 1, 4, 163872, 163840, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 163840, 163840, "LONG", ""),
+         ("convert_element_type,convert_element_type,"
+          "convert_element_type,dot_general",
+          1, 11, 163840, 6465536, "LONG", ""),
+         ("slice,squeeze", 1, 2, 6465536, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 17: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "musicgen-large": (
+        (28, 9, 10, 393312), (1, 56, "0.50"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 32768, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 32768, 32768, "LONG", ""),
+         ("convert_element_type,reduce_sum", 1, 3, 32768, 65568, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("jit,sub,add,rsqrt", 1, 7, 65568, 65568, "LONG", ""),
+         ("mul", 1, 4, 65568, 65536, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 65536, 65536, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,add,"
+          "convert_element_type,convert_element_type,convert_element_type…",
+          1, 14, 65536, 65536, "LONG", ""),
+         ("slice,squeeze", 1, 2, 65536, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 14: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+    "chameleon-34b": (
+        (24, 10, 10, 3407968), (1, 55, "0.53"),
+        (("broadcast_in_dim,lt,add,select_n,broadcast_in_dim,gather",
+          1, 7, 0, 131072, "MEM|LONG", "['arg0']"),
+         ("scan", 1, 8, 131072, 131072, "LONG", ""),
+         ("convert_element_type,mul", 1, 5, 131072, 524288, "LONG", ""),
+         ("reduce_sum", 1, 2, 262144, 32, "LONG", ""),
+         ("broadcast_in_dim,div", 1, 5, 32, 32, "LONG", ""),
+         ("add,rsqrt", 1, 5, 32, 32, "LONG", ""),
+         ("mul", 1, 4, 262176, 262144, "LONG", ""),
+         ("convert_element_type,broadcast_in_dim,mul",
+          1, 6, 262144, 262144, "LONG", ""),
+         ("convert_element_type,convert_element_type,"
+          "convert_element_type,dot_general",
+          1, 11, 262144, 2097152, "LONG", ""),
+         ("slice,squeeze", 1, 2, 2097152, 0, "", "")),
+        ("verify: 0 error(s), 1 warning(s)",
+         ("fifo-depth", "warning", "fifo_depth=8",
+          "below the full-throughput bound 17: backpressure stretches "
+          "the initiation interval past the static pipeline II"))),
+}
+
+
+#: phase 12c: the reference's Fig. 2 text (benchmarks/fig2_schedule.py,
+#: jax 0.9.0, on the CPU) by its SHA-256, and the conventional engine's
+#: cycles it prints; its Table II rows (benchmarks/paper_table2.py:
+#: nodes, dataflow and conventional stages, channels, channel bytes per
+#: token, duplicated ops, ops per stage, op instances without and with
+#: the duplicates); its ``--smoke`` sweep grid (benchmarks/sweep.py's
+#: tasks, numpy engine, rescache off) as (kernel, memory, transform,
+#: words per cycle, dataflow cycles, conventional cycles).  Held against
+#: the reference by tests/test_torch_paper.py.
+REF_FIG2_SHA256 = ("9c35b231adf7efb4813b37c183ca48fe"
+                   "818278c8fdcf06fc9e65ed604c9eb366")
+REF_FIG2_CONVENTIONAL_CYCLES = 734
+REF_TABLE2 = {
+    "spmv": (17, 5, 1, 6, 24, 0, [4, 5, 5, 2, 1], 17, 17),
+    "knapsack": (35, 6, 1, 11, 36, 0, [4, 5, 6, 5, 7, 8], 35, 35),
+    "floyd_warshall": (30, 8, 1, 13, 40, 0, [1, 5, 2, 5, 2, 5, 4, 6], 30, 30),
+    "dfs": (30, 1, 1, 0, 0, 0, [30], 30, 30),
+}
+REF_SWEEP_SMOKE = (
+    ("knapsack", "ACP", "none", 0.5, 40632, 1025201),
+    ("knapsack", "ACP", "none", 1.0, 20735, 1025201),
+    ("knapsack", "ACP+64KB", "none", 0.5, 40434, 29631),
+    ("knapsack", "ACP+64KB", "none", 1.0, 20489, 29631),
+    ("spmv", "ACP", "none", 0.5, 172917, 1525003),
+    ("spmv", "ACP", "none", 1.0, 172917, 1525003),
+    ("spmv", "ACP", "unroll=2+coalesce", 0.5, 88242, 1525003),
+    ("spmv", "ACP", "unroll=2+coalesce", 1.0, 88242, 1525003),
+    ("spmv", "ACP+64KB", "none", 0.5, 47700, 179233),
+    ("spmv", "ACP+64KB", "none", 1.0, 34072, 179233),
+    ("spmv", "ACP+64KB", "unroll=2+coalesce", 0.5, 42929, 179233),
+    ("spmv", "ACP+64KB", "unroll=2+coalesce", 1.0, 24941, 179233),
+)
+#: phase 12c: what the reference's examples print of their simulations
+#: (examples/quickstart.py's cycles, conventional and dataflow;
+#: examples/spmv_dataflow.py's line; jax 0.9.0, on the CPU)
+REF_QUICKSTART_CYCLES = (78135, 26740)
+REF_SPMV_EXAMPLE_LINE = ("Zynq model, 20000 nnz: conventional 76.3 cyc/nnz "
+                         "vs dataflow 2.2 cyc/nnz → 34.1x")
+
 #: each kernel's processor-baseline task in phase 4b when its caches
 #: replayed through the numpy N-way core: NVIDIA H100 80GB HBM3 at
 #: 700.00 W, host clock (PERF.md §5)
 NUMPY_CORE_PROCESSOR_S = {"spmv": 3.37, "knapsack": 0.16,
                           "floyd_warshall": 2.11, "dfs": 0.70}
+
+
+_HEADER = re.compile(r"dataflow program: (\d+) ops -> (\d+) stages, (\d+) "
+                     r"channels \((\d+)B/token\)")
+_PIPELINE = re.compile(r"\s+pipeline II=(\d+)\s+total latency=(\d+)\s+"
+                       r"bubble@8mb=(\S+)$")
+_STAGE = re.compile(r"\s+stage (\d+): \[(.*)\] ii=(\d+) lat=(\d+) "
+                    r"in=(\d+)B out=(\d+)B ?(\S*)(?: regions=(.*))?$")
+_FINDING = re.compile(r"\s+\[(\S+)\] (\w+) @ ([^:]+): (.*?)"
+                      r"(?:\s+\(hint: .*\))?$")
+
+
+def report_key(report: str) -> tuple:
+    """What Algorithm 1 decided, read from a decode-step dataflow report:
+    the header's (ops, stages, channels, bytes per token), the pipeline's
+    (II, total latency, bubble at 8 microbatches), each stage's (ops, II,
+    latency, in bytes, out bytes, flags, regions) and each verifier
+    finding's (rule, severity, where, message) — without the pass times,
+    the ``backend=`` / ``device=`` fields and the hint text."""
+    lines = report.splitlines()
+    m = _HEADER.match(lines[0])
+    if m is None:
+        return (lines[0],)
+    pipeline = stages = ()
+    findings = []
+    for line in lines[1:]:
+        if p := _PIPELINE.match(line):
+            pipeline = (int(p[1]), int(p[2]), p[3])
+        elif s := _STAGE.match(line):
+            stages += ((s[2], int(s[3]), int(s[4]), int(s[5]), int(s[6]),
+                        s[7], s[8] or ""),)
+        elif f := _FINDING.match(line):
+            findings.append(f.groups())
+        elif line.lstrip().startswith("verify:"):
+            findings.insert(0, line.strip())
+    return (tuple(int(g) for g in m.groups()), pipeline, stages,
+            tuple(findings))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -687,6 +987,7 @@ def main() -> None:
 
     # -- 7. the kernel API ----------------------------------------------------
     api_rows, api_launches = kernel_api(dev, model)
+    served_report = model["report"]
     del model
     torch.cuda.empty_cache()
 
@@ -698,6 +999,15 @@ def main() -> None:
 
     # -- 11. training on the card ------------------------------------------------
     train_on_card(dev)
+
+    # -- 12. the decode-step report, F6/F7 on the card, the examples, the
+    #        paper's Fig. 2 / Table II / sweep ----------------------------------
+    t12 = time.perf_counter()
+    reports_on_card(served_report)
+    phase12 = faults_on_card(dev)
+    phase12.update(examples_and_paper(dev))
+    print(f"[12] phase 12 in {time.perf_counter() - t12:.2f} s; hand-kernel "
+          f"launches by path: {phase12}", flush=True)
 
     # -- 10. the kernels line ---------------------------------------------------
     rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
@@ -715,8 +1025,13 @@ def main() -> None:
         row["qwen2.5-14b"] = {k: qwen_rows[row["name"]][k] for k in keys
                               if k not in ("name", "route", "source",
                                            "replaces")}
+    for row in rows:
+        # this kernel's launches on each of phase 12's paths
+        row["phase12_launches"] = {path: n[row["name"]] for path, n in
+                                   phase12.items() if n.get(row["name"])}
     print(json.dumps({"kernels": [{k: row[k] for k in
-                                   (*keys, "qwen2.5-14b") if k in row}
+                                   (*keys, "qwen2.5-14b", "phase12_launches")
+                                   if k in row}
                                   for row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -933,6 +1248,14 @@ def serve_smollm(dev) -> tuple[dict, dict]:
     model = {"tokens": tokens, "table": params["embed"]["table"],
              "norm": layer0["norm1"]["scale"],
              "w_in": layer0["mlp"]["w_up"], "w_out": layer0["mlp"]["w_down"]}
+    # phase 12a's report of the served model, on its bf16 params here
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import BatchedServer
+    before = _lib.counts()
+    t0 = time.perf_counter()
+    report = BatchedServer(cp, params, max_len=MAX_LEN).dataflow_report(reqs)
+    model["report"] = (report, time.perf_counter() - t0,
+                       _lib.counts() == before)
     del params, cache
     torch.cuda.empty_cache()
     return launches, model
@@ -2197,6 +2520,258 @@ def train_on_card(dev) -> None:
           f"rtol 1e-2)", flush=True)
     del params, st
     _free()
+
+
+def reports_on_card(served: tuple) -> None:
+    """Phase 12a: the decode-step dataflow report of the served
+    SmolLM-135M (phase 6b's bf16 params on the card) and of all ten
+    architectures at full width from abstract params, each held to the
+    reference's (``REF_REPORTS``); no kernel may launch; no request gives
+    the "unavailable" string."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, load_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import init_params
+    text, wall, quiet = served
+    require(report_key(text) == REF_REPORTS["smollm-135m"],
+            f"the served smollm-135m's report is not the reference's:\n{text}")
+    require(quiet, "the served model's report launched a kernel")
+    print(f"[12a] served smollm-135m (bf16 on the card, batch "
+          f"{REPORT_BATCH}, max_len {REPORT_MAX_LEN}): "
+          f"{text.splitlines()[0]} — == reference, in {wall:.3f} s",
+          flush=True)
+    reqs = [Request(i, np.zeros(4, np.int32), 2) for i in range(REPORT_BATCH)]
+    before = _lib.counts()
+    walls = []
+    for arch in ARCH_IDS:
+        cfg = load_config(arch)
+        t0 = time.perf_counter()
+        server = BatchedServer(cfg, init_params(None, cfg, "meta"),
+                               max_len=REPORT_MAX_LEN)
+        report = server.dataflow_report(reqs)
+        walls.append(time.perf_counter() - t0)
+        require(report_key(report) == REF_REPORTS[arch],
+                f"{arch}: the report is not the reference's:\n{report}")
+        counts = report_key(report)[0]
+        print(f"[12a] {arch} full width, abstract params: {counts[0]} ops -> "
+              f"{counts[1]} stages, {counts[2]} channels ({counts[3]} "
+              f"B/token), {len(report_key(report)[2])} stage lines == "
+              f"reference, in {walls[-1]:.3f} s", flush=True)
+    empty = server.dataflow_report([])
+    require(empty.startswith("(dataflow analysis unavailable:"),
+            f"dataflow_report([]): {empty!r}")
+    require(_lib.counts() == before, "a report launched a kernel")
+    print(f"[12a] ten reports in {sum(walls):.3f} s, no kernel launched; "
+          f"dataflow_report([]) = {empty!r}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def faults_on_card(dev) -> dict:
+    """Phase 12b: F6 and F7 on the card.  fp32 SmolLM-135M serves phase
+    6's 8 prompts of 512 tokens with a ``max_len`` of 520 and 32 new
+    tokens (24 steps past the end): the kernels' path and the plain path
+    must serve the same tokens.  A prompt with ids V, V + 3, −1 and −V − 2
+    must serve without a device-side assert, with prefill and decode
+    logits within 1e-3 of the CPU port's on the same weights and the same
+    tokens.  Reduced Qwen2.5 (int8 cache) and DeepSeek-V3 (MLA, naive and
+    absorbed) decode past ``max_len`` on the card and on the CPU: logits
+    within 1e-3, greedy tokens equal.  Returns the hand kernels'
+    launches on the fp32 kernels' path."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import load_config, reduced
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(load_config("smollm-135m"), dtype="float32")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    tokens, reqs = _traffic(cfg, dev)
+    max_len = PROMPT_LEN + 8
+    served, launches = {}, {}
+    for impl in ("pallas", "full"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        _lib.reset_counts()
+        t0 = time.perf_counter()
+        res = BatchedServer(c, params, max_len=max_len).serve(reqs)
+        wall = time.perf_counter() - t0
+        launches[impl] = _lib.counts()
+        served[impl] = np.array([r.tokens for r in res])
+        print(f"[12b] smollm-135m fp32 {impl!r}, max_len {max_len}, {GEN} new "
+              f"tokens ({PROMPT_LEN + GEN - max_len} steps past the end): "
+              f"{_serving_line(res, wall)}", flush=True)
+    require(np.array_equal(served["pallas"], served["full"]),
+            "past max_len the kernels' tokens differ from the plain path's")
+    require(launches["pallas"]["decode_attention"] == GEN * cfg.num_layers,
+            f"decode_attention launches past max_len: "
+            f"{launches['pallas']['decode_attention']}")
+    V = cfg.vocab_size
+    ids = np.array([[1, 2, V, V + 3, -1, -V - 2, 4, 5]], np.int32)
+    cp = dataclasses.replace(cfg, attn_impl="pallas")
+    host = tree.tree_map(lambda t: t.cpu(), params)
+    worst = 0.0
+    with torch.inference_mode():
+        got = {}
+        for where, p in (("card", params), ("cpu", host)):
+            d = dev if where == "card" else torch.device("cpu")
+            logits, cache = prefill(p, torch.from_numpy(ids).to(d), cp, 16)
+            step, _ = decode_step(p, torch.tensor([V + 3], device=d), cache,
+                                  ids.shape[1], cp)
+            got[where] = (logits.cpu(), step.cpu())
+        torch.cuda.synchronize()
+        for a, b in zip(got["card"], got["cpu"]):
+            worst = max(worst, float((a - b).abs().max()))
+            require(torch.allclose(a, b, rtol=1e-3, atol=1e-3),
+                    f"ids out of range: card vs CPU logits max|Δ| "
+                    f"{float((a - b).abs().max())}")
+    print(f"[12b] prompt with ids V, V+3, -1, -V-2 (V = {V}) and a decode "
+          f"step on id V+3: served on the card without a device-side "
+          f"assert; prefill and decode logits card vs CPU max|Δ| "
+          f"{worst:.3g} (rtol=atol=1e-3)", flush=True)
+    del params, host
+    _free()
+    rng = np.random.default_rng(5)
+    for arch, change in (("qwen2.5-14b", {"kv_cache_dtype": "int8"}),
+                         ("deepseek-v3-671b", {"mla_absorbed": False}),
+                         ("deepseek-v3-671b", {"mla_absorbed": True})):
+        c = dataclasses.replace(reduced(load_config(arch)), **change)
+        host = init_params(torch.Generator().manual_seed(0), c, "cpu")
+        card = tree.tree_map(lambda t: t.to(dev), host)
+        prompt = rng.integers(0, c.vocab_size, size=(2, 8)).astype(np.int32)
+        worst, toks = 0.0, {}
+        with torch.inference_mode():
+            out = {}
+            for where, p, d in (("cpu", host, torch.device("cpu")),
+                                ("card", card, dev)):
+                logits, cache = prefill(p, torch.from_numpy(prompt).to(d),
+                                        c, 10)
+                seq = [logits.cpu()]
+                for step in range(6):            # lengths 8..13 of 10 slots
+                    # both devices decode the CPU's greedy tokens
+                    tok = out.get("cpu", seq)[step].argmax(-1)
+                    logits, cache = decode_step(p, tok.to(d), cache,
+                                                8 + step, c)
+                    seq.append(logits.cpu())
+                out[where] = seq
+                toks[where] = [t.argmax(-1).tolist() for t in seq]
+        for a, b in zip(out["card"], out["cpu"]):
+            worst = max(worst, float((a - b).abs().max()))
+        require(worst <= 1e-3 * max(1.0, max(float(b.abs().max())
+                                            for b in out["cpu"])),
+                f"{arch} {change} past max_len: card vs CPU max|Δ| {worst}")
+        require(toks["card"] == toks["cpu"],
+                f"{arch} {change} past max_len: card tokens differ")
+        print(f"[12b] reduced {arch} {change}: prefill of 8 then 6 decode "
+              f"steps against 10 slots, card vs CPU logits max|Δ| "
+              f"{worst:.3g}, greedy tokens equal", flush=True)
+        del card, host
+    _free()
+    return {"12b smollm-135m past max_len": launches["pallas"]}
+
+
+def examples_and_paper(dev) -> dict:
+    """Phase 12c: each example's ``main()`` on the card, then Fig. 2,
+    Table II and ``sweep --smoke``, each held to the reference's
+    constants; each one's wall and hand-kernel launches.  The examples'
+    printout goes to ``build/chip_smoke_examples.txt``."""
+    import contextlib
+    import functools
+    import hashlib
+    import io
+    import shutil
+
+    from repro_torch.examples import (quickstart, serve_decode,
+                                      spmv_dataflow, train_lm)
+    from repro_torch.kernels import _lib
+    from repro_torch.workloads import fig2_schedule, sweep, table2
+
+    launches, log = {}, []
+
+    def run(name: str, fn, *args):
+        _lib.reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        wall = time.perf_counter() - t0
+        launches[f"12c {name}"] = {k: n for k, n in _lib.counts().items()
+                                   if n}
+        log.append(f"==== {name} ({wall:.2f} s)\n{buf.getvalue()}")
+        return out, buf.getvalue(), wall
+
+    _, text, wall = run("examples.quickstart", quickstart.main, [])
+    require(text.count("OK (== direct call)") == 3
+            and "backend systolic  : unavailable" in text
+            and "systolic stream (4 stages, 6 microbatches): OK" in text,
+            f"quickstart:\n{text}")
+    require(all(f"({n} cycles)" in text for n in REF_QUICKSTART_CYCLES),
+            f"quickstart's simulation is not the reference's:\n{text}")
+    print(f"[12c] examples.quickstart: three backends == direct call, "
+          f"systolic unavailable, stream OK, simulation cycles "
+          f"{REF_QUICKSTART_CYCLES} == reference, in {wall:.2f} s", flush=True)
+    _, text, wall = run("examples.spmv_dataflow", spmv_dataflow.main, [])
+    require(REF_SPMV_EXAMPLE_LINE in text and "BSR SpMV" in text,
+            f"spmv_dataflow:\n{text}")
+    n = launches["12c examples.spmv_dataflow"]
+    require(n.get("spmv_bsr", 0) >= 1, f"spmv_dataflow launched {n}")
+    print(f"[12c] examples.spmv_dataflow (the main path): report, "
+          f"{REF_SPMV_EXAMPLE_LINE!r} == reference, BSR product == dense; "
+          f"launches {n}, in {wall:.2f} s", flush=True)
+    tokens, text, wall = run("examples.serve_decode", serve_decode.main, [])
+    require(all(len(t) == 16 for kv in tokens.values() for t in kv),
+            f"serve_decode:\n{text}")
+    print(f"[12c] examples.serve_decode: bf16 and int8 caches served 4 x 16 "
+          f"tokens, first request {tokens['bf16'][0][:6]} / "
+          f"{tokens['int8'][0][:6]}; launches "
+          f"{launches['12c examples.serve_decode']}, in {wall:.2f} s",
+          flush=True)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_lm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out, text, wall = run("examples.train_lm", train_lm.main,
+                          ["--ckpt-dir", ckpt])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = out["losses"]
+    print(f"[12c] examples.train_lm: reduced smollm, {len(losses)} steps, "
+          f"loss {sum(losses[:10]) / 10:.3f} -> {sum(losses[-10:]) / 10:.3f}"
+          f" (must fall), in {wall:.2f} s", flush=True)
+    text, _, wall = run("workloads.fig2_schedule", fig2_schedule.main, [])
+    require(hashlib.sha256(text.encode()).hexdigest()
+            == "".join(REF_FIG2_SHA256)
+            and f"{REF_FIG2_CONVENTIONAL_CYCLES} cycles" in text,
+            f"Fig. 2 text is not the reference's:\n{text}")
+    print(f"[12c] workloads.fig2_schedule: text == reference (SHA-256), in "
+          f"{wall:.2f} s", flush=True)
+    out, _, wall = run("workloads.table2", table2.main, ["--out", ""])
+    got = {r["kernel"]: (r["nodes"], r["stages_dataflow"],
+                         r["stages_conventional"], r["channels"],
+                         r["channel_bytes_per_token"], r["duplicated_ops"],
+                         r["ops_per_stage"], r["op_instances_conventional"],
+                         r["op_instances_dataflow"]) for r in out["rows"]}
+    require(got == REF_TABLE2, f"Table II rows: {got}")
+    print(f"[12c] workloads.table2: four rows == reference, in {wall:.2f} s",
+          flush=True)
+    # the grid and measure_perf; the worker-scaling probe (8 x 2^20
+    # iterations, streamed and sharded) is left out: phase 9 shards the
+    # Fig. 5 SpMV cell already
+    out, _, wall = run("workloads.sweep --smoke", functools.partial(
+        sweep.run_sweep, smoke=True, rescache=False, scaling=False,
+        out_path=os.path.join(ROOT, "build", "chip_smoke_sweep.json")))
+    got = tuple((r["kernel"], r["mem"], r.get("transform") or "none",
+                 r["words_per_cycle"], r["dataflow_cycles"],
+                 r["conventional_cycles"]) for r in out["rows"])
+    require(got == REF_SWEEP_SMOKE, f"sweep --smoke cycles: {got}")
+    print(f"[12c] workloads.sweep --smoke: {len(got)} grid points' cycles == "
+          f"reference (the grid and measure_perf {out['wall_s']:.2f} s; the "
+          f"worker-scaling probe left out), launches "
+          f"{launches['12c workloads.sweep --smoke']}, in {wall:.2f} s",
+          flush=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_examples.txt"),
+              "w") as f:
+        f.write("\n".join(log))
+    return launches
 
 
 def _walls() -> str:

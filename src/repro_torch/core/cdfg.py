@@ -18,6 +18,17 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   equations of the jaxpr's out-of-place store — ``lt, add, select_n,
   broadcast_in_dim, scatter`` (the wrap, the (1,) index, then a scatter
   that drops an index still out of range);
+* :func:`take` (``x[idx]`` with the reference's wrap-then-clamp read)
+  into those of ``x[idx]``;
+* :func:`scan` (a loop kept inside one call: a model segment's repeats)
+  into one ``scan`` equation, as ``jax.lax.scan`` is one in the jaxpr;
+* a static index into ``slice`` / ``squeeze`` / ``broadcast_in_dim``,
+  ``x.mean`` into ``reduce_sum, broadcast_in_dim, div``, ``x.var`` into
+  one ``jit`` (``jnp.var`` is a jitted function), ``x.float()`` /
+  ``x.to(dtype)`` into ``convert_element_type`` (nothing when the dtype
+  stays), a two-operand ``torch.einsum`` into ``dot_general``, and rank
+  promotion into a ``broadcast_in_dim`` — what the decode step's top
+  level needs;
 * ``operator.mul`` → ``mul``, ``operator.add`` → ``add``, and so on.
 
 So :data:`MEMORY_PRIMITIVES`, :data:`DEFAULT_LATENCY`,
@@ -46,7 +57,9 @@ annotation — the analogue of the paper's user-guided alias results.
 
 from __future__ import annotations
 
+import builtins
 import dataclasses
+import functools
 import inspect
 import operator
 from typing import Any, Callable, Iterable, Mapping, Sequence
@@ -55,6 +68,8 @@ import torch
 import torch.fx as fx
 import torch.utils._pytree as pytree
 from torch.fx.passes.shape_prop import ShapeProp
+
+from .. import tree
 
 # ---------------------------------------------------------------------------
 # Operation classification (the paper's "long latency" table, §III-A) —
@@ -256,10 +271,11 @@ def _broadcast_in_dim(x: torch.Tensor, *, shape: tuple[int, ...],
 
 def _gather(operand: torch.Tensor, indices: torch.Tensor, *,
             slice_sizes: tuple[int, ...]) -> torch.Tensor:
-    # whole rows along axis 0 (the lowering of x[idx]); indices (N, 1) are
-    # in range after the wrap, and clamped like the reference's gather
-    rows = torch.clamp(indices[:, 0], 0, operand.shape[0] - 1)
-    return torch.index_select(operand, 0, rows.long())
+    # whole rows along axis 0 (the lowering of x[idx]); indices (..., 1)
+    # are in range after the wrap, and clamped like the reference's gather
+    rows = torch.clamp(indices[..., 0], 0, operand.shape[0] - 1)
+    out = torch.index_select(operand, 0, rows.reshape(-1).long())
+    return out.reshape(rows.shape + operand.shape[1:])
 
 
 def _scatter(operand: torch.Tensor, indices: torch.Tensor,
@@ -292,6 +308,87 @@ def at_set(x: torch.Tensor, i: torch.Tensor, v: Any) -> torch.Tensor:
     i = torch.as_tensor(i, device=x.device)
     idx = torch.where(i < 0, i + x.shape[0], i)
     return _scatter(x, idx.reshape(1), v)
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]``: the rows of ``x`` at the integer ``idx``, with the
+    reference's read semantics — a negative index wraps once, and an
+    index still out of range reads the nearest row (the jaxpr's gather
+    clamps).  Plain torch indexing raises instead (a device-side assert
+    on the card).
+
+    Under ``torch.fx`` tracing the call is the one node ``x[idx]``, which
+    the front end lowers to the jaxpr's equations of ``x[idx]`` with
+    their clamping gather."""
+    if isinstance(x, fx.Proxy) or isinstance(idx, fx.Proxy):
+        return x[idx]
+    n = x.shape[0]
+    return x[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+
+
+def _convert_element_type(x: torch.Tensor, *, new_dtype: torch.dtype
+                          ) -> torch.Tensor:
+    return x.to(new_dtype)
+
+
+def _reduce_sum(x: torch.Tensor, *, axes: tuple[int, ...]) -> torch.Tensor:
+    return x.sum(dim=axes)
+
+
+def _slice(x: torch.Tensor, *, start_indices: tuple[int, ...],
+           limit_indices: tuple[int, ...], strides: Any) -> torch.Tensor:
+    steps = strides or (1,) * x.ndim
+    return x[tuple(slice(a, b, c) for a, b, c in
+                   zip(start_indices, limit_indices, steps))]
+
+
+def _var(x: torch.Tensor, correction: int, *, axes: tuple[int, ...]
+         ) -> torch.Tensor:
+    # the body of the reference's ``jnp.var``, which its jaxpr holds as one
+    # opaque ``jit`` equation
+    return x.var(dim=axes, correction=correction, keepdim=True)
+
+
+def _einsum(a: torch.Tensor, b: torch.Tensor, *, equation: str
+            ) -> torch.Tensor:
+    return torch.einsum(equation, a, b)
+
+
+def scan(body: Callable, carry: Any, consts: Any, state: Any
+         ) -> tuple[Any, Any]:
+    """``body(carry, consts, state) -> (carry, new_state)``, called once:
+    a loop that ``body`` keeps inside (a segment's repeats), which the
+    front end sees as one ``scan`` equation — the reference's
+    ``jax.lax.scan`` over stacked repeats.  ``new_state`` has ``state``'s
+    structure, shapes and dtypes.
+
+    Under ``torch.fx`` tracing the call is one node whose inputs are the
+    carry and the leaves of ``consts`` and ``state`` and whose outputs
+    are the new carry and the leaves of the new state; ``body`` rides on
+    the node's ``meta``, so the lowered equation runs it."""
+    if not isinstance(carry, fx.Proxy):
+        return body(carry, consts, state)
+    n_state = len(tree.leaves(state))
+    out = carry.tracer.create_proxy(
+        "call_function", _scan_node,
+        (carry, tuple(tree.leaves(consts)), tuple(tree.leaves(state))), {})
+    out.node.meta["scan"] = (body, consts, state)
+    return out[0], tree.unflatten(state, [out[1 + i]
+                                          for i in range(n_state)])
+
+
+def _scan_node(carry: Any, consts: tuple, state: tuple) -> tuple:
+    """The call target of a traced :func:`scan` (its node's body lives in
+    ``meta``; the lowered equation runs it)."""
+    raise RuntimeError("a traced scan runs through its lowered equation")
+
+
+def _run_scan(body: Callable, consts_like: Any, state_like: Any,
+              n_consts: int, carry: Any, *leaves: Any) -> tuple:
+    consts = tree.unflatten(consts_like, list(leaves[:n_consts]))
+    state = tree.unflatten(state_like, list(leaves[n_consts:]))
+    carry, new_state = body(carry, consts, state)
+    return (carry, *tree.leaves(new_state))
 
 
 #: FX node (call_function target, or call_method name) -> primitive name
@@ -335,6 +432,8 @@ _IMPL: dict[str, Callable[..., Any]] = {
     "select_n": _select_n, "dynamic_slice": _dynamic_slice,
     "squeeze": _squeeze, "broadcast_in_dim": _broadcast_in_dim,
     "gather": _gather, "scatter": _scatter,
+    "convert_element_type": _convert_element_type, "reduce_sum": _reduce_sum,
+    "slice": _slice,
 }
 
 
@@ -355,10 +454,10 @@ class _Lowering:
         self.out_tree: Any = None
 
     def emit(self, prim: str, invars: list[Any], aval: Aval, source: str,
-             **params: Any) -> Var:
+             impl: Callable[..., Any] | None = None, **params: Any) -> Var:
         out = Var(aval, f"{source}.{len(self.eqns)}")
-        self.eqns.append(Eqn(prim, invars, [out], params, _IMPL[prim],
-                             source))
+        self.eqns.append(Eqn(prim, invars, [out], params,
+                             impl or _IMPL[prim], source))
         return out
 
     def read(self, arg: Any, like: Aval | None = None) -> Any:
@@ -401,23 +500,35 @@ class _Lowering:
         return Graph(self.eqns, self.invars, outvars, self.constvars,
                      self.consts, str(self.gm.graph))
 
-    def lower(self, node: fx.Node) -> Var:
+    def lower(self, node: fx.Node) -> Any:
         target = node.target
-        if node.kwargs:
-            raise NotImplementedError(
-                f"keyword arguments on {target!r} are not lowered yet")
         if target in (operator.getitem, "__getitem__"):
             return self.lower_getitem(node)
         if target is at_set:
             return self.lower_at_set(node)
+        if target is _scan_node:
+            return self.lower_scan(node)
+        if target is builtins.getattr:
+            return self.lower_getattr(node)
+        if target in ("float", "to"):
+            return self.lower_convert(node)
+        if target in ("mean", "var"):
+            return self.lower_reduction(node)
+        if target is torch.einsum:
+            return self.lower_einsum(node)
+        if node.kwargs:
+            raise NotImplementedError(
+                f"keyword arguments on {target!r} are not lowered yet")
         aval = _aval_of(node)
         if target in _BINARY and len(node.args) == 2:
             a, b = node.args
             like = self.env[a].aval if isinstance(a, fx.Node) \
                 else self.env[b].aval
-            return self.emit(_BINARY[target],
-                             [self.read(a, like), self.read(b, like)],
-                             aval, node.name)
+            prim = _BINARY[target]
+            ops = [self.read(a, like), self.read(b, like)]
+            if prim != "dot_general":
+                ops = self.promote_ranks(ops, node.name)
+            return self.emit(prim, ops, aval, node.name)
         if target in _UNARY and len(node.args) == 1:
             return self.emit(_UNARY[target], [self.read(node.args[0])],
                              aval, node.name)
@@ -430,18 +541,46 @@ class _Lowering:
             f"FX node {node.op} {target!r} is not lowered by the port's "
             f"front end yet")
 
-    def lower_getitem(self, node: fx.Node) -> Var:
-        """``x[j]`` with a 0-d or 1-D integer tensor → the jaxpr's five
+    def promote_ranks(self, ops: list[Any], source: str) -> list[Any]:
+        """numpy rank promotion as the jaxpr spells it: of two operands
+        of rank ≥ 1, the lower-rank one is first broadcast (leading unit
+        axes) by a ``broadcast_in_dim``; a scalar operand is not."""
+        ranks = [len(o.aval.shape) if isinstance(o, Var) else 0
+                 for o in ops]
+        if min(ranks) == 0 or ranks[0] == ranks[1]:
+            return ops
+        r = max(ranks)
+        out = []
+        for o, k in zip(ops, ranks):
+            if k < r:
+                shape = (1,) * (r - k) + o.aval.shape
+                o = self.emit("broadcast_in_dim", [o],
+                              Aval(shape, o.aval.dtype), source,
+                              shape=shape,
+                              broadcast_dimensions=tuple(range(r - k, r)))
+            out.append(o)
+        return out
+
+    def lower_getitem(self, node: fx.Node) -> Any:
+        """``x[j]`` with a 0-d or N-d integer tensor → the jaxpr's five
         equations: wrap negative indices, then slice one row and drop the
-        axis (0-d), or gather whole rows at an (N, 1) index (1-D)."""
+        axis (0-d), or gather whole rows at an (..., 1) index (N-d).  A
+        static index (ints, slices, ``None``) → ``slice`` / ``squeeze`` /
+        ``broadcast_in_dim``; an int into a node's tuple of outputs picks
+        one."""
         arr_n, idx_n = node.args
-        arr, idx = self.env[arr_n], self.read(idx_n)
-        if not (isinstance(idx, Var) and len(idx.aval.shape) <= 1
+        arr = self.env[arr_n]
+        if isinstance(arr, tuple):
+            return arr[idx_n]
+        if not isinstance(idx_n, fx.Node):
+            return self.lower_static_index(node, arr, idx_n)
+        idx = self.read(idx_n)
+        if not (isinstance(idx, Var)
                 and not idx.aval.dtype.is_floating_point
                 and idx.aval.dtype != torch.bool):
             raise NotImplementedError(
-                f"indexing {arr_n.name}[{idx_n!r}]: only a 0-d or 1-D "
-                f"integer tensor index is lowered yet")
+                f"indexing {arr_n.name}[{idx_n!r}]: only an integer tensor "
+                f"index is lowered yet")
         it, src, ishape = idx.aval.dtype, node.name, idx.aval.shape
         scalar = Aval((), it)
         neg = self.emit("lt", [idx, Literal(0, scalar)],
@@ -454,7 +593,8 @@ class _Lowering:
         if ishape:
             col = self.emit("broadcast_in_dim", [sel],
                             Aval(ishape + (1,), it), src,
-                            shape=ishape + (1,), broadcast_dimensions=(0,))
+                            shape=ishape + (1,),
+                            broadcast_dimensions=tuple(range(len(ishape))))
             return self.emit("gather", [arr, col],
                              Aval(ishape + sizes[1:], arr.aval.dtype), src,
                              slice_sizes=sizes)
@@ -463,6 +603,145 @@ class _Lowering:
                         Aval(sizes, arr.aval.dtype), src, slice_sizes=sizes)
         return self.emit("squeeze", [row], Aval(sizes[1:], arr.aval.dtype),
                          src, dimensions=(0,))
+
+    def lower_static_index(self, node: fx.Node, arr: Var, index: Any
+                           ) -> Var:
+        """``x[:, 0]`` → ``slice`` then ``squeeze`` of the int axes;
+        ``x[:, None]`` → ``broadcast_in_dim`` — the equations of a static
+        basic index in the jaxpr."""
+        index = index if isinstance(index, tuple) else (index,)
+        shape, dt, src = arr.aval.shape, arr.aval.dtype, node.name
+        axes = [i for i in index if i is not None]
+        if len(axes) > len(shape) or not all(
+                isinstance(i, (int, slice)) for i in axes):
+            raise NotImplementedError(
+                f"indexing with {index!r} is not lowered yet")
+        axes += [slice(None)] * (len(shape) - len(axes))
+        bounds, dropped = [], []
+        for d, (i, n) in enumerate(zip(axes, shape)):
+            if isinstance(i, int):
+                k = i + n if i < 0 else i
+                bounds.append((k, k + 1, 1))
+                dropped.append(d)
+            else:
+                bounds.append(i.indices(n))
+        out = arr
+        if dropped or any(b != (0, n, 1) for b, n in zip(bounds, shape)):
+            sizes = tuple(len(range(*b)) for b in bounds)
+            steps = tuple(b[2] for b in bounds)
+            out = self.emit("slice", [out], Aval(sizes, dt), src,
+                            start_indices=tuple(b[0] for b in bounds),
+                            limit_indices=tuple(b[1] for b in bounds),
+                            strides=None if set(steps) == {1} else steps)
+        if dropped:
+            kept = tuple(n for d, n in enumerate(out.aval.shape)
+                         if d not in dropped)
+            out = self.emit("squeeze", [out], Aval(kept, dt), src,
+                            dimensions=tuple(dropped))
+        if any(i is None for i in index):
+            final = tuple(_aval_of(node).shape)
+            pos, k = [], 0
+            for i in index:
+                if i is None:
+                    k += 1
+                elif not isinstance(i, int):
+                    pos.append(k)
+                    k += 1
+            pos += range(k, len(final))
+            out = self.emit("broadcast_in_dim", [out], Aval(final, dt), src,
+                            shape=final, broadcast_dimensions=tuple(pos))
+        return out
+
+    def lower_scan(self, node: fx.Node) -> tuple[Var, ...]:
+        """A traced :func:`scan` → one ``scan`` equation: inputs the
+        carry and the leaves of ``consts`` and ``state``, outputs the new
+        carry and the leaves of the new state."""
+        carry_n, const_ns, state_ns = node.args
+        invars = [self.read(a) for a in (carry_n, *const_ns, *state_ns)]
+        outs = tuple(Var(Aval(tuple(m.shape), m.dtype),
+                         f"{node.name}.{len(self.eqns)}.{i}")
+                     for i, m in enumerate(node.meta["tensor_meta"]))
+        body, consts_like, state_like = node.meta["scan"]
+        impl = functools.partial(_run_scan, body, consts_like, state_like,
+                                 len(const_ns))
+        self.eqns.append(Eqn("scan", invars, list(outs), {}, impl,
+                             node.name))
+        return outs
+
+    def lower_getattr(self, node: fx.Node) -> Any:
+        """``x.dtype``: static, no equation."""
+        x, name = node.args
+        if name != "dtype":
+            raise NotImplementedError(f"attribute {name!r} is not lowered "
+                                      f"yet")
+        return self.env[x].aval.dtype
+
+    def lower_convert(self, node: fx.Node) -> Var:
+        """``x.float()``, ``x.to(dtype)`` → ``convert_element_type``;
+        nothing when the dtype does not change, as ``astype`` to the
+        same dtype traces to no equation."""
+        x = self.env[node.args[0]]
+        if node.target == "float":
+            dtype = torch.float32
+        else:
+            args = [self.env[a] if isinstance(a, fx.Node) else a
+                    for a in (*node.args[1:], *node.kwargs.values())]
+            dtypes = [a for a in args if isinstance(a, torch.dtype)]
+            if len(dtypes) != 1:
+                raise NotImplementedError(
+                    f"{node.target}{tuple(node.args[1:])}: only a dtype "
+                    f"conversion is lowered yet")
+            dtype = dtypes[0]
+        if dtype == x.aval.dtype:
+            return x
+        return self.emit("convert_element_type", [x],
+                         Aval(x.aval.shape, dtype), node.name,
+                         new_dtype=dtype)
+
+    def lower_reduction(self, node: fx.Node) -> Var:
+        """``x.mean(dim, keepdim)`` → ``reduce_sum``, a
+        ``broadcast_in_dim`` back to the kept axes, ``div`` by the count
+        (``jnp.mean``); ``x.var(dim, keepdim=True, unbiased=False)`` → one
+        ``jit`` equation, as ``jnp.var`` is a jitted function."""
+        params = dict(zip(("dim", "keepdim"), node.args[1:]), **node.kwargs)
+        x = self.env[node.args[0]]
+        shape, dt, src = x.aval.shape, x.aval.dtype, node.name
+        dim = params["dim"]
+        dims = (dim,) if isinstance(dim, int) else dim
+        axes = tuple(sorted(d % len(shape) for d in dims))
+        keep = tuple(1 if d in axes else n for d, n in enumerate(shape))
+        if node.target == "var":
+            correction = params.get("correction",
+                                    int(params.get("unbiased", True)))
+            if not params.get("keepdim"):
+                raise NotImplementedError("var without keepdim=True")
+            return self.emit("jit", [x, Literal(correction,
+                                                Aval((), torch.int32))],
+                             Aval(keep, dt), src,
+                             impl=functools.partial(_var, axes=axes))
+        reduced = tuple(n for d, n in enumerate(shape) if d not in axes)
+        out = self.emit("reduce_sum", [x], Aval(reduced, dt), src,
+                        axes=axes)
+        if params.get("keepdim"):
+            out = self.emit("broadcast_in_dim", [out], Aval(keep, dt), src,
+                            shape=keep,
+                            broadcast_dimensions=tuple(
+                                d for d in range(len(shape))
+                                if d not in axes))
+        count = 1
+        for d in axes:
+            count *= shape[d]
+        return self.emit("div", [out, Literal(float(count), Aval((), dt))],
+                         out.aval, src)
+
+    def lower_einsum(self, node: fx.Node) -> Var:
+        """A two-operand ``torch.einsum`` → ``dot_general``."""
+        equation, *operands = node.args
+        if len(operands) != 2:
+            raise NotImplementedError("einsum of other than two operands")
+        return self.emit("dot_general", [self.read(o) for o in operands],
+                         _aval_of(node), node.name,
+                         impl=functools.partial(_einsum, equation=equation))
 
     def lower_at_set(self, node: fx.Node) -> Var:
         """``at_set(x, i, v)`` with a 0-d integer tensor ``i`` → the
@@ -511,6 +790,9 @@ class _MetaShapeProp(ShapeProp):
             return args[0].select(0, 0)
         if target is at_set:
             return torch.empty_like(args[0])
+        if target is _scan_node:     # the carry and the state keep shapes
+            return (torch.empty_like(args[0]),
+                    *map(torch.empty_like, args[2]))
         return super().call_function(target, args, kwargs)
 
     def call_method(self, target: Any, args: Any, kwargs: Any) -> Any:

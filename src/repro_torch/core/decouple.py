@@ -61,7 +61,11 @@ def _make_stage_fn(eqns: Sequence[Eqn], in_vars: Sequence[Any],
         for eqn in eqns:
             invals = [v.val if isinstance(v, Literal) else env[v]
                       for v in eqn.invars]
-            env[eqn.outvars[0]] = eqn.eval(*invals)
+            out = eqn.eval(*invals)
+            if len(eqn.outvars) == 1:
+                env[eqn.outvars[0]] = out
+            else:                   # a scan: the carry and the state
+                env.update(zip(eqn.outvars, out))
         return tuple(env[v] for v in out_vars)
 
     return fn

@@ -12,7 +12,9 @@ The largest models need more than one card at full depth (ROADMAP).
 
 The demo is the template end to end: prefill is the burst-access stage,
 the KV cache is the customized memory partition, and decode steps stream
-it back.  The decode-step dataflow report is not ported yet and raises.
+it back.  ``BatchedServer.dataflow_report`` gives the Algorithm-1
+stage/channel analysis of the decode step at a batch's shape, traced on
+``meta`` tensors (no weights are read, no kernel is launched).
 
 The resolution daemon's control commands::
 
@@ -33,13 +35,10 @@ import json
 import logging
 import sys
 import time
+from typing import Any
 
 import numpy as np
 import torch
-
-_REPORT_LATER = ("the decode-step dataflow report needs torch.fx lowering "
-                 "rules for the transformer step (ROADMAP: \"The "
-                 "decode-step dataflow report\")")
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -79,7 +78,15 @@ class BatchedServer:
         self.device = params["embed"]["table"].device
 
     def dataflow_report(self, requests: list[Request]) -> str:
-        raise NotImplementedError(_REPORT_LATER)
+        """Stage/channel report of the decode step for this batch shape
+        (the reference's: the step at length 8 of a ``max_len`` cache).
+        Never raises: a failed analysis returns ``"(dataflow analysis
+        unavailable: <type>: <message>)"``."""
+        try:
+            return decode_report(self.cfg, self.params, len(requests),
+                                 self.max_len)
+        except Exception as e:  # noqa: BLE001 — the report is best-effort
+            return f"(dataflow analysis unavailable: {type(e).__name__}: {e})"
 
     @torch.inference_mode()
     def serve(self, requests: list[Request]) -> list[Result]:
@@ -112,6 +119,82 @@ class BatchedServer:
         seq = torch.stack(tokens, 1).cpu().numpy()  # (B, gen)
         return [Result(r.id, seq[i, :r.max_new_tokens].tolist(), prefill_s,
                        decode_s / gen) for i, r in enumerate(requests)]
+
+
+# ---------------------------------------------------------------------------
+# The decode step's dataflow report
+# ---------------------------------------------------------------------------
+
+def _sorted_paths(tree: Any, prefix: tuple = ()) -> list[tuple]:
+    """Leaf paths in the order ``jax`` flattens a tree: dict keys sorted,
+    sequence items in order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _sorted_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _sorted_paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def reference_order(tree: dict) -> list[tuple]:
+    """The leaf paths of a port's params or cache tree in the order of
+    the reference's leaves.  The reference stacks a segment's repeats on
+    a leading axis, so under ``segment_<i>`` (``[repeat][unit]`` here)
+    its order is unit, then the layer's sorted paths, then repeat."""
+    out = []
+    for key in sorted(tree):
+        sub = tree[key]
+        if not key.startswith("segment_"):
+            out += [(key,) + p for p in _sorted_paths(sub)]
+            continue
+        for j in range(len(sub[0])):
+            out += [(key, r, j) + p for p in _sorted_paths(sub[0][j])
+                    for r in range(len(sub))]
+    return out
+
+
+def _at(tree: Any, path: tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def decode_report(cfg, params: dict, batch: int, max_len: int) -> str:
+    """The dataflow report of ``decode_step`` at ``batch`` sequences of a
+    ``max_len`` cache holding 8 tokens (the reference's step), compiled
+    for ``meta`` tensors: shapes and dtypes of ``params`` only (on any
+    device, or ``meta`` from ``init_params(None, cfg, "meta")``).  The
+    graph's
+    inputs are the parameter leaves, the token and the cache leaves, each
+    tree's leaves in :func:`reference_order`, so region names are the
+    reference's; each segment is one ``scan`` equation."""
+    from .. import tree
+    from ..dataflow import compile as dataflow_compile
+    from ..models import decode_step, init_cache
+    if batch < 1:
+        raise ValueError(f"a decode step needs at least one sequence, "
+                         f"got a batch of {batch}")
+    meta = tree.tree_map(lambda t: t.to("meta"), params)
+    cache = init_cache(cfg, batch, max_len, "meta")
+    p_order, c_order = reference_order(meta), reference_order(cache)
+    p_paths = [p for p, _ in tree.flatten_with_paths(meta)]
+    c_paths = [p for p, _ in tree.flatten_with_paths(cache)]
+
+    def step(p_leaves, token, c_leaves):
+        p = dict(zip(p_order, p_leaves))
+        c = dict(zip(c_order, c_leaves))
+        return decode_step(tree.unflatten(meta, [p[k] for k in p_paths]),
+                           token,
+                           tree.unflatten(cache, [c[k] for k in c_paths]),
+                           8, cfg)
+
+    compiled = dataflow_compile(
+        step, tuple(_at(meta, k) for k in p_order),
+        torch.zeros(batch, dtype=torch.int32, device="meta"),
+        tuple(_at(cache, k) for k in c_order),
+        backend="eager", device="meta", use_cache=False)
+    return compiled.report()
 
 
 # ---------------------------------------------------------------------------

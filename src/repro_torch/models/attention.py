@@ -198,25 +198,28 @@ def gqa_decode(params: dict, x: torch.Tensor, cache: dict, length: int,
 
     x: (B, 1, d); length: tokens already in the cache.  The new key and
     value (int8 codes and their scales in an int8 cache) are written into
-    ``cache`` in place at ``length``.
+    ``cache`` in place at ``length``, or into its last slot once the
+    cache is full, where the reference's ``dynamic_update_slice`` clamps
+    its start; the position and the attended length stay ``length``.
     """
     B = x.shape[0]
     positions = torch.full((B, 1), length, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
     lengths = torch.full((B,), length + 1, dtype=torch.int32,
                          device=x.device)
+    slot = min(length, cache["k"].shape[2] - 1)
     if cfg.kv_cache_dtype == "int8":
         for name, t in (("k", k), ("v", v)):
             codes, scale = _kv_quantize(t)
-            cache[name][:, :, length] = codes[:, :, 0]
-            cache[name + "_scale"][:, :, length] = scale[:, :, 0]
+            cache[name][:, :, slot] = codes[:, :, 0]
+            cache[name + "_scale"][:, :, slot] = scale[:, :, 0]
         out = _decode_chunked(q[:, :, 0], cache["k"], cache["v"], lengths,
                               k_scale=cache["k_scale"],
                               v_scale=cache["v_scale"])
         return out.reshape(B, 1, -1) @ params["w_o"], cache
     # append new k/v at `length` (the decoupled cache write stage)
-    cache["k"][:, :, length] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, length] = v[:, :, 0].to(cache["v"].dtype)
+    cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
     if cfg.attn_impl == "pallas":
         out = kops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
                                     lengths)
@@ -371,12 +374,14 @@ def mla_init_cache(cfg, batch: int, max_len: int,
 def mla_decode(params: dict, x: torch.Tensor, cache: dict, length: int,
                cfg) -> tuple[torch.Tensor, dict]:
     """One-token decode; the latent and RoPE key are written into
-    ``cache`` in place at ``length``."""
+    ``cache`` in place at ``length`` (the last slot once the cache is
+    full, as in :func:`gqa_decode`)."""
     B = x.shape[0]
     positions = torch.full((B, 1), length, device=x.device)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, positions)
-    cache["c_kv"][:, length] = c_kv[:, 0].to(cache["c_kv"].dtype)
-    cache["k_pe"][:, length] = k_pe[:, 0].to(cache["k_pe"].dtype)
+    slot = min(length, cache["c_kv"].shape[1] - 1)
+    cache["c_kv"][:, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_pe"][:, slot] = k_pe[:, 0].to(cache["k_pe"].dtype)
     if cfg.mla_absorbed:
         out = _mla_decode_absorbed(params, q_nope, q_pe, cache["c_kv"],
                                    cache["k_pe"], length, cfg)

@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.cdfg import take
 from ..kernels.ref import rmsnorm_ref
 
 
@@ -143,7 +144,9 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embedding_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    """The table's rows at ``tokens``; an id out of range reads as in the
+    reference (a negative id wraps once, then ids clamp to the table)."""
+    return take(params["table"], tokens)
 
 
 def unembed_apply(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,6 @@ inputs as ``meta`` tensors (shape and dtype, no storage: the reference's
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from . import layers, transformer
 from .._device import get_device
@@ -42,9 +41,18 @@ def init_params(gen: torch.Generator | None, cfg: ModelConfig,
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy in fp32.  logits (..., V), labels (...)."""
-    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                           labels.reshape(-1).long())
+    """Mean cross-entropy in fp32.  logits (..., V), labels (...).
+
+    The reference's ``take_along_axis`` semantics: a negative label wraps
+    once, and a label still out of range reads NaN, so the mean is NaN
+    (no label is dropped)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    V = logp.shape[-1]
+    labels = labels.long()
+    labels = torch.where(labels < 0, labels + V, labels)
+    valid = (labels >= 0) & (labels < V)
+    nll = -logp.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
+    return torch.where(valid, nll, torch.nan).mean()
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig

@@ -21,6 +21,7 @@ embeddings, not tokens.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention, layers, moe, ssm
 from .._device import get_device
+from ..core import cdfg
 from ..configs.base import LayerSpec, ModelConfig
 
 
@@ -326,22 +328,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         for si, seg in enumerate(cfg.segments)}
 
 
+def _segment_decode(x: torch.Tensor, seg_params: list, seg_cache: list, *,
+                    length: int, unit, cfg: ModelConfig
+                    ) -> tuple[torch.Tensor, list]:
+    """One segment's repeats in order, each a decode step of its unit's
+    layers: the body of the reference's scan over the stacked repeats."""
+    new_seg_cache = []
+    for rep_params, rep_cache in zip(seg_params, seg_cache):
+        new_rep_cache = []
+        for j, spec in enumerate(unit):
+            x, c = _layer_decode(rep_params[j], x, rep_cache[j], length,
+                                 spec, cfg)
+            new_rep_cache.append(c)
+        new_seg_cache.append(new_rep_cache)
+    return x, new_seg_cache
+
+
 def decode_step(params: dict, token: torch.Tensor, cache: dict, length: int,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One new token for every sequence.  token: (B,) int; length: tokens
     already in the cache.  Returns (logits (B, vocab), cache), the cache
-    updated in place."""
+    updated in place.  Each segment is one :func:`cdfg.scan`, so the
+    front end traces this step as the reference's jaxpr: a segment is
+    one ``scan`` equation."""
     x = layers.embedding_apply(params["embed"], token[:, None])
     new_cache: dict[str, Any] = {}
     for si, seg in enumerate(cfg.segments):
-        seg_cache = []
-        for rep_params, rep_cache in zip(params[f"segment_{si}"],
-                                         cache[f"segment_{si}"]):
-            new_rep_cache = []
-            for j, spec in enumerate(seg.unit):
-                x, c = _layer_decode(rep_params[j], x, rep_cache[j], length,
-                                     spec, cfg)
-                new_rep_cache.append(c)
-            seg_cache.append(new_rep_cache)
-        new_cache[f"segment_{si}"] = seg_cache
+        body = functools.partial(_segment_decode, length=length,
+                                 unit=seg.unit, cfg=cfg)
+        x, new_cache[f"segment_{si}"] = cdfg.scan(
+            body, x, params[f"segment_{si}"], cache[f"segment_{si}"])
     return _final_logits(params, x, cfg)[:, 0], new_cache

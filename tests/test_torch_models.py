@@ -432,6 +432,37 @@ def test_mla_absorbed_and_naive_match_the_reference():
            ref_attention.mla_apply(rlp, jnp.asarray(x), ref_cfg))
 
 
+@pytest.mark.parametrize("case", ["int8", "mla-naive", "mla-absorbed"])
+def test_decoding_past_max_len_matches_reference(case):
+    """Past ``max_len`` the reference's cache writes clamp to the last
+    slot (``dynamic_update_slice``) while positions keep counting: the
+    int8 cache (Qwen2.5, codes and f16 scales bit for bit) and the MLA
+    latent cache (DeepSeek-V3, naive and absorbed decode) give the
+    reference's logits (TOL) and greedy tokens (exact) at every step,
+    and its caches at the end."""
+    arch = "qwen2.5-14b" if case == "int8" else "deepseek-v3-671b"
+    ref_cfg, cfg, ref_params, params = model(arch)
+    change = ({"kv_cache_dtype": "int8"} if case == "int8" else
+              {"mla_absorbed": case == "mla-absorbed"})
+    ref_cfg = dataclasses.replace(ref_cfg, **change)
+    cfg = dataclasses.replace(cfg, **change)
+    tokens = _tokens(cfg, 11)
+    max_len = S + 2
+    ref_logits, ref_cache = ref_prefill(ref_params, jnp.asarray(tokens),
+                                        ref_cfg, max_len)
+    logits, cache = prefill(params, _t(tokens), cfg, max_len)
+    for step in range(5):            # lengths S..S+4 against S+2 slots
+        tok = np.asarray(ref_logits).argmax(-1).astype(np.int32)
+        assert np.array_equal(logits.argmax(-1).numpy(), tok)
+        ref_logits, ref_cache = ref_decode_step(
+            ref_params, jnp.asarray(tok), ref_cache,
+            jnp.asarray(S + step, jnp.int32), ref_cfg)
+        logits, cache = decode_step(params, _t(tok), cache, S + step, cfg)
+        _close(logits, ref_logits)
+    _trees_close(interop.lm_cache_to_numpy(cache),
+                 jax.tree_util.tree_map(np.asarray, ref_cache))
+
+
 # ---------------------------------------------------------------------------
 # SSM: Mamba and RWKV-6
 # ---------------------------------------------------------------------------

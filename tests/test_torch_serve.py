@@ -230,6 +230,73 @@ def test_server_takes_the_reference_greedy_flag(model, greedy):
         cfg, params, max_len=MAX_LEN).serve(reqs)]
 
 
+# ---------------------------------------------------------------------------
+# the reference's edge cases: decoding past max_len (F6), token ids out of
+# range (F7)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", ["full", "pallas"])
+def test_decoding_past_max_len_matches_reference(model, impl):
+    """Past ``max_len`` the reference's ``dynamic_update_slice`` clamps
+    its start: each new key and value overwrites the cache's last slot,
+    the RoPE position keeps counting and attention covers the whole
+    cache.  The port serves the same tokens (exact) with the same logits
+    and caches (1e-4) at every step, on both attention paths."""
+    ref_cfg, cfg, ref_params, params = model
+    cfg = dataclasses.replace(cfg, attn_impl=impl)
+    prompt = np.array([1, 2, 3, 4], np.int32)
+    want = RefServer(ref_cfg, ref_params, max_len=8).serve(
+        [RefRequest(0, prompt, 6)])[0].tokens
+    assert want == [219, 133, 223, 188, 23, 121]
+    got = port_serve.BatchedServer(cfg, params, max_len=8).serve(
+        [port_serve.Request(0, prompt, 6)])[0].tokens
+    assert got == want
+    tokens = np.stack([prompt, prompt[::-1]])
+    ref_logits, ref_cache = ref_prefill(ref_params, jnp.asarray(tokens),
+                                        ref_cfg, 6)
+    logits, cache = prefill(params, _t(tokens), cfg, 6)
+    for step in range(5):            # lengths 4..8 against 6 slots
+        tok = np.asarray(ref_logits).argmax(-1).astype(np.int32)
+        ref_logits, ref_cache = ref_decode_step(
+            ref_params, jnp.asarray(tok), ref_cache,
+            jnp.asarray(4 + step, jnp.int32), ref_cfg)
+        logits, cache = decode_step(params, _t(tok), cache, 4 + step, cfg)
+        _close(logits, ref_logits)
+    for key in ("k", "v"):
+        got_c = torch.stack([r[0]["mixer"][key] for r in cache["segment_0"]])
+        _close(got_c, ref_cache["segment_0"][0]["mixer"][key])
+
+
+def test_token_ids_out_of_range_read_as_in_the_reference(model):
+    """JAX's ``table[ids]`` wraps a negative id once, then clamps: ids V
+    and V + 3 read row V − 1, −1 reads row V − 1, −V − 2 reads row 0.
+    The port's embedding rows (exact), prefill and decode logits (1e-4)
+    and served tokens (exact) on such ids equal the reference's."""
+    ref_cfg, cfg, ref_params, params = model
+    V = cfg.vocab_size
+    ids = np.array([[V, V + 3, -1, -V - 2, 5], [0, V - 1, -V, 7, V + 100]],
+                   np.int32)
+    _close(layers.embedding_apply(params["embed"], _t(ids)),
+           ref_layers.embedding_apply(ref_params["embed"], jnp.asarray(ids)),
+           rtol=0, atol=0)
+    ref_logits, ref_cache = ref_prefill(ref_params, jnp.asarray(ids),
+                                        ref_cfg, MAX_LEN)
+    logits, cache = prefill(params, _t(ids), cfg, MAX_LEN)
+    _close(logits, ref_logits)
+    tok = ids[:, 1].copy()
+    ref_logits, _ = ref_decode_step(ref_params, jnp.asarray(tok), ref_cache,
+                                    jnp.asarray(5, jnp.int32), ref_cfg)
+    logits, _ = decode_step(params, _t(tok), cache, 5, cfg)
+    _close(logits, ref_logits)
+    prompt = np.array([1, 2, V + 3, 4], np.int32)
+    want = RefServer(ref_cfg, ref_params, max_len=MAX_LEN).serve(
+        [RefRequest(0, prompt, 3)])[0].tokens
+    assert want == [190, 202, 18]
+    got = port_serve.BatchedServer(cfg, params, max_len=MAX_LEN).serve(
+        [port_serve.Request(0, prompt, 3)])[0].tokens
+    assert got == want
+
+
 def test_demo_cli_serves_on_the_cpu(capsys):
     port_serve.main(["--arch", "smollm-135m", "--reduced", "--requests", "2",
                      "--prompt-len", "6", "--gen", "3", "--device", "cpu"])
@@ -242,18 +309,29 @@ def test_demo_cli_serves_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 def test_unported_features_raise(model, tmp_path):
-    """What still waits raises, naming its ROADMAP item: the decode-step
-    dataflow report.  Training is ported: ``loss_fn`` (with DeepSeek-V3's
-    MTP loss) gives finite losses and ``input_specs`` meta tensors
-    (tests/test_torch_train.py holds both to the reference).  Every
-    architecture's config loads and its layers build
-    (tests/test_torch_models.py holds them to the reference)."""
+    """What was waiting is ported.  The decode-step dataflow report is a
+    string with the reference's header line (tests/test_torch_report.py
+    holds every line to the reference's), and with no request it is the
+    reference's "unavailable" string instead of an error.  Training:
+    ``loss_fn`` (with DeepSeek-V3's MTP loss) gives finite losses and
+    ``input_specs`` meta tensors (tests/test_torch_train.py holds both to
+    the reference).  Every architecture's config loads and its layers
+    build (tests/test_torch_models.py holds them to the reference)."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.models import input_specs, loss_fn
-    _, cfg, _, params = model
+    ref_cfg, cfg, ref_params, params = model
     server = port_serve.BatchedServer(cfg, params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        server.dataflow_report([])
+    reqs = [port_serve.Request(i, np.arange(4, dtype=np.int32), 2)
+            for i in range(2)]
+    want = RefServer(ref_cfg, ref_params).dataflow_report(
+        [RefRequest(r.id, r.prompt, 2) for r in reqs])
+    got = server.dataflow_report(reqs)
+    assert got.splitlines()[0].split(", backend=")[0] == \
+        want.splitlines()[0].split(", backend=")[0] == (
+            "dataflow program: 19 ops -> 10 stages, 10 channels "
+            "(5144B/token), policy='paper'")
+    assert server.dataflow_report([]).startswith(
+        "(dataflow analysis unavailable:")
     batch = {"tokens": torch.zeros(1, 5, dtype=torch.long)}
     loss, metrics = loss_fn(params, batch, cfg)
     assert torch.isfinite(loss) and set(metrics) == {"lm_loss", "loss"}

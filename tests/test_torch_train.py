@@ -159,6 +159,52 @@ def test_loss_and_metrics_match_reference(arch):
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("x", [-1, -100, 8, -11])
+def test_xent_takes_labels_as_the_reference(x):
+    """The reference's ``_xent`` gathers with ``take_along_axis``: a
+    negative label wraps once by V, and one still out of range reads NaN
+    into the mean.  V = 8 and labels [[0, 1, x], [2, 3, 4]] on the same
+    seeded logits: x = −1 reads class 7, x = −100, V and −V − 3 give NaN
+    (−100 is not dropped).  Finite values within 1e-6, NaN where the
+    reference's is."""
+    from repro.models.model import _xent as ref_xent
+    from repro_torch.models.model import _xent
+    logits = np.random.default_rng(4).normal(size=(2, 3, 8)).astype(
+        np.float32)
+    labels = np.array([[0, 1, x], [2, 3, 4]], np.int32)
+    want = float(ref_xent(jnp.asarray(logits), jnp.asarray(labels)))
+    got = float(_xent(torch.from_numpy(logits), torch.from_numpy(labels)))
+    assert np.isnan(want) == (x != -1)
+    np.testing.assert_allclose(got, want, rtol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("ids", ["wrapped", "out_of_range"])
+def test_loss_fn_takes_token_ids_as_the_reference(ids):
+    """``loss_fn`` on token ids out of range, where the embedding reads
+    as JAX's ``table[ids]`` and the labels as ``_xent``: ids −1, −100
+    and −V wrap to valid classes (finite loss within 1e-5 of the
+    reference's); an id of V or −V − 3 among the labels makes the loss
+    NaN in both packages."""
+    c = case("smollm-135m")
+    V = c["cfg"].vocab_size
+    tokens = c["batch"]["tokens"].copy()
+    tokens[0, 3], tokens[1, 5], tokens[1, 9] = -1, -100, -V
+    if ids == "out_of_range":
+        tokens[0, 7], tokens[1, 2] = V, -V - 3
+    want, _ = ref_loss_fn(_ref_params("smollm-135m"),
+                          {"tokens": jnp.asarray(tokens)}, c["ref_cfg"])
+    got, _ = loss_fn(c["params"], {"tokens": torch.from_numpy(tokens)},
+                     c["cfg"])
+    assert np.isnan(float(want)) == (ids == "out_of_range")
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5,
+                               equal_nan=True)
+
+
+def _ref_params(arch: str):
+    return ref_init_params(jax.random.PRNGKey(0),
+                           ref_reduced(ref_load_config(arch)))
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_grads_match_reference(arch):
     """Every grad leaf by name within rtol 1e-4 plus 1e-4 of the leaf's
