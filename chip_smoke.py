@@ -2678,7 +2678,6 @@ def examples_and_paper(dev) -> dict:
     constants; each one's wall and hand-kernel launches.  The examples'
     printout goes to ``build/chip_smoke_examples.txt``."""
     import contextlib
-    import functools
     import hashlib
     import io
     import shutil
@@ -2753,12 +2752,22 @@ def examples_and_paper(dev) -> dict:
     require(got == REF_TABLE2, f"Table II rows: {got}")
     print(f"[12c] workloads.table2: four rows == reference, in {wall:.2f} s",
           flush=True)
-    # the grid and measure_perf; the worker-scaling probe (8 x 2^20
-    # iterations, streamed and sharded) is left out: phase 9 shards the
-    # Fig. 5 SpMV cell already
-    out, _, wall = run("workloads.sweep --smoke", functools.partial(
-        sweep.run_sweep, smoke=True, rescache=False, scaling=False,
-        out_path=os.path.join(ROOT, "build", "chip_smoke_sweep.json")))
+    # the --smoke grid's tasks and measure_perf, as run_sweep(smoke=True)
+    # runs them, with the trace store off; its worker-scaling probe (8 x
+    # 2^20 iterations, streamed and sharded) is left out: phase 9 shards
+    # the Fig. 5 SpMV cell already
+    def smoke_sweep() -> dict:
+        from repro_torch.core import rescache
+        from repro_torch.workloads import ALL_KERNELS
+        rescache.configure(enabled=False)
+        t0 = time.perf_counter()
+        rows = sweep.run_tasks(sweep._tasks(
+            True, tuple(ALL_KERNELS)[:2], (0.5, 1.0), None, None, None))
+        perf = sweep.measure_perf()
+        return {"rows": rows, "perf": perf,
+                "wall_s": time.perf_counter() - t0}
+
+    out, _, wall = run("workloads.sweep --smoke", smoke_sweep)
     got = tuple((r["kernel"], r["mem"], r.get("transform") or "none",
                  r["words_per_cycle"], r["dataflow_cycles"],
                  r["conventional_cycles"]) for r in out["rows"])

@@ -18,10 +18,6 @@ between machines.  Prints one JSON line:
   ``torch.profiler`` — 30 layers' caches exceed the L2, so each launch
   finds its cache cold — and ``step_busy_ms``, the step's device busy
   time;
-* ``serve_decode_ms``: ``chip_smoke.py`` phase 6b's decode time — the
-  same model serving the 8 prompts with 32 new tokens each through
-  ``BatchedServer.serve`` (``max_len`` 552), its decode milliseconds a
-  step on the host clock, median of 5 served batches after a warm-up;
 * ``card``: ``nvidia-smi``'s name and power limit.
 """
 
@@ -39,7 +35,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, HQ, HKV, S, D, LENGTH = 8, 9, 3, 552, 64, 513
-PROMPT_LEN, GEN, KERNEL = 512, 32, "decode_kernel"
+PROMPT_LEN, KERNEL = 512, "decode_kernel"
 
 
 def graph_ms(fn, reps: int = 20, per_graph: int = 10) -> float:
@@ -109,7 +105,6 @@ def main() -> None:
     import repro_torch
     from repro_torch.configs import load_config
     from repro_torch.kernels.flash_attention import decode_attention
-    from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models import decode_step, init_params, prefill
 
     dev = torch.device("cuda")
@@ -135,12 +130,6 @@ def main() -> None:
             decode_step(params, logits.argmax(-1), cache, PROMPT_LEN, cfg)
         step()                                  # warm-up
         step_ms, busy_ms = traced_ms(step)
-    del cache
-    server = BatchedServer(cfg, params, max_len=S)
-    reqs = [Request(i, prompts[i], GEN) for i in range(B)]
-    server.serve(reqs)                          # warm-up
-    serve_ms = statistics.median(server.serve(reqs)[0].decode_s * 1e3
-                                 for _ in range(5))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -148,7 +137,6 @@ def main() -> None:
     print(json.dumps({"src": os.path.relpath(src, ROOT),
                       "kernel_ms": kernel_ms,
                       "step_ms": step_ms, "step_busy_ms": busy_ms,
-                      "serve_decode_ms": serve_ms,
                       "card": card}), flush=True)
 
 

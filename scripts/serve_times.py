@@ -7,16 +7,19 @@ port, so that two trees can be compared on one card.
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (this
 checkout's by default; an unpacked older commit's to compare).  Run the
 trees in turns on one machine (A, B, B, A): host clocks differ between
-machines.  The model is ``ARCH`` (default ``qwen2.5-14b``) at full width
-in bf16 with random weights from seed 0 and ``attn_impl="pallas"``,
-serving ``chip_smoke.py``'s traffic: 8 prompts of 512 tokens, 32 new
-tokens each, ``max_len`` 552.  Prints one JSON line:
+machines.  The model is ``ARCH`` (default ``smollm-135m``, the model of
+``chip_smoke.py`` phase 6b) at full width in bf16 with random weights
+from seed 0 and ``attn_impl="pallas"``, serving ``chip_smoke.py``'s
+traffic: 8 prompts of 512 tokens, 32 new tokens each, ``max_len`` 552.
+Prints one JSON line:
 
 * ``decode_ms``: ``BatchedServer.serve``'s decode milliseconds a step on
   the host clock, for each of 3 served batches after a warm-up;
 * ``decode_ms_after_report``: the same after one ``dataflow_report`` of
-  the batch (``null`` where the tree has no report), so that the
-  report's effect on serving shows in one process;
+  the batch, so that the report's effect on serving shows in one
+  process; ``null`` for a tree whose ``dataflow_report`` raises
+  ``NotImplementedError`` (a tree older than the report, timed only as
+  the other side of an A/B);
 * ``card``: ``nvidia-smi``'s name and power limit.
 """
 
@@ -39,7 +42,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the src directory whose repro_torch is timed")
-    ap.add_argument("--arch", default="qwen2.5-14b")
+    ap.add_argument("--arch", default="smollm-135m")
     args = ap.parse_args()
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)

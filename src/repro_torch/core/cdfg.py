@@ -18,10 +18,11 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   equations of the jaxpr's out-of-place store — ``lt, add, select_n,
   broadcast_in_dim, scatter`` (the wrap, the (1,) index, then a scatter
   that drops an index still out of range);
-* :func:`take` (``x[idx]`` with the reference's wrap-then-clamp read)
-  into those of ``x[idx]``;
-* :func:`scan` (a loop kept inside one call: a model segment's repeats)
-  into one ``scan`` equation, as ``jax.lax.scan`` is one in the jaxpr;
+* inside :func:`leaves`, a function named there as an ``index`` leaf
+  (``x[idx]`` with the reference's wrap-then-clamp read) into those of
+  ``x[idx]``, and one named as a ``scan`` leaf (a loop kept inside one
+  call: a model segment's repeats) into one ``scan`` equation, as
+  ``jax.lax.scan`` is one in the jaxpr;
 * a static index into ``slice`` / ``squeeze`` / ``broadcast_in_dim``,
   ``x.mean`` into ``reduce_sum, broadcast_in_dim, div``, ``x.var`` into
   one ``jit`` (``jnp.var`` is a jitted function), ``x.float()`` /
@@ -58,11 +59,12 @@ annotation — the analogue of the paper's user-guided alias results.
 from __future__ import annotations
 
 import builtins
+import contextlib
 import dataclasses
 import functools
 import inspect
 import operator
-from typing import Any, Callable, Iterable, Mapping, Sequence
+from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence
 
 import torch
 import torch.fx as fx
@@ -310,22 +312,6 @@ def at_set(x: torch.Tensor, i: torch.Tensor, v: Any) -> torch.Tensor:
     return _scatter(x, idx.reshape(1), v)
 
 
-def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]``: the rows of ``x`` at the integer ``idx``, with the
-    reference's read semantics — a negative index wraps once, and an
-    index still out of range reads the nearest row (the jaxpr's gather
-    clamps).  Plain torch indexing raises instead (a device-side assert
-    on the card).
-
-    Under ``torch.fx`` tracing the call is the one node ``x[idx]``, which
-    the front end lowers to the jaxpr's equations of ``x[idx]`` with
-    their clamping gather."""
-    if isinstance(x, fx.Proxy) or isinstance(idx, fx.Proxy):
-        return x[idx]
-    n = x.shape[0]
-    return x[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
-
-
 def _convert_element_type(x: torch.Tensor, *, new_dtype: torch.dtype
                           ) -> torch.Tensor:
     return x.to(new_dtype)
@@ -354,32 +340,69 @@ def _einsum(a: torch.Tensor, b: torch.Tensor, *, equation: str
     return torch.einsum(equation, a, b)
 
 
-def scan(body: Callable, carry: Any, consts: Any, state: Any
-         ) -> tuple[Any, Any]:
-    """``body(carry, consts, state) -> (carry, new_state)``, called once:
-    a loop that ``body`` keeps inside (a segment's repeats), which the
-    front end sees as one ``scan`` equation — the reference's
-    ``jax.lax.scan`` over stacked repeats.  ``new_state`` has ``state``'s
-    structure, shapes and dtypes.
+@contextlib.contextmanager
+def leaves(*, index: Sequence[tuple[Any, str]] = (),
+           scan: Sequence[tuple[Any, str]] = ()) -> Iterator[None]:
+    """Inside the block, trace each named module function as one leaf.
 
-    Under ``torch.fx`` tracing the call is one node whose inputs are the
-    carry and the leaves of ``consts`` and ``state`` and whose outputs
-    are the new carry and the leaves of the new state; ``body`` rides on
-    the node's ``meta``, so the lowered equation runs it."""
-    if not isinstance(carry, fx.Proxy):
-        return body(carry, consts, state)
-    n_state = len(tree.leaves(state))
-    out = carry.tracer.create_proxy(
-        "call_function", _scan_node,
-        (carry, tuple(tree.leaves(consts)), tuple(tree.leaves(state))), {})
-    out.node.meta["scan"] = (body, consts, state)
-    return out[0], tree.unflatten(state, [out[1 + i]
-                                          for i in range(n_state)])
+    ``index`` names, as ``(module, name)``, functions ``f(x, idx)`` that
+    read the rows of ``x`` at the integer ``idx`` as the jaxpr's
+    ``x[idx]`` does (a negative index wraps once, then the gather
+    clamps); each traces as the one node ``x[idx]``.  ``scan`` names
+    functions ``f(carry, consts, state, **static) -> (carry,
+    new_state)`` that keep a loop inside (a segment's repeats), where
+    ``new_state`` has ``state``'s structure, shapes and dtypes; each
+    traces as one node, lowered to one ``scan`` equation — the
+    reference's ``jax.lax.scan`` over stacked repeats — whose inputs are
+    the carry and the leaves of ``consts`` and ``state`` and whose
+    outputs are the new carry and the leaves of the new state.
+
+    Each function is replaced in its module's globals for the block, as
+    ``torch.fx.wrap`` does for a trace; called on tensors, it runs
+    unchanged."""
+    saved = [(m, n, getattr(m, n)) for m, n in (*index, *scan)]
+    try:
+        for m, n in index:
+            setattr(m, n, _index_leaf(getattr(m, n)))
+        for m, n in scan:
+            setattr(m, n, _scan_leaf(getattr(m, n)))
+        yield
+    finally:
+        for m, n, fn in reversed(saved):
+            setattr(m, n, fn)
+
+
+def _index_leaf(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def leaf(x: Any, idx: Any) -> Any:
+        if isinstance(x, fx.Proxy) or isinstance(idx, fx.Proxy):
+            return x[idx]
+        return fn(x, idx)
+    return leaf
+
+
+def _scan_leaf(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def leaf(carry: Any, consts: Any, state: Any, **static: Any
+             ) -> tuple[Any, Any]:
+        if not isinstance(carry, fx.Proxy):
+            return fn(carry, consts, state, **static)
+        n_state = len(tree.leaves(state))
+        out = carry.tracer.create_proxy(
+            "call_function", _scan_node,
+            (carry, tuple(tree.leaves(consts)), tuple(tree.leaves(state))),
+            {})
+        # the body rides on the node's meta, so the lowered equation runs it
+        out.node.meta["scan"] = (functools.partial(fn, **static), consts,
+                                 state)
+        return out[0], tree.unflatten(state, [out[1 + i]
+                                              for i in range(n_state)])
+    return leaf
 
 
 def _scan_node(carry: Any, consts: tuple, state: tuple) -> tuple:
-    """The call target of a traced :func:`scan` (its node's body lives in
-    ``meta``; the lowered equation runs it)."""
+    """The call target of a traced ``scan`` leaf (its node's body lives
+    in ``meta``; the lowered equation runs it)."""
     raise RuntimeError("a traced scan runs through its lowered equation")
 
 
@@ -653,7 +676,7 @@ class _Lowering:
         return out
 
     def lower_scan(self, node: fx.Node) -> tuple[Var, ...]:
-        """A traced :func:`scan` → one ``scan`` equation: inputs the
+        """A traced ``scan`` leaf → one ``scan`` equation: inputs the
         carry and the leaves of ``consts`` and ``state``, outputs the new
         carry and the leaves of the new state."""
         carry_n, const_ns, state_ns = node.args

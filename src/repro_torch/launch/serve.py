@@ -160,15 +160,26 @@ def _at(tree: Any, path: tuple) -> Any:
     return tree
 
 
+def decode_step_leaves():
+    """The block in which ``torch.fx`` traces ``decode_step`` as the
+    reference's jaxpr: the embedding's wrap-then-clamp read is the one
+    node ``x[idx]``, and each segment's loop over its repeats one
+    ``scan`` equation (:func:`repro_torch.core.cdfg.leaves`)."""
+    from ..core import cdfg
+    from ..models import layers, transformer
+    return cdfg.leaves(index=[(layers, "take")],
+                       scan=[(transformer, "_segment_decode")])
+
+
 def decode_report(cfg, params: dict, batch: int, max_len: int) -> str:
     """The dataflow report of ``decode_step`` at ``batch`` sequences of a
     ``max_len`` cache holding 8 tokens (the reference's step), compiled
     for ``meta`` tensors: shapes and dtypes of ``params`` only (on any
     device, or ``meta`` from ``init_params(None, cfg, "meta")``).  The
-    graph's
-    inputs are the parameter leaves, the token and the cache leaves, each
-    tree's leaves in :func:`reference_order`, so region names are the
-    reference's; each segment is one ``scan`` equation."""
+    graph's inputs are the parameter leaves, the token and the cache
+    leaves, each tree's leaves in :func:`reference_order`, so region
+    names are the reference's; each segment is one ``scan`` equation
+    (:func:`decode_step_leaves`)."""
     from .. import tree
     from ..dataflow import compile as dataflow_compile
     from ..models import decode_step, init_cache
@@ -189,11 +200,12 @@ def decode_report(cfg, params: dict, batch: int, max_len: int) -> str:
                            tree.unflatten(cache, [c[k] for k in c_paths]),
                            8, cfg)
 
-    compiled = dataflow_compile(
-        step, tuple(_at(meta, k) for k in p_order),
-        torch.zeros(batch, dtype=torch.int32, device="meta"),
-        tuple(_at(cache, k) for k in c_order),
-        backend="eager", device="meta", use_cache=False)
+    with decode_step_leaves():
+        compiled = dataflow_compile(
+            step, tuple(_at(meta, k) for k in p_order),
+            torch.zeros(batch, dtype=torch.int32, device="meta"),
+            tuple(_at(cache, k) for k in c_order),
+            backend="eager", device="meta", use_cache=False)
     return compiled.report()
 
 

@@ -14,7 +14,6 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..core.cdfg import take
 from ..kernels.ref import rmsnorm_ref
 
 
@@ -141,6 +140,15 @@ def mlp_apply(params: dict, x: torch.Tensor,
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype: torch.dtype, device: torch.device) -> dict:
     return {"table": (_normal(gen, (vocab, d)) * 0.02).to(device, dtype)}
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` with the reference's read semantics: a negative index
+    wraps once, and an index still out of range reads the nearest row
+    (the jaxpr's gather clamps).  Plain torch indexing raises instead (a
+    device-side assert on the card)."""
+    n = x.shape[0]
+    return x[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
 
 
 def embedding_apply(params: dict, tokens: torch.Tensor) -> torch.Tensor:

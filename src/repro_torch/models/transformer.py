@@ -21,7 +21,6 @@ embeddings, not tokens.
 
 from __future__ import annotations
 
-import functools
 from typing import Any
 
 import torch
@@ -30,7 +29,6 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention, layers, moe, ssm
 from .._device import get_device
-from ..core import cdfg
 from ..configs.base import LayerSpec, ModelConfig
 
 
@@ -348,14 +346,11 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, length: int,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One new token for every sequence.  token: (B,) int; length: tokens
     already in the cache.  Returns (logits (B, vocab), cache), the cache
-    updated in place.  Each segment is one :func:`cdfg.scan`, so the
-    front end traces this step as the reference's jaxpr: a segment is
-    one ``scan`` equation."""
+    updated in place."""
     x = layers.embedding_apply(params["embed"], token[:, None])
     new_cache: dict[str, Any] = {}
     for si, seg in enumerate(cfg.segments):
-        body = functools.partial(_segment_decode, length=length,
-                                 unit=seg.unit, cfg=cfg)
-        x, new_cache[f"segment_{si}"] = cdfg.scan(
-            body, x, params[f"segment_{si}"], cache[f"segment_{si}"])
+        x, new_cache[f"segment_{si}"] = _segment_decode(
+            x, params[f"segment_{si}"], cache[f"segment_{si}"],
+            length=length, unit=seg.unit, cfg=cfg)
     return _final_logits(params, x, cfg)[:, 0], new_cache

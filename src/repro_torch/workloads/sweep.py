@@ -17,8 +17,7 @@ front; ``--dse-only`` skips the grid.
 
 ``--smoke`` runs the reduced grid (the first two kernels, ACP and
 ACP+64KB, FIFO 8, 20,000 iterations, two port widths); the full sweep is
-a batch job that ``--jobs`` / ``--kernels`` split.  ``run_sweep(...,
-scaling=False)`` leaves the worker-scaling probe out.  Run::
+a batch job that ``--jobs`` / ``--kernels`` split.  Run::
 
     python -m repro_torch.workloads.sweep --smoke               # on the card
     python -m repro_torch.workloads.sweep --smoke --device cpu --jobs 1
@@ -350,11 +349,10 @@ def run_sweep(*, smoke: bool = False, jobs: int | None = None,
               max_outstandings: tuple[int, ...] | None = None,
               rescache: bool = True,
               workers: int | None = None,
-              server: str | None = None,
-              scaling: bool = True) -> dict:
-    """The grid, its per-kernel Pareto fronts, ``measure_perf`` and (with
-    ``scaling``) ``measure_worker_scaling``, each written as a section
-    of ``out_path``."""
+              server: str | None = None) -> dict:
+    """The grid, its per-kernel Pareto fronts, ``measure_perf`` and
+    ``measure_worker_scaling``, each written as a section of
+    ``out_path``."""
     from ..dataflow.schedule import SweepResult
     if not rescache:
         _no_rescache()
@@ -394,13 +392,12 @@ def run_sweep(*, smoke: bool = False, jobs: int | None = None,
                "pareto": fronts}
     update_bench("sweep", payload, out_path)
     update_bench("perf", perf, out_path)
-    if scaling:
-        sc = measure_worker_scaling()
-        update_bench("worker_scaling", sc, out_path)
-        print(f"worker scaling: workers=1 {sc['workers1_s']:.1f}s, "
-              f"workers={sc['workers_all']} {sc['workers_all_s']:.1f}s "
-              f"({sc['speedup']:.2f}x, identical={sc['identical']}) on "
-              f"{sc['cpus']} cpus")
+    sc = measure_worker_scaling()
+    update_bench("worker_scaling", sc, out_path)
+    print(f"worker scaling: workers=1 {sc['workers1_s']:.1f}s, "
+          f"workers={sc['workers_all']} {sc['workers_all_s']:.1f}s "
+          f"({sc['speedup']:.2f}x, identical={sc['identical']}) on "
+          f"{sc['cpus']} cpus")
     if server:
         from ..serve import ServeUnavailable, get_stats
         try:

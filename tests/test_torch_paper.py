@@ -16,6 +16,7 @@ import contextlib
 import hashlib
 import io
 import os
+import re
 
 import numpy as np
 import pytest
@@ -207,6 +208,24 @@ def test_quickstart_example():
     assert "systolic stream (4 stages, 6 microbatches): OK" in text
     assert all(f"({n} cycles)" in text
                for n in chip_smoke.REF_QUICKSTART_CYCLES)
+
+
+def test_quickstart_cycles_are_the_reference(monkeypatch):
+    """The constant is what ``examples/quickstart.py`` prints of its
+    simulation: conventional and dataflow cycles.  ``XLA_FLAGS`` is held
+    as it is, so the example's eight host devices do not outlive it."""
+    import runpy
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(os.path.join(os.path.dirname(__file__), os.pardir,
+                                    "examples", "quickstart.py"),
+                       run_name="__main__")
+    conv, df = chip_smoke.REF_QUICKSTART_CYCLES
+    text = buf.getvalue()
+    assert re.search(rf"conventional.*\({conv} cycles\)", text), text
+    assert re.search(rf"dataflow +\(decoupled\).*\({df} cycles\)", text), \
+        text
 
 
 def test_spmv_dataflow_example_prints_the_reference_simulation():

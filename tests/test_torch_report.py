@@ -145,6 +145,7 @@ def test_traced_scan_runs_the_segments():
     segment's loop, and the stage programs give ``decode_step``'s logits
     on the reduced model (1e-5)."""
     from repro_torch.dataflow import compile as dataflow_compile
+    from repro_torch.launch.serve import decode_step_leaves
     cfg = reduced(load_config("smollm-135m"))
     params = init_params(torch.Generator().manual_seed(0), cfg)
     tokens = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
@@ -162,8 +163,9 @@ def test_traced_scan_runs_the_segments():
         c = tree.unflatten(cache, list(c_leaves))
         return step(p, tok, c)
 
-    compiled = dataflow_compile(flat, leaves_p, token, leaves_c,
-                                device="cpu", use_cache=False)
+    with decode_step_leaves():
+        compiled = dataflow_compile(flat, leaves_p, token, leaves_c,
+                                    device="cpu", use_cache=False)
     assert [s.prims for s in compiled.schedule.stages][1] == ("scan",)
     want = step(params, token, tree.tree_map(torch.clone, cache))
     got = compiled(leaves_p, token,
