@@ -218,9 +218,32 @@ Phases, one line (or block) each:
    and the ``--smoke`` sweep grid with ``measure_perf`` (the
    worker-scaling probe left out: phase 9 shards already), each held to
    the reference's constants, with its wall and hand-kernel launches;
+13. the multi-rank executors: four ranks (``launch.mesh.spawn``, gloo,
+   all on the card, tensors shifted through pinned host buffers) after
+   the one-process references here; (a) SmolLM-135M's 30 blocks as 3
+   stages of 10 on 3 ranks (``pipeline_apply``), 8 microbatches of 1 x
+   512 tokens from phase 6's traffic embedded first; ``flash_attention``
+   alone at the path's q 1 x 9 x 512 x 64 against its plain version
+   (phase 5's bars); the same blocks in sequence in this process through
+   the kernels against the plain attention (fp32 rtol=atol=1e-4; bf16
+   within 2e-2 of the scale or twice the plain bf16 path's own error),
+   then the pipeline against the kernels' run in sequence (fp32 as
+   before, bf16 at phase 6b's bar), ``flash_attention`` launched 80
+   times on each rank; (b) the gradient of mean(y²) through the pipeline
+   (fp32, the plain attention) against ``pipeline_apply_emulated``'s
+   autograd here, every leaf within 1e-4·|g| + 1e-4·max|g|; (c) each of
+   the 3 ranks' whole fp32 gradient of the LM loss on its own
+   microbatch reduced by ``compress_tree_psum`` within S · ½ · the
+   shared scale of each chunk of the fp32 ``all_reduce``, with the bytes
+   each rank hands the collectives; (d) the quickstart kernel on the ``systolic``
+   backend and a 6-microbatch stream on its sharded pipeline over the 4
+   ranks (rtol 1e-6), and ``decoupled_gather_staged`` of phase 7's 4,096
+   rows on ``systolic`` bit for bit; with the route, walls, the shift's
+   ms a tick and each rank's peak memory;
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
-   phase 7 for the kernel API) and on each path of phase 12, the design
+   phase 7 for the kernel API), on each path of phase 12 and summed over
+   phase 13's ranks, the design
    those launches took, its error against the plain version, its times
    and its bound (the attention rows also at Qwen2.5-14B's shape, with
    6c's launches); then the
@@ -260,6 +283,12 @@ MAX_LEN = PROMPT_LEN + GEN + 8
 #: period, the step of the injected failure and of the resume's cut
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 30, 3e-4
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_CUT = 10, 15, 20
+
+#: phase 13: SmolLM-135M whole, pipelined over 3 ranks that share the card
+#: under gloo (stages of 10 blocks), 8 microbatches of 1 x 512 tokens from
+#: phase 6's traffic; 13d's systolic runs take a fourth rank
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_RANKS = 3, 8, 4
+PIPE_TIMEOUT_S = 600
 
 #: one bf16 unit in the last place, relative: the bound on a kernel's bf16
 #: result against its plain version when both compute in fp32 and round once
@@ -1009,6 +1038,11 @@ def main() -> None:
     print(f"[12] phase 12 in {time.perf_counter() - t12:.2f} s; hand-kernel "
           f"launches by path: {phase12}", flush=True)
 
+    # -- 13. the multi-rank pipeline, compression and systolic backend -------
+    t13 = time.perf_counter()
+    phase13 = pipelined_smollm(dev)
+    print(f"[13] phase 13 in {time.perf_counter() - t13:.2f} s", flush=True)
+
     # -- 10. the kernels line ---------------------------------------------------
     rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
     for row, launches in zip(rows, (spmv_launches, spmv_launches,
@@ -1026,11 +1060,15 @@ def main() -> None:
                               if k not in ("name", "route", "source",
                                            "replaces")}
     for row in rows:
-        # this kernel's launches on each of phase 12's paths
+        # this kernel's launches on each of phase 12's paths, and summed
+        # over phase 13's ranks
         row["phase12_launches"] = {path: n[row["name"]] for path, n in
                                    phase12.items() if n.get(row["name"])}
+        if phase13.get(row["name"]):
+            row["phase13_launches"] = phase13[row["name"]]
     print(json.dumps({"kernels": [{k: row[k] for k in
-                                   (*keys, "qwen2.5-14b", "phase12_launches")
+                                   (*keys, "qwen2.5-14b", "phase12_launches",
+                                    "phase13_launches")
                                    if k in row}
                                   for row in rows]}))
     print(smi)
@@ -2780,6 +2818,451 @@ def examples_and_paper(dev) -> dict:
     with open(os.path.join(ROOT, "build", "chip_smoke_examples.txt"),
               "w") as f:
         f.write("\n".join(log))
+    return launches
+
+
+def _pipe_model(dev, dtype: str, impl: str, num_layers: int | None,
+                microbatches: int, seq: int) -> tuple:
+    """Phase 13's model on ``dev``: SmolLM-135M at its published widths
+    (``num_layers`` blocks, default all 30), random weights from seed 0 as
+    phase 6; returns (cfg, params, the blocks stacked as ``PIPE_STAGES``
+    stages of equal depth, the stage function, the embedded microbatches
+    (M, 1, seq, d) and their tokens (M, 1, seq))."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import load_config
+    from repro_torch.models import init_params, layers, transformer
+    cfg = load_config("smollm-135m")
+    depth = num_layers or cfg.num_layers
+    cfg = dataclasses.replace(
+        cfg, dtype=dtype, attn_impl=impl, num_layers=depth,
+        segments=(dataclasses.replace(cfg.segments[0], repeats=depth),))
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    tokens = _traffic(cfg, dev)[0][:microbatches, None, :seq]
+    with torch.no_grad():
+        mbs = layers.embedding_apply(params["embed"], tokens)
+    per = depth // PIPE_STAGES
+    stacked = tree.tree_map(
+        lambda *ls: torch.stack(ls).reshape(PIPE_STAGES, per, *ls[0].shape),
+        *[rep[0] for rep in params["segment_0"]])
+    spec = cfg.segments[0].unit[0]
+
+    def stage(p, x):
+        # the model's own blocks, one after another
+        for i in range(per):
+            x = transformer._layer_apply(tree.tree_map(lambda q: q[i], p), x,
+                                         spec, cfg, {})
+        return x
+    return cfg, params, stacked, stage, mbs, tokens
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(dev, fn) -> tuple:
+    """``fn()`` and its wall in s (host clock, the card synchronised)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _sequential(stacked, stage, mbs):
+    """The pipeline's blocks run in sequence in one process, microbatch by
+    microbatch."""
+    from repro_torch import tree
+    ys = []
+    for x in mbs:
+        for s in range(PIPE_STAGES):
+            x = stage(tree.tree_map(lambda q, s=s: q[s], stacked), x)
+        ys.append(x)
+    import torch
+    return torch.stack(ys)
+
+
+def pipeline_rank(num_layers: int | None, microbatches: int, seq: int
+                  ) -> dict:
+    """Phase 13 on one of ``PIPE_RANKS`` ranks (``launch.mesh.spawn``):
+    ranks 0-2 form the pipeline's group and run 13a-13c; every rank runs
+    13d.  Returns this rank's outputs, launches, walls and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import _device, tree
+    from repro_torch.core import pipeline_apply
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.kernels import _lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _device.get_device()
+    rank = dist.get_rank()
+    pipe = dist.new_group(list(range(PIPE_STAGES)))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out: dict = {"rank": rank}
+    if rank < PIPE_STAGES:
+        # 13a: the forward in bf16 through the kernels, then in fp32
+        *_, stacked, stage, mbs, _ = _pipe_model(
+            dev, "bfloat16", "pallas", num_layers, microbatches, seq)
+        with torch.no_grad():
+            pipeline_apply(stage, stacked, mbs, group=pipe)       # warm-up
+            _lib.reset_counts()
+            y, out["pipe_s"] = _timed(
+                dev, lambda: pipeline_apply(stage, stacked, mbs, group=pipe))
+            out["launches"] = _lib.counts()
+            out["routes"] = _lib.routes()["flash_attention"]
+            out["bf16"] = y
+            comm = Collectives(pipe, dev)
+            out["route"] = comm.route
+            act = mbs[0].contiguous()
+            for _ in range(3):
+                comm.ppermute(act)
+            reps = 20
+            _, wall = _timed(dev, lambda: [comm.ppermute(act)
+                                           for _ in range(reps)])
+            out["shift_ms"] = wall / reps * 1e3
+            out["shift_bytes"] = act.numel() * act.element_size()
+        del stacked, mbs
+        _, _, stacked, stage, mbs, _ = _pipe_model(
+            dev, "float32", "pallas", num_layers, microbatches, seq)
+        with torch.no_grad():
+            out["fp32"] = pipeline_apply(stage, stacked, mbs, group=pipe)
+        # 13b: the gradient of mean(y²) through the pipeline (fp32, the
+        # plain attention: the kernels have no backward)
+        cfg, params, stacked, stage, mbs, tokens = _pipe_model(
+            dev, "float32", "auto", num_layers, microbatches, seq)
+        leaves = [leaf.requires_grad_() for leaf in tree.leaves(stacked)]
+
+        def grads():
+            y = pipeline_apply(stage, stacked, mbs, group=pipe)
+            return torch.autograd.grad((y ** 2).mean(), leaves)
+        g, out["grad_s"] = _timed(dev, grads)
+        _, out["grad_warm_s"] = _timed(dev, grads)
+        # this rank's share: nonzero only in its own slice
+        out["grads"] = [x[rank] for x in g]
+        out["grads_elsewhere"] = max(
+            float(torch.cat([x[:rank].flatten(), x[rank + 1:].flatten()])
+                  .abs().max()) if x.shape[0] > 1 else 0.0 for x in g)
+        del g, stacked, leaves
+        out.update(_reduce_grads(dev, pipe, cfg, params, tokens[rank]))
+        del params
+    out.update(_systolic_on_ranks(dev, seq, microbatches))
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def _reduce_grads(dev, pipe, cfg, params, tokens) -> dict:
+    """13c on a pipeline rank: SmolLM-135M's whole fp32 gradient of the LM
+    loss on this rank's microbatch, reduced over the pipeline's group with
+    ``compress_tree_psum`` and with a plain fp32 ``all_reduce``; the
+    compressed sum held to S · ½ · the shared scale of each chunk (plus
+    1e-4 of it for the fp32 division and the plain sum's rounding)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.collectives import Collectives
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.compress import (_chunks, _psum_chunks,
+                                            compress_tree_psum)
+    leaves = [leaf.requires_grad_() for leaf in tree.leaves(params)]
+    loss, _ = loss_fn(params, {"tokens": tokens}, cfg)
+    grads = list(torch.autograd.grad(loss, leaves))
+    comp, comp_s = _timed(dev, lambda: compress_tree_psum(grads, pipe))
+    # again: the staging buffers pinned by the first call are reused
+    _, comp_warm_s = _timed(dev, lambda: compress_tree_psum(grads, pipe))
+    comm = Collectives(pipe, dev)
+    S = comm.size
+    plain, plain_s = _timed(dev, lambda: [comm.psum(g) for g in grads])
+    # the whole gradient as one tensor: the wire and the staging copies
+    # without the per-leaf collectives (first call, then again)
+    flat = torch.cat([g.flatten() for g in grads])
+    one = {}
+    for name, fn in (("int8", lambda: _psum_chunks(_chunks(flat, 256),
+                                                   comm)),
+                     ("fp32", lambda: comm.psum(flat))):
+        _, cold = _timed(dev, fn)
+        _, one[name] = _timed(dev, fn)
+        one[name + "_cold"] = cold
+    del flat
+    worst, ratio, n = 0.0, 0.0, 0
+    for g, c, p in zip(grads, comp, plain):
+        shared = comm.pmax(_chunks(g, 256).abs().amax(dim=1)) / 127.0
+        err = _chunks(c - p, 256).abs()
+        bound = S * shared[:, None] * (0.5 + 1e-4)
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / bound.clamp_min(1e-30)).max()))
+        n += g.numel()
+    nchunks = sum(-(-g.numel() // 256) for g in grads)
+    # what a rank hands the collectives: the int32 codes of whole chunks
+    # and one fp32 maximum a chunk, against the fp32 values
+    return {"reduce_values": n, "reduce_err": worst, "reduce_ratio": ratio,
+            "compressed_s": comp_s, "compressed_warm_s": comp_warm_s,
+            "plain_reduce_s": plain_s, "flat": one,
+            "fp32_bytes": 4 * n, "compressed_bytes": 4 * 256 * nchunks
+            + 4 * nchunks, "loss": float(loss.detach())}
+
+
+def _systolic_on_ranks(dev, seq: int, microbatches: int) -> dict:
+    """13d on every rank: the quickstart kernel (4 stages) through the
+    ``systolic`` backend and a 6-microbatch stream through its sharded
+    pipeline, each against the direct call (rtol 1e-6); the staged gather
+    of phase 7 (``microbatches`` × ``seq`` of 49,152 × 576 bf16 rows) on
+    ``systolic`` against ``decoupled_gather_ref``, bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import dataflow_jit
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import (decoupled_gather_ref,
+                                     decoupled_gather_staged)
+    from repro_torch.models import layers
+
+    @dataflow_jit(stream_argnums=(1,))
+    def quickstart(table, idx, w):
+        return torch.tanh(table[idx] * w) + 1.0
+
+    qt = torch.arange(1024, dtype=torch.float32, device=dev)
+    qi = torch.tensor([3, 997, 41, 512, 7, 800, 64, 2], dtype=torch.int32,
+                      device=dev)
+    qw = torch.tensor(1.5, device=dev)
+    direct = quickstart.__wrapped__(qt, qi, qw)
+    c = quickstart.lower(qt, qi, qw)                  # compiled untimed
+    dist.barrier()        # the pipeline's ranks arrive later than the 4th
+    got, call_s = _timed(dev, lambda: quickstart(qt, qi, qw,
+                                                 backend="systolic"))
+    stream = torch.stack([(qi + t) % 1024 for t in range(6)])
+    run = c.schedule.pipeline.build_sharded()
+    outs, stream_s = _timed(dev, lambda: run(qt, stream, qw)[0])
+    want = torch.stack([quickstart.__wrapped__(qt, s, qw) for s in stream])
+    cfg = load_config("smollm-135m")
+    table = layers.embedding_init(torch.Generator(device=dev).manual_seed(0),
+                                  cfg.vocab_size, cfg.d_model,
+                                  torch.bfloat16, dev)["table"]
+    idx = _traffic(cfg, dev)[0][:microbatches, :seq].flatten()
+    staged, staged_s = _timed(dev, lambda: decoupled_gather_staged(
+        idx, table, backend="systolic"))
+    return {"quickstart_stages": c.num_stages,
+            "quickstart_ok": bool(torch.allclose(got, direct, rtol=1e-6,
+                                                 atol=0.0)),
+            "stream_ok": bool(torch.allclose(outs, want, rtol=1e-6,
+                                             atol=0.0)),
+            "gather_ok": bool(torch.equal(staged,
+                                          decoupled_gather_ref(idx, table))),
+            "gather_rows": idx.numel(), "systolic_s": call_s,
+            "stream_s": stream_s, "staged_s": staged_s}
+
+
+def _attention_at_path_shape(dev, seq: int) -> dict:
+    """``flash_attention`` alone at phase 13's per-microbatch shape (q 1 x
+    9 x ``seq`` x 64, k/v 1 x 3 x ``seq`` x 64, causal) against its plain
+    version, at phase 5's bars: bf16 rtol=atol=2e-2, fp32 1e-4."""
+    import torch
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = load_config("smollm-135m")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn((1, h, seq, cfg.head_dim), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    errs = {}
+    for name, dtype, tol in (("bf16", torch.bfloat16, 2e-2),
+                             ("fp32", torch.float32, 1e-4)):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        got = flash_attention(qq, kk, vv, causal=True).float()
+        want = ref.flash_attention_ref(qq, kk, vv, causal=True).float()
+        errs[name] = float((got - want).abs().max())
+        require(torch.allclose(got, want, rtol=tol, atol=tol),
+                f"13a flash_attention {name} at q {tuple(q.shape)} vs its "
+                f"plain version: max err {errs[name]}")
+    return errs
+
+
+def pipelined_smollm(dev, num_layers: int | None = None,
+                     microbatches: int = PIPE_MICROBATCHES,
+                     seq: int = PROMPT_LEN) -> dict:
+    """Phase 13: the multi-rank executors on the card.  The one-process
+    references run here first; then ``PIPE_RANKS`` ranks share the card
+    under gloo (:func:`pipeline_rank`).  13a: ``flash_attention`` alone
+    at the path's shape against its plain version; SmolLM-135M's blocks
+    (all 30, or ``num_layers``) in sequence here, through the kernels
+    against the plain attention (fp32 at rtol=atol=1e-4, bf16 within
+    2e-2 of the scale or twice the plain bf16 path's own error), then
+    pipelined over 3 ranks against the kernels' run in sequence (fp32 as
+    before, bf16 at phase 6b's bar), with ``flash_attention`` launched
+    once a block and microbatch on each rank; 13b: the gradient of mean(y²) through
+    the pipeline (fp32, plain attention) against ``torch.autograd`` of
+    ``pipeline_apply_emulated`` here, every leaf within 1e-4·|g| +
+    1e-4·max|g|; 13c: each rank's whole fp32 gradient reduced with
+    ``compress_tree_psum`` within its bound of the fp32 ``all_reduce``;
+    13d: the ``systolic`` backend.  Returns the launches summed over the
+    ranks."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import gpipe_bubble_fraction, pipeline_apply_emulated
+    from repro_torch.launch.mesh import spawn
+    S, M = PIPE_STAGES, microbatches
+    seq_out = {}
+    with torch.no_grad():
+        call_err = _attention_at_path_shape(dev, seq)
+        # the blocks in sequence in one process, through the kernels and
+        # through the plain attention, in bf16 and in fp32
+        for dtype in ("bfloat16", "float32"):
+            for impl in ("pallas", "full"):
+                _, _, stacked, stage, mbs, _ = _pipe_model(
+                    dev, dtype, impl, num_layers, M, seq)
+                if (dtype, impl) == ("bfloat16", "pallas"):
+                    _sequential(stacked, stage, mbs)               # warm-up
+                    y, seq_s = _timed(
+                        dev, lambda: _sequential(stacked, stage, mbs))
+                else:
+                    y = _sequential(stacked, stage, mbs)
+                seq_out[dtype, impl] = y.float().cpu()
+    seq16, seq32 = seq_out["bfloat16", "pallas"], seq_out["float32", "pallas"]
+    plain16, plain32 = seq_out["bfloat16", "full"], seq_out["float32", "full"]
+    cfg, _, stacked, stage, mbs, _ = _pipe_model(
+        dev, "float32", "auto", num_layers, M, seq)
+    leaves = [leaf.requires_grad_() for leaf in tree.leaves(stacked)]
+    y = pipeline_apply_emulated(stage, stacked, mbs, S)
+    want = [g.detach() for g in torch.autograd.grad((y ** 2).mean(), leaves)]
+    depth = cfg.num_layers
+    del stacked, leaves, y, mbs
+    _free()
+    t0 = time.perf_counter()
+    res = spawn(pipeline_rank, PIPE_RANKS, num_layers, M, seq,
+                backend="gloo", device=dev.type, timeout_s=PIPE_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    pipe = res[:S]
+    # 13a: the kernels' path in sequence against the plain path: fp32 at
+    # rtol=atol=1e-4; bf16 within the larger of 2e-2 of the plain
+    # output's scale and twice the plain bf16 path's own error (its
+    # distance to plain fp32): both bf16 paths round on their own, so
+    # their distance may reach the sum of their errors.  Then the
+    # pipeline against the kernels' path in sequence: fp32 as before,
+    # bf16 at phase 6b's bar (the larger of 2e-2 of the scale and the
+    # plain bf16 path's own error)
+    noise = float((plain16 - plain32).abs().max())
+    scale = float(plain16.abs().max())
+    bar16 = max(2e-2 * scale, noise)
+    kern16 = float((seq16 - plain16).abs().max())
+    kern16_32 = float((seq16 - plain32).abs().max())
+    kern32 = float((seq32 - plain32).abs().max())
+    require(bool(torch.isfinite(seq16).all())
+            and kern16 <= max(2e-2 * scale, 2 * noise),
+            f"13a bf16 pallas vs full in sequence: max |Δ| {kern16} > both "
+            f"2e-2 * {scale} and twice the plain path's bf16 error {noise}")
+    require(torch.allclose(seq32, plain32, rtol=1e-4, atol=1e-4),
+            f"13a fp32 pallas vs full in sequence: max |Δ| {kern32}")
+    for r in pipe:
+        y16, y32 = r["bf16"].float(), r["fp32"]
+        require(bool(torch.isfinite(y16).all()) and y16.shape == seq16.shape,
+                f"13a rank {r['rank']}: bf16 output {tuple(y16.shape)} or "
+                f"not finite")
+        err16 = float((y16 - seq16).abs().max())
+        require(err16 <= bar16,
+                f"13a rank {r['rank']}: bf16 pipelined vs sequential max "
+                f"|Δ| {err16} > both 2e-2 * {scale} and the plain path's "
+                f"bf16 error {noise}")
+        err32 = float((y32 - seq32).abs().max())
+        require(torch.allclose(y32, seq32, rtol=1e-4, atol=1e-4),
+                f"13a rank {r['rank']}: fp32 pipelined vs sequential max "
+                f"|Δ| {err32}")
+    launches = {k: sum(r["launches"][k] for r in pipe)
+                for k in pipe[0]["launches"]}
+    per_rank = [r["launches"]["flash_attention"] for r in pipe]
+    require(per_rank == [depth // S * M] * S,
+            f"13a flash_attention launches per rank {per_rank}, expected "
+            f"{depth // S} blocks x {M} microbatches on each")
+    require(all(r["routes"] == {"mma.sync": depth // S * M} for r in pipe),
+            f"13a bf16 prefill launches by design: "
+            f"{[r['routes'] for r in pipe]}, expected all on mma.sync")
+    bit = all(torch.equal(r["bf16"].float(), seq16) for r in pipe)
+    worst16 = max(float((r["bf16"].float() - seq16).abs().max())
+                  for r in pipe)
+    print(f"[13a] smollm-135m, {depth} blocks as {S} stages of {depth // S} "
+          f"on {S} ranks sharing {dev} (route {pipe[0]['route']!r}), {M} "
+          f"microbatches of 1x{seq}: flash_attention alone at q "
+          f"1x{cfg.num_heads}x{seq}x{cfg.head_dim} vs plain max|Δ| bf16 "
+          f"{call_err['bf16']:.3g} (2e-2), fp32 {call_err['fp32']:.3g} "
+          f"(1e-4); in sequence, pallas vs full max|Δ| bf16 {kern16:.4g} "
+          f"(bar the larger of 2e-2 * {scale:.4g} and twice the plain bf16 "
+          f"path's own {noise:.4g}; pallas bf16 to full fp32 "
+          f"{kern16_32:.4g}), fp32 {kern32:.3g} (rtol=atol=1e-4); "
+          f"pipelined vs in sequence max|Δ| bf16 {worst16:.4g} (bit for "
+          f"bit: {bit}; bar {bar16:.4g}), fp32 "
+          f"{max(float((r['fp32'] - seq32).abs().max()) for r in pipe):.3g}"
+          f"; flash_attention launches {per_rank} = "
+          f"{launches['flash_attention']} in all (mma.sync); walls (host "
+          f"clock): pipelined {max(r['pipe_s'] for r in pipe):.4f} s vs "
+          f"sequential in one process {seq_s:.4f} s; bubble fraction "
+          f"(S-1)/(M+S-1) = {gpipe_bubble_fraction(S, M):.3f}; shift of "
+          f"{pipe[0]['shift_bytes']} bytes "
+          f"{max(r['shift_ms'] for r in pipe):.3f} ms a tick", flush=True)
+    # 13b
+    worst, elsewhere = 0.0, max(r["grads_elsewhere"] for r in pipe)
+    for i, w in enumerate(want):
+        w = w.cpu()
+        for s, r in enumerate(pipe):
+            g, ws = r["grads"][i], w[s]
+            tol = 1e-4 * ws.abs() + 1e-4 * float(w.abs().max())
+            worst = max(worst, float((g - ws).abs().max()))
+            require(bool(((g - ws).abs() <= tol).all()),
+                    f"13b leaf {i} stage {s}: max|Δ| "
+                    f"{float((g - ws).abs().max())} beyond 1e-4·|g| + "
+                    f"1e-4·max|g|")
+    require(elsewhere == 0.0, f"13b a rank's gradient share reached "
+            f"another stage's slice ({elsewhere})")
+    print(f"[13b] grad of mean(y²) through the pipeline (fp32, attn 'auto'),"
+          f" {len(want)} leaves x {S} stages: max|Δ| vs pipeline_apply_"
+          f"emulated's autograd {worst:.3g} (1e-4·|g| + 1e-4·max|g|); each "
+          f"rank's share zero off its slice; wall "
+          f"{max(r['grad_s'] for r in pipe):.3f} s, again "
+          f"{max(r['grad_warm_s'] for r in pipe):.3f} s", flush=True)
+    # 13c
+    n = pipe[0]["reduce_values"]
+    ratio = max(r["reduce_ratio"] for r in pipe)
+    require(ratio <= 1.0, f"13c compressed_psum beyond S·½·scale: "
+            f"{ratio:.4f} of the bound")
+    print(f"[13c] data-parallel reduce of the whole fp32 gradient ({n} "
+          f"values, losses {[round(r['loss'], 4) for r in pipe]}) over "
+          f"{S} ranks: compress_tree_psum vs the fp32 all_reduce max|Δ| "
+          f"{max(r['reduce_err'] for r in pipe):.3g} = {ratio:.4f} of "
+          f"S·½·scale; a rank hands the collectives "
+          f"{pipe[0]['compressed_bytes']} bytes (int32 codes of whole "
+          f"chunks + fp32 chunk maxima) against {pipe[0]['fp32_bytes']} "
+          f"(fp32); walls (host clock): compress_tree_psum "
+          f"{max(r['compressed_s'] for r in pipe):.3f} s, again "
+          f"{max(r['compressed_warm_s'] for r in pipe):.3f} s, the fp32 "
+          f"all_reduce leaf by leaf "
+          f"{max(r['plain_reduce_s'] for r in pipe):.3f} s; the gradient "
+          f"as one tensor (first call in brackets): compressed "
+          f"{max(r['flat']['int8'] for r in pipe):.3f} "
+          f"[{max(r['flat']['int8_cold'] for r in pipe):.3f}] s, fp32 "
+          f"{max(r['flat']['fp32'] for r in pipe):.3f} "
+          f"[{max(r['flat']['fp32_cold'] for r in pipe):.3f}] s",
+          flush=True)
+    # 13d
+    for r in res:
+        require(r["quickstart_stages"] == 4 and r["quickstart_ok"]
+                and r["stream_ok"] and r["gather_ok"],
+                f"13d rank {r['rank']}: quickstart "
+                f"{r['quickstart_stages']} stages, systolic == direct "
+                f"{r['quickstart_ok']}, stream {r['stream_ok']}, staged "
+                f"gather bit for bit {r['gather_ok']}")
+    peak = [round(r["peak_gib"], 2) for r in res] if "peak_gib" in res[0] \
+        else "not measured"
+    print(f"[13d] systolic backend on {PIPE_RANKS} ranks: the quickstart "
+          f"kernel (4 stages) == direct call, a 6-microbatch stream == "
+          f"direct calls, decoupled_gather_staged of "
+          f"{res[0]['gather_rows']} rows (3 stages) bit for bit "
+          f"decoupled_gather_ref; walls {max(r['systolic_s'] for r in res):.3f}"
+          f" / {max(r['stream_s'] for r in res):.3f} / "
+          f"{max(r['staged_s'] for r in res):.3f} s", flush=True)
+    print(f"[13] ranks' wall {spawn_s:.2f} s (start-up included); peak "
+          f"GiB allocated per rank {peak}", flush=True)
     return launches
 
 

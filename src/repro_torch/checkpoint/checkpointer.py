@@ -17,8 +17,8 @@ one entry per repeat of a segment, not the reference's stacked one.
 bfloat16 leaves, which numpy cannot hold, are stored as their 16-bit
 patterns with the dtype in the manifest, and restored bit for bit.  The
 reference's resharding restore places leaves on a mesh and waits for the
-multi-device slice; here a restored leaf goes to its example leaf's
-device and dtype.
+mesh census (ROADMAP §1 item 5); here a restored leaf goes to its example
+leaf's device and dtype.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """repro_torch.core — the paper's contribution on PyTorch.
 
 Pipeline:  trace (CDFG on torch.fx) → partition (Algorithm 1) → decouple
-(stage programs) → execute (sequential / emulated systolic) or simulate
-(Fig. 2/5).
+(stage programs) → execute (sequential / emulated or ranked systolic /
+pipeline-parallel) or simulate (Fig. 2/5).
 """
 
 from .cdfg import (CDFG, DEFAULT_LATENCY, MEMORY_PRIMITIVES, LatencyModel,
@@ -15,7 +15,8 @@ from .partition import (Channel, Partition, Stage, StagePlan,
                         stage_groups)
 from .decouple import (DecoupledProgram, decouple, run_stages_sequential)
 from .channels import ChannelSpec, DeviceFIFO, FIFOState, HostFIFO
-from .pipeline import SystolicPipeline, gpipe_bubble_fraction
+from .pipeline import (SystolicPipeline, gpipe_bubble_fraction,
+                       pipeline_apply, pipeline_apply_emulated)
 from . import simulator
 
 __all__ = [
@@ -28,6 +29,7 @@ __all__ = [
     "neighbor_plans", "fused_plan", "maximal_plan",
     "DecoupledProgram", "decouple", "run_stages_sequential",
     "ChannelSpec", "DeviceFIFO", "FIFOState", "HostFIFO",
-    "SystolicPipeline", "gpipe_bubble_fraction",
+    "SystolicPipeline", "pipeline_apply", "pipeline_apply_emulated",
+    "gpipe_bubble_fraction",
     "simulator",
 ]

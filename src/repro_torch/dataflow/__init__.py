@@ -15,7 +15,8 @@ Internals (all public, all swappable):
   (trace → memdep → transform → partition → rewrite → dse → decouple →
   schedule).
 * :mod:`~repro_torch.dataflow.backends` — the execution-backend registry
-  (``sequential`` / ``emulated`` / ``eager`` / ``simulate``).
+  (``sequential`` / ``emulated`` / ``systolic`` / ``eager`` /
+  ``simulate``).
 * :mod:`~repro_torch.dataflow.schedule` — static schedule analysis and the
   Fig. 2/5 simulation report.
 * :mod:`~repro_torch.dataflow.dse` — the partition-space design-space

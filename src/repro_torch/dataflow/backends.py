@@ -16,12 +16,13 @@ Built-ins:
   (bit-exact oracle for the pipelined executors).
 * ``emulated``   — the tick-by-tick systolic schedule on one device
   (schedule-exact).
+* ``systolic``   — the same schedule with stage *s* on rank *s* of the
+  initialised ``torch.distributed`` group (needs ``num_stages`` ranks;
+  :func:`repro_torch.launch.mesh.spawn` or ``torchrun`` starts them).
 * ``eager``      — the original function, called directly: the fused
   conventional-accelerator baseline (the reference's ``xla`` backend).
 * ``simulate``   — the discrete-event machine model; returns a
   :class:`~repro_torch.dataflow.schedule.SimReport` instead of outputs.
-
-The multi-device ``systolic`` backend arrives with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..core.decouple import run_stages_sequential
 
@@ -101,6 +103,16 @@ def available_backends(compiled: Any) -> tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
+def _one_microbatch(compiled: Any, args: Sequence[Any]) -> list[Any]:
+    """Single-shot call → one-microbatch stream: the program's inputs,
+    the leaves of stream args gaining a leading axis of 1."""
+    flat = compiled.flatten_inputs(args)
+    for i in compiled.schedule.stream_argnums:
+        if i < len(flat):
+            flat[i] = torch.as_tensor(flat[i])[None]
+    return flat
+
+
 @register_backend
 class SequentialBackend(Backend):
     name = "sequential"
@@ -116,13 +128,46 @@ class EmulatedBackend(Backend):
     name = "emulated"
 
     def execute(self, compiled: Any, args: Sequence[Any]) -> Any:
-        # single-shot call → one-microbatch stream: the leaves of stream
-        # args gain a leading axis of 1
-        flat = compiled.flatten_inputs(args)
-        for i in compiled.schedule.stream_argnums:
-            if i < len(flat):
-                flat[i] = torch.as_tensor(flat[i])[None]
-        outs = compiled.schedule.pipeline.run_emulated(*flat)
+        outs = compiled.schedule.pipeline.run_emulated(
+            *_one_microbatch(compiled, args))
+        return compiled.unflatten_outputs([o[0] for o in outs])
+
+
+@register_backend
+class SystolicBackend(Backend):
+    """Stage *s* on rank *s* of the initialised ``torch.distributed``
+    group (:meth:`SystolicPipeline.build_sharded`); the first
+    ``num_stages`` ranks run the stages and every rank gets the outputs.
+    SPMD: every rank makes the same call.  Outside such a group it
+    raises :class:`BackendUnavailableError` — the stages never run
+    somewhere else instead."""
+
+    name = "systolic"
+
+    def is_available(self, compiled: Any) -> bool:
+        return (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() >= compiled.num_stages)
+
+    def _runner(self, compiled: Any):
+        cached = compiled.runtime_cache.get(self.name)
+        if cached is not None:
+            return cached
+        S = compiled.num_stages
+        if not self.is_available(compiled):
+            have = (f"a group of {dist.get_world_size()} ranks"
+                    if dist.is_available() and dist.is_initialized()
+                    else "no torch.distributed group")
+            raise BackendUnavailableError(
+                f"systolic backend needs {S} ranks (one per stage), have "
+                f"{have}; run the call on every rank under "
+                f"repro_torch.launch.mesh.spawn(fn, {S}, ...) or torchrun "
+                f"--nproc-per-node {S}, or use the 'emulated' backend")
+        run = compiled.schedule.pipeline.build_sharded()
+        compiled.runtime_cache[self.name] = run
+        return run
+
+    def execute(self, compiled: Any, args: Sequence[Any]) -> Any:
+        outs = self._runner(compiled)(*_one_microbatch(compiled, args))
         return compiled.unflatten_outputs([o[0] for o in outs])
 
 

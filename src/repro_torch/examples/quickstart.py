@@ -9,7 +9,8 @@ Run:  ``python -m repro_torch.examples.quickstart [--device cpu]``
 3. Execute through every backend — ``sequential`` (stage replay),
    ``emulated`` (tick-exact systolic schedule), ``eager`` (the fused
    baseline: the function unchanged) — each equal to the direct call.
-   ``systolic`` (one stage per device) is not available on one device.
+   ``systolic`` (stage *s* on rank *s*) needs one process per stage, so in
+   one process it is reported unavailable.
 4. Stream microbatches through the pipeline (the paper's Fig. 2 schedule).
 5. Simulate the Zynq-like memory system to see WHY decoupling wins (Fig. 5).
 """
@@ -20,6 +21,8 @@ import argparse
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from .. import _device
 from ..dataflow import dataflow_jit
@@ -58,9 +61,10 @@ def main(argv: list[str] | None = None) -> None:
     ref = kernel.__wrapped__(table, idx, w).cpu().numpy()
     for name in BACKENDS:
         if name not in compiled.backends():
-            n = torch.cuda.device_count() if dev.type == "cuda" else 1
-            print(f"backend {name:<10}: unavailable ({n} devices; the "
-                  f"multi-device pipeline is not ported)")
+            n = dist.get_world_size() if dist.is_initialized() else 1
+            print(f"backend {name:<10}: unavailable ({n} process"
+                  f"{'es' * (n > 1)}; one stage per rank, "
+                  f"{compiled.num_stages} ranks needed)")
             continue
         got = kernel(table, idx, w, backend=name).cpu().numpy()
         np.testing.assert_allclose(got, ref, rtol=1e-6)

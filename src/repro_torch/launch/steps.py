@@ -6,7 +6,7 @@ is ``jax.value_and_grad(loss_fn, has_aux=True)`` by
 stay plain tensors and the grads come back as a tree of their structure.
 The reference's ``train_state_shardings``, ``batch_shardings`` and
 ``lower_cell`` place state on a device mesh and lower a dry-run cell;
-they wait for the multi-device slice (ROADMAP).
+they wait for the mesh census (ROADMAP §1 item 5).
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""Optimiser substrate: AdamW with clipping and decay masks, and the LR
-schedule.  The reference's gradient compression (``optim/compress.py``)
-is cross-pod all-reduce work and waits for the multi-device slice."""
+"""Optimiser substrate: AdamW with clipping and decay masks, the LR
+schedule, and int8 gradient compression for a data-parallel reduce over
+``torch.distributed`` ranks (``compress``)."""
 
 from .adamw import AdamWConfig, apply_updates, global_norm, init_opt_state
 from .schedule import warmup_cosine
+from . import compress
 
 __all__ = ["AdamWConfig", "apply_updates", "global_norm", "init_opt_state",
-           "warmup_cosine"]
+           "warmup_cosine", "compress"]
