@@ -240,6 +240,33 @@ Phases, one line (or block) each:
    ranks (rtol 1e-6), and ``decoupled_gather_staged`` of phase 7's 4,096
    rows on ``systolic`` bit for bit; with the route, walls, the shift's
    ms a tick and each rank's peak memory;
+14. the production dry run (launches no hand kernel): (a) the card's
+   constants (``runtime/sharding.py``) against
+   ``get_device_properties(0).total_memory`` and ``nvidia-smi``; every
+   leaf's spec of the ten architectures at full width, on the 16×16 and
+   2×16×16 meshes, under the train, serve ``tp`` / ``2d`` and
+   ``ep_serve``, cache and batch rules, held to ``REF_DRYRUN_SPECS`` (a
+   digest an architecture); one rank's argument bytes of all 64
+   applicable cells under the reference's 16 GiB HBM, held to
+   ``REF_DRYRUN_ARGS``; the cells whose serve policy the card's 80 GB
+   changes, printed; (b) ``launch.dryrun.run_cell`` on a fake world
+   (device type ``cuda``) for the ten ``decode_32k`` cells on 16×16,
+   SmolLM-135M's ``train_4k`` and ``prefill_32k``, RWKV-6's
+   ``long_500k`` and DeepSeek-V3's ``decode_32k`` ``absorbed_ep``
+   variant: each ``ok``, its argument bytes those of the rules (under
+   the card's HBM), its dataflow census the reference's
+   (``REF_DRYRUN_CENSUS``), with its collectives, FLOPs, peak, roofline
+   terms and fit printed; (c) Qwen2.5-14B's and DeepSeek-V3's
+   ``decode_32k`` on 16×16: the census's local shapes must be the
+   rules' leaf by leaf and its argument bytes the rules'; rank 0's
+   shards are allocated on the card at those shapes, from a seeded
+   generator, with nothing else freed meanwhile (the previous cell's
+   shards all released and Python's garbage collected before the first
+   is measured); each allocation's requested
+   bytes must be its leaf's bytes exactly, and the growth of
+   ``torch.cuda.memory_allocated()`` at least the shards in whole
+   512-byte blocks and at most the rules' bytes plus 512 bytes a
+   tensor;
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), on each path of phase 12 and summed over
@@ -628,6 +655,177 @@ _STAGE = re.compile(r"\s+stage (\d+): \[(.*)\] ii=(\d+) lat=(\d+) "
                     r"in=(\d+)B out=(\d+)B ?(\S*)(?: regions=(.*))?$")
 _FINDING = re.compile(r"\s+\[(\S+)\] (\w+) @ ([^:]+): (.*?)"
                       r"(?:\s+\(hint: .*\))?$")
+
+
+#: the dataflow census's fields, in the reference's order
+_CENSUS_KEYS = ("ops", "memory_ops", "long_ops", "stages", "channels",
+                "channel_bytes", "pipeline_ii")
+
+
+def _census(*values: int) -> dict:
+    return dict(zip(_CENSUS_KEYS, values))
+
+
+#: one rank's argument bytes of every applicable dry-run cell under the
+#: reference's 16 GiB HBM (``tests/test_torch_sharding.py`` holds them to
+#: the reference's PartitionSpecs; 48 equal XLA's
+#: ``mem_argument_size_in_bytes`` in ``experiments/dryrun``, 16 exceed it
+#: by the leaves the step never reads, which XLA drops)
+REF_DRYRUN_ARGS = {
+    'jamba-1.5-large-398b__train_4k__16x16': 15_600_240_712,
+    'jamba-1.5-large-398b__train_4k__2x16x16': 7_814_639_656,
+    'jamba-1.5-large-398b__prefill_32k__16x16': 3_122_587_648,
+    'jamba-1.5-large-398b__prefill_32k__2x16x16': 1_565_126_656,
+    'jamba-1.5-large-398b__decode_32k__16x16': 3_762_432_036,
+    'jamba-1.5-large-398b__decode_32k__2x16x16': 1_885_048_852,
+    'jamba-1.5-large-398b__long_500k__16x16': 4_334_800_904,
+    'jamba-1.5-large-398b__long_500k__2x16x16': 2_777_470_984,
+    'qwen2.5-14b__train_4k__16x16': 582_365_256,
+    'qwen2.5-14b__train_4k__2x16x16': 293_773_352,
+    'qwen2.5-14b__prefill_32k__16x16': 1_847_447_552,
+    'qwen2.5-14b__prefill_32k__2x16x16': 1_847_316_480,
+    'qwen2.5-14b__decode_32k__16x16': 5_068_410_916,
+    'qwen2.5-14b__decode_32k__2x16x16': 3_457_798_164,
+    'olmo-1b__train_4k__16x16': 50_253_896,
+    'olmo-1b__train_4k__2x16x16': 25_126_952,
+    'olmo-1b__prefill_32k__16x16': 160_235_520,
+    'olmo-1b__prefill_32k__2x16x16': 160_104_448,
+    'olmo-1b__decode_32k__16x16': 2_307_457_060,
+    'olmo-1b__decode_32k__2x16x16': 1_233_715_220,
+    'smollm-135m__train_4k__16x16': 5_866_696,
+    'smollm-135m__train_4k__2x16x16': 3_109_032,
+    'smollm-135m__prefill_32k__16x16': 17_142_400,
+    'smollm-135m__prefill_32k__2x16x16': 17_011_328,
+    'smollm-135m__decode_32k__16x16': 394_367_652,
+    'smollm-135m__decode_32k__2x16x16': 205_623_956,
+    'command-r-plus-104b__train_4k__16x16': 4_209_885_256,
+    'command-r-plus-104b__train_4k__2x16x16': 2_120_794_152,
+    'command-r-plus-104b__prefill_32k__16x16': 842_186_752,
+    'command-r-plus-104b__prefill_32k__2x16x16': 424_263_680,
+    'command-r-plus-104b__decode_32k__16x16': 5_136_891_940,
+    'command-r-plus-104b__decode_32k__2x16x16': 2_571_616_276,
+    'rwkv6-1.6b__train_4k__16x16': 68_677_704,
+    'rwkv6-1.6b__train_4k__2x16x16': 37_621_800,
+    'rwkv6-1.6b__prefill_32k__16x16': 199_577_600,
+    'rwkv6-1.6b__prefill_32k__2x16x16': 199_446_528,
+    'rwkv6-1.6b__decode_32k__16x16': 207_179_812,
+    'rwkv6-1.6b__decode_32k__2x16x16': 203_247_636,
+    'rwkv6-1.6b__long_500k__16x16': 200_298_504,
+    'rwkv6-1.6b__long_500k__2x16x16': 200_298_504,
+    'deepseek-v3-671b__train_4k__16x16': 26_752_980_040,
+    'deepseek-v3-671b__train_4k__2x16x16': 13_381_640_744,
+    'deepseek-v3-671b__prefill_32k__16x16': 5_361_632_256,
+    'deepseek-v3-671b__prefill_32k__2x16x16': 2_681_846_272,
+    'deepseek-v3-671b__decode_32k__16x16': 6_512_706_596,
+    'deepseek-v3-671b__decode_32k__2x16x16': 3_257_383_444,
+    'llama4-scout-17b-a16e__train_4k__16x16': 4_217_764_936,
+    'llama4-scout-17b-a16e__train_4k__2x16x16': 2_111_365_672,
+    'llama4-scout-17b-a16e__prefill_32k__16x16': 844_155_904,
+    'llama4-scout-17b-a16e__prefill_32k__2x16x16': 422_574_592,
+    'llama4-scout-17b-a16e__decode_32k__16x16': 4_065_119_268,
+    'llama4-scout-17b-a16e__decode_32k__2x16x16': 2_033_056_276,
+    'musicgen-large__train_4k__16x16': 367_370_248,
+    'musicgen-large__train_4k__2x16x16': 185_671_688,
+    'musicgen-large__prefill_32k__16x16': 572_268_544,
+    'musicgen-large__prefill_32k__2x16x16': 438_050_816,
+    'musicgen-large__decode_32k__16x16': 6_746_284_068,
+    'musicgen-large__decode_32k__2x16x16': 3_525_058_580,
+    'chameleon-34b__train_4k__16x16': 2_421_506_056,
+    'chameleon-34b__train_4k__2x16x16': 1_214_726_152,
+    'chameleon-34b__prefill_32k__16x16': 5_361_909_760,
+    'chameleon-34b__prefill_32k__2x16x16': 4_825_038_848,
+    'chameleon-34b__decode_32k__16x16': 7_509_393_444,
+    'chameleon-34b__decode_32k__2x16x16': 5_898_780_692,
+}
+
+#: a sha256 an architecture of every leaf's spec (``dryrun_spec_digests``;
+#: the rules held leaf by leaf to the reference's in
+#: ``tests/test_torch_sharding.py``)
+REF_DRYRUN_SPECS = {
+    'jamba-1.5-large-398b':
+        'bf399bbbf039595c0277c9456beb2c9e'
+        '8d6fc3335c87c0ac68f7e93e8e640ee6',
+    'qwen2.5-14b':
+        'e1725a9f23a963dbc5a2ac4e8ce275d2'
+        'f68b481bc4c26af753e3f4a9a82cd910',
+    'olmo-1b':
+        'a69c3f7adf08a659da09491c691f0128'
+        '2cd67c851d7e02f12a877e030adbbad2',
+    'smollm-135m':
+        '264322a504c7495896c69369f4af602b'
+        '868edc20cea6fbb3ef463fd3a4a63d46',
+    'command-r-plus-104b':
+        'cf3846128b85342159f65b1582b0bc4a'
+        '19cfd91e37b0c9cdf43af4d613cda836',
+    'rwkv6-1.6b':
+        '38265a6800556f47789ef8c5b5dabf17'
+        '0aa74d3a036c3ee0ef942510d382f4be',
+    'deepseek-v3-671b':
+        '7ea8f6eeb366f44fd4d6a3350fc6c030'
+        '7448ba89acb8697d29213345bc45ce2a',
+    'llama4-scout-17b-a16e':
+        '89d710bf3865297c3c40d41c9763abb2'
+        '73d19e1d6f37017e3f2d9d7d2f92d12a',
+    'musicgen-large':
+        'edee102fe8a447749ac4180f14830d11'
+        '494c11039c497ff77748ab14bf489b9a',
+    'chameleon-34b':
+        'a1ea7570d0268ed3561e91c16958646d'
+        '78c87fc75dd2dd2f33f6cb03f44a9daa',
+}
+
+#: the reference's dataflow census of the decode, prefill and long cells
+#: (``repro.launch.dryrun.dataflow_census`` under jax 0.9.0, full width),
+#: and DeepSeek-V3's absorbed decode: ops, memory ops, long ops, stages,
+#: channels, channel bytes, pipeline II
+REF_DRYRUN_CENSUS = {
+    ('jamba-1.5-large-398b', 'decode_32k'):
+        _census(24, 1, 9, 10, 10, 54_527_488, 1),
+    ('jamba-1.5-large-398b', 'prefill_32k'):
+        _census(23, 1, 10, 10, 11, 171_811_274_792, 1),
+    ('jamba-1.5-large-398b', 'long_500k'):
+        _census(24, 1, 9, 10, 10, 425_996, 1),
+    ('qwen2.5-14b', 'decode_32k'):
+        _census(24, 1, 9, 10, 10, 90_965_504, 1),
+    ('qwen2.5-14b', 'prefill_32k'):
+        _census(23, 1, 10, 10, 11, 107_386_765_508, 1),
+    ('olmo-1b', 'decode_32k'):
+        _census(22, 1, 7, 8, 9, 29_951_488, 1),
+    ('olmo-1b', 'prefill_32k'):
+        _census(21, 1, 8, 8, 10, 34_372_321_348, 1),
+    ('smollm-135m', 'decode_32k'):
+        _census(24, 1, 9, 10, 10, 26_641_920, 1),
+    ('smollm-135m', 'prefill_32k'):
+        _census(23, 1, 10, 10, 11, 12_092_178_556, 1),
+    ('command-r-plus-104b', 'decode_32k'):
+        _census(28, 1, 8, 9, 10, 162_530_816, 1),
+    ('command-r-plus-104b', 'prefill_32k'):
+        _census(27, 1, 9, 9, 11, 257_710_620_932, 1),
+    ('rwkv6-1.6b', 'decode_32k'):
+        _census(28, 1, 8, 9, 10, 38_798_848, 1),
+    ('rwkv6-1.6b', 'prefill_32k'):
+        _census(27, 1, 9, 9, 11, 42_962_255_972, 1),
+    ('rwkv6-1.6b', 'long_500k'):
+        _census(28, 1, 8, 9, 10, 303_116, 1),
+    ('deepseek-v3-671b', 'decode_32k'):
+        _census(25, 1, 10, 11, 11, 86_377_984, 1),
+    ('deepseek-v3-671b', 'prefill_32k'):
+        _census(26, 1, 12, 12, 15, 165_368_824_064, 1),
+    ('llama4-scout-17b-a16e', 'decode_32k'):
+        _census(24, 1, 9, 10, 10, 116_557_312, 1),
+    ('llama4-scout-17b-a16e', 'prefill_32k'):
+        _census(23, 1, 10, 10, 11, 107_386_765_508, 1),
+    ('musicgen-large', 'decode_32k'):
+        _census(28, 1, 8, 9, 10, 6_292_992, 1),
+    ('musicgen-large', 'prefill_32k'):
+        _census(22, 0, 8, 8, 10, 38_667_288_772, 1),
+    ('chameleon-34b', 'decode_32k'):
+        _census(24, 1, 9, 10, 10, 54_527_488, 1),
+    ('chameleon-34b', 'prefill_32k'):
+        _census(18, 0, 9, 9, 10, 154_631_405_764, 1),
+    ('deepseek-v3-671b+absorbed', 'decode_32k'):
+        _census(25, 1, 10, 11, 11, 86_377_984, 1),
+}
 
 
 def report_key(report: str) -> tuple:
@@ -1042,6 +1240,14 @@ def main() -> None:
     t13 = time.perf_counter()
     phase13 = pipelined_smollm(dev)
     print(f"[13] phase 13 in {time.perf_counter() - t13:.2f} s", flush=True)
+
+    # -- 14. the production dry run on a fake world -----------------------------
+    t14 = time.perf_counter()
+    before = dict(_lib.counts())
+    dryrun_phase(dev, smi)
+    require(dict(_lib.counts()) == before,
+            "phase 14 launched a hand kernel")
+    print(f"[14] phase 14 in {time.perf_counter() - t14:.2f} s", flush=True)
 
     # -- 10. the kernels line ---------------------------------------------------
     rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
@@ -3328,6 +3534,239 @@ def _bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: the production dry run
+# ---------------------------------------------------------------------------
+
+#: the production meshes' axis sizes
+DRYRUN_MESHES = {"16x16": {"data": 16, "model": 16},
+                 "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+#: the reference's HBM (a TPU v5e's 16 GiB), which decides its serve policy
+REF_HBM_BYTES = 16 * 2**30
+
+
+def dryrun_arguments(hbm_bytes: int) -> dict:
+    """One rank's argument bytes of every applicable (arch, shape, mesh)
+    cell, by the rules alone, the serve policy under ``hbm_bytes``."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, load_config
+    from repro_torch.configs.base import cell_is_applicable
+    from repro_torch.launch import steps
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = load_config(arch)
+        for shape in SHAPES:
+            if not cell_is_applicable(cfg, SHAPES[shape]):
+                continue
+            for mesh, sizes in DRYRUN_MESHES.items():
+                _, args, specs = steps.cell_inputs(cfg, shape, sizes,
+                                                   hbm_bytes=hbm_bytes)
+                out[f"{arch}__{shape}__{mesh}"] = steps.argument_bytes(
+                    args, specs, sizes)
+    return out
+
+
+def dryrun_spec_digests() -> dict:
+    """A sha256 an architecture of every leaf's spec (path, shape, spec,
+    one line each) on both meshes under the train rules, serve ``tp`` and
+    ``2d`` with and without ``ep_serve``, the cache rules (decode_32k and,
+    where it applies, long_500k) and the batch rules."""
+    import hashlib
+    from repro_torch import tree
+    from repro_torch.configs import ARCH_IDS, SHAPES, load_config
+    from repro_torch.configs.base import cell_is_applicable
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.runtime import sharding as shr
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = load_config(arch)
+        params = M.init_params(None, cfg, "meta")
+        pbytes = steps._param_bytes(params)
+        lines = []
+
+        def add(tag, tree_, specs):
+            for (path, leaf), sp in zip(tree.flatten_with_paths(tree_),
+                                        steps._spec_leaves(specs)):
+                lines.append(f"{tag} {path} {tuple(leaf.shape)} {sp}")
+
+        for mesh, sizes in DRYRUN_MESHES.items():
+            add(f"{mesh} train", params, shr.params_specs(sizes, params))
+            for hbm in (2**62, 1):                  # tp, then 2d
+                for ep in (False, True):
+                    add(f"{mesh} serve hbm={hbm} ep={ep}", params,
+                        shr.params_specs_serve(sizes, params, pbytes,
+                                               ep_serve=ep, hbm_bytes=hbm))
+            for shape in ("decode_32k", "long_500k"):
+                if cell_is_applicable(cfg, SHAPES[shape]):
+                    cache = M.input_specs(cfg, shape)["cache"]
+                    add(f"{mesh} cache {shape}", cache,
+                        shr.tree_specs(sizes, cache, shr.cache_pspec))
+            for shape in SHAPES:
+                for key, t in M.input_specs(cfg, shape).items():
+                    if key != "cache":
+                        lines.append(f"{mesh} batch {shape} {key} "
+                                     f"{shr.batch_pspec(sizes, t.shape)}")
+        out[arch] = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+    return out
+
+
+#: phase 14b's cells: (arch, shape, variant, config overrides, ep_serve)
+DRYRUN_CELLS = (
+    *((a, "decode_32k", None, {}, False) for a in (
+        "jamba-1.5-large-398b", "qwen2.5-14b", "olmo-1b", "smollm-135m",
+        "command-r-plus-104b", "rwkv6-1.6b", "deepseek-v3-671b",
+        "llama4-scout-17b-a16e", "musicgen-large", "chameleon-34b")),
+    ("smollm-135m", "train_4k", None, {}, False),
+    ("smollm-135m", "prefill_32k", None, {}, False),
+    ("rwkv6-1.6b", "long_500k", None, {}, False),
+    ("deepseek-v3-671b", "decode_32k", "absorbed_ep",
+     {"mla_absorbed": True}, True),
+)
+
+
+def dryrun_phase(dev, smi: str) -> None:
+    """Phase 14 (module docstring)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import SHAPES, load_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as lm
+    from repro_torch.runtime import sharding as shr
+
+    # -- 14a. the card's constants, the rules, the argument bytes ----------
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(shr.HBM_BYTES_PER_CHIP == total,
+            f"HBM_BYTES_PER_CHIP {shr.HBM_BYTES_PER_CHIP} != the card's "
+            f"{total}")
+    require("H100" in smi, f"not an H100: {smi}")
+    print(f"[14a] card constants: HBM {total:,} B (get_device_properties), "
+          f"peak bf16 {shr.PEAK_FLOPS_BF16:.4g} FLOP/s, HBM "
+          f"{shr.HBM_BW:.4g} B/s, link {shr.ICI_BW_PER_LINK:.4g} B/s; "
+          f"{smi}", flush=True)
+    t0 = time.perf_counter()
+    digests = dryrun_spec_digests()
+    bad = [a for a in REF_DRYRUN_SPECS if digests.get(a) !=
+           REF_DRYRUN_SPECS[a]]
+    require(not bad and len(digests) == 10,
+            f"specs differ from the reference's: {bad}")
+    ref_args = dryrun_arguments(REF_HBM_BYTES)
+    require(ref_args == REF_DRYRUN_ARGS and len(ref_args) == 64,
+            f"argument bytes differ from the reference's: "
+            f"{ {k: v for k, v in ref_args.items() if REF_DRYRUN_ARGS.get(k) != v} }")
+    card_args = dryrun_arguments(shr.HBM_BYTES_PER_CHIP)
+    moved = sorted(k for k in card_args if card_args[k] != ref_args[k])
+    print(f"[14a] specs of 10 architectures x 2 meshes x (train, serve "
+          f"tp/2d x ep_serve, cache, batch) equal the reference's; "
+          f"argument bytes of 64 cells equal the reference's "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    print(f"[14a] cells whose serve policy the card's HBM changes "
+          f"(2d -> tp): {moved}", flush=True)
+
+    # -- 14b. run_cell on the fake world ----------------------------------------
+    for arch, shape, variant, over, ep in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod=False, save=False,
+                              variant=variant, overrides=over, ep_serve=ep,
+                              device=dev)
+        require(rec["status"] == "ok",
+                f"{arch} {shape} {variant}: {rec.get('traceback')}")
+        cfg = dataclasses.replace(load_config(arch), **over)
+        _, args, specs = steps.cell_inputs(cfg, shape,
+                                           DRYRUN_MESHES["16x16"],
+                                           ep_serve=ep)
+        want = steps.argument_bytes(args, specs, DRYRUN_MESHES["16x16"])
+        require(rec["mem_argument_size_in_bytes"] == want,
+                f"{arch} {shape}: argument bytes "
+                f"{rec['mem_argument_size_in_bytes']} != the rules' {want}")
+        key = (arch + ("+absorbed" if over else ""), shape)
+        if SHAPES[shape].kind != "train":
+            require(rec["dataflow"] == REF_DRYRUN_CENSUS[key],
+                    f"{key}: census {rec['dataflow']} != the reference's")
+        c, r = rec["coll"], rec["roofline"]
+        print(f"[14b] {arch} {shape}{' ' + variant if variant else ''}: ok "
+              f"in {rec['total_s']} s (trace {rec['trace_s']:.2f} s); args "
+              f"{rec['mem_argument_size_in_bytes']:,} B, out "
+              f"{rec['mem_output_size_in_bytes']:,} B, peak "
+              f"{rec['peak_bytes']:,} B; rank FLOPs {rec['rank_flops']:.4g},"
+              f" bytes {rec['rank_bytes']:.4g}; collectives "
+              f"{ {k: (c['count'][k], c[k]) for k in c['count'] if c['count'][k]} }"
+              f" total {c['total']:,} B; roofline compute "
+              f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
+              f"collective {r['t_collective_s']:.4g} s ({r['dominant']}); "
+              f"fits HBM {rec['fit']['fits_hbm']}; census "
+              f"{'none (train)' if 'dataflow' not in rec else 'the reference' + chr(39) + 's'}",
+              flush=True)
+
+    # -- 14c. rank 0's shards for real on the card ---------------------------
+    import gc
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sizes = DRYRUN_MESHES["16x16"]
+    for arch in ("qwen2.5-14b", "deepseek-v3-671b"):
+        cfg = load_config(arch)
+        with lm.fake_world(256):
+            mesh = lm.make_production_mesh(False, dev)
+            rec = steps.lower_cell(cfg, "decode_32k", mesh)
+        _, args, specs = steps.cell_inputs(cfg, "decode_32k", sizes)
+        want = steps.argument_bytes(args, specs, sizes)
+        require(rec["mem_argument_size_in_bytes"] == want,
+                f"{arch}: the census's argument bytes "
+                f"{rec['mem_argument_size_in_bytes']:,} != the rules' "
+                f"{want:,}")
+        for (path, leaf), sp, got in zip(tree.flatten_with_paths(args),
+                                         steps._spec_leaves(specs),
+                                         rec["local_shapes"], strict=True):
+            rule = shr.local_shape(sizes, leaf.shape, sp)
+            require(tuple(got) == rule,
+                    f"{arch} {path}: the census's local shape {got} != "
+                    f"the rules' {rule}")
+
+        def requested() -> int:
+            return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+        torch.cuda.synchronize()
+        # a warm cache hands out whole cached blocks up to 1 MB larger
+        # than asked: measure on fresh segments
+        gc.collect()
+        torch.cuda.empty_cache()
+        base, base_req = torch.cuda.memory_allocated(), requested()
+        held, off = [], []
+        for (path, leaf), shp in zip(tree.flatten_with_paths(args),
+                                     rec["local_shapes"], strict=True):
+            before = requested()
+            t = torch.empty(shp, dtype=leaf.dtype, device=dev)
+            if leaf.dtype.is_floating_point:
+                t.normal_(generator=gen)
+            else:
+                t.random_(0, 2**15, generator=gen)
+            held.append(t)
+            if requested() - before != t.numel() * t.element_size():
+                off.append((path, requested() - before,
+                            t.numel() * t.element_size()))
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        asked = requested() - base_req
+        slack = 512 * len(held)
+        # the allocator's least: each tensor in whole 512-byte blocks
+        blocks = sum(max(512, -(-t.numel() * t.element_size() // 512) * 512)
+                     for t in held)
+        require(not off and asked == want,
+                f"{arch}: the allocator was asked for {asked:,} B for "
+                f"{want:,} B of shards; leaves off (path, asked, bytes): "
+                f"{off[:5]}")
+        require(blocks <= grown <= want + slack,
+                f"{arch}: {grown:,} B allocated for {want:,} B of shards "
+                f"in {blocks:,} B of blocks (slack {slack:,})")
+        print(f"[14c] {arch} decode_32k: rank 0's {len(held)} shards at the "
+              f"rules' local shapes allocated on the card: the allocator "
+              f"was asked for {asked:,} B, the rules' bytes, leaf by leaf; "
+              f"memory_allocated grew {grown:,} B (+{grown - want:,} B; "
+              f"512-byte blocks +{blocks - want:,} B, bound 512 B x "
+              f"{len(held)} = {slack:,})", flush=True)
+        # ``t`` too: it holds the last shard, whose release inside the next
+        # cell's loop would count against that cell
+        del held, t
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

@@ -355,7 +355,11 @@ def leaves(*, index: Sequence[tuple[Any, str]] = (),
     traces as one node, lowered to one ``scan`` equation — the
     reference's ``jax.lax.scan`` over stacked repeats — whose inputs are
     the carry and the leaves of ``consts`` and ``state`` and whose
-    outputs are the new carry and the leaves of the new state.
+    outputs are the new carry and the leaves of the new state.  A
+    function with a ``scan_ys(consts, **static)`` attribute returns, in
+    place of a new state, per-repeat outputs (the scan's stacked ``ys``)
+    of the structure, shapes and dtypes of the ``meta`` tensors that
+    ``scan_ys`` gives.
 
     Each function is replaced in its module's globals for the block, as
     ``torch.fx.wrap`` does for a trace; called on tensors, it runs
@@ -387,20 +391,24 @@ def _scan_leaf(fn: Callable) -> Callable:
              ) -> tuple[Any, Any]:
         if not isinstance(carry, fx.Proxy):
             return fn(carry, consts, state, **static)
-        n_state = len(tree.leaves(state))
-        out = carry.tracer.create_proxy(
-            "call_function", _scan_node,
-            (carry, tuple(tree.leaves(consts)), tuple(tree.leaves(state))),
-            {})
+        args = (carry, tuple(tree.leaves(consts)), tuple(tree.leaves(state)))
+        second = state
+        if hasattr(fn, "scan_ys"):
+            second = fn.scan_ys(consts, **static)
+            args += (tuple((tuple(t.shape), t.dtype)
+                           for t in tree.leaves(second)),)
+        out = carry.tracer.create_proxy("call_function", _scan_node, args, {})
         # the body rides on the node's meta, so the lowered equation runs it
         out.node.meta["scan"] = (functools.partial(fn, **static), consts,
                                  state)
-        return out[0], tree.unflatten(state, [out[1 + i]
-                                              for i in range(n_state)])
+        n_out = len(tree.leaves(second))
+        return out[0], tree.unflatten(second, [out[1 + i]
+                                               for i in range(n_out)])
     return leaf
 
 
-def _scan_node(carry: Any, consts: tuple, state: tuple) -> tuple:
+def _scan_node(carry: Any, consts: tuple, state: tuple,
+               ys: tuple | None = None) -> tuple:
     """The call target of a traced ``scan`` leaf (its node's body lives
     in ``meta``; the lowered equation runs it)."""
     raise RuntimeError("a traced scan runs through its lowered equation")
@@ -535,7 +543,7 @@ class _Lowering:
             return self.lower_getattr(node)
         if target in ("float", "to"):
             return self.lower_convert(node)
-        if target in ("mean", "var"):
+        if target in ("mean", "var", "sum"):
             return self.lower_reduction(node)
         if target is torch.einsum:
             return self.lower_einsum(node)
@@ -679,7 +687,7 @@ class _Lowering:
         """A traced ``scan`` leaf → one ``scan`` equation: inputs the
         carry and the leaves of ``consts`` and ``state``, outputs the new
         carry and the leaves of the new state."""
-        carry_n, const_ns, state_ns = node.args
+        carry_n, const_ns, state_ns = node.args[:3]
         invars = [self.read(a) for a in (carry_n, *const_ns, *state_ns)]
         outs = tuple(Var(Aval(tuple(m.shape), m.dtype),
                          f"{node.name}.{len(self.eqns)}.{i}")
@@ -724,13 +732,16 @@ class _Lowering:
     def lower_reduction(self, node: fx.Node) -> Var:
         """``x.mean(dim, keepdim)`` → ``reduce_sum``, a
         ``broadcast_in_dim`` back to the kept axes, ``div`` by the count
-        (``jnp.mean``); ``x.var(dim, keepdim=True, unbiased=False)`` → one
-        ``jit`` equation, as ``jnp.var`` is a jitted function."""
+        (``jnp.mean``); ``x.sum(dim, keepdim)`` the same without the
+        ``div`` (no ``dim``: every axis); ``x.var(dim, keepdim=True,
+        unbiased=False)`` → one ``jit`` equation, as ``jnp.var`` is a
+        jitted function."""
         params = dict(zip(("dim", "keepdim"), node.args[1:]), **node.kwargs)
         x = self.env[node.args[0]]
         shape, dt, src = x.aval.shape, x.aval.dtype, node.name
-        dim = params["dim"]
-        dims = (dim,) if isinstance(dim, int) else dim
+        dim = params.get("dim")
+        dims = (range(len(shape)) if dim is None
+                else (dim,) if isinstance(dim, int) else dim)
         axes = tuple(sorted(d % len(shape) for d in dims))
         keep = tuple(1 if d in axes else n for d, n in enumerate(shape))
         if node.target == "var":
@@ -751,6 +762,8 @@ class _Lowering:
                             broadcast_dimensions=tuple(
                                 d for d in range(len(shape))
                                 if d not in axes))
+        if node.target == "sum":
+            return out
         count = 1
         for d in axes:
             count *= shape[d]
@@ -814,6 +827,10 @@ class _MetaShapeProp(ShapeProp):
         if target is at_set:
             return torch.empty_like(args[0])
         if target is _scan_node:     # the carry and the state keep shapes
+            if len(args) > 3:        # per-repeat outputs in place of state
+                return (torch.empty_like(args[0]),
+                        *(torch.empty(shape, dtype=dt, device="meta")
+                          for shape, dt in args[3]))
             return (torch.empty_like(args[0]),
                     *map(torch.empty_like, args[2]))
         return super().call_function(target, args, kwargs)

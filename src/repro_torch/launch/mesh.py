@@ -20,19 +20,26 @@ collide.  On a host with S cards, ``torchrun --nproc-per-node S`` starts
 the same ranks without this module; the executors take whatever group
 is initialised.
 
-The reference's production mesh (``make_production_mesh``, a 16×16 TPU
-pod) has no counterpart on one card.
+The reference's production mesh (``make_production_mesh``: 16×16, or
+2×16×16, TPU chips, lowered on 512 placeholder CPU devices) is a
+``DeviceMesh`` here over a *fake* process group of 256 or 512 ranks in
+the calling process (:func:`fake_world`, torch's ``"fake"`` backend):
+collectives hallucinate, nothing is communicated, and the process plays
+rank 0.  Nothing starts it at import; the dry run opens it for its call
+and destroys it after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import math
 import multiprocessing as mp
 import os
 import pickle
 import tempfile
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 import torch.distributed as dist
@@ -70,6 +77,10 @@ def _rank_main(rank: int, fn: Callable, world: int, store_path: str,
     result = tree.tree_map(
         lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t,
         fn(*args))
+    # the ranks leave together: a rank with nothing to do (one outside a
+    # subgroup) would otherwise exit, closing its connections, while a
+    # slower rank is still connecting to it in ``init_process_group``
+    dist.barrier()
     # pickled here, so the parent gets bytes, not tensors in shared memory
     results.put((rank, pickle.dumps(result)))
     dist.destroy_process_group()
@@ -133,3 +144,53 @@ def spawn(fn: Callable, world: int, *args: Any, backend: str,
     if missing:
         raise RankError(f"ranks {missing} of {world} exited before returning")
     return [got[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# Logical meshes: the production mesh on a fake world
+# ---------------------------------------------------------------------------
+
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0) -> Iterator[None]:
+    """A fake default process group of ``world`` ranks in this process,
+    which plays ``rank``, destroyed on exit.  Raises if a process group
+    is already initialised (a real one must not be shadowed)."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; the "
+                           "fake world needs the process to itself")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str],
+              device: str | torch.device | None = None):
+    """A ``DeviceMesh`` of ``shape`` with dim names ``names`` over the
+    initialised default group, which must have ``prod(shape)`` ranks;
+    ``device`` is the card (default) or ``"cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = _device.get_device(device)
+    n = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise RuntimeError(f"a {tuple(shape)} mesh needs a process group "
+                           f"of {n} ranks, found {have}")
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device: str | torch.device | None = None):
+    """The reference's production topology: (16, 16) ``("data",
+    "model")``, or (2, 16, 16) ``("pod", "data", "model")``, over the
+    initialised group (:func:`fake_world` of 256 or 512 ranks)."""
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    return make_mesh(shape, names, device)

@@ -173,12 +173,19 @@ def decode_step_leaves():
 
 def decode_report(cfg, params: dict, batch: int, max_len: int) -> str:
     """The dataflow report of ``decode_step`` at ``batch`` sequences of a
-    ``max_len`` cache holding 8 tokens (the reference's step), compiled
-    for ``meta`` tensors: shapes and dtypes of ``params`` only (on any
-    device, or ``meta`` from ``init_params(None, cfg, "meta")``).  The
-    graph's inputs are the parameter leaves, the token and the cache
-    leaves, each tree's leaves in :func:`reference_order`, so region
-    names are the reference's; each segment is one ``scan`` equation
+    ``max_len`` cache holding 8 tokens (the reference's step)
+    (:func:`decode_compiled`)."""
+    return decode_compiled(cfg, params, batch, max_len).report()
+
+
+def decode_compiled(cfg, params: dict, batch: int, max_len: int):
+    """``decode_step`` at ``batch`` sequences of a ``max_len`` cache
+    holding 8 tokens, compiled by the dataflow driver for ``meta``
+    tensors: shapes and dtypes of ``params`` only (on any device, or
+    ``meta`` from ``init_params(None, cfg, "meta")``).  The graph's
+    inputs are the parameter leaves, the token and the cache leaves,
+    each tree's leaves in :func:`reference_order`, so region names are
+    the reference's; each segment is one ``scan`` equation
     (:func:`decode_step_leaves`)."""
     from .. import tree
     from ..dataflow import compile as dataflow_compile
@@ -206,7 +213,7 @@ def decode_report(cfg, params: dict, batch: int, max_len: int) -> str:
             torch.zeros(batch, dtype=torch.int32, device="meta"),
             tuple(_at(cache, k) for k in c_order),
             backend="eager", device="meta", use_cache=False)
-    return compiled.report()
+    return compiled
 
 
 # ---------------------------------------------------------------------------

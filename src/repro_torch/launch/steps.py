@@ -4,23 +4,29 @@ The port of the reference's ``launch/steps.py``.  :func:`loss_and_grads`
 is ``jax.value_and_grad(loss_fn, has_aux=True)`` by
 ``torch.autograd.grad`` over the params' flattened leaves, so the params
 stay plain tensors and the grads come back as a tree of their structure.
-The reference's ``train_state_shardings``, ``batch_shardings`` and
-``lower_cell`` place state on a device mesh and lower a dry-run cell;
-they wait for the mesh census (ROADMAP §1 item 5).
+:func:`train_state_shardings` and :func:`batch_shardings` give the
+DTensor placements of the rules in ``runtime/sharding.py``;
+:func:`lower_cell` runs one dry-run cell's step on DTensors over a
+``DeviceMesh`` (the production mesh on a fake process group,
+``launch/mesh.py``) with ``meta`` shards and records what one rank
+holds, computes and moves (``launch/census.py``) — the reference lowers
+and compiles the step for 256 or 512 placeholder devices instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
 
 from .. import tree
-from ..configs.base import ModelConfig
+from ..configs.base import SHAPES, InputShape, ModelConfig
 from ..models import model as M
 from ..optim import adamw
 from ..optim.schedule import warmup_cosine
+from ..runtime import sharding as shr
 
 
 @dataclasses.dataclass
@@ -40,10 +46,19 @@ def loss_and_grads(params: Any, batch: dict, cfg: ModelConfig
         loss, metrics = M.loss_fn(tree.unflatten(params, leaves), batch,
                                   cfg)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _like(g, p)
              for p, g in zip(leaves, got)]
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             tree.unflatten(params, grads))
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A sharded leaf's gradient in its param's layout (ZeRO: the
+    gradient reduce-scatters into the param's shards), so the optimiser
+    meets param, gradient and moments in one layout."""
+    if shr.is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -95,3 +110,181 @@ def make_forward(cfg: ModelConfig):
         logits, _ = M.forward(params, inputs, cfg)
         return logits
     return fwd
+
+
+# ---------------------------------------------------------------------------
+# Placements, argument bytes and the sharded step of one dry-run cell
+# ---------------------------------------------------------------------------
+
+def train_state_specs(mesh: Any, state: TrainState) -> TrainState:
+    """The train layout of a train state: the moments shard as their
+    params (ZeRO for free); ``count`` and ``step`` are replicated."""
+    psp = shr.params_specs(mesh, state.params)
+    return TrainState(psp, {"mu": psp, "nu": psp, "count": ()}, ())
+
+
+def batch_specs(mesh: Any, batch: dict) -> dict:
+    """Token batches by :func:`~repro_torch.runtime.sharding.batch_pspec`,
+    a decode cell's ``cache`` by ``cache_pspec``."""
+    return {k: (shr.tree_specs(mesh, v, shr.cache_pspec) if k == "cache"
+                else shr.batch_pspec(mesh, v.shape))
+            for k, v in batch.items()}
+
+
+def _spec_map(fn, specs: Any) -> Any:
+    """``fn`` over a spec tree's specs, in its structure (a spec is a
+    tuple, which ``tree`` would walk into)."""
+    if isinstance(specs, TrainState):
+        return TrainState(*(_spec_map(fn, getattr(specs, f.name))
+                            for f in dataclasses.fields(specs)))
+    if isinstance(specs, dict):
+        return {k: _spec_map(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_spec_map(fn, v) for v in specs]
+    return fn(specs)
+
+
+def _spec_leaves(specs: Any) -> list:
+    """A spec tree's specs, in ``tree.leaves`` order of its tensors."""
+    out: list = []
+    _spec_map(out.append, specs)
+    return out
+
+
+def _placements(mesh: Any, specs: Any) -> Any:
+    return _spec_map(lambda sp: shr.to_placements(mesh, sp), specs)
+
+
+def train_state_shardings(mesh: Any, state: TrainState) -> TrainState:
+    """The DTensor placements of :func:`train_state_specs`."""
+    return _placements(mesh, train_state_specs(mesh, state))
+
+
+def batch_shardings(mesh: Any, batch: dict) -> dict:
+    """The DTensor placements of :func:`batch_specs`."""
+    return _placements(mesh, batch_specs(mesh, batch))
+
+
+def _param_bytes(params: Any) -> int:
+    return sum(p.numel() * p.element_size() for p in tree.leaves(params))
+
+
+def cell_inputs(cfg: ModelConfig, shape: InputShape | str, mesh: Any, *,
+                opt_cfg: adamw.AdamWConfig | None = None,
+                ep_serve: bool = False,
+                hbm_bytes: int = shr.HBM_BYTES_PER_CHIP
+                ) -> tuple[str, tuple, list]:
+    """The step kind of a cell, its arguments as ``meta`` tensors and
+    their specs (a list, one spec tree an argument), by the rules alone
+    (``mesh`` may be a ``{name: size}`` mapping).  A decode step's
+    ``length`` is an int32 scalar, replicated, as the reference's."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    specs = M.input_specs(cfg, shape)
+    if shape.kind == "train":
+        state = abstract_train_state(cfg, opt_cfg or adamw.AdamWConfig())
+        return ("train", (state, specs),
+                [train_state_specs(mesh, state), batch_specs(mesh, specs)])
+    params = M.init_params(None, cfg, "meta")
+    psp = shr.params_specs_serve(mesh, params, _param_bytes(params),
+                                 ep_serve=ep_serve and shape.kind == "decode",
+                                 hbm_bytes=hbm_bytes)
+    if shape.kind == "prefill":
+        inp = specs.get("tokens", specs.get("embeds"))
+        return "prefill", (params, inp), [psp, shr.batch_pspec(mesh,
+                                                                inp.shape)]
+    if shape.kind == "decode":
+        b = batch_specs(mesh, {"token": specs["token"],
+                               "cache": specs["cache"]})
+        return ("decode", (params, specs["token"], specs["cache"],
+                           specs["length"]),
+                [psp, b["token"], b["cache"], ()])
+    raise ValueError(shape.kind)
+
+
+def argument_bytes(args: tuple, specs: list, mesh: Any) -> int:
+    """One rank's bytes of the arguments: each leaf's shape divided by
+    its spec's axis sizes (the reference's ``mem_argument_size_in_bytes``
+    follows from the PartitionSpecs and shapes alone)."""
+    return sum(
+        torch.Size(shr.local_shape(mesh, t.shape, sp)).numel()
+        * t.element_size()
+        for t, sp in zip(tree.leaves(args), _spec_leaves(specs)))
+
+
+def lower_cell(cfg: ModelConfig, shape: InputShape | str, mesh: Any, *,
+               opt_cfg: adamw.AdamWConfig | None = None,
+               ep_serve: bool = False, inputs: Any = None) -> dict:
+    """Run one cell's step once on this rank of ``mesh`` (a
+    ``DeviceMesh``) and record what the rank holds, computes and moves.
+
+    The step is the port's own (:func:`make_train_step`,
+    :func:`make_forward`, :func:`make_decode_step`), run unchanged on
+    DTensors: params, state, cache and inputs are built on ``meta`` and
+    placed by the rules with ``src_data_rank=None`` (each rank takes its
+    chunk; nothing is communicated), so every shard is a ``meta`` tensor
+    — shapes and dtypes, no storage, the counterpart of the reference's
+    placeholder devices — and so is everything the model computes from
+    them; plain tensors the model creates count as replicated
+    (``implicit_replication``).  (Not ``FakeTensorMode``: under it
+    DTensor's planning of a strided-shard redistribution calls
+    ``.tolist()`` on a fake index tensor and fails.)  A decode step runs
+    at ``length = seq_len - 1``.  The record holds ``kind``,
+    ``mem_argument_size_in_bytes`` (the local shards of every input),
+    ``mem_output_size_in_bytes``, ``peak_bytes``, ``coll`` (the
+    collectives' kinds, counts and result bytes), ``rank_flops``,
+    ``rank_bytes``, ``trace_s`` and ``local_shapes`` (each argument
+    leaf's local shape, in :func:`cell_inputs` order).  A missing
+    sharding strategy raises.
+
+    ``inputs`` (the arguments of :func:`cell_inputs`' structure, whole
+    and the same on every rank) runs the step on their shards instead,
+    on a real process group; the record then also holds ``outputs``.
+    """
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from .census import RankCensus
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    kind, meta_args, specs = cell_inputs(cfg, shape, mesh, opt_cfg=opt_cfg,
+                                         ep_serve=ep_serve)
+    whole = meta_args if inputs is None else inputs
+    census = RankCensus(tree.leaves(whole)[0].device.type)
+
+    def local(t: Any) -> torch.Tensor:
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    args = tree.unflatten(whole, [
+        distribute_tensor(t, mesh, pl, src_data_rank=None)
+        for t, pl in zip(tree.leaves(whole),
+                         _spec_leaves(_placements(mesh, specs)))])
+    locals_ = [local(t) for t in tree.leaves(args)]
+    census.hold(*locals_)
+    if kind == "train":
+        step = make_train_step(cfg, opt_cfg)
+    elif kind == "prefill":
+        step = make_forward(cfg)
+    else:
+        dstep = make_decode_step(cfg)
+        length = shape.seq_len - 1
+
+        def step(params, token, cache, _length):
+            return dstep(params, token, cache, length)
+    t0 = time.perf_counter()
+    with census, implicit_replication():
+        out = step(*args)
+    trace_s = time.perf_counter() - t0
+    out_bytes = sum(local(t).numel() * local(t).element_size()
+                    for t in tree.leaves(out) if isinstance(t, torch.Tensor))
+    rec = {"kind": kind,
+           "mem_argument_size_in_bytes": sum(
+               t.numel() * t.element_size() for t in locals_),
+           "mem_output_size_in_bytes": out_bytes,
+           "local_shapes": [tuple(t.shape) for t in locals_],
+           "trace_s": trace_s}
+    rec.update(census.record())
+    if inputs is not None:
+        rec["outputs"] = out
+    return rec

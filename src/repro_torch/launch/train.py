@@ -102,10 +102,13 @@ def train_loop(cfg, *, steps: int, batch_size: int, seq_len: int,
             # the checkpoint step; the deterministic pipeline then replays
             # exactly the batches an uninterrupted run would have seen.
             failures += 1
+            if ckpt is not None:
+                # a checkpoint still being written counts: wait for it
+                # before asking for the latest one
+                ckpt.wait()
             if ckpt is None or ckpt.latest_step() is None:
                 raise
             log.warning("step %d failed (%s); restoring", step, e)
-            ckpt.wait()
             state, at = ckpt.restore(state)
             restores += 1
             del losses[at - start_step:]

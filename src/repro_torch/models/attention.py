@@ -25,6 +25,7 @@ never calls a kernel, in the reference or here.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,9 +64,9 @@ def _project_qkv(params, x, cfg, positions):
         q = q + params["b_q"]
         k = k + params["b_k"]
         v = v + params["b_v"]
-    q = q.reshape(B, S, cfg.num_heads, hd).transpose(1, 2)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd).transpose(1, 2)
+    q = layers.split_last(q, cfg.num_heads, hd).transpose(1, 2)
+    k = layers.split_last(k, cfg.num_kv_heads, hd).transpose(1, 2)
+    v = layers.split_last(v, cfg.num_kv_heads, hd).transpose(1, 2)
     q = layers.apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = layers.apply_rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
@@ -123,9 +124,10 @@ def _attend(q, k, v, cfg):
         impl = "chunked" if q.shape[2] > 2048 else "full"
     if impl == "pallas":
         return kops.flash_attention(q, k, v, causal=True)
-    if impl == "chunked":
-        return _chunked_attention(q, k, v, causal=True)
-    return _full_attention(q, k, v, causal=True)
+    fn = _chunked_attention if impl == "chunked" else _full_attention
+    # heads are independent: on DTensors each rank attends its own
+    return layers.local_map(functools.partial(fn, causal=True), (q, k, v),
+                            [(0, 1)] * 3, (0, 1))
 
 
 def gqa_apply(params: dict, x: torch.Tensor, cfg, *,
@@ -135,7 +137,7 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg, *,
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, cfg).transpose(1, 2).reshape(B, S, -1)
+    out = layers.merge_last(_attend(q, k, v, cfg).transpose(1, 2))
     return out @ params["w_o"]
 
 
@@ -145,7 +147,7 @@ def gqa_prefill(params: dict, x: torch.Tensor, cfg, max_len: int
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, cfg).transpose(1, 2).reshape(B, S, -1)
+    out = layers.merge_last(_attend(q, k, v, cfg).transpose(1, 2))
     pad = (0, 0, 0, max_len - S)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = _kv_quantize(k)
@@ -211,15 +213,15 @@ def gqa_decode(params: dict, x: torch.Tensor, cache: dict, length: int,
     if cfg.kv_cache_dtype == "int8":
         for name, t in (("k", k), ("v", v)):
             codes, scale = _kv_quantize(t)
-            cache[name][:, :, slot] = codes[:, :, 0]
-            cache[name + "_scale"][:, :, slot] = scale[:, :, 0]
+            layers.write_at(cache[name], 2, slot, codes[:, :, 0])
+            layers.write_at(cache[name + "_scale"], 2, slot, scale[:, :, 0])
         out = _decode_chunked(q[:, :, 0], cache["k"], cache["v"], lengths,
                               k_scale=cache["k_scale"],
                               v_scale=cache["v_scale"])
         return out.reshape(B, 1, -1) @ params["w_o"], cache
     # append new k/v at `length` (the decoupled cache write stage)
-    cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+    layers.write_at(cache["k"], 2, slot, k[:, :, 0].to(cache["k"].dtype))
+    layers.write_at(cache["v"], 2, slot, v[:, :, 0].to(cache["v"].dtype))
     if cfg.attn_impl == "pallas":
         out = kops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
                                     lengths)
@@ -234,9 +236,14 @@ def _decode_chunked(q, k_cache, v_cache, lengths, chunk: int = 2048,
     """(B,H,d) vs (B,Hkv,S,d) ragged cache — streamed online softmax.
     Optional per-vector scales dequantize an int8 cache chunk by chunk."""
     S = k_cache.shape[2]
-    return _decode_masked_scan(q, k_cache, v_cache, lengths,
-                               chunk=min(chunk, S), k_scale=k_scale,
-                               v_scale=v_scale)
+    def scan(q, k_cache, v_cache, lengths, k_scale, v_scale):
+        return _decode_masked_scan(q, k_cache, v_cache, lengths,
+                                   chunk=min(chunk, S), k_scale=k_scale,
+                                   v_scale=v_scale)
+
+    return layers.local_map(
+        scan, (q, k_cache, v_cache, lengths, k_scale, v_scale),
+        [(0, 1), (0, 1), (0, 1), (0, None), (0, 1), (0, 1)], (0, 1))
 
 
 def _decode_masked_scan(q, k_cache, v_cache, lengths, chunk: int,
@@ -322,8 +329,24 @@ def _mla_qkv(params, x, cfg, positions):
 def _mla_attend(params, q_nope, q_pe, c_kv, k_pe, cfg, *, causal,
                 q_offset: int = 0):
     m = cfg.mla
-    B, Sq, H, _ = q_nope.shape
-    kv = (c_kv @ params["w_ukv"]).reshape(
+    chunked = (cfg.attn_impl in ("chunked", "auto")
+               and q_nope.shape[1] > 2048)
+    # heads are independent: on DTensors each rank decompresses the
+    # latent for its own heads and attends them
+    out = layers.local_map(
+        functools.partial(_mla_core, m=m, causal=causal, q_offset=q_offset,
+                          chunked=chunked),
+        (q_nope, q_pe, c_kv, k_pe, params["w_ukv"]),
+        [(0, 2), (0, 2), (0, None), (0, None), (None, 1)], (0, 1))
+    out = layers.merge_last(out.transpose(1, 2))
+    return out @ params["w_o"]
+
+
+def _mla_core(q_nope, q_pe, c_kv, k_pe, w_ukv, *, m, causal: bool,
+              q_offset: int, chunked: bool) -> torch.Tensor:
+    """Decompress the latent (c_kv @ W_ukv) and attend: (B, H, Sq, v)."""
+    H = q_nope.shape[2]
+    kv = (c_kv @ w_ukv).reshape(
         c_kv.shape[0], c_kv.shape[1], H, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     qh = torch.cat([q_nope, q_pe], -1).transpose(1, 2)
@@ -332,13 +355,8 @@ def _mla_attend(params, q_nope, q_pe, c_kv, k_pe, cfg, *, causal,
                                          m.qk_rope_head_dim)],
         -1).transpose(1, 2)
     vh = v.transpose(1, 2)
-    if cfg.attn_impl in ("chunked", "auto") and qh.shape[2] > 2048:
-        out = _chunked_attention(qh, kh, vh, causal=causal,
-                                 q_offset=q_offset)
-    else:
-        out = _full_attention(qh, kh, vh, causal=causal, q_offset=q_offset)
-    out = out.transpose(1, 2).reshape(B, Sq, H * m.v_head_dim)
-    return out @ params["w_o"]
+    fn = _chunked_attention if chunked else _full_attention
+    return fn(qh, kh, vh, causal=causal, q_offset=q_offset)
 
 
 def mla_apply(params: dict, x: torch.Tensor, cfg, *,
@@ -380,8 +398,10 @@ def mla_decode(params: dict, x: torch.Tensor, cache: dict, length: int,
     positions = torch.full((B, 1), length, device=x.device)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, positions)
     slot = min(length, cache["c_kv"].shape[1] - 1)
-    cache["c_kv"][:, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
-    cache["k_pe"][:, slot] = k_pe[:, 0].to(cache["k_pe"].dtype)
+    layers.write_at(cache["c_kv"], 1, slot,
+                    c_kv[:, 0].to(cache["c_kv"].dtype))
+    layers.write_at(cache["k_pe"], 1, slot,
+                    k_pe[:, 0].to(cache["k_pe"].dtype))
     if cfg.mla_absorbed:
         out = _mla_decode_absorbed(params, q_nope, q_pe, cache["c_kv"],
                                    cache["k_pe"], length, cfg)
@@ -405,17 +425,24 @@ def _mla_decode_absorbed(params, q_nope, q_pe, c_cache, p_cache,
     w_ukv = params["w_ukv"].reshape(r, H, m.qk_nope_head_dim + m.v_head_dim)
     w_uk = w_ukv[:, :, :m.qk_nope_head_dim]          # (r, H, nope)
     w_uv = w_ukv[:, :, m.qk_nope_head_dim:]          # (r, H, v)
-    # absorb: q_lat (B, H, r) = q_nope · W_uk^T
-    q_lat = torch.einsum("bqhn,rhn->bhr", q_nope.float(), w_uk.float())
-    cf = c_cache.float()                             # (B, S, r)
-    pf = p_cache.float()                             # (B, S, rope)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    logits = (torch.einsum("bhr,bsr->bhs", q_lat, cf)
-              + torch.einsum("bqhp,bsp->bhs", q_pe.float(), pf)) * scale
-    mask = torch.arange(S, device=cf.device)[None, None, :] <= length
-    logits = torch.where(mask, logits, -1e30)
-    w = torch.softmax(logits, dim=-1)                # (B, H, S)
-    o_lat = torch.einsum("bhs,bsr->bhr", w, cf)      # (B, H, r)
-    out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv.float())
+
+    def core(q_nope, q_pe, c_cache, p_cache, w_uk, w_uv):
+        # absorb: q_lat (B, H, r) = q_nope · W_uk^T
+        q_lat = torch.einsum("bqhn,rhn->bhr", q_nope.float(), w_uk.float())
+        cf = c_cache.float()                         # (B, S, r)
+        pf = p_cache.float()                         # (B, S, rope)
+        logits = (torch.einsum("bhr,bsr->bhs", q_lat, cf)
+                  + torch.einsum("bqhp,bsp->bhs", q_pe.float(), pf)) * scale
+        mask = torch.arange(S, device=cf.device)[None, None, :] <= length
+        logits = torch.where(mask, logits, -1e30)
+        w = torch.softmax(logits, dim=-1)            # (B, H, S)
+        o_lat = torch.einsum("bhs,bsr->bhr", w, cf)  # (B, H, r)
+        return torch.einsum("bhr,rhv->bhv", o_lat, w_uv.float())
+
+    # heads are independent: on DTensors each rank attends its own
+    out = layers.local_map(core, (q_nope, q_pe, c_cache, p_cache, w_uk, w_uv),
+                           [(0, 2), (0, 2), (0, None), (0, None),
+                            (None, 1), (None, 1)], (0, 1))
     out = out.reshape(B, 1, H * m.v_head_dim).to(q_nope.dtype)
     return out @ params["w_o"]

@@ -82,6 +82,65 @@ def moe_apply(params: dict, x: torch.Tensor, cfg
 
     # --- router (fp32 for numerics) ---------------------------------------
     logits = xt.float() @ params["router"]                 # (T, E)
+    # on DTensors the routing sees every token (the capacity count runs
+    # over all of them): on replicas
+    cap = int(math.ceil(k * T / E * m.capacity_factor))
+    scores, top_w, top_ids, onehot, keep, slot, spare = layers.on_replicas(
+        lambda lg: _route(lg, m, T, cap), logits)
+
+    # --- scatter (dispatch: the memory stage) ------------------------------
+    src = torch.where(keep[..., None], xt[:, None, :], 0)  # (T, k, d)
+    src = src.reshape(T * k, d)
+
+    def scatter(spare, src):
+        # a spare row past E·cap takes the out-of-range writes
+        return torch.zeros((E * cap + 1,) + src.shape[1:], dtype=src.dtype,
+                           device=src.device).index_add_(0, spare, src)
+
+    if m.dispatch_dtype == "int8":
+        # quantize the token payload before the scatter; per-token f16
+        # scales ride along (a dropped pair's 1e-8 is 0 in f16)
+        s8 = (src.float().abs().amax(-1, keepdim=True) / 127.0
+              ).clamp_min(1e-8)
+        src_q = torch.clamp(torch.round(src.float() / s8),
+                            -127, 127).to(torch.int8)
+        xe_q = layers.on_replicas(scatter, spare, src_q)
+        se = layers.on_replicas(scatter, spare, s8.to(torch.float16))
+        xe = (xe_q[:-1].float() * se[:-1].float()).to(x.dtype)
+    else:
+        xe = layers.on_replicas(scatter, spare, src)[:-1]
+    xe = xe.reshape(E, cap, d)
+
+    # --- expert FFN (the long-latency stage) -------------------------------
+    gate = torch.bmm(xe, params["w_gate"])
+    up = torch.bmm(xe, params["w_up"])
+    h = (F.silu(gate.float()) * up.float()).to(x.dtype)
+    ye = torch.bmm(h, params["w_down"])                    # (E, cap, d)
+
+    # --- gather (combine: the second memory stage) --------------------------
+    yk = layers.on_replicas(
+        lambda ye, slot: ye.reshape(E * cap, d)[
+            slot.clamp(max=E * cap - 1)].reshape(T, k, d), ye, slot)
+    yk = yk * (top_w * keep).float()[..., None]
+    y = yk.sum(dim=1).to(x.dtype)
+
+    # --- shared experts (always-on streaming partition) ---------------------
+    if m.num_shared > 0:
+        y = y + layers.mlp_apply(params["shared"], xt, cfg.act)
+
+    # --- aux: load-balance loss (Switch-style) ------------------------------
+    me = scores.mean(dim=0)                                # (E,)
+    ce = onehot.sum(dim=1).float().mean(dim=0) * (E / k)
+    aux = {"lb_loss": (me * ce).sum() * E,
+           "dropped_frac": 1.0 - keep.float().mean()}
+    return y.reshape(B, S, d), aux
+
+
+def _route(logits: torch.Tensor, m, T: int, cap: int) -> tuple:
+    """Router logits → (scores, top-k weights and ids, their one-hot,
+    keep, slot, spare-row slot): each (token, choice) pair takes the next
+    slot of its expert in token-major order, up to the capacity ``cap``."""
+    E, k = m.num_experts, m.top_k
     if m.router_fn == "sigmoid":   # DeepSeek-V3 style
         scores = torch.sigmoid(logits)
     else:
@@ -99,8 +158,7 @@ def moe_apply(params: dict, x: torch.Tensor, cfg
     if m.normalize_weights:
         top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # --- capacity + position within expert --------------------------------
-    cap = int(math.ceil(k * T / E * m.capacity_factor))
+    # --- position within expert --------------------------------------------
     onehot = F.one_hot(top_ids, E)                         # (T, k, E)
     flat = onehot.reshape(T * k, E)
     pos = flat.cumsum(0) - flat                            # pos in expert
@@ -108,46 +166,4 @@ def moe_apply(params: dict, x: torch.Tensor, cfg
     keep = pos < cap
     slot = (top_ids * cap + pos).reshape(-1)               # may pass E*cap
     spare = torch.where(slot < E * cap, slot, E * cap)     # the cut-off row
-
-    # --- scatter (dispatch: the memory stage) ------------------------------
-    src = torch.where(keep[..., None], xt[:, None, :], 0)  # (T, k, d)
-    src = src.reshape(T * k, d)
-    if m.dispatch_dtype == "int8":
-        # quantize the token payload before the scatter; per-token f16
-        # scales ride along (a dropped pair's 1e-8 is 0 in f16)
-        s8 = (src.float().abs().amax(-1, keepdim=True) / 127.0
-              ).clamp_min(1e-8)
-        src_q = torch.clamp(torch.round(src.float() / s8),
-                            -127, 127).to(torch.int8)
-        xe_q = torch.zeros((E * cap + 1, d), dtype=torch.int8,
-                           device=x.device).index_add_(0, spare, src_q)
-        se = torch.zeros((E * cap + 1, 1), dtype=torch.float16,
-                         device=x.device).index_add_(
-            0, spare, s8.to(torch.float16))
-        xe = (xe_q[:-1].float() * se[:-1].float()).to(x.dtype)
-    else:
-        xe = torch.zeros((E * cap + 1, d), dtype=x.dtype,
-                         device=x.device).index_add_(0, spare, src)[:-1]
-    xe = xe.reshape(E, cap, d)
-
-    # --- expert FFN (the long-latency stage) -------------------------------
-    gate = torch.bmm(xe, params["w_gate"])
-    up = torch.bmm(xe, params["w_up"])
-    h = (F.silu(gate.float()) * up.float()).to(x.dtype)
-    ye = torch.bmm(h, params["w_down"])                    # (E, cap, d)
-
-    # --- gather (combine: the second memory stage) --------------------------
-    yk = ye.reshape(E * cap, d)[slot.clamp(max=E * cap - 1)].reshape(T, k, d)
-    yk = yk * (top_w * keep).float()[..., None]
-    y = yk.sum(dim=1).to(x.dtype)
-
-    # --- shared experts (always-on streaming partition) ---------------------
-    if m.num_shared > 0:
-        y = y + layers.mlp_apply(params["shared"], xt, cfg.act)
-
-    # --- aux: load-balance loss (Switch-style) ------------------------------
-    me = scores.mean(dim=0)                                # (E,)
-    ce = onehot.sum(dim=1).float().mean(dim=0) * (E / k)
-    aux = {"lb_loss": (me * ce).sum() * E,
-           "dropped_frac": 1.0 - keep.float().mean()}
-    return y.reshape(B, S, d), aux
+    return scores, top_w, top_ids, onehot, keep, slot, spare

@@ -20,10 +20,13 @@ hands to decode has seen the padding, as the reference's does.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import layers
+from ..runtime.sharding import constrain_residual
 
 
 # ---------------------------------------------------------------------------
@@ -63,16 +66,33 @@ def _causal_conv1d(x, w, b, state=None):
     return out + b, new_state
 
 
+def _conv(x, params, state=None):
+    """:func:`_causal_conv1d` with the layer's weights; channels are
+    independent, so on DTensors each rank convolves its own (the pad
+    along the sequence is local)."""
+    return layers.local_map(
+        _causal_conv1d, (x, params["conv_w"], params["conv_b"], state),
+        [(0, 2), (None, 1), (None, 0), (0, 2)], [(0, 2), (0, 2)])
+
+
+def _selective_step(dt_t, A, b_t, c_t, x_t, h):
+    """One step of the selective scan.  dt_t,x_t: (B,dI); A: (dI,N);
+    b_t,c_t: (B,N); h: the state (B,dI,N).  Returns y (B,dI) and h."""
+    da = torch.exp(dt_t[:, :, None] * A)                   # (B, dI, N)
+    h = da * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+    return (h * c_t[:, None, :]).sum(-1), h
+
+
 def _selective_scan_seq(dt, A, Bc, Cc, x):
     """Sequential scan.  dt,x: (B,L,dI); A: (dI,N); Bc,Cc: (B,L,N)."""
-    B, L, dI = x.shape
+    B, _, dI = x.shape
     h = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
                     device=x.device)
     ys = []
-    for t in range(L):
-        da = torch.exp(dt[:, t, :, None] * A)              # (B, dI, N)
-        h = da * h + (dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
-        ys.append((h * Cc[:, t, None, :]).sum(-1))         # (B, dI)
+    for dt_t, x_t, b_t, c_t in zip(dt.unbind(1), x.unbind(1), Bc.unbind(1),
+                                   Cc.unbind(1)):
+        y, h = _selective_step(dt_t, A, b_t, c_t, x_t, h)
+        ys.append(y)
     return torch.stack(ys, dim=1), h                       # (B,L,dI), h
 
 
@@ -112,17 +132,22 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg,
     L = x.shape[1]
     xz = x @ params["w_in"]
     xin_raw, z = xz.chunk(2, dim=-1)
-    xin, _ = _causal_conv1d(xin_raw, params["conv_w"], params["conv_b"])
+    xin, _ = _conv(xin_raw, params)
     xin = F.silu(xin.float())
     proj = (xin.to(x.dtype) @ params["w_x"]).float()
     dt, Bc, Cc = proj.split([s.dt_rank, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(dt @ params["w_dt"].float() + params["dt_bias"])
+    # the product's sum over ranks settles before the per-channel bias is
+    # added (on DTensors, as in the RWKV decay)
+    dt = F.softplus(constrain_residual(dt @ params["w_dt"].float())
+                    + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     if s.scan_impl == "chunked" and L % s.chunk == 0 and L > s.chunk:
-        y, h_final = _selective_scan_chunked(dt, A, Bc, Cc, xin,
-                                             chunk=s.chunk)
+        scan = functools.partial(_selective_scan_chunked, chunk=s.chunk)
     else:
-        y, h_final = _selective_scan_seq(dt, A, Bc, Cc, xin)
+        scan = _selective_scan_seq
+    y, h_final = layers.local_map(
+        scan, (dt, A, Bc, Cc, xin),
+        [(0, 2), (None, 0), (0, None), (0, None), (0, 2)], [(0, 2), (0, 1)])
     y = y + params["D"] * xin
     y = y * F.silu(z.float())
     out = y.to(x.dtype) @ params["w_out"]
@@ -147,16 +172,20 @@ def mamba_decode(params: dict, x: torch.Tensor, cache: dict,
     s = cfg.ssm
     xz = x @ params["w_in"]
     xin, z = xz.chunk(2, dim=-1)
-    xin, conv_state = _causal_conv1d(xin, params["conv_w"],
-                                     params["conv_b"], cache["conv"])
+    xin, conv_state = _conv(xin, params, cache["conv"])
     xin = F.silu(xin.float())[:, 0]                         # (B, dI)
     proj = (xin.to(x.dtype) @ params["w_x"]).float()
     dt, Bc, Cc = proj.split([s.dt_rank, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(dt @ params["w_dt"].float() + params["dt_bias"])
+    # the product's sum over ranks settles before the per-channel bias is
+    # added (on DTensors, as in the RWKV decay)
+    dt = F.softplus(constrain_residual(dt @ params["w_dt"].float())
+                    + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    da = torch.exp(dt[..., None] * A)
-    h = da * cache["h"] + (dt * xin)[..., None] * Bc[:, None, :]
-    y = (h * Cc[:, None, :]).sum(-1) + params["D"] * xin
+    y, h = layers.local_map(
+        _selective_step, (dt, A, Bc, Cc, xin, cache["h"]),
+        [(0, 1), (None, 0), (0, None), (0, None), (0, 1), (0, 1)],
+        [(0, 1), (0, 1)])
+    y = y + params["D"] * xin
     y = y * F.silu(z.float()[:, 0])
     out = (y.to(x.dtype) @ params["w_out"])[:, None, :]
     return out, {"h": h, "conv": conv_state}
@@ -212,8 +241,12 @@ def _rwkv_projections(params, x, xs):
     v = _rwkv_mix(x, xs, params["mu_v"]) @ params["w_v"]
     g = _rwkv_mix(x, xs, params["mu_g"]) @ params["w_g"]
     xw = _rwkv_mix(x, xs, params["mu_w"])
-    w = params["decay_w0"] + (torch.tanh((xw @ params["decay_A"]).float())
+    # the LoRA's sum over ranks settles before the per-channel offset is
+    # added (on DTensors: torch 2.11 cannot add a sharded offset to a
+    # partial sum)
+    lora = constrain_residual(torch.tanh((xw @ params["decay_A"]).float())
                               @ params["decay_B"].float())
+    w = params["decay_w0"] + lora
     return r, k, v, g, torch.exp(-torch.exp(w))
 
 
@@ -221,6 +254,28 @@ def _rwkv_out(params, y, g, x):
     y = layers.layernorm_apply(params["ln_x"], y.to(x.dtype))
     y = y * F.silu(g.float()).to(x.dtype)
     return y @ params["w_o"]
+
+
+def _rwkv_step(r_t, k_t, v_t, w_t, u, S):
+    """One step of the WKV recurrence.  r,k,v,w: (B, H, hd) (r,k,v fp32);
+    u: (H, hd); S: the state (B, H, hd, hd).  Returns y (B, H, hd) and
+    the new state."""
+    kv = k_t[..., None] * v_t[..., None, :]                 # (B,H,hd,hd)
+    y = torch.einsum("bhk,bhkv->bhv", r_t, S + u[..., None] * kv)
+    return y, w_t[..., None] * S + kv
+
+
+def _rwkv_scan(rh, kh, vh, wh, u):
+    """The WKV recurrence over L from a zero state.  r,k,v,w: (B, L, H,
+    hd); u: (H, hd).  Returns y (B, L, H, hd) and the final state."""
+    B, _, H, hd = rh.shape
+    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=rh.device)
+    ys = []
+    for r_t, k_t, v_t, w_t in zip(rh.unbind(1), kh.unbind(1), vh.unbind(1),
+                                  wh.unbind(1)):
+        y, S = _rwkv_step(r_t, k_t, v_t, w_t, u, S)
+        ys.append(y)
+    return torch.stack(ys, dim=1), S
 
 
 def rwkv6_apply(params: dict, x: torch.Tensor, cfg,
@@ -233,15 +288,9 @@ def rwkv6_apply(params: dict, x: torch.Tensor, cfg,
     kh = k.reshape(B, L, H, hd).float()
     vh = v.reshape(B, L, H, hd).float()
     wh = w.reshape(B, L, H, hd)
-    u = params["bonus_u"]                                   # (H, hd)
-    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(L):
-        kv = kh[:, t, ..., None] * vh[:, t, ..., None, :]   # (B,H,hd,hd)
-        ys.append(torch.einsum("bhk,bhkv->bhv", rh[:, t],
-                               S + u[..., None] * kv))
-        S = wh[:, t, ..., None] * S + kv
-    y = torch.stack(ys, dim=1).reshape(B, L, d)
+    y, S = layers.local_map(_rwkv_scan, (rh, kh, vh, wh, params["bonus_u"]),
+                            [(0, 2)] * 4 + [(None, 0)], [(0, 2), (0, 1)])
+    y = y.reshape(B, L, d)
     out = _rwkv_out(params, y, g, x)
     if return_cache:
         return out, {"S": S, "x_prev": x[:, -1:, :]}
@@ -263,13 +312,10 @@ def rwkv6_decode(params: dict, x: torch.Tensor, cache: dict,
     H = cfg.rwkv_heads
     hd = d // H
     r, k, v, g, w = _rwkv_projections(params, x, cache["x_prev"])
-    w = w.reshape(B, H, hd)
-    r_t = r.reshape(B, H, hd).float()
-    k_t = k.reshape(B, H, hd).float()
-    v_t = v.reshape(B, H, hd).float()
-    u = params["bonus_u"]
-    kv = k_t[..., None] * v_t[..., None, :]
-    y = torch.einsum("bhk,bhkv->bhv", r_t, cache["S"] + u[..., None] * kv)
-    S = w[..., None] * cache["S"] + kv
+    y, S = layers.local_map(
+        _rwkv_step, (r.reshape(B, H, hd).float(), k.reshape(B, H, hd).float(),
+                     v.reshape(B, H, hd).float(), w.reshape(B, H, hd),
+                     params["bonus_u"], cache["S"]),
+        [(0, 1)] * 4 + [(None, 0), (0, 1)], [(0, 1), (0, 1)])
     return _rwkv_out(params, y.reshape(B, 1, d), g, x), {"S": S,
                                                          "x_prev": x}

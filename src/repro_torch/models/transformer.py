@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from . import attention, layers, moe, ssm
 from .._device import get_device
 from ..configs.base import LayerSpec, ModelConfig
+from ..runtime.sharding import constrain_residual
 
 
 # ---------------------------------------------------------------------------
@@ -251,25 +252,60 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def is_embeds(tokens_or_embeds: torch.Tensor) -> bool:
+    """A 3-D model input is embeddings (a front end's output), a 2-D one
+    token ids.  (A trace that cannot read a rank replaces this.)"""
+    return tokens_or_embeds.ndim == 3
+
+
 def _inputs(params: dict, tokens_or_embeds: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """Token ids through the embedding, or (``cfg.frontend_stub``, 3-D)
     embeddings as they are, in the model's dtype."""
-    if cfg.frontend_stub and tokens_or_embeds.ndim == 3:
-        return tokens_or_embeds.to(cfg.torch_dtype)
-    return layers.embedding_apply(params["embed"], tokens_or_embeds)
+    if cfg.frontend_stub and is_embeds(tokens_or_embeds):
+        return constrain_residual(tokens_or_embeds.to(cfg.torch_dtype))
+    return constrain_residual(
+        layers.embedding_apply(params["embed"], tokens_or_embeds))
 
 
 def _repeat_apply(rep_params: list, x: torch.Tensor, unit, cfg
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """One repeat of a segment's unit: the output and the repeat's summed
-    load-balance loss (fp32; 0 without MoE layers)."""
+    load-balance loss (fp32; 0 without MoE layers).  Each layer's output
+    goes through ``constrain_residual`` where the reference calls
+    ``sp_constrain`` (a no-op on plain tensors)."""
     aux_acc: dict[str, Any] = {}
     for j, spec in enumerate(unit):
         x = _layer_apply(rep_params[j], x, spec, cfg, aux_acc)
+        x = constrain_residual(x)
     lb = torch.as_tensor(aux_acc.get("lb_loss", 0.0), dtype=torch.float32,
                          device=x.device)
     return x, lb
+
+
+def _segment_forward(x: torch.Tensor, seg_params: list, state: tuple = (),
+                     *, unit, cfg: ModelConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One segment's repeats in order: the body of the reference's scan
+    over the stacked repeats.  Returns the output and the repeats'
+    load-balance losses, (repeats,) fp32 (the scan's ``ys``).  With
+    ``cfg.remat`` each repeat runs under activation checkpointing, as
+    the reference wraps each repeat's body in ``jax.checkpoint``:
+    backward keeps only the repeat's input and recomputes the layers
+    inside."""
+    lbs = []
+    for rep_params in seg_params:
+        if cfg.remat:
+            x, lb = checkpoint(_repeat_apply, rep_params, x, unit, cfg,
+                               use_reentrant=False)
+        else:
+            x, lb = _repeat_apply(rep_params, x, unit, cfg)
+        lbs.append(lb)
+    return x, torch.stack(lbs)
+
+
+_segment_forward.scan_ys = lambda consts, **_: torch.empty(
+    len(consts), dtype=torch.float32, device="meta")
 
 
 def forward(params: dict, tokens_or_embeds: torch.Tensor,
@@ -278,21 +314,13 @@ def forward(params: dict, tokens_or_embeds: torch.Tensor,
     """Full-sequence causal forward.  Returns (logits, aux), aux holding
     the MoE layers' summed load-balance loss and, with ``return_hidden``,
     the final-normed hidden states (DeepSeek-V3's MTP loss reads them).
-
-    With ``cfg.remat`` each repeat of a segment's unit runs under
-    activation checkpointing, as the reference wraps each repeat's body
-    in ``jax.checkpoint``: backward keeps only the repeat's input and
-    recomputes the layers inside."""
+    Each segment is :func:`_segment_forward`."""
     x = _inputs(params, tokens_or_embeds, cfg)
-    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    lb = 0.0
     for si, seg in enumerate(cfg.segments):
-        for rep_params in params[f"segment_{si}"]:
-            if cfg.remat:
-                x, rep_lb = checkpoint(_repeat_apply, rep_params, x,
-                                       seg.unit, cfg, use_reentrant=False)
-            else:
-                x, rep_lb = _repeat_apply(rep_params, x, seg.unit, cfg)
-            lb = lb + rep_lb
+        x, lbs = _segment_forward(x, params[f"segment_{si}"], (),
+                                  unit=seg.unit, cfg=cfg)
+        lb = lb + lbs.sum()
     x = _final_norm(params, x, cfg)
     aux = {"lb_loss": lb}
     if return_hidden:
@@ -311,6 +339,7 @@ def prefill(params: dict, tokens_or_embeds: torch.Tensor, cfg: ModelConfig,
             rep_cache = []
             for j, spec in enumerate(seg.unit):
                 x, c = _layer_prefill(rep_params[j], x, spec, cfg, max_len)
+                x = constrain_residual(x)
                 rep_cache.append(c)
             seg_cache.append(rep_cache)
         cache[f"segment_{si}"] = seg_cache
@@ -337,6 +366,7 @@ def _segment_decode(x: torch.Tensor, seg_params: list, seg_cache: list, *,
         for j, spec in enumerate(unit):
             x, c = _layer_decode(rep_params[j], x, rep_cache[j], length,
                                  spec, cfg)
+            x = constrain_residual(x)
             new_rep_cache.append(c)
         new_seg_cache.append(new_rep_cache)
     return x, new_seg_cache
@@ -347,7 +377,8 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, length: int,
     """One new token for every sequence.  token: (B,) int; length: tokens
     already in the cache.  Returns (logits (B, vocab), cache), the cache
     updated in place."""
-    x = layers.embedding_apply(params["embed"], token[:, None])
+    x = constrain_residual(layers.embedding_apply(params["embed"],
+                                                  token[:, None]))
     new_cache: dict[str, Any] = {}
     for si, seg in enumerate(cfg.segments):
         x, new_cache[f"segment_{si}"] = _segment_decode(

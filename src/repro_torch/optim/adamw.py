@@ -95,11 +95,16 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     b2c = 1.0 - cfg.b2 ** count.float()
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=dev)
 
+    # elementwise from here: on sharded (DTensor) leaves, each rank
+    # updates its own shards (param, gradient and moments share a layout)
     sd = cfg.state_dtype
+    g32, mu, nu, flat_l = (_local(t) for t in (
+        g32, tree.leaves(state["mu"]), tree.leaves(state["nu"]), flat_p))
+    clip, b1c, b2c, lr_l = (_whole(t) for t in (clip, b1c, b2c, lr))
     g = torch._foreach_mul([x.to(sd) for x in g32], clip)
-    m = torch._foreach_mul(tree.leaves(state["mu"]), cfg.b1)
+    m = torch._foreach_mul(mu, cfg.b1)
     torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
-    v = torch._foreach_mul(tree.leaves(state["nu"]), cfg.b2)
+    v = torch._foreach_mul(nu, cfg.b2)
     sq = torch._foreach_mul(g, g)
     torch._foreach_mul_(sq, 1 - cfg.b2)
     torch._foreach_add_(v, sq)
@@ -107,17 +112,36 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     torch._foreach_sqrt_(den)
     torch._foreach_add_(den, cfg.eps)
     update = torch._foreach_div(torch._foreach_div(m, b1c), den)
-    p32 = [p.to(sd) for p in flat_p]
+    p32 = [p.to(sd) for p in flat_l]
     decayed = [i for i, (path, p) in enumerate(paths)
                if _decay_mask(path, p)]
     if cfg.weight_decay and decayed:
         torch._foreach_add_([update[i] for i in decayed], torch._foreach_mul(
             [p32[i] for i in decayed], cfg.weight_decay))
-    new_p = torch._foreach_sub(p32, torch._foreach_mul(update, lr))
+    new_p = torch._foreach_sub(p32, torch._foreach_mul(update, lr_l))
 
-    params_out = tree.unflatten(params, [x.to(p.dtype)
-                                         for x, p in zip(new_p, flat_p)])
-    state_out = {"mu": tree.unflatten(params, m),
-                 "nu": tree.unflatten(params, v),
+    params_out = tree.unflatten(params, _like(
+        [x.to(p.dtype) for x, p in zip(new_p, flat_l)], flat_p))
+    state_out = {"mu": tree.unflatten(params, _like(m, flat_p)),
+                 "nu": tree.unflatten(params, _like(v, flat_p)),
                  "count": count}
     return params_out, state_out, {"grad_norm": gnorm, "lr": lr}
+
+
+def _local(ts: list) -> list:
+    """Each tensor's local shard (a DTensor's), else the tensor."""
+    return [t.to_local() if hasattr(t, "to_local") else t for t in ts]
+
+
+def _whole(t):
+    """A scalar's value on every rank (a DTensor's, gathered)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _like(new: list, old: list) -> list:
+    """New local shards in the layouts of ``old``'s DTensor leaves."""
+    from torch.distributed.tensor import DTensor
+    return [DTensor.from_local(n, o.device_mesh, o.placements,
+                               run_check=False, shape=o.shape,
+                               stride=o.stride())
+            if isinstance(o, DTensor) else n for n, o in zip(new, old)]

@@ -1,7 +1,11 @@
 """Analytic per-step cost model: FLOPs, HBM bytes, collective bytes.
 
-The reference's ``runtime/cost_model.py``, moved unchanged: it reads the
-model configs only, no framework, so its numbers are the reference's.
+The reference's ``runtime/cost_model.py``, moved: it reads the model
+configs only, no framework, so its arithmetic is the reference's.  Its
+hardware is the card's: :meth:`StepCost.roofline`'s defaults and
+:func:`cost_for_cell`'s serve threshold read the H100's constants in
+``runtime/sharding.py`` (the reference's are a TPU v5e's: 197 TFLOP/s,
+819 GB/s, 16 GiB; pass them to get its numbers).
 
 Why analytic: XLA's ``cost_analysis()`` counts a ``scan``/``while`` body
 ONCE, not × trip-count (verified empirically — a 10-step scanned matmul
@@ -21,6 +25,8 @@ from __future__ import annotations
 import dataclasses
 
 from ..configs.base import InputShape, LayerSpec, ModelConfig, SHAPES
+from .sharding import (HBM_BW, HBM_BYTES_PER_CHIP, ICI_BW_PER_LINK,
+                       PEAK_FLOPS_BF16)
 
 BF16 = 2
 F32 = 4
@@ -63,7 +69,8 @@ class StepCost:
     coll_bytes: float        # per chip, on-wire
     breakdown: dict
 
-    def roofline(self, peak=197e12, bw=819e9, link=50e9) -> dict:
+    def roofline(self, peak=PEAK_FLOPS_BF16, bw=HBM_BW,
+                 link=ICI_BW_PER_LINK) -> dict:
         t_c = self.flops / peak
         t_m = self.hbm_bytes / bw
         t_l = self.coll_bytes / link
@@ -258,7 +265,8 @@ def cost_for_cell(cfg: ModelConfig, shape: InputShape | str,
     train = shape.kind == "train"
     if serve_policy is None:
         pbytes = cfg.param_count() * BF16
-        serve_policy = ("2d" if pbytes / tp > 0.5 * 16 * 2**30 else "tp")
+        serve_policy = ("2d" if pbytes / tp > 0.5 * HBM_BYTES_PER_CHIP
+                        else "tp")
     # batch must actually shard dp ways; clamp for tiny batches (long_500k)
     eff_dp = min(dp, shape.global_batch) if shape.kind != "train" else dp
     eff_dp = max(1, eff_dp)

@@ -16,9 +16,21 @@ from repro.configs import SHAPES as REF_SHAPES
 from repro.configs import load_config as ref_load_config
 from repro.runtime import cost_model as ref_cost_model
 from repro_torch.configs import ARCH_IDS, SHAPES, load_config
-from repro_torch.runtime import cost_model
+from repro_torch.runtime import cost_model, sharding
 from repro_torch.runtime.cost_model import (ShardingAssumptions,
                                             cost_for_cell, step_cost)
+
+
+#: the reference's hardware: a TPU v5e (its ``runtime/sharding.py``)
+V5E = dict(peak=197e12, bw=819e9, link=50e9)
+V5E_HBM = 16 * 2**30
+
+
+def _ref_serve_policy(arch: str) -> str:
+    """The reference's serve threshold: a ``model`` shard of the bf16
+    weights above half of v5e's 16 GiB is "2d"."""
+    pbytes = ref_load_config(arch).param_count() * 2
+    return "2d" if pbytes / 16 > 0.5 * V5E_HBM else "tp"
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
@@ -26,12 +38,39 @@ from repro_torch.runtime.cost_model import (ShardingAssumptions,
 def test_cost_for_cell_is_the_reference(arch, shape):
     """Every cell of the ten configs × the four input shapes: the same
     flops, HBM bytes, collective bytes and breakdown, and the same
-    roofline, exactly."""
-    got = cost_for_cell(load_config(arch), SHAPES[shape])
+    roofline, exactly, when the port is given the reference's hardware
+    (v5e's constants and its serve policy)."""
+    got = cost_for_cell(load_config(arch), SHAPES[shape],
+                        serve_policy=_ref_serve_policy(arch))
     want = ref_cost_model.cost_for_cell(ref_load_config(arch),
                                         REF_SHAPES[shape])
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert got.roofline() == want.roofline()
+    assert got.roofline(**V5E) == want.roofline()
+
+
+def test_h100_defaults_and_policy_changes():
+    """With its defaults the cost model is the H100's: 989 TFLOP/s bf16,
+    3.35 TB/s HBM, a 50 GB/s link and 80 GB (the card's reading) of HBM.
+    Under 80 GB two architectures move from the 2-D serve layout to
+    TP-only (Command R+ and Llama-4-Scout); Jamba and DeepSeek-V3 stay
+    2-D; every other architecture is TP-only under both."""
+    c = cost_for_cell(load_config("qwen2.5-14b"), SHAPES["decode_32k"])
+    r = c.roofline()
+    assert r["t_compute_s"] == c.flops / 989e12
+    assert r["t_memory_s"] == c.hbm_bytes / 3.35e12
+    assert r["t_collective_s"] == c.coll_bytes / 50e9
+    assert sharding.HBM_BYTES_PER_CHIP == 85_017_493_504
+    changed = {}
+    for arch in ARCH_IDS:
+        ref = _ref_serve_policy(arch)
+        h100 = ("2d" if "serve_weight_ag_bytes" in cost_for_cell(
+            load_config(arch), SHAPES["decode_32k"]).breakdown else "tp")
+        if h100 != ref:
+            changed[arch] = (ref, h100)
+        if arch in ("jamba-1.5-large-398b", "deepseek-v3-671b"):
+            assert h100 == "2d", arch
+    assert changed == {"command-r-plus-104b": ("2d", "tp"),
+                       "llama4-scout-17b-a16e": ("2d", "tp")}
 
 
 def test_module_is_the_reference_one():

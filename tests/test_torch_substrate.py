@@ -338,6 +338,28 @@ def test_train_recovers_from_injected_failure(tmp_path):
                                rtol=1e-5)
 
 
+def test_train_recovers_while_a_checkpoint_is_being_written(tmp_path,
+                                                           monkeypatch):
+    """A step that fails while the last checkpoint is still being written
+    (a slow disk) restores from it: the loop waits for the write before
+    asking for the latest checkpoint (it raised there before)."""
+    import time
+
+    from repro_torch.checkpoint import checkpointer
+    savez = checkpointer.np.savez
+
+    def slow_savez(*a, **k):
+        time.sleep(1.0)
+        return savez(*a, **k)
+
+    monkeypatch.setattr(checkpointer.np, "savez", slow_savez)
+    cfg = reduced(load_config("smollm-135m"), max_repeats=1)
+    out = train_loop(cfg, steps=6, batch_size=2, seq_len=16,
+                     ckpt_dir=str(tmp_path), ckpt_every=4, fail_at=5)
+    assert out["failures"] == 1 and out["restores"] == 1
+    assert len(out["losses"]) == 6
+
+
 def test_train_failure_without_a_checkpoint_raises():
     """With nothing to restore from, the failure propagates."""
     from repro_torch.runtime.fault_tolerance import StepFailure
