@@ -267,6 +267,26 @@ Phases, one line (or block) each:
    ``torch.cuda.memory_allocated()`` at least the shards in whole
    512-byte blocks and at most the rules' bytes plus 512 bytes a
    tensor;
+15. the core calls and elastic checkpoints (launch no hand kernel): (a)
+   ``decoupled_call`` of ``tanh(2·table[idx])`` (table f32[2^20], 2^16
+   indices, negative ones wrapping) and of the quickstart kernel under
+   the four policies on CUDA tensors, each output bit for bit the
+   function called directly on the card, each program's stage count that
+   of the CPU trace; ``ChannelSpec.from_example`` of a nested dict of
+   fp32, bf16, int8 and int64 CUDA tensors and ``None``, packed and
+   unpacked bit for bit, its ``width`` the CPU's; (b) SmolLM-135M's train
+   state at published widths (bf16 params, fp32 moments, 1.35 GB) saved
+   from this process, then, on 4 gloo ranks sharing the card
+   (host-staged), restored with ``shardings=train_state_shardings`` on
+   2×2 and 4×1 ``("data", "model")`` meshes, saved sharded from the 2×2
+   state (every rank gathers, rank 0 writes, ``wait`` is a barrier) and
+   restored on both meshes again: every rank's every local shard bit for
+   bit the chunk of the plain restore, on ``cuda``; the sharded
+   checkpoint restored whole here equals the state;
+   ``prefetched(sharding=)``'s 3 batches of 8 x 1,025 tokens each rank's
+   chunk of the unsharded stream, on each mesh; a shape mismatch raises
+   ``ValueError`` naming the leaf; each rank's restore walls and bytes
+   held, beside the card's name and power limit;
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), on each path of phase 12 and summed over
@@ -1248,6 +1268,15 @@ def main() -> None:
     require(dict(_lib.counts()) == before,
             "phase 14 launched a hand kernel")
     print(f"[14] phase 14 in {time.perf_counter() - t14:.2f} s", flush=True)
+
+    # -- 15. the core calls on the card; elastic checkpoints on ranks ---------
+    t15 = time.perf_counter()
+    before = dict(_lib.counts())
+    core_calls_on_card(dev)
+    elastic_checkpoints(dev, smi)
+    require(dict(_lib.counts()) == before,
+            "phase 15 launched a hand kernel")
+    print(f"[15] phase 15 in {time.perf_counter() - t15:.2f} s", flush=True)
 
     # -- 10. the kernels line ---------------------------------------------------
     rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
@@ -3767,6 +3796,352 @@ def dryrun_phase(dev, smi: str) -> None:
         # cell's loop would count against that cell
         del held, t
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the core calls on the card; elastic checkpoints on ranks
+# ---------------------------------------------------------------------------
+
+#: phase 15a: the gather feeding a transcendental, table f32[2^20] and
+#: 2^16 indices in [-2^20, 2^20) (negative ones wrap)
+CORE_TABLE, CORE_INDICES = 1 << 20, 1 << 16
+POLICIES = ("paper", "fused", "maximal", "cost_aware")
+#: phase 15b: SmolLM-135M's train state at published widths (bf16 params,
+#: fp32 moments) restored on ELASTIC_RANKS gloo ranks sharing the card,
+#: on these ("data", "model") meshes; ELASTIC_BATCHES prefetched batches
+#: of ELASTIC_BATCH x (ELASTIC_SEQ + 1) tokens
+ELASTIC_RANKS = 4
+ELASTIC_MESHES = ((2, 2), (4, 1))
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_BATCHES = 8, 1024, 3
+ELASTIC_TIMEOUT_S = 600
+
+
+def _gather_tanh(table, idx):
+    import torch
+    return torch.tanh(table[idx] * 2.0)
+
+
+def _quickstart(table, idx, w):
+    import torch
+    return torch.tanh(table[idx] * w) + 1.0
+
+
+def _bits(t):
+    """``t``'s bit patterns (bf16 / fp16 / fp32 / fp64 as ints of their
+    width), so ``torch.equal`` compares bits, not values."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()]) if t.is_floating_point() else t
+
+
+def core_calls_on_card(dev) -> None:
+    """Phase 15a: ``decoupled_call`` of ``tanh(2·table[idx])`` and of the
+    quickstart kernel under the four policies on CUDA tensors, each
+    output bit for bit the function called directly on the card, each
+    program's stage count that of the CPU trace of the same function;
+    ``ChannelSpec.from_example`` of a nested dict of fp32, bf16, int8 and
+    int64 CUDA tensors (and ``None``), packed and unpacked bit for bit,
+    its ``width`` the CPU's."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import ChannelSpec, decoupled_call
+    gen = torch.Generator().manual_seed(15)
+    table = torch.randn(CORE_TABLE, generator=gen)
+    idx = torch.randint(-CORE_TABLE, CORE_TABLE, (CORE_INDICES,),
+                        generator=gen, dtype=torch.int32)
+    qs = (torch.arange(1024, dtype=torch.float32),
+          torch.tensor([3, 997, 41, 512, 7, 800, 64, 2], dtype=torch.int32),
+          torch.tensor(1.5))
+    stages = {}
+    t0 = time.perf_counter()
+    for fn, cpu_args in ((_gather_tanh, (table, idx)), (_quickstart, qs)):
+        args = tuple(a.to(dev) for a in cpu_args)
+        want = fn(*args)
+        for policy in POLICIES:
+            staged = decoupled_call(fn, *args, policy=policy)
+            got = staged(*args)
+            on_cpu = decoupled_call(fn, *cpu_args, policy=policy)
+            n, n_cpu = len(staged.program), len(on_cpu.program)
+            require(got.device.type == dev.type and torch.equal(
+                _bits(got), _bits(want)),
+                f"15a {fn.__name__} {policy}: the staged program differs "
+                f"from the direct call on the card")
+            require(n == n_cpu, f"15a {fn.__name__} {policy}: {n} stages on "
+                    f"the card, {n_cpu} in the CPU trace")
+            stages[fn.__name__, policy] = n
+    _sync(dev)
+    call_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(16)
+    example = {
+        "w": {"b": torch.randn(3, 5, generator=g).to(torch.bfloat16),
+              "a": torch.randn(7, generator=g)},
+        "i8": torch.randint(-128, 128, (13,), generator=g,
+                            dtype=torch.int8),
+        "seq": [torch.tensor([2 ** 40 + 3, -7, 2 ** 62], dtype=torch.int64),
+                None, torch.tensor(0.25)],
+    }
+    on_card = tree.tree_map(lambda t: t if t is None else t.to(dev),
+                            example)
+    t0 = time.perf_counter()
+    spec = ChannelSpec.from_example(on_card)
+    word = spec.pack(on_card)
+    back = spec.unpack(word)
+    _sync(dev)
+    spec_s = time.perf_counter() - t0
+    cpu_width = ChannelSpec.from_example(example).width
+    # leaf by path: ``back``'s dicts hold their keys sorted
+    got = dict(tree.flatten_with_paths(back))
+    want = dict(tree.flatten_with_paths(on_card))
+    require(word.device.type == dev.type and spec.width == cpu_width
+            and got.keys() == want.keys() and all(
+                (a is None and want[k] is None) or (
+                    a.device == want[k].device and a.dtype == want[k].dtype
+                    and torch.equal(_bits(a), _bits(want[k])))
+                for k, a in got.items())
+            and list(back) == sorted(on_card),
+            f"15a ChannelSpec: width {spec.width} (CPU {cpu_width}) or the "
+            f"round trip differs")
+    print(f"[15a] decoupled_call on {dev}: "
+          f"tanh(2·table[idx]) (table f32[{CORE_TABLE}], idx "
+          f"i32[{CORE_INDICES}]) stages "
+          f"{[stages['_gather_tanh', p] for p in POLICIES]} and the "
+          f"quickstart kernel {[stages['_quickstart', p] for p in POLICIES]}"
+          f" ({'/'.join(POLICIES)}; the CPU trace's the same), each output "
+          f"bit for bit the direct call; wall {call_s:.3f} s (traces "
+          f"included); ChannelSpec.from_example of {len(want)} leaves "
+          f"(fp32, bf16, int8, int64, None) on {dev}: width {spec.width} "
+          f"words (CPU {cpu_width}), round trip bit for bit, "
+          f"{spec_s * 1e3:.2f} ms", flush=True)
+
+
+def elastic_state(cfg, dev, seed: int):
+    """A whole train state of ``cfg`` on ``dev`` from ``seed``: params
+    and moments N(0, 0.02²) in their dtypes, ``count`` and ``step`` 7."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    abstract = steps.abstract_train_state(cfg, steps.adamw.AdamWConfig())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def fill(t):
+        if not t.is_floating_point():
+            return torch.full(t.shape, 7, dtype=t.dtype, device=dev)
+        return (torch.randn(t.shape, generator=gen, device=dev)
+                * 0.02).to(t.dtype)
+    return tree.tree_map(fill, abstract)
+
+
+def _chunk(t, mesh, placements):
+    """This rank's chunk of the whole ``t`` by ``placements``: each mesh
+    dim that shards tensor dim ``d`` takes its coordinate's piece of
+    ``torch.chunk``, in mesh-dim order."""
+    import torch
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            t = torch.chunk(t, mesh.size(i), dim=p.dim)[coord[i]]
+    return t
+
+
+def _shards_match(state, want, mesh, device_type: str) -> tuple:
+    """Whether every leaf of the placed ``state`` holds, on a
+    ``device_type`` device, this rank's chunk of the whole ``want``, bit
+    for bit; and the bytes the rank holds."""
+    from repro_torch import tree
+    import torch
+    ok, held = True, 0
+    for got, w in zip(tree.leaves(state), tree.leaves(want), strict=True):
+        local = got.to_local()
+        exp = _chunk(w, mesh, got.placements)
+        ok &= (got.device_mesh is mesh and local.device.type == device_type
+               and local.dtype == w.dtype and local.shape == exp.shape
+               and torch.equal(_bits(local), _bits(exp)))
+        held += local.numel() * local.element_size()
+    return ok, held
+
+
+def elastic_rank(plain_dir: str, sharded_dir: str, cfg, batch: int,
+                 seq: int, batches: int, seed: int) -> dict:
+    """Phase 15b on one of the ranks (``launch.mesh.spawn``): restore the
+    one-process checkpoint in ``plain_dir`` with
+    ``shardings=train_state_shardings`` on each of ``ELASTIC_MESHES``;
+    save the 2×2 state sharded into ``sharded_dir`` and restore that on
+    each mesh; each time, hold every leaf's local shard to the chunk of
+    the plain restore (the whole state on this rank's device).  Then
+    ``prefetched(sharding=)``'s batches against the chunks of the
+    unsharded stream, and a shape mismatch.  Returns flags, walls and
+    bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import _device
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import (DataConfig, prefetched,
+                                           synthetic_stream)
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import steps
+    dev = _device.get_device()
+    # host-clock marks of this rank's parts: entry (time.time(), against
+    # the spawn's start), meshes, the yardstick, batches, the mismatch
+    out: dict = {"rank": dist.get_rank(), "entered": time.time()}
+    t0 = time.perf_counter()
+    abstract = steps.abstract_train_state(cfg, steps.adamw.AdamWConfig())
+    meshes = {dims: lm.make_mesh(dims, ("data", "model"), dev.type)
+              for dims in ELASTIC_MESHES}
+    out["meshes_s"] = time.perf_counter() - t0
+    plain, sharded = Checkpointer(plain_dir), Checkpointer(sharded_dir)
+    t0 = time.perf_counter()
+    want, _ = plain.restore(abstract)          # the yardstick, whole
+    _sync(dev)
+    out["yardstick_s"] = time.perf_counter() - t0
+
+    def restore_on(ck, dims, tag):
+        mesh = meshes[dims]
+        sh = steps.train_state_shardings(mesh, abstract)
+        t0 = time.perf_counter()
+        state, step = ck.restore(abstract, shardings=sh)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        ok, held = _shards_match(state, want, mesh, dev.type)
+        out[tag, dims] = {"ok": ok, "s": wall, "bytes": held, "step": step}
+        return state
+
+    on22 = restore_on(plain, (2, 2), "plain")
+    restore_on(plain, (4, 1), "plain")
+    # the 2×2 state saved sharded: every rank gathers, rank 0 writes
+    t0 = time.perf_counter()
+    sharded.save(11, on22)
+    sharded.wait()
+    out["save_s"] = time.perf_counter() - t0
+    out["latest"] = sharded.latest_step()
+    del on22
+    for dims in ELASTIC_MESHES:
+        restore_on(sharded, dims, "sharded")
+    # the prefetched batches' chunks
+    t0 = time.perf_counter()
+    data = DataConfig(batch_size=batch, seq_len=seq,
+                      vocab_size=cfg.vocab_size, seed=seed)
+    for dims, mesh in meshes.items():
+        tok = torch.empty((batch, seq + 1), dtype=torch.int32, device="meta")
+        bsh = steps.batch_shardings(mesh, {"tokens": tok})["tokens"]
+        fifo = prefetched(synthetic_stream(data), depth=2, sharding=bsh)
+        whole = synthetic_stream(data)
+        ok = True
+        for _ in range(batches):
+            got = next(fifo)["tokens"]
+            exp = _chunk(torch.from_numpy(next(whole)["tokens"]).to(dev),
+                         mesh, got.placements)
+            local = got.to_local()
+            ok &= (got.device_mesh is mesh
+                   and local.device.type == dev.type
+                   and torch.equal(local, exp))
+        out["batches", dims] = {"ok": ok, "placements": str(got.placements),
+                                "local": tuple(local.shape)}
+    out["batches_s"] = time.perf_counter() - t0
+    # a stored shape that differs from the example's
+    t0 = time.perf_counter()
+    bad = steps.abstract_train_state(cfg, steps.adamw.AdamWConfig())
+    table = bad.params["embed"]["table"]
+    bad.params["embed"]["table"] = torch.empty(
+        (table.shape[0] + 4, table.shape[1]), dtype=table.dtype,
+        device="meta")
+    try:
+        plain.restore(bad, shardings=steps.train_state_shardings(
+            meshes[2, 2], bad))
+        out["mismatch"] = "restored"
+    except ValueError as e:
+        out["mismatch"] = str(e)
+    out["mismatch_s"] = time.perf_counter() - t0
+    out["left"] = time.time()
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def elastic_checkpoints(dev, smi: str, cfg=None, batch: int = ELASTIC_BATCH,
+                        seq: int = ELASTIC_SEQ) -> dict:
+    """Phase 15b: SmolLM-135M's train state (``cfg``: the published
+    config) saved from this process, then restored, re-saved sharded and
+    restored again on ``ELASTIC_RANKS`` gloo ranks that share the card
+    (:func:`elastic_rank`); the sharded checkpoint restored whole here
+    must equal the state.  Prints each rank's restore walls and bytes
+    held beside the card; returns the ranks' results."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import load_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import spawn
+    cfg = cfg or load_config("smollm-135m")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="elastic-", dir=os.path.join(ROOT,
+                                                                "build"))
+    plain_dir, sharded_dir = (os.path.join(work, d) for d in ("plain",
+                                                              "sharded"))
+    try:
+        state = elastic_state(cfg, dev, seed=15)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree.leaves(state))
+        t0 = time.perf_counter()
+        Checkpointer(plain_dir).save(7, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        cpu = [t.cpu() for t in tree.leaves(state)]
+        n_leaves = len(cpu)
+        del state
+        _free()
+        t0, started = time.perf_counter(), time.time()
+        res = spawn(elastic_rank, ELASTIC_RANKS, plain_dir, sharded_dir,
+                    cfg, batch, seq, ELASTIC_BATCHES, 15, backend="gloo",
+                    device=dev.type, timeout_s=ELASTIC_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole, step = Checkpointer(sharded_dir).restore(
+            steps.abstract_train_state(cfg, steps.adamw.AdamWConfig()))
+        whole_s = time.perf_counter() - t0
+        same = all(torch.equal(_bits(a.cpu()), _bits(b))
+                   for a, b in zip(tree.leaves(whole), cpu, strict=True))
+        del whole, cpu
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in res:
+        for key, v in r.items():
+            if isinstance(key, tuple) and key[0] in ("plain", "sharded",
+                                                     "batches"):
+                require(v["ok"], f"15b rank {r['rank']} {key}: a local "
+                        f"shard differs from the chunk of the whole")
+        require(r["latest"] == 11, f"15b rank {r['rank']}: latest step "
+                f"{r['latest']} after the sharded save's wait")
+        require("embed/table" in r["mismatch"], f"15b rank {r['rank']}: "
+                f"a shape mismatch gave {r['mismatch']!r}")
+    require(same and step == 11, "15b the sharded save restored whole in "
+            "one process differs from the state")
+    for r in res:
+        walls = ", ".join(
+            f"{tag} on {a}x{b} {r[tag, (a, b)]['s']:.3f} s / "
+            f"{r[tag, (a, b)]['bytes']:,} B"
+            for tag in ("plain", "sharded") for a, b in ELASTIC_MESHES)
+        print(f"[15b] rank {r['rank']}: restore wall / bytes held: {walls};"
+              f" sharded save + wait {r['save_s']:.3f} s; batches "
+              f"{[r['batches', d]['local'] for d in ELASTIC_MESHES]} local; "
+              f"peak {r.get('peak_gib', float('nan')):.2f} GiB; host clock: "
+              f"start-up {r['entered'] - started:.2f} s, meshes "
+              f"{r['meshes_s']:.2f} s, yardstick restore "
+              f"{r['yardstick_s']:.2f} s, batches {r['batches_s']:.2f} s, "
+              f"mismatch {r['mismatch_s']:.2f} s, return "
+              f"{started + spawn_s - r['left']:.2f} s", flush=True)
+    print(f"[15b] {cfg.name} train state, {nbytes:,} B ({n_leaves} leaves)"
+          f", saved from one process in {save_s:.3f} s, the sharded "
+          f"save restored whole here in {whole_s:.3f} s; "
+          f"{ELASTIC_RANKS} gloo ranks sharing the card, meshes "
+          f"{ELASTIC_MESHES}: every local shard bit for bit the chunk of "
+          f"the plain restore; the sharded checkpoint restored whole here "
+          f"equals the state; {ELASTIC_BATCHES} prefetched batches of "
+          f"{batch}x{seq + 1} per mesh each rank's chunk; shape mismatch "
+          f"raises ValueError; ranks' wall {spawn_s:.2f} s (start-up "
+          f"included); card: {smi}", flush=True)
+    return res
 
 if __name__ == "__main__":
     main()

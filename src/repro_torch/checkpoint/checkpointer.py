@@ -15,10 +15,19 @@ Format: one ``step_XXXXXXXX.npz`` per checkpoint plus a JSON manifest
 (``params/segment_0/1/0/mixer/w_q``): the file holds the port's tree,
 one entry per repeat of a segment, not the reference's stacked one.
 bfloat16 leaves, which numpy cannot hold, are stored as their 16-bit
-patterns with the dtype in the manifest, and restored bit for bit.  The
-reference's resharding restore places leaves on a mesh and waits for the
-mesh census (ROADMAP §1 item 5); here a restored leaf goes to its example
-leaf's device and dtype.
+patterns with the dtype in the manifest, and restored bit for bit.
+
+Sharded states (elastic checkpoints): a state whose leaves are DTensors
+is saved whole, as the reference writes whole arrays — every rank calls
+``save`` at the same step, each gathers every DTensor leaf on the
+calling thread (``core/collectives.full_tensor``, host-staged where
+gloo carries the ranks' CUDA shards, is a collective, which must not run
+on the writer thread), only global rank 0 writes, and ``wait`` ends with a
+barrier of the default group, after which every rank sees the step.
+``restore(shardings=)`` places each leaf by a tree of
+``runtime.sharding.NamedSharding`` on the *current* mesh, each rank
+taking its own chunk without communicating, so a state saved on one
+mesh restores onto another.
 """
 
 from __future__ import annotations
@@ -32,8 +41,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .. import tree
+from .. import _device, tree
+from ..core import collectives
+from ..runtime.sharding import is_dtensor
 
 
 def _flatten_with_names(state: Any) -> list[tuple[str, Any]]:
@@ -58,14 +70,31 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        #: the write in flight is of a sharded state: ``wait`` meets the
+        #: other ranks at a barrier
+        self._sharded = False
 
     # -- save -----------------------------------------------------------------
 
     def save(self, step: int, state: Any, *, blocking: bool = False) -> None:
-        """Snapshot now, write in the background."""
+        """Snapshot now, write in the background.  A state with DTensor
+        leaves is gathered whole here (every rank must call ``save``) and
+        written by global rank 0 alone."""
         self.wait()  # one in-flight write at a time
         named = _flatten_with_names(state)
-        host = {name: _to_host(leaf) for name, leaf in named}
+        sharded = any(is_dtensor(leaf) for _, leaf in named)
+        writer = not sharded or dist.get_rank() == 0
+        host = {}
+        for name, leaf in named:
+            if is_dtensor(leaf):        # a collective: on this thread
+                leaf = collectives.full_tensor(leaf)
+            if writer:
+                host[name] = _to_host(leaf)
+        self._sharded = sharded
+        if not writer:
+            if blocking:
+                self.wait()
+            return
         manifest = {
             "step": int(step),
             "names": [n for n, _ in named],
@@ -97,9 +126,15 @@ class Checkpointer:
             self.wait()
 
     def wait(self) -> None:
+        """Join the write in flight; after a sharded save, meet every rank
+        of the default group at a barrier first (so the step is on disk
+        for all), then raise the write's error, if any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -127,11 +162,21 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, example_state: Any, step: int | None = None
-                ) -> tuple[Any, int]:
-        """Restore into the structure of ``example_state``, each leaf on
-        its example's device and in its dtype.  Raises ``ValueError`` when
-        a stored shape differs from the example's."""
+    def restore(self, example_state: Any, step: int | None = None, *,
+                shardings: Any | None = None) -> tuple[Any, int]:
+        """Restore into the structure of ``example_state`` (its leaves may
+        be ``meta`` tensors: only their shapes and dtypes are read).
+
+        Without ``shardings`` each leaf goes to its example's device (the
+        port's device for a ``meta`` example) in the example's dtype.
+        ``shardings`` is a tree of the state's structure whose leaves are
+        ``runtime.sharding.NamedSharding`` (``launch/steps.
+        train_state_shardings``) or ``None``: a placed leaf becomes a
+        DTensor on that sharding's mesh, this rank keeping its chunk with
+        no communication (elastic restore onto the current mesh), in the
+        dtype the checkpoint stores.  Raises ``ValueError`` when a stored
+        shape differs from the example's, or the shardings name other
+        leaves than the state."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -139,9 +184,16 @@ class Checkpointer:
         base = os.path.join(self.directory, f"step_{step:08d}")
         with open(base + ".json") as f:
             dtypes = json.load(f)["dtypes"]
+        named = _flatten_with_names(example_state)
+        placed = dict(_flatten_with_names(shardings)) \
+            if shardings is not None else {}
+        if shardings is not None and set(placed) != {n for n, _ in named}:
+            raise ValueError(
+                f"shardings and state differ in leaves: "
+                f"{sorted(set(placed) ^ {n for n, _ in named})[:4]}")
         leaves = []
         with np.load(base + ".npz") as data:
-            for name, example in _flatten_with_names(example_state):
+            for name, example in named:
                 arr = data[name]
                 want = tuple(example.shape)
                 if tuple(arr.shape) != want:
@@ -150,5 +202,10 @@ class Checkpointer:
                 t = torch.from_numpy(arr)
                 if dtypes[name] == "bfloat16":
                     t = t.view(torch.bfloat16)
-                leaves.append(t.to(example.device, example.dtype))
+                if placed.get(name) is not None:
+                    leaves.append(placed[name].distribute(t))
+                    continue
+                dev = _device.get_device() if example.is_meta \
+                    else example.device
+                leaves.append(t.to(dev, example.dtype))
         return tree.unflatten(example_state, leaves), step

@@ -13,7 +13,8 @@ from .partition import (Channel, Partition, Stage, StagePlan,
                         merge_move, neighbor_plans, partition_cdfg,
                         plan_is_legal, plan_signature, split_move,
                         stage_groups)
-from .decouple import (DecoupledProgram, decouple, run_stages_sequential)
+from .decouple import (DecoupledProgram, decouple, decoupled_call,
+                       run_stages_sequential)
 from .channels import ChannelSpec, DeviceFIFO, FIFOState, HostFIFO
 from .pipeline import (SystolicPipeline, gpipe_bubble_fraction,
                        pipeline_apply, pipeline_apply_emulated)
@@ -27,7 +28,8 @@ __all__ = [
     "duplicate_cheap_rewrite", "derive_channels",
     "plan_signature", "plan_is_legal", "merge_move", "split_move",
     "neighbor_plans", "fused_plan", "maximal_plan",
-    "DecoupledProgram", "decouple", "run_stages_sequential",
+    "DecoupledProgram", "decouple", "decoupled_call",
+    "run_stages_sequential",
     "ChannelSpec", "DeviceFIFO", "FIFOState", "HostFIFO",
     "SystolicPipeline", "pipeline_apply", "pipeline_apply_emulated",
     "gpipe_bubble_fraction",

@@ -25,7 +25,8 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   ``jax.lax.scan`` is one in the jaxpr;
 * a static index into ``slice`` / ``squeeze`` / ``broadcast_in_dim``,
   ``x.mean`` into ``reduce_sum, broadcast_in_dim, div``, ``x.var`` into
-  one ``jit`` (``jnp.var`` is a jitted function), ``x.float()`` /
+  one ``jit`` (``jnp.var`` is a jitted function), as are ``torch.clamp``
+  (``jnp.clip``) and ``%`` (``jnp.remainder``), ``x.float()`` /
   ``x.to(dtype)`` into ``convert_element_type`` (nothing when the dtype
   stays), a two-operand ``torch.einsum`` into ``dot_general``, and rank
   promotion into a ``broadcast_in_dim`` — what the decode step's top
@@ -40,7 +41,8 @@ compiles to the same plan as its JAX twin.  The lowered program is a
 ``itemsize`` is all the partitioner reads).  Closed-over tensors become
 constants named ``const{k}`` in first-use order, as in the reference.
 A tuple argument is flattened into one input per leaf, in order, as the
-jaxpr's invars are; outputs are flattened likewise.
+jaxpr's invars are, and keyword examples follow the positional ones by
+sorted name; outputs are flattened likewise.
 
 Two views are provided:
 
@@ -335,6 +337,17 @@ def _var(x: torch.Tensor, correction: int, *, axes: tuple[int, ...]
     return x.var(dim=axes, correction=correction, keepdim=True)
 
 
+def _clip(x: torch.Tensor, lo: Any, hi: Any) -> torch.Tensor:
+    # ``jnp.clip``: one opaque ``jit`` equation in the reference's jaxpr
+    return torch.clamp(x, lo, hi)
+
+
+def _remainder(x: torch.Tensor, y: Any) -> torch.Tensor:
+    # ``jnp.remainder`` (Python's ``%``, the sign of the divisor): one
+    # opaque ``jit`` equation in the reference's jaxpr
+    return torch.remainder(x, y)
+
+
 def _einsum(a: torch.Tensor, b: torch.Tensor, *, equation: str
             ) -> torch.Tensor:
     return torch.einsum(equation, a, b)
@@ -449,6 +462,13 @@ _UNARY: dict[Any, str] = {
     torch.rsqrt: "rsqrt", "rsqrt": "rsqrt",
     torch.sin: "sin", "sin": "sin", torch.cos: "cos", "cos": "cos",
 }
+#: FX node target -> (the body of the reference's jitted function, its
+#: operand count), lowered to one ``jit`` equation
+_JITTED: dict[Any, tuple[Callable[..., Any], int]] = {
+    torch.clamp: (_clip, 3), "clamp": (_clip, 3),
+    operator.mod: (_remainder, 2), torch.remainder: (_remainder, 2),
+    "remainder": (_remainder, 2),
+}
 #: primitive name -> implementation on tensors (and Python scalars)
 _IMPL: dict[str, Callable[..., Any]] = {
     "add": operator.add, "sub": operator.sub, "mul": operator.mul,
@@ -550,6 +570,8 @@ class _Lowering:
         if node.kwargs:
             raise NotImplementedError(
                 f"keyword arguments on {target!r} are not lowered yet")
+        if target in _JITTED:
+            return self.lower_jitted(node)
         aval = _aval_of(node)
         if target in _BINARY and len(node.args) == 2:
             a, b = node.args
@@ -779,6 +801,21 @@ class _Lowering:
                          _aval_of(node), node.name,
                          impl=functools.partial(_einsum, equation=equation))
 
+    def lower_jitted(self, node: fx.Node) -> Var:
+        """``torch.clamp(x, lo, hi)`` and ``x % y`` → one ``jit``
+        equation each, as ``jnp.clip`` and ``jnp.remainder`` are jitted
+        functions in the reference; Python-scalar operands stay
+        literals."""
+        impl, arity = _JITTED[node.target]
+        if len(node.args) != arity:
+            raise NotImplementedError(
+                f"{node.target!r} with {len(node.args)} operands")
+        aval = _aval_of(node)
+        x = node.args[0]
+        like = self.env[x].aval if isinstance(x, fx.Node) else aval
+        return self.emit("jit", [self.read(a, like) for a in node.args],
+                         aval, node.name, impl=impl)
+
     def lower_at_set(self, node: fx.Node) -> Var:
         """``at_set(x, i, v)`` with a 0-d integer tensor ``i`` → the
         jaxpr's five equations of ``x.at[i].set(v)``: wrap a negative
@@ -854,25 +891,53 @@ def _to_meta(x: Any) -> Any:
     return x.to("meta") if isinstance(x, torch.Tensor) else x
 
 
-def trace(fn: Callable, *example_args: Any) -> tuple[Graph, Any]:
+def trace(fn: Callable, *example_args: Any, **example_kwargs: Any
+          ) -> tuple[Graph, Any]:
     """Trace ``fn`` with ``torch.fx.symbolic_trace``, propagate shapes on
-    meta copies of ``example_args`` and lower to a :class:`Graph`.  A
-    tuple (or list) argument, nested or not, becomes one input per leaf
-    (``concrete_args`` of placeholders), so the graph's inputs are the
-    leaves of ``example_args`` in order.  Returns the graph and the
+    meta copies of the examples and lower to a :class:`Graph`.  A tuple
+    (or list) argument, nested or not, becomes one input per leaf
+    (``concrete_args`` of placeholders).  The graph's inputs are the
+    leaves of ``example_args`` in order, then those of
+    ``example_kwargs`` by sorted name — the order of
+    ``jax.make_jaxpr(fn)(*args, **kwargs)``'s invars (FX makes its
+    placeholders in the signature's order).  Returns the graph and the
     output structure (a ``torch.utils._pytree`` spec over
     ``graph.outvars``).  Closed-over tensors must be module globals or
     closure variables: ``symbolic_trace`` does not accept default
     arguments, which would become inputs."""
-    params = list(inspect.signature(fn).parameters)
+    bound = inspect.signature(fn).bind(*example_args, **example_kwargs)
     concrete = {name: pytree.tree_map(lambda _: fx.PH, a)
-                for name, a in zip(params, example_args)
+                for name, a in bound.arguments.items()
                 if isinstance(a, (tuple, list))}
     gm = fx.symbolic_trace(fn, concrete_args=concrete or None)
-    _MetaShapeProp(gm).propagate(*pytree.tree_map(_to_meta, example_args))
+    _MetaShapeProp(gm).propagate(
+        *pytree.tree_map(_to_meta, tuple(bound.arguments.values())))
     lowering = _Lowering(gm)
     graph = lowering.run()
+    if example_kwargs:
+        graph.invars = _jaxpr_input_order(graph.invars, bound.arguments,
+                                          len(example_args))
     return graph, lowering.out_tree
+
+
+def _jaxpr_input_order(invars: list[Var], arguments: Mapping[str, Any],
+                       n_positional: int) -> list[Var]:
+    """``invars`` (one per leaf, arguments in the signature's order)
+    with the positional arguments' leaves first, then the keyword
+    arguments' by sorted name."""
+    groups, k = {}, 0
+    for name, a in arguments.items():
+        n = len(pytree.tree_leaves(a)) if isinstance(a, (tuple, list)) \
+            else 1
+        groups[name] = invars[k:k + n]
+        k += n
+    if k != len(invars):
+        raise NotImplementedError(
+            f"{len(invars) - k} inputs beyond the examples (an argument "
+            f"left to its default)")
+    names = list(arguments)
+    order = names[:n_positional] + sorted(names[n_positional:])
+    return [v for name in order for v in groups[name]]
 
 
 def carry_pairs(carry_example: Any, nonaliasing_carries: Sequence[int] = ()
@@ -948,8 +1013,9 @@ class CDFG:
         latency_model: LatencyModel | None = None,
         regions: Mapping[int, str] | None = None,
         add_memory_edges: bool = True,
+        **example_kwargs: Any,
     ) -> "CDFG":
-        graph, _ = trace(fn, *example_args)
+        graph, _ = trace(fn, *example_args, **example_kwargs)
         return cls.from_graph(graph, latency_model=latency_model,
                               regions=regions,
                               add_memory_edges=add_memory_edges)

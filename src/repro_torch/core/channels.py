@@ -2,11 +2,12 @@
 
 Three realizations of the paper's FIFO:
 
-* :class:`ChannelSpec` — packs a fixed tuple of tensors into one flat
-  ``int32`` transport word, so heterogeneous stage boundaries can share
-  one physical channel (the pipeline executor ships one fixed-width word
-  per tick).  Packing is a byte-level reinterpretation (``Tensor.view``),
-  exact for every dtype.
+* :class:`ChannelSpec` — packs a fixed tuple of tensors, or a tree of
+  them, into one flat ``int32`` transport word, so heterogeneous stage
+  boundaries can share one physical channel (the pipeline executor ships
+  one fixed-width word per tick).  Packing is a byte-level
+  reinterpretation (``Tensor.view``), exact for every dtype; the bytes
+  are those of the reference's ``uint32`` words.
 * :class:`DeviceFIFO` — a bounded ring buffer held in a device tensor
   (functional push/pop): the analogue of the BRAM FIFO between two
   accelerator stages.
@@ -24,6 +25,7 @@ import queue
 import threading
 from typing import Any, Callable, Iterator, Sequence
 
+import numpy as np
 import torch
 
 from .._device import get_device
@@ -46,12 +48,62 @@ class LeafSpec:
         return math.prod(self.shape) * self.dtype.itemsize
 
 
+#: a tree's structure in ``jax.tree_util``'s order: ``None`` holds no
+#: leaf, a dict its values by sorted key, a list or tuple its items, and
+#: anything else is one leaf
+_LEAF = "*"
+
+
+def _flatten(tree_: Any) -> tuple[list[Any], Any]:
+    """The leaves of ``tree_`` and its structure, as
+    ``jax.tree_util.tree_flatten`` orders them (the port's ``tree`` keeps
+    dict insertion order and makes ``None`` a leaf)."""
+    if tree_ is None:
+        return [], None
+    if isinstance(tree_, dict):
+        keys = sorted(tree_)
+        kids = [_flatten(tree_[k]) for k in keys]
+        return ([x for leaves, _ in kids for x in leaves],
+                (dict, tuple(keys), tuple(d for _, d in kids)))
+    if isinstance(tree_, (list, tuple)):
+        kids = [_flatten(x) for x in tree_]
+        return ([x for leaves, _ in kids for x in leaves],
+                (type(tree_), len(tree_), tuple(d for _, d in kids)))
+    return [tree_], _LEAF
+
+
+def _unflatten(treedef: Any, it: Iterator[Any]) -> Any:
+    if treedef is None:
+        return None
+    if treedef == _LEAF:
+        return next(it)
+    kind, keys, kids = treedef
+    values = [_unflatten(d, it) for d in kids]
+    return dict(zip(keys, values)) if kind is dict else kind(values)
+
+
+def _as_tensor(x: Any) -> torch.Tensor:
+    """A tensor keeps its dtype; anything else becomes one as
+    ``jnp.asarray`` makes it with 64-bit types off (a Python ``int`` or
+    an int64 array → int32, a ``float`` or float64 → float32)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    narrow = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
+              np.dtype(np.float64): np.float32}
+    return torch.as_tensor(a.astype(narrow.get(a.dtype, a.dtype)))
+
+
 @dataclasses.dataclass
 class ChannelSpec:
-    """Pack/unpack a fixed tuple of tensors to/from a flat int32 word."""
+    """Pack/unpack a fixed tuple of tensors (or, from
+    :meth:`from_example`, a tree of them) to/from a flat int32 word."""
 
     leaves: list[LeafSpec]
     width: int  # total int32 words
+    #: the payload's structure (:meth:`from_example`); ``None``: a flat
+    #: tuple of ``leaves``
+    treedef: Any = None
 
     @classmethod
     def from_avals(cls, avals: Sequence[Any]) -> "ChannelSpec":
@@ -63,9 +115,22 @@ class ChannelSpec:
             leaves.append(LeafSpec(shape, a.dtype, (nbytes + 3) // 4))
         return cls(leaves, sum(l.words for l in leaves))
 
-    def pack(self, payload: Sequence[torch.Tensor],
-             pad_to: int | None = None,
+    @classmethod
+    def from_example(cls, example: Any) -> "ChannelSpec":
+        """From an example payload: a tree of dicts, lists, tuples and
+        ``None`` over tensors, arrays or Python scalars.  Its leaves are
+        laid out in the reference's order (dict keys sorted, ``None``
+        holding no words), so ``width`` and the packed bytes equal the
+        reference's; :meth:`unpack` returns a tree of the example's
+        structure."""
+        flat, treedef = _flatten(example)
+        spec = cls.from_avals([_as_tensor(x) for x in flat])
+        return cls(spec.leaves, spec.width, treedef)
+
+    def pack(self, payload: Any, pad_to: int | None = None,
              device: torch.device | None = None) -> torch.Tensor:
+        if self.treedef is not None:
+            payload, _ = _flatten(payload)
         parts = []
         for spec, x in zip(self.leaves, payload):
             b = torch.as_tensor(x, dtype=spec.dtype).contiguous() \
@@ -83,15 +148,21 @@ class ChannelSpec:
             out[:body.numel()] = body
         return out
 
-    def unpack(self, word: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def unpack(self, word: torch.Tensor) -> Any:
+        """The flat tuple of tensors, or the tree of :meth:`from_example`'s
+        structure."""
         flat = []
         off = 0
         for spec in self.leaves:
             w = word[off:off + spec.words].contiguous()
             off += spec.words
+            if w.storage_offset() * 4 % spec.dtype.itemsize:
+                w = w.clone()      # an 8-byte view needs an 8-byte offset
             b = w.view(torch.uint8)[:spec.nbytes]
             flat.append(b.view(spec.dtype).reshape(spec.shape))
-        return tuple(flat)
+        if self.treedef is None:
+            return tuple(flat)
+        return _unflatten(self.treedef, iter(flat))
 
 
 # ---------------------------------------------------------------------------

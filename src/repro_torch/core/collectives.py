@@ -31,6 +31,10 @@ back to another:
   the same gradients every step pins its buffers once.
 
 A group of one rank moves nothing: a shift to itself is the tensor.
+
+:func:`full_tensor` gathers a DTensor whole on the same routes: on the
+host-staged one, its shards travel as host copies over a CPU mesh of the
+same ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ NCCL, GLOO, GLOO_STAGED = "nccl", "gloo", "gloo host-staged"
 
 # the host-staged route's pinned buffers, by (role, shape, dtype)
 _PINNED: dict[tuple, torch.Tensor] = {}
+# the host-staged route's CPU twin of each CUDA DeviceMesh
+_HOST_MESHES: dict = {}
 
 
 def route(group: dist.ProcessGroup | None, device: torch.device) -> str:
@@ -159,3 +165,24 @@ class Collectives:
             wire = x.clone()
         dist.broadcast(wire, self._global(src), group=self.group)
         return self._back(wire)
+
+
+def full_tensor(x) -> torch.Tensor:
+    """The whole of the DTensor ``x`` on this rank (a collective: every
+    rank of its mesh calls it): ``x.full_tensor()`` where the mesh's
+    backend carries ``x``'s device; on the ``"gloo host-staged"`` route
+    the shards go to the host and are gathered on a CPU mesh of the same
+    ranks and dims (made once per mesh, which is itself a collective of
+    the default group), and the whole comes back on the CPU."""
+    if route(None, x.device) != GLOO_STAGED:
+        return x.full_tensor()
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    host = _HOST_MESHES.get(mesh)
+    if host is None:
+        host = _HOST_MESHES[mesh] = DeviceMesh(
+            "cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names)
+    local = x.to_local().to("cpu")
+    return DTensor.from_local(local, host, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride()).full_tensor()

@@ -19,7 +19,7 @@ import dataclasses
 from typing import Any, Callable, Sequence
 
 from .cdfg import CDFG, Eqn, Literal
-from .partition import Partition
+from .partition import Partition, partition_cdfg
 
 
 @dataclasses.dataclass
@@ -195,3 +195,21 @@ def run_stages_sequential(prog: DecoupledProgram, *args: Any) -> tuple:
         else:
             results.append(ref)
     return tuple(results)
+
+
+def decoupled_call(fn: Callable, *example_args: Any,
+                   policy: str = "paper", **partition_kwargs: Any) -> Callable:
+    """One-shot convenience: trace → partition → decouple → return a callable
+    that executes the staged program (semantically == ``fn``): one output
+    bare, several as a tuple; its ``program`` is the
+    :class:`DecoupledProgram`."""
+    cdfg = CDFG.from_function(fn, *example_args)
+    part = partition_cdfg(cdfg, policy=policy, **partition_kwargs)
+    prog = decouple(part)
+
+    def staged(*args):
+        out = run_stages_sequential(prog, *args)
+        return out if len(out) != 1 else out[0]
+
+    staged.program = prog  # type: ignore[attr-defined]
+    return staged

@@ -16,7 +16,7 @@ batch bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -74,19 +74,34 @@ def file_stream(path: str, cfg: DataConfig, *, start_step: int = 0
 
 
 def prefetched(source: Iterator[dict], depth: int = 4,
+               sharding: Any | None = None,
                device: str | torch.device | None = None) -> HostFIFO:
     """Wrap a source in the bounded prefetch FIFO, its batches made into
     tensors on ``device`` (default: the port's device policy) on the
     producer thread.  To a CUDA device each batch goes from pinned memory
     with ``non_blocking=True``, queued on the device's default stream, so
     the step that reads it runs after the copy and the producer never
-    waits for the card."""
-    dev = get_device(device)
+    waits for the card.
+
+    With ``sharding`` (a ``runtime.sharding.NamedSharding``, e.g.
+    ``launch/steps.batch_shardings(mesh, batch)["tokens"]``) the tokens
+    go to this rank's device of its mesh and become a DTensor there, the
+    rank keeping its own chunk: no collective runs on the producer thread
+    (gloo collectives from two threads can interleave and hang), so every
+    rank must read the same source."""
+    if sharding is not None:
+        mesh_type = sharding.mesh.device_type
+        dev = torch.device(mesh_type, torch.cuda.current_device()) \
+            if mesh_type == "cuda" else torch.device(mesh_type)
+    else:
+        dev = get_device(device)
 
     def transform(item: dict) -> dict:
         arr = torch.from_numpy(item["tokens"])
         if dev.type == "cuda":
             arr = arr.pin_memory().to(dev, non_blocking=True)
+        if sharding is not None:
+            arr = sharding.distribute(arr)
         return {"tokens": arr, "step": item["step"]}
 
     return HostFIFO(source, depth=depth, transform=transform)

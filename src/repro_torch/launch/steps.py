@@ -5,7 +5,9 @@ is ``jax.value_and_grad(loss_fn, has_aux=True)`` by
 ``torch.autograd.grad`` over the params' flattened leaves, so the params
 stay plain tensors and the grads come back as a tree of their structure.
 :func:`train_state_shardings` and :func:`batch_shardings` give the
-DTensor placements of the rules in ``runtime/sharding.py``;
+rules of ``runtime/sharding.py`` as trees of ``NamedSharding`` (a mesh
+and DTensor placements), which ``Checkpointer.restore(shardings=)`` and
+``prefetched(sharding=)`` take;
 :func:`lower_cell` runs one dry-run cell's step on DTensors over a
 ``DeviceMesh`` (the production mesh on a fake process group,
 ``launch/mesh.py``) with ``meta`` shards and records what one rank
@@ -151,18 +153,22 @@ def _spec_leaves(specs: Any) -> list:
     return out
 
 
-def _placements(mesh: Any, specs: Any) -> Any:
-    return _spec_map(lambda sp: shr.to_placements(mesh, sp), specs)
+def _shardings(mesh: Any, specs: Any) -> Any:
+    return _spec_map(lambda sp: shr.NamedSharding(
+        mesh, shr.to_placements(mesh, sp)), specs)
 
 
 def train_state_shardings(mesh: Any, state: TrainState) -> TrainState:
-    """The DTensor placements of :func:`train_state_specs`."""
-    return _placements(mesh, train_state_specs(mesh, state))
+    """:func:`train_state_specs` as a tree of
+    :class:`~repro_torch.runtime.sharding.NamedSharding` on ``mesh`` (a
+    ``DeviceMesh``), one leaf per tensor of ``state``."""
+    return _shardings(mesh, train_state_specs(mesh, state))
 
 
 def batch_shardings(mesh: Any, batch: dict) -> dict:
-    """The DTensor placements of :func:`batch_specs`."""
-    return _placements(mesh, batch_specs(mesh, batch))
+    """:func:`batch_specs` as a tree of
+    :class:`~repro_torch.runtime.sharding.NamedSharding` on ``mesh``."""
+    return _shardings(mesh, batch_specs(mesh, batch))
 
 
 def _param_bytes(params: Any) -> int:
@@ -241,7 +247,7 @@ def lower_cell(cfg: ModelConfig, shape: InputShape | str, mesh: Any, *,
     and the same on every rank) runs the step on their shards instead,
     on a real process group; the record then also holds ``outputs``.
     """
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
     from .census import RankCensus
@@ -257,9 +263,9 @@ def lower_cell(cfg: ModelConfig, shape: InputShape | str, mesh: Any, *,
         return t.to_local() if isinstance(t, DTensor) else t
 
     args = tree.unflatten(whole, [
-        distribute_tensor(t, mesh, pl, src_data_rank=None)
-        for t, pl in zip(tree.leaves(whole),
-                         _spec_leaves(_placements(mesh, specs)))])
+        sh.distribute(t) for t, sh in zip(
+            tree.leaves(whole), _spec_leaves(_shardings(mesh, specs)),
+            strict=True)])
     locals_ = [local(t) for t in tree.leaves(args)]
     census.hold(*locals_)
     if kind == "train":

@@ -376,6 +376,39 @@ def to_placements(mesh: Any, spec: Spec) -> tuple:
     return tuple(out)
 
 
+class NamedSharding:
+    """Where one tensor lives: a ``DeviceMesh`` and the tensor's DTensor
+    placements on it — the reference's ``jax.sharding.NamedSharding``
+    (a mesh and a ``PartitionSpec``).  Neither a tuple nor a dataclass,
+    so ``tree`` takes it for one leaf and a tree of them aligns with the
+    tree of tensors it places."""
+
+    __slots__ = ("mesh", "placements")
+
+    def __init__(self, mesh: Any, placements: Sequence[Any]):
+        self.mesh = mesh
+        self.placements = tuple(placements)
+
+    def __eq__(self, other: Any) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh == self.mesh
+                and other.placements == self.placements)
+
+    def __hash__(self) -> int:
+        return hash((self.mesh, self.placements))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.placements!r})"
+
+    def distribute(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (whole, on any device) as a DTensor on this rank's device
+        of the mesh, each rank keeping its own chunk: no communication
+        (``src_data_rank=None``), so every rank must pass the same
+        ``t``."""
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, self.mesh, self.placements,
+                                 src_data_rank=None)
+
+
 def local_shape(mesh: Any, shape: Sequence[int], spec: Spec) -> tuple:
     """The shape of one rank's chunk (the rules keep only dividing axes,
     so every rank's chunk has it)."""

@@ -95,6 +95,45 @@ def test_pinned_census_equals_the_reference():
         assert ref.dataflow_census(cfg, s) == want, (a, s)
 
 
+#: ROADMAP §1 item 3's target, the live reference's census of SmolLM-135M
+#: ``train_4k`` (``channel_bytes`` left out), and its step's top-level
+#: equations: the loss alone, its ``value_and_grad``, the whole step
+REF_TRAIN_CENSUS = {"ops": 411, "memory_ops": 2, "long_ops": 183,
+                    "stages": 184, "channels": 361, "pipeline_ii": 1}
+REF_TRAIN_EQNS = {"forward": 33, "value_and_grad": 116, "step": 411}
+
+
+def test_reference_train_census_is_the_recorded_one():
+    """The train cells' census is not ported yet: this pins the live
+    reference's, which the port must equal, and splits the step's
+    equations into the forward (the loss), the backward
+    (``value_and_grad`` less the forward) and AdamW (the step less
+    ``value_and_grad``) — 33, 83 and 295."""
+    from repro.configs.base import SHAPES as REF_SHAPES
+    from repro.launch import steps as ref_steps
+    from repro.models import model as ref_M
+    from repro.optim import adamw as ref_adamw
+    ref = _ref_dryrun()
+    cfg = ref_load_config("smollm-135m")
+    census = ref.dataflow_census(cfg, "train_4k")
+    assert {k: census[k] for k in REF_TRAIN_CENSUS} == REF_TRAIN_CENSUS
+    opt_cfg = ref_adamw.AdamWConfig()
+    state = ref_steps.abstract_train_state(cfg, opt_cfg)
+    batch = ref_M.input_specs(cfg, REF_SHAPES["train_4k"])
+
+    def loss(p, b):
+        return ref_M.loss_fn(p, b, cfg)
+
+    eqns = {
+        "forward": jax.make_jaxpr(loss)(state.params, batch),
+        "value_and_grad": jax.make_jaxpr(
+            jax.value_and_grad(loss, has_aux=True))(state.params, batch),
+        "step": jax.make_jaxpr(ref_steps.make_train_step(cfg, opt_cfg))(
+            state, batch)}
+    assert {k: len(v.jaxpr.eqns) for k, v in eqns.items()} == \
+        REF_TRAIN_EQNS
+
+
 def test_pinned_argument_bytes_and_specs_equal_the_rules():
     """``REF_DRYRUN_ARGS`` (all 64 cells under v5e's HBM) and
     ``REF_DRYRUN_SPECS`` (a digest of every leaf's spec) equal what the

@@ -344,9 +344,13 @@ def test_train_state_and_batch_shardings():
         p = steps._spec_leaves(sh.params)
         assert steps._spec_leaves(sh.opt["mu"]) == p
         assert steps._spec_leaves(sh.opt["nu"]) == p
-        assert sh.opt["count"] == sh.step == (Replicate(), Replicate())
-        assert sh.params["embed"]["table"] == (Shard(1), Shard(0))
+        assert sh.opt["count"].placements == sh.step.placements \
+            == (Replicate(), Replicate())
+        assert sh.params["embed"]["table"].placements == (Shard(1), Shard(0))
+        assert sh.params["embed"]["table"].mesh is mesh
+        # one leaf a tensor: the shardings align with the state's leaves
+        assert len(tree.leaves(sh)) == len(tree.leaves(state))
         b = steps.batch_shardings(mesh, M.input_specs(cfg, "decode_32k"))
-        assert b["token"] == (Shard(0), Replicate())
-        assert b["cache"]["segment_0"][0][0]["mixer"]["k"] == (Shard(0),
-                                                                Shard(2))
+        assert b["token"].placements == (Shard(0), Replicate())
+        assert b["cache"]["segment_0"][0][0]["mixer"]["k"].placements == (
+            Shard(0), Shard(2))
