@@ -251,11 +251,13 @@ Phases, one line (or block) each:
    ``REF_DRYRUN_ARGS``; the cells whose serve policy the card's 80 GB
    changes, printed; (b) ``launch.dryrun.run_cell`` on a fake world
    (device type ``cuda``) for the ten ``decode_32k`` cells on 16×16,
-   SmolLM-135M's ``train_4k`` and ``prefill_32k``, RWKV-6's
+   SmolLM-135M's and DeepSeek-V3's ``train_4k``, SmolLM-135M's
+   ``prefill_32k``, RWKV-6's
    ``long_500k`` and DeepSeek-V3's ``decode_32k`` ``absorbed_ep``
    variant: each ``ok``, its argument bytes those of the rules (under
    the card's HBM), its dataflow census the reference's
-   (``REF_DRYRUN_CENSUS``), with its collectives, FLOPs, peak, roofline
+   (``REF_DRYRUN_CENSUS``; a train cell's less the pinned difference,
+   as in 16a), with its collectives, FLOPs, peak, roofline
    terms and fit printed; (c) Qwen2.5-14B's and DeepSeek-V3's
    ``decode_32k`` on 16×16: the census's local shapes must be the
    rules' leaf by leaf and its argument bytes the rules'; rank 0's
@@ -287,6 +289,29 @@ Phases, one line (or block) each:
    chunk of the unsharded stream, on each mesh; a shape mismatch raises
    ``ValueError`` naming the leaf; each rank's restore walls and bytes
    held, beside the card's name and power limit;
+16. the train cells' dataflow census and the lowered train step (launch
+   no hand kernel): (a) ``launch.dryrun.dataflow_census`` of every
+   architecture's ``train_4k`` cell at published widths on ``meta`` —
+   the train step traced with ``value_and_grad`` and AdamW lowered into
+   the CDFG (``core/autodiff.py``) — plus section 2's pinned difference
+   (``TRAIN_SECTION2``: the reference hoists the segment body's loop
+   invariants, the port emits its forward scan alone) and, for
+   DeepSeek-V3, its MTP layer's (``TRAIN_MTP_LAYER``: the reference
+   lowers the layer's equations and their transposes, the port one
+   ``checkpoint`` equation each way) equal to the reference's census
+   (``REF_TRAIN_CENSUS``); each cell's wall; (b) SmolLM-135M at
+   published widths, its train step as the census lowers it, run by
+   the ``sequential`` backend on the card, 3 steps of 2 x 512 tokens
+   from step 200 (LR scale ~1), against ``make_train_step``: in fp32 at
+   PERF.md §2's three-step bars (loss and metrics rtol 1e-4, each
+   params leaf's change within 1e-3 of its L2 norm, the elements beyond
+   0.1·lr printed, mu/nu rtol 1e-3 + 1e-4·max); in the published bf16
+   the first step's loss (rtol 1e-4), gradient norm (rtol 1e-3),
+   moments (each leaf within twice the bf16 step's distance to the fp32
+   step) and each params leaf's change (within 0.1 of its L2 norm), the
+   later steps' drift printed; no hand kernel launched; both walls; (c) ``python -m
+   repro_torch.launch.dryrun --arch smollm-135m --shape train_4k --mesh
+   single``: exit 0, its record ``ok`` and carrying the 16a census;
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), on each path of phase 12 and summed over
@@ -303,6 +328,7 @@ device, or outside the repository, the script exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -848,6 +874,78 @@ REF_DRYRUN_CENSUS = {
 }
 
 
+#: phase 16a: the reference's dataflow census of every architecture's
+#: ``train_4k`` cell (``repro.launch.dryrun.dataflow_census`` under jax
+#: 0.9.0, full width, ``channel_bytes`` left out): ops, memory ops, long
+#: ops, stages, channels, pipeline II
+REF_TRAIN_CENSUS = {
+    "jamba-1.5-large-398b": _census(2860, 2, 1388, 1389, 3066, None, 1),
+    "qwen2.5-14b": _census(510, 2, 231, 232, 447, None, 1),
+    "olmo-1b": _census(365, 2, 155, 156, 317, None, 1),
+    "smollm-135m": _census(411, 2, 183, 184, 361, None, 1),
+    "command-r-plus-104b": _census(514, 2, 228, 229, 445, None, 1),
+    "rwkv6-1.6b": _census(781, 2, 367, 368, 741, None, 1),
+    "deepseek-v3-671b": _census(1957, 9, 888, 889, 1792, None, 1),
+    "llama4-scout-17b-a16e": _census(546, 2, 247, 248, 499, None, 1),
+    "musicgen-large": _census(480, 0, 214, 215, 432, None, 1),
+    "chameleon-34b": _census(428, 0, 193, 194, 376, None, 1),
+}
+for _c in REF_TRAIN_CENSUS.values():
+    del _c["channel_bytes"]
+
+#: section 2 of each train step the port lowers (ROADMAP "Decisions",
+#: route (b)): the reference's equation count there (the segment body's
+#: hoisted loop invariants and its scans), the port's (the forward scan
+#: alone), and the census difference, reference less port, that follows
+#: (``tests/test_torch_train_census.py`` holds all three to the live
+#: reference and the sections around them equation by equation)
+TRAIN_SECTION2 = {
+    "jamba-1.5-large-398b": (125, 1, {"ops": 124, "long_ops": 13,
+                                      "stages": 13, "channels": 529}),
+    "qwen2.5-14b": (47, 1, {"ops": 46, "long_ops": 13, "stages": 13,
+                            "channels": 59}),
+    "olmo-1b": (49, 1, {"ops": 48, "long_ops": 13, "stages": 13,
+                        "channels": 66}),
+    "smollm-135m": (47, 1, {"ops": 46, "long_ops": 13, "stages": 13,
+                            "channels": 59}),
+    "command-r-plus-104b": (48, 1, {"ops": 47, "long_ops": 13,
+                                    "stages": 13, "channels": 60}),
+    "rwkv6-1.6b": (12, 1, {"ops": 11, "long_ops": 0, "stages": 0,
+                           "channels": 70}),
+    "llama4-scout-17b-a16e": (57, 1, {"ops": 56, "long_ops": 13,
+                                      "stages": 13, "channels": 83}),
+    "musicgen-large": (48, 1, {"ops": 47, "long_ops": 13, "stages": 13,
+                               "channels": 70}),
+    "chameleon-34b": (47, 1, {"ops": 46, "long_ops": 13, "stages": 13,
+                              "channels": 59}),
+    # two segments; the channel difference is the MTP layer's entry's
+    "deepseek-v3-671b": (106, 4, {"ops": 102, "long_ops": 26,
+                                  "stages": 26}),
+}
+
+#: DeepSeek-V3's MTP head's layer (ROADMAP "Decisions"): the sizes of the
+#: reference's windows of section 3 that the port's ``checkpoint``
+#: equations stand for (the layer's forward; the zero tangents of its
+#: attention scan's carries; its transpose), the port's ``checkpoint``
+#: equations, and the census difference, reference less port, that
+#: follows — its channels those of the whole step, section 2's included
+#: (a channel count does not split by section)
+TRAIN_MTP_LAYER = {
+    "deepseek-v3-671b": ((259, 3, 233), 2, {
+        "ops": 493, "memory_ops": 5, "long_ops": 207, "stages": 207,
+        "channels": 590}),
+}
+
+
+def train_census_difference(arch: str) -> dict:
+    """The census difference, reference less port, of ``arch``'s train
+    cell: section 2's plus the MTP layer's."""
+    diff = dict(TRAIN_SECTION2[arch][2])
+    for k, v in TRAIN_MTP_LAYER.get(arch, ((), 0, {}))[2].items():
+        diff[k] = diff.get(k, 0) + v
+    return diff
+
+
 def report_key(report: str) -> tuple:
     """What Algorithm 1 decided, read from a decode-step dataflow report:
     the header's (ops, stages, channels, bytes per token), the pipeline's
@@ -1277,6 +1375,13 @@ def main() -> None:
     require(dict(_lib.counts()) == before,
             "phase 15 launched a hand kernel")
     print(f"[15] phase 15 in {time.perf_counter() - t15:.2f} s", flush=True)
+
+    # -- 16. the train cells' census; the lowered train step ----------------
+    t16 = time.perf_counter()
+    train_census_on_card(smi)
+    lowered_step_on_card(dev, smi)
+    dryrun_cli_train_cell(smi)
+    print(f"[16] phase 16 in {time.perf_counter() - t16:.2f} s", flush=True)
 
     # -- 10. the kernels line ---------------------------------------------------
     rows = (spmv_row, rmax_row, fa_row, da_row, *api_rows)
@@ -3647,6 +3752,7 @@ DRYRUN_CELLS = (
         "command-r-plus-104b", "rwkv6-1.6b", "deepseek-v3-671b",
         "llama4-scout-17b-a16e", "musicgen-large", "chameleon-34b")),
     ("smollm-135m", "train_4k", None, {}, False),
+    ("deepseek-v3-671b", "train_4k", None, {}, False),
     ("smollm-135m", "prefill_32k", None, {}, False),
     ("rwkv6-1.6b", "long_500k", None, {}, False),
     ("deepseek-v3-671b", "decode_32k", "absorbed_ep",
@@ -3709,7 +3815,15 @@ def dryrun_phase(dev, smi: str) -> None:
                 f"{arch} {shape}: argument bytes "
                 f"{rec['mem_argument_size_in_bytes']} != the rules' {want}")
         key = (arch + ("+absorbed" if over else ""), shape)
-        if SHAPES[shape].kind != "train":
+        less = ""
+        if SHAPES[shape].kind == "train":   # less the pinned difference
+            less = " less the pinned difference"
+            diff = train_census_difference(arch)
+            want = REF_TRAIN_CENSUS[arch]
+            got = {k: rec["dataflow"][k] + diff.get(k, 0) for k in want}
+            require(got == want, f"{key}: census {rec['dataflow']} + the "
+                    f"pinned {diff} != the reference's {want}")
+        else:
             require(rec["dataflow"] == REF_DRYRUN_CENSUS[key],
                     f"{key}: census {rec['dataflow']} != the reference's")
         c, r = rec["coll"], rec["roofline"]
@@ -3723,9 +3837,8 @@ def dryrun_phase(dev, smi: str) -> None:
               f" total {c['total']:,} B; roofline compute "
               f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
               f"collective {r['t_collective_s']:.4g} s ({r['dominant']}); "
-              f"fits HBM {rec['fit']['fits_hbm']}; census "
-              f"{'none (train)' if 'dataflow' not in rec else 'the reference' + chr(39) + 's'}",
-              flush=True)
+              f"fits HBM {rec['fit']['fits_hbm']}; census the reference's"
+              f"{less}", flush=True)
 
     # -- 14c. rank 0's shards for real on the card ---------------------------
     import gc
@@ -4142,6 +4255,245 @@ def elastic_checkpoints(dev, smi: str, cfg=None, batch: int = ELASTIC_BATCH,
           f"raises ValueError; ranks' wall {spawn_s:.2f} s (start-up "
           f"included); card: {smi}", flush=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the train cells' dataflow census; the lowered train step
+# ---------------------------------------------------------------------------
+
+#: phase 16b: SmolLM-135M's lowered train step, 2 sequences of 512 tokens,
+#: three steps in each of fp32 and bf16 from step 200 (the end of
+#: ``make_train_step``'s warmup: LR scale ~1)
+LOWERED_BATCH, LOWERED_SEQ, LOWERED_STEPS, LOWERED_FROM = 2, 512, 3, 200
+
+
+def _change_err(got, want, before) -> float:
+    """The largest, over leaves, of ``‖(got − before) − (want −
+    before)‖₂ / ‖want − before‖₂`` (fp64 on the CPU): how far one run's
+    change of the params is from another's.  A leaf ``want`` did not
+    move (a bf16 norm scale of 1, whose ulp is above lr) counts 0 if
+    ``got`` left it as it was too, else inf."""
+    from repro_torch import tree
+    worst = 0.0
+    for g, w, b in zip(tree.leaves(got), tree.leaves(want),
+                       tree.leaves(before), strict=True):
+        g, w, b = (t.detach().double().cpu() for t in (g, w, b))
+        d, e = float((w - b).norm()), float((g - w).norm())
+        worst = max(worst, e / d if d else (math.inf if e else 0.0))
+    return worst
+
+
+def train_census_on_card(smi: str) -> None:
+    """Phase 16a: every architecture's ``train_4k`` census at published
+    widths on ``meta``, plus the pinned differences (section 2's, and
+    DeepSeek-V3's MTP layer's), equal to the reference's."""
+    from repro_torch.configs import ARCH_IDS, load_config
+    from repro_torch.launch import dryrun
+    print(f"[16a] card: {smi}", flush=True)
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        got = dryrun.dataflow_census(load_config(arch), "train_4k")
+        wall = time.perf_counter() - t0
+        n_ref, n_port, _ = TRAIN_SECTION2[arch]
+        diff = train_census_difference(arch)
+        want = REF_TRAIN_CENSUS[arch]
+        have = {k: got[k] + diff.get(k, 0) for k in want}
+        require(have == want, f"16a {arch}: census {got} + the pinned "
+                f"{diff} = {have}, the reference's is {want}")
+        mtp = (f", the MTP layer's windows {TRAIN_MTP_LAYER[arch][0]}"
+               if arch in TRAIN_MTP_LAYER else "")
+        print(f"[16a] {arch}: ops {got['ops']}, memory ops "
+              f"{got['memory_ops']}, long ops {got['long_ops']}, stages "
+              f"{got['stages']}, channels {got['channels']} "
+              f"({got['channel_bytes']:,} B), II {got['pipeline_ii']}; with "
+              f"section 2's difference (reference {n_ref} equations, port "
+              f"{n_port}){mtp} the reference's; in {wall:.2f} s",
+              flush=True)
+
+
+def lowered_step_on_card(dev, smi: str) -> None:
+    """Phase 16b: SmolLM-135M's train step lowered by the census's front
+    end (``dryrun.train_compiled``) and run by the ``sequential`` backend
+    on the card, against ``make_train_step``, three steps from the same
+    state and batches; no hand kernel launched."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    B, S = LOWERED_BATCH, LOWERED_SEQ
+    shape = InputShape("train", S, B, "train")
+    opt_cfg = adamw.AdamWConfig()
+    base = load_config("smollm-135m")
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, base.vocab_size, (B, S + 1)).astype(np.int32)).to(dev)}
+        for _ in range(LOWERED_STEPS)]
+    init = M.init_params(torch.Generator(device=dev).manual_seed(0), base,
+                         dev)
+    before = dict(_lib.counts())
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = tree.tree_map(lambda t: t.to(cfg.torch_dtype), init)
+        state = steps.TrainState(params,
+                                 adamw.init_opt_state(params, opt_cfg),
+                                 torch.tensor(LOWERED_FROM,
+                                              dtype=torch.int32, device=dev))
+        t0 = time.perf_counter()
+        comp = dryrun.train_compiled(cfg, shape, device=dev,
+                                     backend="sequential")
+        compile_s = time.perf_counter() - t0
+        step = steps.make_train_step(cfg, opt_cfg)
+        lowered = start = steps.stack_train_state(state)
+        n = len(tree.leaves(lowered))
+        walls, metrics = {"step": [], "lowered": []}, {"step": [],
+                                                       "lowered": []}
+        first = None
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls["step"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            out = comp(tuple(tree.leaves(lowered)), tuple(tree.leaves(batch)))
+            torch.cuda.synchronize()
+            walls["lowered"].append(time.perf_counter() - t0)
+            lowered = tree.unflatten(lowered, list(out[:n]))
+            metrics["step"].append({k: float(v) for k, v in m.items()})
+            metrics["lowered"].append(dict(zip(m, map(float, out[n:]))))
+            if first is None:
+                first = dict(step=steps.stack_train_state(state),
+                             lowered=lowered)
+        runs[dtype] = dict(step=steps.stack_train_state(state),
+                           lowered=lowered, start=start,
+                           first=first, metrics=metrics, walls=walls,
+                           compile_s=compile_s, stages=comp.num_stages)
+        del comp, state, lowered, params
+        _free()
+    require(dict(_lib.counts()) == before,
+            "16b the lowered step launched a hand kernel")
+
+    f32 = runs["float32"]
+    for i, (a, b) in enumerate(zip(f32["metrics"]["lowered"],
+                                   f32["metrics"]["step"])):
+        for k in b:
+            require(abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), f"16b fp32 "
+                    f"{k} step {i}: lowered {a[k]} vs step {b[k]}")
+    low, want = f32["lowered"], f32["step"]
+    require(int(low.step) == int(want.step) == LOWERED_FROM + LOWERED_STEPS
+            and int(low.opt["count"]) == LOWERED_STEPS,
+            "16b fp32 step counts")
+    require(all(m["lr"] > 0.99 * opt_cfg.lr for m in f32["metrics"]["step"]),
+            "16b the steps ran inside the warmup")
+    # Adam's first steps move an element by ~lr·g/|g|: where |g| is at
+    # the rounding level of the two backwards its sign may differ, so the
+    # elements are printed and each leaf's change held as a whole
+    p_err, _ = _max_err(low.params, want.params, rtol=0)
+    n_far = sum(int(((a - b).abs() > 0.1 * opt_cfg.lr).sum()) for a, b in
+                zip(tree.leaves(low.params), tree.leaves(want.params)))
+    c_err = _change_err(low.params, want.params, f32["start"].params)
+    require(c_err <= 1e-3, f"16b fp32 params: a leaf's change {c_err:.3g} "
+            f"of its L2 norm from make_train_step's, beyond 1e-3")
+    m_err = {}
+    for k in ("mu", "nu"):
+        m_err[k], ok = _max_err(low.opt[k], want.opt[k], rtol=1e-3,
+                                scale_atol=1e-4)
+        require(ok, f"16b fp32 {k} beyond rtol 1e-3 + 1e-4·max")
+    print(f"[16b] SmolLM-135M fp32, {B} x {S} tokens, {LOWERED_STEPS} "
+          f"steps: lowered ({f32['stages']} stages) == make_train_step at "
+          f"the three-step bars: losses "
+          f"{[m['loss'] for m in f32['metrics']['lowered']]}"
+          f", params' change {c_err:.3g} of its L2 norm (bar 1e-3), params "
+          f"max|Δ| {p_err:.3g} ({n_far} elements beyond 0.1·lr = "
+          f"{0.1 * opt_cfg.lr:.3g}), mu {m_err['mu']:.3g}, nu "
+          f"{m_err['nu']:.3g}", flush=True)
+
+    # bf16: the first step from one state (LR scale ~1).  Two bf16
+    # backward passes round on their own, so their gradients' distance
+    # may reach the sum of their errors: the moments each within twice
+    # the bf16 step's distance to the fp32 step (+1e-6 of the fp32
+    # value), the loss rtol 1e-4 (the same forward), the gradient norm
+    # rtol 1e-3, and each params leaf's change within 0.1 of its L2 norm
+    # (an element's new value may round the other way in bf16).  Later
+    # steps part further on such flips: printed, not held.
+    bf = runs["bfloat16"]
+    a, b = bf["metrics"]["lowered"][0], bf["metrics"]["step"][0]
+    for k, rtol in (("loss", 1e-4), ("lm_loss", 1e-4), ("grad_norm", 1e-3),
+                    ("lr", 0.0)):
+        require(abs(a[k] - b[k]) <= rtol * abs(b[k]), f"16b bf16 {k} step "
+                f"0: lowered {a[k]} vs step {b[k]}")
+    low, want, w32 = (bf["first"]["lowered"], bf["first"]["step"],
+                      f32["first"]["step"])
+    bf_c = _change_err(low.params, want.params, bf["start"].params)
+    require(bf_c <= 0.1, f"16b bf16 params after the first step: a leaf's "
+            f"change {bf_c:.3g} of its L2 norm from make_train_step's, "
+            f"beyond 0.1")
+    worst = 0.0
+    for k in ("mu", "nu"):
+        for (path, x), y, w in zip(tree.flatten_with_paths(low.opt[k]),
+                                   tree.leaves(want.opt[k]),
+                                   tree.leaves(w32.opt[k]), strict=True):
+            d = float((x - y).abs().max())
+            bar = 2 * float((y - w).abs().max()) + 1e-6 * float(
+                w.abs().max())
+            require(d <= bar, f"16b bf16 {k} {path}: lowered vs step "
+                    f"max|Δ| {d:.3g} beyond twice the bf16 step's distance "
+                    f"to fp32 ({bar:.3g})")
+            worst = max(worst, d / bar)
+    loss_d = [abs(x["loss"] - y["loss"]) for x, y in
+              zip(bf["metrics"]["lowered"], bf["metrics"]["step"])]
+    p_err, _ = _max_err(bf["lowered"].params, bf["step"].params, rtol=0)
+    print(f"[16b] SmolLM-135M bf16 (published), {B} x {S} tokens: the "
+          f"first step's loss, gradient norm and moments those of "
+          f"make_train_step (worst moment leaf at {worst:.3f} of its "
+          f"bar), params' change {bf_c:.3g} of its L2 norm (bar 0.1); "
+          f"after {LOWERED_STEPS} steps: loss "
+          f"|Δ| by step {[f'{d:.3g}' for d in loss_d]}, params max|Δ| "
+          f"{p_err:.3g}; no hand kernel launched", flush=True)
+    for dtype, r in runs.items():
+        print(f"[16b] walls {dtype}: compile {r['compile_s']:.2f} s; a step"
+              f" make_train_step {[round(w, 4) for w in r['walls']['step']]}"
+              f" s, lowered {[round(w, 4) for w in r['walls']['lowered']]} s"
+              f"; card: {smi}", flush=True)
+
+
+def dryrun_cli_train_cell(smi: str) -> None:
+    """Phase 16c: the dry run's CLI on SmolLM-135M's ``train_4k`` cell on
+    the 16x16 fake world (device type ``cuda``): exit 0, the record's
+    ``dataflow`` the phase 16a census."""
+    out = os.path.join(ROOT, "build", "dryrun_16c")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "smollm-135m", "--shape", "train_4k", "--mesh", "single", "--out",
+         out], cwd=ROOT, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"16c the CLI exited {proc.returncode}: "
+            f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    with open(os.path.join(out, "smollm-135m__train_4k__16x16.json")) as f:
+        rec = json.load(f)
+    diff = train_census_difference("smollm-135m")
+    census = rec.get("dataflow")
+    require(rec["status"] == "ok" and census is not None
+            and {k: census[k] + diff.get(k, 0)
+                 for k in REF_TRAIN_CENSUS["smollm-135m"]}
+            == REF_TRAIN_CENSUS["smollm-135m"],
+            f"16c the record: {rec.get('status')} {census}")
+    print(f"[16c] python -m repro_torch.launch.dryrun --arch smollm-135m "
+          f"--shape train_4k --mesh single: exit 0, record ok with dataflow "
+          f"{census}, trace {rec['trace_s']:.2f} s, cell "
+          f"{rec['total_s']:.1f} s, CLI wall {wall:.2f} s; card: {smi}",
+          flush=True)
+
 
 if __name__ == "__main__":
     main()

@@ -1,0 +1,880 @@
+"""Reverse-mode differentiation of a lowered graph, in the jaxpr's
+vocabulary: the port's ``jax.value_and_grad`` for the dataflow front
+end.
+
+A ``grad`` leaf (:func:`repro_torch.core.cdfg.leaves`) traces the value
+function into a sub-graph; :func:`lower_value_and_grad` then emits, into
+the enclosing graph, what JAX's ``value_and_grad`` leaves in a jaxpr:
+
+1. the sub-graph's equations in order, each with the residuals its JVP
+   rule keeps (``rsqrt``: ``div(ans, x)``, ``mul(-0.5, ·)``; a jitted
+   function: its extra outputs) — JAX's linearize, known side;
+2. the tangent program's equations that read no tangent (a zero carry
+   tangent a segment's scan needs), then each linear equation's
+   transpose in reverse order, a cotangent reaching a value twice summed
+   by ``add_any`` — JAX's ``backward_pass``;
+3. a zero (``broadcast_in_dim`` of ``0``) for each parameter the value
+   does not read.
+
+Each rule follows the JVP and transpose rule JAX publishes for the
+primitive (``jax._src.lax``): ``mul`` of two tangents is two linear
+``mul``\\ s and an ``add_any``, transposed right operand first;
+``_unbroadcast`` sums and reshapes a cotangent back to a broadcast
+operand; ``dot_general``'s transposes are ``_dot_general_transpose_lhs``
+/ ``_rhs``; ``slice`` → ``pad``, ``squeeze`` → ``broadcast_in_dim``
+(``expand_dims``), ``reduce_sum`` ↔ ``broadcast_in_dim``, ``gather`` →
+``broadcast_in_dim`` of zeros and ``scatter-add``.  The jitted
+functions ``log_softmax``, ``take_along_axis`` and ``_var`` keep their
+residuals as extra outputs of one ``jit`` equation and transpose to one
+``jit`` equation, as JAX's partial evaluation of a ``jit`` does.
+
+A segment's ``scan`` (one equation per segment, its body the model's
+own code) is the one rule that departs from JAX's equations: its
+forward keeps, as its only residual, the stack of each repeat's input;
+its transpose is one ``scan`` equation that runs the segment's
+vector–Jacobian product repeat by repeat, in reverse, recomputing each
+repeat's forward under ``torch.autograd``.  JAX's partial evaluation
+instead hoists the body's loop invariants out of the scan and keeps
+every residual the body's rules name (ROADMAP "Decisions": route (b)).
+
+A remat leaf's layer (DeepSeek-V3's multi-token-prediction layer, at
+the loss's top level) departs the same way: its forward is one
+``checkpoint`` equation and its transpose one more, which recomputes
+the layer under ``torch.autograd`` — what ``jax.checkpoint`` of the
+layer would leave; the reference's jaxpr has the layer's own equations
+and their transposes there (ROADMAP "Decisions").
+
+The segment parameters arrive stacked (one ``(R, …)`` leaf per unit
+path, as the reference holds them); the value function reads each
+repeat ``leaf[r]``, which only its segment's scan may read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import operator
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .. import tree
+from .._device import get_device
+from .cdfg import Aval, Eqn, Literal, Var, _Lowering
+
+__all__ = ["lower_value_and_grad", "JVP_RULES"]
+
+
+class _View:
+    """Repeat ``r`` of the stacked value ``var``."""
+
+    __slots__ = ("var", "r")
+
+    def __init__(self, var: Var, r: int):
+        self.var, self.r = var, r
+
+
+class _Key:
+    """One tangent of the tangent program (cotangents accumulate per
+    key; a tangent passed through unchanged shares its operand's)."""
+
+    __slots__ = ()
+
+
+@dataclasses.dataclass
+class _Linear:
+    """A linear equation of the tangent program: ``transpose`` maps the
+    cotangents of ``outs`` (``None`` for a zero) to ``(key, cotangent)``
+    pairs, in operand order, emitting its equations."""
+
+    outs: list[_Key]
+    transpose: Callable[[list[Any]], list[tuple[_Key, Any]]]
+
+
+def _is_float(aval: Aval) -> bool:
+    return aval.dtype.is_floating_point
+
+
+def _shape(x: Any) -> tuple[int, ...]:
+    return x.aval.shape
+
+
+# -- implementations of the equations the backward emits ---------------------
+
+def _reshape(x: torch.Tensor, *, new_sizes: tuple[int, ...]) -> torch.Tensor:
+    return x.reshape(new_sizes)
+
+
+def _pad(x: torch.Tensor, val: Any, *,
+         padding_config: tuple[tuple[int, int, int], ...]) -> torch.Tensor:
+    pads = []
+    for lo, hi, interior in reversed(padding_config):
+        if interior:
+            raise NotImplementedError("pad with interior padding")
+        pads += [lo, hi]
+    return torch.nn.functional.pad(x, pads, value=float(val))
+
+
+def _broadcast(x: Any, *, shape: tuple[int, ...],
+               broadcast_dimensions: tuple[int, ...],
+               dtype: torch.dtype) -> torch.Tensor:
+    """``broadcast_in_dim``, also of a number (``lax.full``; a literal, or
+    an equation of literals alone), which lands on the port's device."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full(shape, x, dtype=dtype, device=get_device(None))
+    view = [1] * len(shape)
+    for src, dst in enumerate(broadcast_dimensions):
+        view[dst] = x.shape[src]
+    return x.reshape(view).expand(shape)
+
+
+def _scatter_add(operand: torch.Tensor, indices: torch.Tensor,
+                 updates: torch.Tensor) -> torch.Tensor:
+    # the transpose of the ``gather`` of whole rows along axis 0 (the
+    # lowering of ``x[idx]``): rows clamped as the gather clamps them;
+    # a row hit twice sums in fp32, rounded once
+    rows = torch.clamp(indices[..., 0], 0, operand.shape[0] - 1)
+    return operand.float().index_add(
+        0, rows.reshape(-1).long(),
+        updates.reshape(-1, *operand.shape[1:]).float()).to(operand.dtype)
+
+
+def _dot_general(a: torch.Tensor, b: torch.Tensor, *,
+                 dimension_numbers: tuple) -> torch.Tensor:
+    (ac, bc), (ab, bb) = dimension_numbers
+    letters = iter("abcdefghijklmnopqrstuvwxyz")
+    la = [next(letters) for _ in range(a.ndim)]
+    lb = [next(letters) for _ in range(b.ndim)]
+    for i, j in (*zip(ac, bc), *zip(ab, bb)):
+        lb[j] = la[i]
+    out = ([la[i] for i in ab]
+           + [la[i] for i in range(a.ndim) if i not in (*ac, *ab)]
+           + [lb[j] for j in range(b.ndim) if j not in (*bc, *bb)])
+    return torch.einsum(f"{''.join(la)},{''.join(lb)}->{''.join(out)}",
+                        a, b)
+
+
+def _transpose(x: torch.Tensor, *, permutation: tuple[int, ...]
+               ) -> torch.Tensor:
+    return x.permute(permutation)
+
+
+def _split(x: torch.Tensor, *, sizes: tuple[int, ...], axis: int) -> tuple:
+    return tuple(x.split(sizes, axis))
+
+
+# -- the jitted functions' forward with residuals, and their transposes ------
+
+def _log_softmax_fwd(x: torch.Tensor, *, dim: int = -1) -> tuple:
+    e = torch.exp(x - x.amax(dim, keepdim=True))
+    return torch.log_softmax(x, dim), e, e.sum(dim, keepdim=True)
+
+
+def _log_softmax_vjp(e: torch.Tensor, s: torch.Tensor, ct: torch.Tensor, *,
+                     dim: int = -1) -> torch.Tensor:
+    return ct - e / s * ct.sum(dim, keepdim=True)
+
+
+def _take_along_axis_fwd(take: Callable, x: torch.Tensor, idx: torch.Tensor
+                         ) -> tuple:
+    n = x.shape[-1]
+    wrapped = torch.where(idx < 0, idx + n, idx)
+    return take(x, idx), wrapped[..., None].to(torch.int32)
+
+
+def _take_along_axis_vjp(res: torch.Tensor, ct: torch.Tensor, *, n: int
+                         ) -> torch.Tensor:
+    w = res[..., 0]
+    valid = (w >= 0) & (w < n)
+    out = ct.new_zeros((*w.shape[:-1], n))
+    return out.scatter_add(-1, w.clamp(0, n - 1).long(),
+                           torch.where(valid, ct, 0))
+
+
+def _var_fwd(var: Callable, x: torch.Tensor, correction: int, *,
+             axes: tuple[int, ...]) -> tuple:
+    mean = x.mean(axes, keepdim=True)
+    n = float(np.prod([x.shape[a] for a in axes]) - correction)
+    return (var(x, correction, axes=axes), x - mean, x.new_tensor(n),
+            torch.tensor(n > 0, device=x.device), mean)
+
+
+def _var_vjp(centered: torch.Tensor, n: torch.Tensor, ok: torch.Tensor,
+             mean: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    return ct * 2 * centered / n
+
+
+# -- a segment's scan: the forward with its residual, and the transpose ------
+
+def _scan_fwd(body: Callable, block_like: Any, slots: list[int], R: int,
+              carry: torch.Tensor, *stacked: torch.Tensor) -> tuple:
+    """The segment's repeats in order, keeping each repeat's input."""
+    xs, ys = [], []
+    for r in range(R):
+        xs.append(carry)
+        params = tree.unflatten(block_like, [stacked[s][r] for s in slots])
+        carry, y = body(carry, [params], ())
+        ys.append(tree.leaves(y))
+    return (carry, *(torch.cat(parts) for parts in zip(*ys)),
+            torch.stack(xs))
+
+
+def _read_by_body(body: Callable, block_like: Any, slots: list[int],
+                  carry: Aval, stacked: list[Aval]
+                  ) -> tuple[list[bool], list[bool]]:
+    """Which stacked leaves one repeat's output depends on, and which of
+    its per-repeat outputs (``ys``) depend on the carry or a leaf: the
+    body run once on ``meta`` tensors under autograd, on one sequence of
+    at most 8 positions (which leaves it reads does not depend on the
+    batch).  A leaf it does not read has a zero cotangent, which JAX's
+    scan transpose leaves out; a constant output (a dense layer's load
+    balance) has no tangent."""
+    def meta(aval, shape):
+        return torch.empty(shape, dtype=aval.dtype, device="meta",
+                           requires_grad=True)
+    x = meta(carry, (1, min(8, carry.shape[1]), *carry.shape[2:])
+             if len(carry.shape) >= 2 else carry.shape)
+    leaves = [meta(stacked[s], stacked[s].shape[1:]) for s in slots]
+    with torch.enable_grad():
+        out, y = body(x, [tree.unflatten(block_like, leaves)], ())
+        live = [t.requires_grad for t in tree.leaves(y)]
+        outs = [out, *(t for t in tree.leaves(y) if t.requires_grad)]
+        got = torch.autograd.grad(outs, leaves, list(map(torch.empty_like,
+                                                         outs)),
+                                  allow_unused=True)
+    read = [False] * len(stacked)
+    for s, g in zip(slots, got):
+        read[s] = read[s] or g is not None
+    return read, live
+
+
+def _scan_vjp(body: Callable, block_like: Any, slots: list[int], R: int,
+              n_stacked: int, ys_mask: tuple[bool, ...],
+              read: tuple[bool, ...], *args: Any) -> tuple:
+    """The segment's vector–Jacobian product, repeat by repeat in
+    reverse, each repeat's forward recomputed from its kept input; the
+    carry's cotangent, then those of the stacked leaves ``read`` marks."""
+    stacked, xs = args[:n_stacked], args[n_stacked]
+    ct_carry, ct_ys = args[n_stacked + 1], list(args[n_stacked + 2:])
+    grads = [torch.zeros_like(s) for s in stacked]
+    for r in reversed(range(R)):
+        x = xs[r].detach().requires_grad_()
+        leaves = [stacked[s][r].detach().requires_grad_() for s in slots]
+        with torch.enable_grad():
+            out, y = body(x, [tree.unflatten(block_like, leaves)], ())
+        outs, cts = [out], [ct_carry]
+        it = iter(ct_ys)
+        for leaf, keep in zip(tree.leaves(y), ys_mask):
+            if keep:
+                outs.append(leaf)
+                cts.append(next(it)[r:r + 1])
+        got = torch.autograd.grad(outs, [x, *leaves], cts,
+                                  allow_unused=True)
+        ct_carry = torch.zeros_like(x) if got[0] is None else got[0]
+        for s, g in zip(slots, got[1:]):
+            if g is not None:
+                grads[s][r] += g
+    return (ct_carry, *(g for g, keep in zip(grads, read) if keep))
+
+
+# -- a remat leaf's layer: the transpose recomputes it ---------------------
+
+def _remat_vjp(run: Callable, wanted: tuple[int, ...], *args: Any) -> tuple:
+    """The layer's vector–Jacobian product: ``run`` recomputed on the
+    operands under autograd; the cotangents of the operands ``wanted``
+    names (zeros for one the layer does not read)."""
+    ins, ct = list(args[:-1]), args[-1]
+    for i in wanted:
+        ins[i] = ins[i].detach().requires_grad_()
+    with torch.enable_grad():
+        out = run(*ins)
+    got = torch.autograd.grad(out, [ins[i] for i in wanted], ct,
+                              allow_unused=True)
+    return tuple(torch.zeros_like(ins[i]) if g is None else g
+                 for i, g in zip(wanted, got))
+
+
+# -- the tape -----------------------------------------------------------------
+
+class _Tape:
+    """One ``value_and_grad``'s lowering into ``lo``'s graph."""
+
+    def __init__(self, lo: _Lowering, source: str):
+        self.lo, self.src = lo, source
+        self.env: dict[Any, Any] = {}       # sub-graph var -> value here
+        self.tan: dict[Any, _Key] = {}      # value here -> its tangent
+        self.linear: list[_Linear] = []
+        self.pre: list[Callable[[], Any]] = []
+        self.ct: dict[_Key, Any] = {}
+        self.order: dict[Var, int] = {}     # parameter -> its position
+
+    # emission
+    def emit(self, prim: str, ins: list[Any], aval: Aval,
+             impl: Callable | None = None, name: str = "",
+             **params: Any) -> Var:
+        return self.lo.emit(prim, ins, aval, self.src, impl=impl, name=name,
+                            **params)
+
+    def emit_multi(self, prim: str, ins: list[Any], avals: list[Aval],
+                   impl: Callable | None = None, name: str = "",
+                   **params: Any) -> list[Var]:
+        return self.lo.emit_multi(prim, ins, avals, self.src, impl, name,
+                                  **params)
+
+    def copy(self, e: Eqn, ins: list[Any]) -> list[Var]:
+        return self.emit_multi(e.prim, ins, [v.aval for v in e.outvars],
+                               e.impl, e.name, **e.params)
+
+    # tangents
+    def has_tangent(self, x: Any) -> bool:
+        if isinstance(x, _View):
+            x = x.var
+        return isinstance(x, Var) and x in self.tan
+
+    def fresh(self, out: Var) -> _Key:
+        self.tan[out] = key = _Key()
+        return key
+
+    def accum(self, key: _Key | None, ct: Any) -> None:
+        if key is None:
+            return
+        old = self.ct.get(key)
+        if old is None:
+            self.ct[key] = ct
+            return
+        aval = old.aval if isinstance(old, Var) else ct.aval
+        self.ct[key] = self.emit("add_any", [old, ct], aval,
+                                 impl=operator.add)
+
+    def unbroadcast(self, aval: Aval, t: Any) -> Any:
+        """JAX's ``_unbroadcast``: a cotangent back to the shape of an
+        operand the op broadcast."""
+        tshape = _shape(t)
+        if tshape == aval.shape:
+            return t
+        if not aval.shape:
+            return self.emit("reduce_sum", [t], Aval((), t.aval.dtype),
+                             axes=tuple(range(len(tshape))))
+        dims = tuple(i for i, (a, b) in enumerate(zip(tshape, aval.shape))
+                     if a != b)
+        kept = tuple(n for i, n in enumerate(tshape) if i not in dims)
+        r = self.emit("reduce_sum", [t], Aval(kept, t.aval.dtype), axes=dims)
+        return self.reshape(r, aval.shape)
+
+    def reshape(self, x: Any, shape: tuple[int, ...]) -> Any:
+        if _shape(x) == shape:
+            return x
+        return self.emit("reshape", [x], Aval(shape, x.aval.dtype),
+                         impl=_reshape, new_sizes=shape)
+
+    def zeros(self, aval: Aval) -> Var:
+        """``lax.full(shape, 0)``: a ``broadcast_in_dim`` of ``0``."""
+        return self.broadcast(Literal(0, Aval((), aval.dtype)), aval.shape,
+                              ())
+
+    def broadcast(self, x: Any, shape: tuple[int, ...],
+                  dims: tuple[int, ...]) -> Var:
+        dt = x.aval.dtype
+        return self.emit("broadcast_in_dim", [x], Aval(shape, dt),
+                         impl=functools.partial(_broadcast, dtype=dt),
+                         shape=shape, broadcast_dimensions=dims)
+
+    # the two passes
+    def forward(self, eqns: list[Eqn]) -> None:
+        for e in eqns:
+            ins = [v if isinstance(v, Literal) else self.env[v]
+                   for v in e.invars]
+            if e.prim != "scan" and any(isinstance(x, _View) for x in ins):
+                raise NotImplementedError(
+                    f"{e.prim} reads one repeat of a stacked parameter: "
+                    f"only a segment's scan may")
+            lin = [self.has_tangent(x) for x in ins]
+            if not any(lin) or not any(_is_float(v.aval)
+                                       for v in e.outvars):
+                outs = self.copy(e, ins)
+            else:
+                rule = JVP_RULES.get(f"jit {e.name}" if e.prim == "jit"
+                                     else e.prim)
+                if rule is None:
+                    what = f"jit {e.name}" if e.prim == "jit" else e.prim
+                    raise NotImplementedError(
+                        f"no differentiation rule for {what!r} yet "
+                        f"(core/autodiff.py)")
+                outs = rule(self, e, ins, lin)
+            for v, o in zip(e.outvars, outs):
+                self.env[v] = o
+
+    def backward(self, value: Any) -> None:
+        if not self.has_tangent(value):
+            raise NotImplementedError("the value does not depend on the "
+                                      "parameters")
+        self.ct[self.tan[value]] = Literal(1.0, Aval((), value.aval.dtype))
+        for emit in self.pre:
+            emit()
+        for rec in reversed(self.linear):
+            cts = [self.ct.pop(k, None) for k in rec.outs]
+            if all(c is None for c in cts):
+                continue
+            for key, ct in rec.transpose(cts):
+                self.accum(key, ct)
+
+    def grad(self, p: Var) -> Any:
+        ct = self.ct.get(self.tan[p])
+        return self.zeros(p.aval) if ct is None else ct
+
+
+# -- JVP rules (each emits the primal equation and its residuals, records
+# its linear equations, and returns the primal outputs) -----------------------
+
+def _linear1(transpose: Callable) -> Callable:
+    """A primitive linear in its one operand (or in operand 0): the
+    tangent is the primitive of the tangent; ``transpose(tape, e, x,
+    ct)`` gives the operand's cotangent."""
+    def rule(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+        if any(lin[1:]):
+            raise NotImplementedError(f"{e.prim} linear in operand > 0")
+        outs = tape.copy(e, ins)
+        x, out = ins[0], outs[0]
+        kx, ko = tape.tan[x], tape.fresh(out)
+        tape.linear.append(_Linear(
+            [ko], lambda cts: [(kx, transpose(tape, e, x, cts[0]))]))
+        return outs
+    return rule
+
+
+def _t_neg(tape, e, x, ct):
+    return tape.emit("neg", [ct], x.aval)
+
+
+def _t_convert(tape, e, x, ct):
+    dt = x.aval.dtype
+    return tape.emit("convert_element_type", [ct], Aval(_shape(ct), dt),
+                     new_dtype=dt)
+
+
+def _t_reduce_sum(tape, e, x, ct):
+    axes = e.params["axes"]
+    return tape.broadcast(ct, _shape(x), tuple(
+        d for d in range(len(_shape(x))) if d not in axes))
+
+
+def _expand_dims(tape, t, shape, dims):
+    if not dims:
+        return t
+    return tape.broadcast(t, shape, tuple(d for d in range(len(shape))
+                                         if d not in dims))
+
+
+def _t_broadcast_in_dim(tape, e, x, ct):
+    shape, bdims = e.params["shape"], e.params["broadcast_dimensions"]
+    unit = [i for i, n in enumerate(_shape(x)) if n == 1]
+    kept = [d for i, d in enumerate(bdims) if i not in unit]
+    axes = tuple(d for d in range(len(shape)) if d not in kept)
+    if not axes:
+        raise NotImplementedError("transpose of a broadcast_in_dim that "
+                                  "adds no axis")
+    r = tape.emit("reduce_sum", [ct],
+                  Aval(tuple(shape[d] for d in kept), ct.aval.dtype),
+                  axes=axes)
+    return _expand_dims(tape, r, _shape(x), unit)
+
+
+def _t_squeeze(tape, e, x, ct):
+    return _expand_dims(tape, ct, _shape(x), e.params["dimensions"])
+
+
+def _t_slice(tape, e, x, ct):
+    if e.params["strides"] is not None and set(e.params["strides"]) != {1}:
+        raise NotImplementedError("transpose of a strided slice")
+    config = tuple((lo, n - hi, 0) for lo, hi, n in zip(
+        e.params["start_indices"], e.params["limit_indices"], _shape(x)))
+    return tape.emit("pad", [ct, Literal(0.0, Aval((), ct.aval.dtype))],
+                     x.aval, impl=_pad, padding_config=config)
+
+
+def _jvp_add_sub(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``add``: a tangent alone passes through (``_maybe_broadcast``);
+    two make one linear ``add``.  ``sub``: alike, the right one alone
+    negated (a linear ``neg``)."""
+    outs = tape.copy(e, ins)
+    (x, y), out = ins, outs[0]
+    if lin[0] and lin[1]:
+        kx, ky, ko = tape.tan[x], tape.tan[y], tape.fresh(out)
+
+        def transpose(cts):
+            ct = cts[0]
+            cx = tape.unbroadcast(x.aval, ct)
+            cy = (tape.emit("neg", [ct], ct.aval) if e.prim == "sub"
+                  else ct)
+            return [(kx, cx), (ky, tape.unbroadcast(y.aval, cy))]
+        tape.linear.append(_Linear([ko], transpose))
+        return outs
+    z = x if lin[0] else y
+    if _shape(z) != _shape(out):
+        raise NotImplementedError(f"{e.prim} broadcasting one tangent")
+    if e.prim == "sub" and lin[1]:
+        kz, ko = tape.tan[z], tape.fresh(out)
+        tape.linear.append(_Linear(
+            [ko], lambda cts: [(kz, tape.emit("neg", [cts[0]], z.aval))]))
+    else:
+        tape.tan[out] = tape.tan[z]
+    return outs
+
+
+def _jvp_mul(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``mul(ẋ, y)`` and ``mul(x, ẏ)``, summed by ``add_any`` when both
+    are there; transposed right operand first."""
+    outs = tape.copy(e, ins)
+    (x, y), out = ins, outs[0]
+    ko = tape.fresh(out)
+    parts = [_Key() if l else None for l in lin]
+
+    def t_left(cts):     # mul(ẋ, y) → mul(ct, y)
+        return [(tape.tan[x], tape.unbroadcast(
+            x.aval, tape.emit("mul", [cts[0], y], out.aval)))]
+
+    def t_right(cts):    # mul(x, ẏ) → mul(x, ct)
+        return [(tape.tan[y], tape.unbroadcast(
+            y.aval, tape.emit("mul", [x, cts[0]], out.aval)))]
+
+    if lin[0] and lin[1]:
+        tape.linear.append(_Linear([parts[0]], t_left))
+        tape.linear.append(_Linear([parts[1]], t_right))
+        tape.linear.append(_Linear(
+            [ko], lambda cts: [(parts[0], cts[0]), (parts[1], cts[0])]))
+    else:
+        tape.linear.append(_Linear([ko], t_left if lin[0] else t_right))
+    return outs
+
+
+def _jvp_div(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    if lin[1]:
+        raise NotImplementedError("div by a differentiated value")
+    outs = tape.copy(e, ins)
+    (x, y), out = ins, outs[0]
+    kx, ko = tape.tan[x], tape.fresh(out)
+    tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.unbroadcast(
+        x.aval, tape.emit("div", [cts[0], y], out.aval)))]))
+    return outs
+
+
+def _jvp_rsqrt(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``mul(ẋ, mul(-0.5, div(ans, x)))``: the residual in the forward."""
+    outs = tape.copy(e, ins)
+    x, out = ins[0], outs[0]
+    r = tape.emit("div", [out, x], x.aval)
+    r = tape.emit("mul", [Literal(-0.5, Aval((), x.aval.dtype)), r], x.aval)
+    kx, ko = tape.tan[x], tape.fresh(out)
+    tape.linear.append(_Linear(
+        [ko], lambda cts: [(kx, tape.emit("mul", [cts[0], r], x.aval))]))
+    return outs
+
+
+def _dot_dims(e: Eqn, a: Any, b: Any) -> tuple:
+    """The ``dot_general`` dimension numbers of a lowered equation (an
+    einsum's, or ``dimension_numbers``)."""
+    if "dimension_numbers" in e.params:
+        return e.params["dimension_numbers"]
+    eq = getattr(e.impl, "keywords", {}).get("equation")
+    if eq is None:
+        if len(_shape(b)) != 2 or not _shape(a):
+            raise NotImplementedError("dot_general of a matmul whose right "
+                                      "operand is not 2-D")
+        # ``x @ w``: x's last axis against w's first, as ``jnp.matmul``
+        return ((len(_shape(a)) - 1,), (0,)), ((), ())
+    lhs, rest = eq.replace(" ", "").split(",")
+    rhs, out = rest.split("->")
+    free = iter(c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in eq)
+    ell = "".join(next(free) for _ in range(max(
+        len(_shape(a)) - len(lhs.replace("...", "")),
+        len(_shape(b)) - len(rhs.replace("...", "")))))
+    lhs, rhs, out = (s.replace("...", ell[len(ell) - (n - len(
+        s.replace("...", ""))):] if "..." in s else "") for s, n in (
+        (lhs, len(_shape(a))), (rhs, len(_shape(b))),
+        (out, len(_shape(e.outvars[0])))))
+    contract = [c for c in lhs if c in rhs and c not in out]
+    batch = [c for c in lhs if c in rhs and c in out]
+    std = batch + [c for c in lhs if c not in rhs] + [c for c in rhs
+                                                      if c not in lhs]
+    if "".join(std) != out:
+        raise NotImplementedError(f"einsum {eq!r}: the output is not in "
+                                  f"dot_general's order")
+    return (([lhs.index(c) for c in contract], [rhs.index(c)
+                                                for c in contract]),
+            ([lhs.index(c) for c in batch], [rhs.index(c) for c in batch]))
+
+
+def _dot_shape(a: tuple, b: tuple, dims: tuple) -> tuple:
+    (ac, bc), (ab, bb) = dims
+    return (tuple(a[i] for i in ab)
+            + tuple(n for i, n in enumerate(a) if i not in (*ac, *ab))
+            + tuple(n for j, n in enumerate(b) if j not in (*bc, *bb)))
+
+
+def _ranges_like(*xs):
+    start = 0
+    for x in xs:
+        yield list(range(start, start + len(x)))
+        start += len(x)
+
+
+def _dot_transpose_lhs(tape: _Tape, g: Any, x_aval: Aval, y: Any,
+                       dims: tuple, swap_ans: bool = False) -> Var:
+    """``jax._src.lax.lax._dot_general_transpose_lhs``."""
+    (x_contract, y_contract), (x_batch, y_batch) = dims
+    x_kept = [i for i in range(len(x_aval.shape))
+              if i not in (*x_contract, *x_batch)]
+    y_kept = [i for i in range(len(_shape(y)))
+              if i not in (*y_contract, *y_batch)]
+    if swap_ans:
+        ans_batch, ans_y, _ = _ranges_like(x_batch, y_kept, x_kept)
+    else:
+        ans_batch, _, ans_y = _ranges_like(x_batch, x_kept, y_kept)
+    new = ((tuple(ans_y), tuple(y_kept)), (tuple(ans_batch), tuple(y_batch)))
+    shape = _dot_shape(_shape(g), _shape(y), new)
+    out = tape.emit("dot_general", [g, y], Aval(shape, g.aval.dtype),
+                    impl=_dot_general, dimension_numbers=new)
+    x_contract_by_y = list(np.take(x_contract, np.argsort(y_contract)))
+    perm = tuple(int(i) for i in np.argsort(list(x_batch) + x_kept
+                                            + x_contract_by_y))
+    if perm != tuple(range(len(perm))):
+        out = tape.emit("transpose", [out], Aval(tuple(
+            shape[i] for i in perm), out.aval.dtype), impl=_transpose,
+            permutation=perm)
+    return out
+
+
+def _jvp_dot_general(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    outs = tape.copy(e, ins)
+    (x, y), out = ins, outs[0]
+    dims = _dot_dims(e, x, y)
+    (xc, yc), (xb, yb) = dims
+    ko = tape.fresh(out)
+    parts = [_Key() if l else None for l in lin]
+
+    def t_left(cts):
+        return [(tape.tan[x], _dot_transpose_lhs(tape, cts[0], x.aval, y,
+                                                 dims))]
+
+    def t_right(cts):
+        return [(tape.tan[y], _dot_transpose_lhs(
+            tape, cts[0], y.aval, x, ((yc, xc), (yb, xb)), swap_ans=True))]
+
+    if lin[0] and lin[1]:
+        tape.linear.append(_Linear([parts[0]], t_left))
+        tape.linear.append(_Linear([parts[1]], t_right))
+        tape.linear.append(_Linear(
+            [ko], lambda cts: [(parts[0], cts[0]), (parts[1], cts[0])]))
+    else:
+        tape.linear.append(_Linear([ko], t_left if lin[0] else t_right))
+    return outs
+
+
+def _jvp_gather(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """Linear in the operand; the transpose scatters the cotangent's
+    rows into zeros (``scatter-add``)."""
+    if lin[1]:
+        raise NotImplementedError("gather differentiated in its indices")
+    outs = tape.copy(e, ins)
+    (x, idx), out = ins, outs[0]
+    kx, ko = tape.tan[x], tape.fresh(out)
+
+    def transpose(cts):
+        z = tape.zeros(x.aval)
+        return [(kx, tape.emit("scatter-add", [z, idx, cts[0]], x.aval,
+                               impl=_scatter_add))]
+    tape.linear.append(_Linear([ko], transpose))
+    return outs
+
+
+def _jvp_jit(fwd: Callable, res_avals: Callable, vjp: Callable) -> Callable:
+    """A jitted function differentiated in operand 0: one ``jit``
+    equation of the output and the residuals (``fwd(e, *ins)``, the
+    residuals' avals ``res_avals(e, *ins)``), transposed to one ``jit``
+    equation of the residuals and the cotangent (``vjp(e, *ins)`` its
+    implementation)."""
+    def rule(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+        if any(lin[1:]):
+            raise NotImplementedError(f"jit {e.name} differentiated in "
+                                      f"operand > 0")
+        x, out_aval = ins[0], e.outvars[0].aval
+        out, *res = tape.emit_multi(
+            "jit", ins, [out_aval, *res_avals(e, *ins)], fwd(e, *ins),
+            e.name)
+        kx, ko = tape.tan[x], tape.fresh(out)
+        tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.emit(
+            "jit", [*res, cts[0]], x.aval, vjp(e, *ins), e.name))]))
+        return [out]
+    return rule
+
+
+def _static(e: Eqn) -> dict:
+    return dict(getattr(e.impl, "keywords", None) or {})
+
+
+def _keep(aval: Aval, axes: tuple[int, ...]) -> Aval:
+    return Aval(tuple(1 if i in axes else n for i, n in
+                      enumerate(aval.shape)), aval.dtype)
+
+
+_jvp_log_softmax = _jvp_jit(
+    lambda e, x: functools.partial(_log_softmax_fwd, **_static(e)),
+    lambda e, x: [x.aval, _keep(x.aval, (_static(e).get("dim", -1)
+                                         % len(_shape(x)),))],
+    lambda e, x: functools.partial(_log_softmax_vjp, **_static(e)))
+_jvp_take_along_axis = _jvp_jit(
+    lambda e, x, idx: functools.partial(_take_along_axis_fwd, e.impl),
+    lambda e, x, idx: [Aval((*_shape(idx), 1), torch.int32)],
+    lambda e, x, idx: functools.partial(_take_along_axis_vjp,
+                                        n=_shape(x)[-1]))
+_jvp_var = _jvp_jit(
+    lambda e, x, c: functools.partial(_var_fwd, e.impl.func,
+                                      **e.impl.keywords),
+    lambda e, x, c: [x.aval, Aval((), x.aval.dtype), Aval((), torch.bool),
+                     _keep(x.aval, e.impl.keywords["axes"])],
+    lambda e, x, c: _var_vjp)
+
+
+def _jvp_scan(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """A segment's scan over its stacked repeats: the forward keeps each
+    repeat's input; the transpose is one ``scan`` of the repeats'
+    vector–Jacobian products in reverse."""
+    body, consts_like, state_like, n_consts = e.impl.args
+    carry, views = ins[0], ins[1:]
+    R = len(consts_like)
+    if tree.leaves(state_like) or not R or len(views) % R or not all(
+            isinstance(v, _View) for v in views):
+        raise NotImplementedError("a scan other than a segment's repeats "
+                                  "over stacked parameters")
+    L = len(views) // R
+    stacked = sorted({id(v.var): v.var for v in views}.values(),
+                     key=tape.order.__getitem__)
+    slot = {id(s): k for k, s in enumerate(stacked)}
+    slots = [slot[id(views[j].var)] for j in range(L)]
+    if any(views[r * L + j].var is not stacked[slots[j]]
+           or views[r * L + j].r != r for r in range(R) for j in range(L)):
+        raise NotImplementedError("a scan whose repeats are not one "
+                                  "stacked leaf per unit path")
+    block_like = consts_like[0]
+    ys_avals = [v.aval for v in e.outvars[1:]]
+    c_aval = carry.aval
+    out, *ys, xs = tape.emit_multi(
+        "scan", [carry, *stacked],
+        [c_aval, *ys_avals, Aval((R, *c_aval.shape), c_aval.dtype)],
+        functools.partial(_scan_fwd, body, block_like, slots, R))
+    kc = tape.tan.get(carry)
+    if kc is None:      # a zero carry tangent, made in the tangent program
+        tape.pre.append(lambda: tape.zeros(c_aval))
+    read, live = _read_by_body(body, block_like, slots, c_aval,
+                               [s.aval for s in stacked])
+    ko = tape.fresh(out)
+    kys = [tape.fresh(y) if keep and _is_float(y.aval) else _Key()
+           for y, keep in zip(ys, live)]
+    wanted = [s for s, keep in zip(stacked, read) if keep]
+
+    def transpose(cts):
+        ct_c, ct_ys = cts[0], cts[1:]
+        if ct_c is None:
+            ct_c = tape.zeros(c_aval)
+        mask = tuple(c is not None for c in ct_ys)
+        got = tape.emit_multi(
+            "scan", [*stacked, xs, ct_c, *(c for c in ct_ys if c is not None)],
+            [c_aval, *(s.aval for s in wanted)],
+            functools.partial(_scan_vjp, body, block_like, slots, R,
+                              len(stacked), mask, tuple(read)))
+        return [*((tape.tan.get(s), g) for s, g in zip(wanted, got[1:])),
+                (kc, got[0])]
+    tape.linear.append(_Linear([ko, *kys], transpose))
+    return [out, *ys]
+
+
+def _jvp_concatenate(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """Linear in every operand; the transpose is one ``split`` of the
+    cotangent into the operands' pieces."""
+    outs = tape.copy(e, ins)
+    ko = tape.fresh(outs[0])
+    axis = e.params["dimension"]
+    sizes = tuple(_shape(x)[axis] for x in ins)
+
+    def transpose(cts):
+        ct = cts[0]
+        got = tape.emit_multi(
+            "split", [ct], [Aval(_shape(x), ct.aval.dtype) for x in ins],
+            functools.partial(_split, sizes=sizes, axis=axis),
+            sizes=sizes, axis=axis)
+        return [(tape.tan[x], g) for x, g, d in zip(ins, got, lin) if d]
+    tape.linear.append(_Linear([ko], transpose))
+    return outs
+
+
+def _jvp_checkpoint(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """A remat leaf's layer (``jax.checkpoint``): the forward is the one
+    ``checkpoint`` equation, keeping no residual but its operands; the
+    transpose is one ``checkpoint`` equation that recomputes the layer
+    and gives the cotangents of its differentiated operands."""
+    outs = tape.copy(e, ins)
+    ko = tape.fresh(outs[0])
+    wanted = tuple(i for i, x in enumerate(ins)
+                   if tape.has_tangent(x) and _is_float(x.aval))
+
+    def transpose(cts):
+        got = tape.emit_multi(
+            "checkpoint", [*ins, cts[0]], [ins[i].aval for i in wanted],
+            functools.partial(_remat_vjp, e.impl, wanted))
+        return [(tape.tan[ins[i]], g) for i, g in zip(wanted, got)]
+    tape.linear.append(_Linear([ko], transpose))
+    return outs
+
+
+#: primitive (or ``jit <name>``) -> JVP rule
+JVP_RULES: dict[str, Callable] = {
+    "neg": _linear1(_t_neg),
+    "convert_element_type": _linear1(_t_convert),
+    "reduce_sum": _linear1(_t_reduce_sum),
+    "broadcast_in_dim": _linear1(_t_broadcast_in_dim),
+    "squeeze": _linear1(_t_squeeze),
+    "slice": _linear1(_t_slice),
+    "add": _jvp_add_sub,
+    "sub": _jvp_add_sub,
+    "mul": _jvp_mul,
+    "div": _jvp_div,
+    "rsqrt": _jvp_rsqrt,
+    "dot_general": _jvp_dot_general,
+    "gather": _jvp_gather,
+    "scan": _jvp_scan,
+    "checkpoint": _jvp_checkpoint,
+    "concatenate": _jvp_concatenate,
+    "jit log_softmax": _jvp_log_softmax,
+    "jit take_along_axis": _jvp_take_along_axis,
+    "jit _var": _jvp_var,
+}
+
+
+def lower_value_and_grad(lo: _Lowering, node: Any) -> tuple:
+    """A traced ``grad`` leaf → the equations of its value function, the
+    residuals, and the transposes (the module docstring); returns the
+    value's outputs, then one gradient per parameter leaf."""
+    gm, where = node.meta["grad"]
+    sub = _Lowering(gm).run()
+    p_nodes, a_nodes = node.args
+    params = [lo.read(n) for n in p_nodes]
+    tape = _Tape(lo, node.name)
+    for k, p in enumerate(params):
+        tape.tan[p] = _Key()
+        tape.order[p] = k
+    n_p = len(where)
+    for v, (i, r) in zip(sub.invars[:n_p], where):
+        tape.env[v] = params[i] if r is None else _View(params[i], r)
+    for v, n in zip(sub.invars[n_p:], a_nodes):
+        tape.env[v] = lo.read(n)
+    for v, c in zip(sub.constvars, sub.consts):
+        lo.constvars.append(v)
+        lo.consts.append(c)
+        tape.env[v] = v
+    tape.forward(sub.eqns)
+
+    def read(v):
+        return v if isinstance(v, Literal) else tape.env[v]
+    tape.backward(read(sub.outvars[0]))
+    return (*map(read, sub.outvars), *map(tape.grad, params))

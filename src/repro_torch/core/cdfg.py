@@ -20,17 +20,23 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   that drops an index still out of range);
 * inside :func:`leaves`, a function named there as an ``index`` leaf
   (``x[idx]`` with the reference's wrap-then-clamp read) into those of
-  ``x[idx]``, and one named as a ``scan`` leaf (a loop kept inside one
+  ``x[idx]``, one named as a ``scan`` leaf (a loop kept inside one
   call: a model segment's repeats) into one ``scan`` equation, as
-  ``jax.lax.scan`` is one in the jaxpr;
-* a static index into ``slice`` / ``squeeze`` / ``broadcast_in_dim``,
-  ``x.mean`` into ``reduce_sum, broadcast_in_dim, div``, ``x.var`` into
-  one ``jit`` (``jnp.var`` is a jitted function), as are ``torch.clamp``
-  (``jnp.clip``) and ``%`` (``jnp.remainder``), ``x.float()`` /
-  ``x.to(dtype)`` into ``convert_element_type`` (nothing when the dtype
-  stays), a two-operand ``torch.einsum`` into ``dot_general``, and rank
-  promotion into a ``broadcast_in_dim`` — what the decode step's top
-  level needs;
+  ``jax.lax.scan`` is one in the jaxpr, and one named as a ``grad``
+  leaf (``value_and_grad`` of a loss) into the loss's equations and
+  their transposes (:mod:`repro_torch.core.autodiff`);
+* a static index (``...`` too) into ``slice`` / ``squeeze`` /
+  ``broadcast_in_dim``, ``x.mean`` into ``reduce_sum, broadcast_in_dim,
+  div``, ``x.var`` into one ``jit`` (``jnp.var`` is a jitted function),
+  as are ``torch.clamp`` (``jnp.clip``), ``%`` (``jnp.remainder``),
+  ``torch.where`` (``jnp.where``), ``torch.log_softmax`` and a function
+  with a ``jit_name``, ``x.float()`` / ``x.to(dtype)`` into
+  ``convert_element_type`` (nothing when the dtype stays), a
+  two-operand ``torch.einsum`` into ``dot_general``, rank promotion
+  into a ``broadcast_in_dim``, and ``t.new_tensor(c)`` into a weakly
+  typed literal (``jnp``'s Python numbers: a typed operand beside a
+  weak value converts it) — what the decode step's and the train
+  step's top levels need;
 * ``operator.mul`` → ``mul``, ``operator.add`` → ``add``, and so on.
 
 So :data:`MEMORY_PRIMITIVES`, :data:`DEFAULT_LATENCY`,
@@ -74,6 +80,7 @@ import torch.utils._pytree as pytree
 from torch.fx.passes.shape_prop import ShapeProp
 
 from .. import tree
+from .._device import get_device
 
 # ---------------------------------------------------------------------------
 # Operation classification (the paper's "long latency" table, §III-A) —
@@ -179,6 +186,10 @@ class Aval:
 
     shape: tuple[int, ...]
     dtype: torch.dtype
+    #: a value made of Python numbers alone (``jnp.maximum(1.0, 200)``):
+    #: JAX's weak type, which a binary op with a typed operand first
+    #: converts (one ``convert_element_type``)
+    weak: bool = False
 
     def __str__(self) -> str:
         dims = ",".join(str(d) for d in self.shape)
@@ -209,7 +220,8 @@ class Literal:
 @dataclasses.dataclass(eq=False)
 class Eqn:
     """One primitive application: ``outvars = impl(*invars, **params)``.
-    ``source`` names the FX node it was lowered from."""
+    ``source`` names the FX node it was lowered from; ``name`` is a
+    ``jit`` equation's function name (the jaxpr's ``name`` param)."""
 
     prim: str
     invars: list[Any]
@@ -217,6 +229,7 @@ class Eqn:
     params: dict[str, Any]
     impl: Callable[..., Any]
     source: str
+    name: str = ""
 
     def eval(self, *invals: Any) -> Any:
         return self.impl(*invals, **self.params)
@@ -247,6 +260,18 @@ class Graph:
 
 
 # -- primitive implementations (the stage programs evaluate these) ----------
+
+def _extremum(pick: Callable, python: Callable) -> Callable:
+    """``max`` / ``min`` of tensors or numbers (a literal operand takes
+    the other operand's dtype and device, as in the jaxpr)."""
+    def impl(a: Any, b: Any) -> Any:
+        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            return python(a, b)
+        like = a if isinstance(a, torch.Tensor) else b
+        return pick(*(torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                      for v in (a, b)))
+    return impl
+
 
 def _select_n(pred: torch.Tensor, on_false: Any, on_true: Any) -> torch.Tensor:
     return torch.where(pred, on_true, on_false)
@@ -314,8 +339,10 @@ def at_set(x: torch.Tensor, i: torch.Tensor, v: Any) -> torch.Tensor:
     return _scatter(x, idx.reshape(1), v)
 
 
-def _convert_element_type(x: torch.Tensor, *, new_dtype: torch.dtype
+def _convert_element_type(x: Any, *, new_dtype: torch.dtype
                           ) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):     # an equation of literals
+        return torch.tensor(x, dtype=new_dtype, device=get_device(None))
     return x.to(new_dtype)
 
 
@@ -348,14 +375,30 @@ def _remainder(x: torch.Tensor, y: Any) -> torch.Tensor:
     return torch.remainder(x, y)
 
 
+def _concatenate(*xs: torch.Tensor, dimension: int) -> torch.Tensor:
+    return torch.cat(xs, dimension)
+
+
 def _einsum(a: torch.Tensor, b: torch.Tensor, *, equation: str
             ) -> torch.Tensor:
     return torch.einsum(equation, a, b)
 
 
+def _where(c: Any, x: Any, y: Any) -> torch.Tensor:
+    # ``jnp.where``: one opaque ``jit`` equation in the reference's jaxpr
+    return torch.where(c, x, y)
+
+
+def _log_softmax(x: torch.Tensor, *, dim: int = -1) -> torch.Tensor:
+    # ``jax.nn.log_softmax``: one opaque ``jit`` equation
+    return torch.log_softmax(x, dim)
+
+
 @contextlib.contextmanager
 def leaves(*, index: Sequence[tuple[Any, str]] = (),
-           scan: Sequence[tuple[Any, str]] = ()) -> Iterator[None]:
+           scan: Sequence[tuple[Any, str]] = (),
+           grad: Sequence[tuple[Any, str]] = (),
+           remat: Sequence[tuple[Any, str]] = ()) -> Iterator[None]:
     """Inside the block, trace each named module function as one leaf.
 
     ``index`` names, as ``(module, name)``, functions ``f(x, idx)`` that
@@ -374,15 +417,37 @@ def leaves(*, index: Sequence[tuple[Any, str]] = (),
     of the structure, shapes and dtypes of the ``meta`` tensors that
     ``scan_ys`` gives.
 
+    ``grad`` names functions ``f(params, *args) -> ((value, aux),
+    grads)`` — ``jax.value_and_grad(g, has_aux=True)`` of the function
+    ``f.value_fn`` = ``g`` — whose ``f.unstacked(params, *args)`` gives
+    the tree ``g`` reads: ``params``' leaves, a leaf stacked on a leading
+    repeat axis as its repeats ``leaf[r]``.  Each traces as one node,
+    lowered by :mod:`repro_torch.core.autodiff` to ``g``'s equations,
+    the residuals its JVP rules keep and the transpose of each, in
+    reverse (the jaxpr of ``value_and_grad``); ``grads`` has
+    ``params``' structure, a stacked leaf's gradient stacked.
+
+    ``remat`` names functions ``f(params, x, *static) -> y`` (a layer:
+    ``y`` has ``x``'s shape and dtype; ``static`` is not traced).  Each
+    traces as one node, lowered to one ``checkpoint`` equation of the
+    leaves of ``params`` and ``x`` — ``jax.checkpoint(f)``'s — which a
+    ``grad`` leaf differentiates as one more ``checkpoint`` equation
+    that recomputes ``f`` (:mod:`repro_torch.core.autodiff`).
+
     Each function is replaced in its module's globals for the block, as
     ``torch.fx.wrap`` does for a trace; called on tensors, it runs
     unchanged."""
-    saved = [(m, n, getattr(m, n)) for m, n in (*index, *scan)]
+    saved = [(m, n, getattr(m, n))
+             for m, n in (*index, *scan, *grad, *remat)]
     try:
         for m, n in index:
             setattr(m, n, _index_leaf(getattr(m, n)))
         for m, n in scan:
             setattr(m, n, _scan_leaf(getattr(m, n)))
+        for m, n in grad:
+            setattr(m, n, _grad_leaf(getattr(m, n)))
+        for m, n in remat:
+            setattr(m, n, _remat_leaf(getattr(m, n)))
         yield
     finally:
         for m, n, fn in reversed(saved):
@@ -427,6 +492,103 @@ def _scan_node(carry: Any, consts: tuple, state: tuple,
     raise RuntimeError("a traced scan runs through its lowered equation")
 
 
+def _remat_leaf(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def leaf(params: Any, x: Any, *static: Any) -> Any:
+        if not isinstance(x, fx.Proxy):
+            return fn(params, x, *static)
+        out = x.tracer.create_proxy(
+            "call_function", _remat_node, (tuple(tree.leaves(params)), x), {})
+        # the layer rides on the node's meta, so the lowered equation runs it
+        out.node.meta["remat"] = functools.partial(_run_remat, fn, params,
+                                                   static)
+        return out
+    return leaf
+
+
+def _remat_node(p_leaves: tuple, x: Any) -> Any:
+    """The call target of a traced ``remat`` leaf (its node's layer lives
+    in ``meta``; the lowered equation runs it)."""
+    raise RuntimeError("a traced remat leaf runs through its lowered "
+                       "equation")
+
+
+def _run_remat(fn: Callable, params_like: Any, static: tuple,
+               *args: Any) -> Any:
+    """A ``checkpoint`` equation's body: ``fn`` on the parameter leaves
+    and ``x`` (the equation's operands, in that order)."""
+    return fn(tree.unflatten(params_like, list(args[:-1])), args[-1],
+              *static)
+
+
+class _Leaf:
+    """Leaf ``index`` of a tree — its repeat ``repeat`` when the leaf is
+    stacked on a leading axis — as a ``grad`` leaf's ``unstacked`` hook
+    sees it."""
+
+    __slots__ = ("index", "repeat")
+
+    def __init__(self, index: int, repeat: int | None = None):
+        self.index, self.repeat = index, repeat
+
+    def __getitem__(self, r: int) -> "_Leaf":
+        return _Leaf(self.index, r)
+
+
+def _example(proxy: Any) -> torch.Tensor:
+    ex = proxy.node.meta.get("example") if isinstance(proxy, fx.Proxy) \
+        else None
+    if ex is None:
+        raise NotImplementedError(
+            "a grad leaf's traced arguments must be the trace's inputs")
+    return ex
+
+
+def _grad_leaf(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def leaf(params: Any, *args: Any) -> tuple[Any, Any]:
+        p_leaves = tree.leaves(params)
+        if not any(isinstance(p, fx.Proxy) for p in p_leaves):
+            return fn(params, *args)
+        marks = fn.unstacked(tree.unflatten(
+            params, [_Leaf(i) for i in range(len(p_leaves))]), *args)
+        where = [(m.index, m.repeat) for m in tree.leaves(marks)]
+        dyn = [i for i, a in enumerate(args)
+               if any(isinstance(t, fx.Proxy) for t in tree.leaves(a))]
+        a_leaves = [t for i in dyn for t in tree.leaves(args[i])]
+
+        def value(p_flat, a_flat):
+            full, it = list(args), iter(a_flat)
+            for i in dyn:
+                full[i] = tree.unflatten(
+                    args[i], [next(it) for _ in tree.leaves(args[i])])
+            return fn.value_fn(tree.unflatten(marks, list(p_flat)), *full)
+
+        examples = [_example(p_leaves[i]) if r is None
+                    else _example(p_leaves[i])[r] for i, r in where]
+        examples += [_example(a) for a in a_leaves]
+        gm = _symbolic_trace(value, examples,
+                             {"p_flat": (fx.PH,) * len(where),
+                              "a_flat": (fx.PH,) * len(a_leaves)})
+        out_spec = gm.graph._codegen.pytree_info.out_spec
+        tracer = next(p for p in p_leaves if isinstance(p, fx.Proxy)).tracer
+        out = tracer.create_proxy("call_function", _grad_node,
+                                  (tuple(p_leaves), tuple(a_leaves)), {})
+        out.node.meta["grad"] = (gm, where)
+        n_val = out_spec.num_leaves
+        val = pytree.tree_unflatten([out[i] for i in range(n_val)], out_spec)
+        return val, tree.unflatten(params, [out[n_val + i]
+                                            for i in range(len(p_leaves))])
+    return leaf
+
+
+def _grad_node(p_leaves: tuple, a_leaves: tuple) -> tuple:
+    """The call target of a traced ``grad`` leaf (its value function's
+    graph lives in ``meta``; the lowering differentiates it)."""
+    raise RuntimeError("a traced grad leaf runs through its lowered "
+                       "equations")
+
+
 def _run_scan(body: Callable, consts_like: Any, state_like: Any,
               n_consts: int, carry: Any, *leaves: Any) -> tuple:
     consts = tree.unflatten(consts_like, list(leaves[:n_consts]))
@@ -437,6 +599,7 @@ def _run_scan(body: Callable, consts_like: Any, state_like: Any,
 
 #: FX node (call_function target, or call_method name) -> primitive name
 _BINARY: dict[Any, str] = {
+    operator.pow: "pow", torch.pow: "pow", "pow": "pow",
     operator.add: "add", torch.add: "add", "add": "add",
     operator.sub: "sub", torch.sub: "sub", "sub": "sub",
     operator.mul: "mul", torch.mul: "mul", "mul": "mul",
@@ -461,13 +624,20 @@ _UNARY: dict[Any, str] = {
     "sigmoid": "logistic", torch.sqrt: "sqrt", "sqrt": "sqrt",
     torch.rsqrt: "rsqrt", "rsqrt": "rsqrt",
     torch.sin: "sin", "sin": "sin", torch.cos: "cos", "cos": "cos",
+    torch.square: "square", "square": "square",
 }
 #: FX node target -> (the body of the reference's jitted function, its
-#: operand count), lowered to one ``jit`` equation
-_JITTED: dict[Any, tuple[Callable[..., Any], int]] = {
-    torch.clamp: (_clip, 3), "clamp": (_clip, 3),
-    operator.mod: (_remainder, 2), torch.remainder: (_remainder, 2),
-    "remainder": (_remainder, 2),
+#: operand count, its name, the names of its static arguments), lowered
+#: to one ``jit`` equation; the arguments after the operands, and the
+#: keywords, are static
+_JITTED: dict[Any, tuple[Callable[..., Any], int, str, tuple[str, ...]]] = {
+    torch.clamp: (_clip, 3, "clip", ()), "clamp": (_clip, 3, "clip", ()),
+    operator.mod: (_remainder, 2, "remainder", ()),
+    torch.remainder: (_remainder, 2, "remainder", ()),
+    "remainder": (_remainder, 2, "remainder", ()),
+    torch.where: (_where, 3, "_where", ()),
+    torch.log_softmax: (_log_softmax, 1, "log_softmax", ("dim",)),
+    "log_softmax": (_log_softmax, 1, "log_softmax", ("dim",)),
 }
 #: primitive name -> implementation on tensors (and Python scalars)
 _IMPL: dict[str, Callable[..., Any]] = {
@@ -475,11 +645,13 @@ _IMPL: dict[str, Callable[..., Any]] = {
     "div": operator.truediv, "lt": operator.lt, "le": operator.le,
     "gt": operator.gt, "ge": operator.ge, "eq": operator.eq,
     "ne": operator.ne, "and": operator.and_, "or": operator.or_,
-    "xor": operator.xor, "max": torch.maximum, "min": torch.minimum,
+    "xor": operator.xor, "max": _extremum(torch.maximum, builtins.max),
+    "min": _extremum(torch.minimum, builtins.min),
     "dot_general": torch.matmul, "neg": operator.neg, "abs": torch.abs,
     "exp": torch.exp, "log": torch.log, "tanh": torch.tanh,
     "logistic": torch.sigmoid, "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
-    "sin": torch.sin, "cos": torch.cos,
+    "sin": torch.sin, "cos": torch.cos, "pow": operator.pow,
+    "square": torch.square,
     "select_n": _select_n, "dynamic_slice": _dynamic_slice,
     "squeeze": _squeeze, "broadcast_in_dim": _broadcast_in_dim,
     "gather": _gather, "scatter": _scatter,
@@ -505,11 +677,23 @@ class _Lowering:
         self.out_tree: Any = None
 
     def emit(self, prim: str, invars: list[Any], aval: Aval, source: str,
-             impl: Callable[..., Any] | None = None, **params: Any) -> Var:
-        out = Var(aval, f"{source}.{len(self.eqns)}")
-        self.eqns.append(Eqn(prim, invars, [out], params,
-                             impl or _IMPL[prim], source))
-        return out
+             impl: Callable[..., Any] | None = None, name: str = "",
+             **params: Any) -> Var:
+        return self.emit_multi(prim, invars, [aval], source, impl, name,
+                               **params)[0]
+
+    def emit_multi(self, prim: str, invars: list[Any], avals: list[Aval],
+                   source: str, impl: Callable[..., Any] | None = None,
+                   name: str = "", **params: Any) -> list[Var]:
+        """One equation of ``len(avals)`` outputs (its ``impl`` returns
+        a tuple when there are several)."""
+        k = len(self.eqns)
+        outs = [Var(a, f"{source}.{k}" + (f".{i}" if len(avals) > 1
+                                           else ""))
+                for i, a in enumerate(avals)]
+        self.eqns.append(Eqn(prim, invars, outs, params,
+                             impl or _IMPL[prim], source, name))
+        return outs
 
     def read(self, arg: Any, like: Aval | None = None) -> Any:
         if isinstance(arg, fx.Node):
@@ -559,6 +743,14 @@ class _Lowering:
             return self.lower_at_set(node)
         if target is _scan_node:
             return self.lower_scan(node)
+        if target is _remat_node:
+            p_nodes, x = node.args
+            return self.emit("checkpoint", [self.read(n) for n in
+                                            (*p_nodes, x)],
+                             _aval_of(node), node.name, node.meta["remat"])
+        if target is _grad_node:
+            from .autodiff import lower_value_and_grad
+            return lower_value_and_grad(self, node)
         if target is builtins.getattr:
             return self.lower_getattr(node)
         if target in ("float", "to"):
@@ -567,11 +759,15 @@ class _Lowering:
             return self.lower_reduction(node)
         if target is torch.einsum:
             return self.lower_einsum(node)
+        if target is torch.cat:
+            return self.lower_cat(node)
+        if target in _JITTED or hasattr(target, "jit_name"):
+            return self.lower_jitted(node)
+        if target == "new_tensor":
+            return self.lower_new_tensor(node)
         if node.kwargs:
             raise NotImplementedError(
                 f"keyword arguments on {target!r} are not lowered yet")
-        if target in _JITTED:
-            return self.lower_jitted(node)
         aval = _aval_of(node)
         if target in _BINARY and len(node.args) == 2:
             a, b = node.args
@@ -580,19 +776,29 @@ class _Lowering:
             prim = _BINARY[target]
             ops = [self.read(a, like), self.read(b, like)]
             if prim != "dot_general":
-                ops = self.promote_ranks(ops, node.name)
+                ops = self.promote_ranks(self.promote_weak(ops, node.name),
+                                         node.name)
+            if all(isinstance(o, Literal) or o.aval.weak for o in ops):
+                aval = dataclasses.replace(aval, weak=True)
             return self.emit(prim, ops, aval, node.name)
         if target in _UNARY and len(node.args) == 1:
             return self.emit(_UNARY[target], [self.read(node.args[0])],
                              aval, node.name)
-        if target is torch.where and len(node.args) == 3:
-            c, a, b = node.args
-            return self.emit("select_n", [self.read(c), self.read(b, aval),
-                                          self.read(a, aval)],
-                             aval, node.name)
         raise NotImplementedError(
             f"FX node {node.op} {target!r} is not lowered by the port's "
             f"front end yet")
+
+    def promote_weak(self, ops: list[Any], source: str) -> list[Any]:
+        """A weakly typed value met by a typed one is converted to the
+        typed one's dtype first, as ``jnp``'s promotion does (a literal
+        operand just takes it)."""
+        typed = [o for o in ops if isinstance(o, Var) and not o.aval.weak]
+        if not typed:
+            return ops
+        dt = typed[0].aval.dtype
+        return [self.emit("convert_element_type", [o],
+                          Aval(o.aval.shape, dt), source, new_dtype=dt)
+                if isinstance(o, Var) and o.aval.weak else o for o in ops]
 
     def promote_ranks(self, ops: list[Any], source: str) -> list[Any]:
         """numpy rank promotion as the jaxpr spells it: of two operands
@@ -664,6 +870,11 @@ class _Lowering:
         basic index in the jaxpr."""
         index = index if isinstance(index, tuple) else (index,)
         shape, dt, src = arr.aval.shape, arr.aval.dtype, node.name
+        if Ellipsis in index:
+            k = index.index(Ellipsis)
+            fill = len(shape) - sum(i is not None for i in index
+                                    if i is not Ellipsis)
+            index = index[:k] + (slice(None),) * fill + index[k + 1:]
         axes = [i for i in index if i is not None]
         if len(axes) > len(shape) or not all(
                 isinstance(i, (int, slice)) for i in axes):
@@ -711,15 +922,13 @@ class _Lowering:
         carry and the leaves of the new state."""
         carry_n, const_ns, state_ns = node.args[:3]
         invars = [self.read(a) for a in (carry_n, *const_ns, *state_ns)]
-        outs = tuple(Var(Aval(tuple(m.shape), m.dtype),
-                         f"{node.name}.{len(self.eqns)}.{i}")
-                     for i, m in enumerate(node.meta["tensor_meta"]))
         body, consts_like, state_like = node.meta["scan"]
         impl = functools.partial(_run_scan, body, consts_like, state_like,
                                  len(const_ns))
-        self.eqns.append(Eqn("scan", invars, list(outs), {}, impl,
-                             node.name))
-        return outs
+        return tuple(self.emit_multi(
+            "scan", invars, [Aval(tuple(m.shape), m.dtype)
+                             for m in node.meta["tensor_meta"]],
+            node.name, impl))
 
     def lower_getattr(self, node: fx.Node) -> Any:
         """``x.dtype``: static, no equation."""
@@ -774,7 +983,8 @@ class _Lowering:
             return self.emit("jit", [x, Literal(correction,
                                                 Aval((), torch.int32))],
                              Aval(keep, dt), src,
-                             impl=functools.partial(_var, axes=axes))
+                             impl=functools.partial(_var, axes=axes),
+                             name="_var")
         reduced = tuple(n for d, n in enumerate(shape) if d not in axes)
         out = self.emit("reduce_sum", [x], Aval(reduced, dt), src,
                         axes=axes)
@@ -801,20 +1011,53 @@ class _Lowering:
                          _aval_of(node), node.name,
                          impl=functools.partial(_einsum, equation=equation))
 
+    def lower_cat(self, node: fx.Node) -> Var:
+        """``torch.cat(xs, dim)`` → one ``concatenate`` equation."""
+        xs, dim = (*node.args, *node.kwargs.values(), 0)[:2]
+        aval = _aval_of(node)
+        dim %= len(aval.shape)
+        return self.emit("concatenate", [self.read(x) for x in xs], aval,
+                         node.name, impl=functools.partial(_concatenate,
+                                                           dimension=dim),
+                         dimension=dim)
+
     def lower_jitted(self, node: fx.Node) -> Var:
-        """``torch.clamp(x, lo, hi)`` and ``x % y`` → one ``jit``
-        equation each, as ``jnp.clip`` and ``jnp.remainder`` are jitted
-        functions in the reference; Python-scalar operands stay
-        literals."""
-        impl, arity = _JITTED[node.target]
-        if len(node.args) != arity:
+        """``torch.clamp(x, lo, hi)``, ``x % y``, ``torch.where(c, x,
+        y)``, ``torch.log_softmax(x, dim)`` and a function marked with a
+        ``jit_name`` (all its arguments operands) → one ``jit``
+        equation each, as ``jnp.clip``, ``jnp.remainder``,
+        ``jnp.where``, ``jax.nn.log_softmax`` and the reference's other
+        jitted functions are; Python-scalar operands stay literals, the
+        arguments after the operands are static."""
+        target = node.target
+        if target in _JITTED:
+            impl, arity, name, statics = _JITTED[target]
+        else:
+            impl, arity, name, statics = (target, len(node.args),
+                                          target.jit_name, ())
+        static = dict(zip(statics, node.args[arity:]), **node.kwargs)
+        if len(node.args) < arity or set(static) - set(statics):
             raise NotImplementedError(
-                f"{node.target!r} with {len(node.args)} operands")
+                f"{target!r} with {len(node.args)} operands, "
+                f"{sorted(node.kwargs)} keywords")
         aval = _aval_of(node)
         x = node.args[0]
         like = self.env[x].aval if isinstance(x, fx.Node) else aval
-        return self.emit("jit", [self.read(a, like) for a in node.args],
-                         aval, node.name, impl=impl)
+        if target is torch.where:       # the branches' dtype, not bool
+            like = aval
+        ops = [self.read(a, like) for a in node.args[:arity]]
+        if static:
+            impl = functools.partial(impl, **static)
+        return self.emit("jit", ops, aval, node.name, impl=impl, name=name)
+
+    def lower_new_tensor(self, node: fx.Node) -> Literal:
+        """``t.new_tensor(c)`` of a Python number is the weakly typed
+        literal ``c``, as a number is in ``jnp``."""
+        c = node.args[1]
+        if not isinstance(c, (bool, int, float)) or node.kwargs:
+            raise NotImplementedError("new_tensor of other than a number")
+        return Literal(c, Aval((), node.meta["tensor_meta"].dtype,
+                               weak=True))
 
     def lower_at_set(self, node: fx.Node) -> Var:
         """``at_set(x, i, v)`` with a 0-d integer tensor ``i`` → the
@@ -858,11 +1101,25 @@ class _MetaShapeProp(ShapeProp):
     would need ``j``'s value, and its shape does not: it is taken as
     ``x[0]``'s."""
 
+    def run_node(self, n: fx.Node) -> Any:
+        self._node = n
+        return super().run_node(n)
+
     def call_function(self, target: Any, args: Any, kwargs: Any) -> Any:
+        if target is _grad_node:        # value, aux, then grads
+            gm, where = self._node.meta["grad"]
+            p_metas, a_metas = args
+            ex = [p_metas[i] if r is None else p_metas[i][r]
+                  for i, r in where]
+            val = _MetaShapeProp(gm).propagate(tuple(ex), tuple(a_metas))
+            return (*pytree.tree_leaves(val),
+                    *map(torch.empty_like, p_metas))
         if target is operator.getitem and _scalar_index(args):
             return args[0].select(0, 0)
         if target is at_set:
             return torch.empty_like(args[0])
+        if target is _remat_node:       # a layer keeps its input's shape
+            return torch.empty_like(args[1])
         if target is _scan_node:     # the carry and the state keep shapes
             if len(args) > 3:        # per-repeat outputs in place of state
                 return (torch.empty_like(args[0]),
@@ -891,6 +1148,46 @@ def _to_meta(x: Any) -> Any:
     return x.to("meta") if isinstance(x, torch.Tensor) else x
 
 
+class _Proxy(fx.Proxy):
+    """A trace input's proxy: its example's ``shape`` and ``ndim`` are
+    static, as a jaxpr's input avals are (a trace may branch on them)."""
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.node.meta["example"].shape
+
+    @property
+    def ndim(self) -> int:
+        return self.node.meta["example"].ndim
+
+
+class _Tracer(fx.Tracer):
+    """``symbolic_trace``'s tracer, each input carrying its example (a
+    ``meta`` tensor) in ``node.meta["example"]``."""
+
+    def __init__(self, examples: Sequence[Any]):
+        super().__init__()
+        self._examples = iter(examples)
+
+    def proxy(self, node: fx.Node) -> fx.Proxy:
+        if node.op == "placeholder":
+            ex = next(self._examples, None)
+            if isinstance(ex, torch.Tensor):
+                node.meta["example"] = _to_meta(ex)
+                return _Proxy(node, self)
+        return super().proxy(node)
+
+
+def _symbolic_trace(fn: Callable, examples: Sequence[Any],
+                    concrete: Mapping[str, Any] | None
+                    ) -> fx.GraphModule:
+    """``fx.symbolic_trace(fn, concrete)`` whose inputs know their
+    examples (the leaves of the arguments, in order)."""
+    tracer = _Tracer(examples)
+    graph = tracer.trace(fn, concrete_args=concrete or None)
+    return fx.GraphModule(tracer.root, graph, fn.__name__)
+
+
 def trace(fn: Callable, *example_args: Any, **example_kwargs: Any
           ) -> tuple[Graph, Any]:
     """Trace ``fn`` with ``torch.fx.symbolic_trace``, propagate shapes on
@@ -909,9 +1206,9 @@ def trace(fn: Callable, *example_args: Any, **example_kwargs: Any
     concrete = {name: pytree.tree_map(lambda _: fx.PH, a)
                 for name, a in bound.arguments.items()
                 if isinstance(a, (tuple, list))}
-    gm = fx.symbolic_trace(fn, concrete_args=concrete or None)
-    _MetaShapeProp(gm).propagate(
-        *pytree.tree_map(_to_meta, tuple(bound.arguments.values())))
+    args = tuple(bound.arguments.values())
+    gm = _symbolic_trace(fn, pytree.tree_leaves(args), concrete)
+    _MetaShapeProp(gm).propagate(*pytree.tree_map(_to_meta, args))
     lowering = _Lowering(gm)
     graph = lowering.run()
     if example_kwargs:

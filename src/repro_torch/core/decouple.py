@@ -96,6 +96,19 @@ def decouple(partition: Partition) -> DecoupledProgram:
         if ov in producer_stage:
             out_needed_by_stage[producer_stage[ov]].add(ov)
 
+    # vars each stage sends to a later one (a consumer that received a
+    # duplicated copy of the producer does not need it)
+    sent: dict[int, set] = {s.id: set() for s in partition.stages}
+    for e in cdfg.edges:
+        if e.var is None:
+            continue
+        s_src = partition.stage_of_node.get(e.src)
+        s_dst = partition.stage_of_node.get(e.dst)
+        if s_src is not None and s_src != s_dst and not (
+                e.src in partition.duplicated
+                and s_dst in partition.duplicated[e.src]):
+            sent[s_src].add(e.var)
+
     stages_programs: list[StageProgram] = []
     for stage in partition.stages:
         # §III-B1: prepend duplicated cheap producers
@@ -126,20 +139,8 @@ def decouple(partition: Partition) -> DecoupledProgram:
                     in_from.append(("chan", iv))
 
         # outputs: vars produced here and consumed by later stages or final
-        consumed_later = set()
-        for e in cdfg.edges:
-            if e.var is None:
-                continue
-            s_src = partition.stage_of_node.get(e.src)
-            s_dst = partition.stage_of_node.get(e.dst)
-            if s_src == stage.id and s_dst != stage.id:
-                # consumers that received a duplicated copy don't need it
-                if (e.src in partition.duplicated
-                        and s_dst in partition.duplicated[e.src]):
-                    continue
-                consumed_later.add(e.var)
         out_vars = [v for v in sorted(
-            consumed_later | out_needed_by_stage[stage.id],
+            sent[stage.id] | out_needed_by_stage[stage.id],
             key=lambda v: producer_node.get(v, -1)) if v in defined]
 
         stages_programs.append(StageProgram(

@@ -133,12 +133,13 @@ def _var_nbytes(var: Any) -> int:
         aval.dtype.itemsize)
 
 
-def _scc_cycle_latency(cdfg: CDFG, scc: set[int]) -> int:
-    """Latency of the dependence cycle inside an SCC (lower-bounds its II)."""
+def _scc_cycle_latency(cdfg: CDFG, scc: set[int], self_loops: set[int]
+                       ) -> int:
+    """Latency of the dependence cycle inside an SCC (lower-bounds its II);
+    ``self_loops`` are the nodes with an edge to themselves."""
     if len(scc) == 1:
         nid = next(iter(scc))
-        has_self = any(e.src == nid and e.dst == nid for e in cdfg.edges)
-        return cdfg.node(nid).latency if has_self else 0
+        return cdfg.node(nid).latency if nid in self_loops else 0
     return sum(cdfg.node(n).latency for n in scc)
 
 
@@ -259,12 +260,13 @@ def materialize(cdfg: CDFG, plan: StagePlan,
         transforms = getattr(cdfg, "transforms", None)
     stages: list[Stage] = []
     stage_of_node: dict[int, int] = {}
+    self_loops = {e.src for e in cdfg.edges if e.src == e.dst}
     for sid, grp in enumerate(plan.groups):
         node_ids = sorted(n for k in grp for n in plan.sccs[k])
         for nid in node_ids:
             stage_of_node[nid] = sid
-        scc_ii = max([0] + [_scc_cycle_latency(cdfg, plan.sccs[k])
-                            for k in grp])
+        scc_ii = max([0] + [_scc_cycle_latency(cdfg, plan.sccs[k],
+                                               self_loops) for k in grp])
         ii, latency = _scaled_stage_timing(
             scc_ii, sum(cdfg.node(n).latency for n in node_ids), transforms)
         regions = tuple(sorted({cdfg.node(n).region for n in node_ids

@@ -291,10 +291,9 @@ def verify_partition(part: Partition, *,
 
     # --- chan-cycle --------------------------------------------------------
     sg = _stage_graph(part)
-    try:
+    cyc = None
+    if not nx.is_directed_acyclic_graph(sg):
         cyc = nx.find_cycle(sg)
-    except nx.NetworkXNoCycle:
-        cyc = None
     if cyc:
         path = " -> ".join(str(u) for u, _ in cyc) + f" -> {cyc[-1][1]}"
         out.append(_err(
@@ -305,10 +304,7 @@ def verify_partition(part: Partition, *,
             "condensation (plan-topo); no channel may flow backward"))
 
     # --- mem-order through rewrites ----------------------------------------
-    reach: dict[int, set[int]] = {}
-    if cyc is None:
-        for sid in sg.nodes:
-            reach[sid] = nx.descendants(sg, sid)
+    reach: dict[int, set[int]] = {}     # a stage's descendants, as asked
     for e in cdfg.edges:
         if e.kind != "mem":
             continue
@@ -323,7 +319,9 @@ def verify_partition(part: Partition, *,
             continue
         if a == b or cyc is not None:
             continue
-        if b not in reach.get(a, ()):
+        if a not in reach:
+            reach[a] = nx.descendants(sg, a) if a in sg else set()
+        if b not in reach[a]:
             out.append(_err(
                 "mem-order", f"stage {a} -> stage {b} ({loc})",
                 "memory-order edge crosses stages with no channel path; "

@@ -25,9 +25,10 @@ that name XLA artifacts:
   ``hlo_lines``.
 
 ``dataflow`` is the stage/channel census of the step through the port's
-dataflow driver, for decode, prefill and long cells; train cells carry
-none (not ported yet).  A census error makes the cell ``error``, and
-the CLI exits non-zero on any error cell.
+dataflow driver, for every kind of cell.  A census error makes the cell
+``error`` (DeepSeek-V3's train cells: its MTP head's layer has no
+differentiation rules yet), and the CLI exits non-zero on any error
+cell.
 
 Run:  python -m repro_torch.launch.dryrun --arch all --shape all
       --mesh both [--seq-parallel] [--out build/dryrun] [--device cpu]
@@ -43,7 +44,6 @@ import math
 import os
 import time
 import traceback
-from unittest import mock
 
 from .. import _device
 from ..configs.base import ARCH_IDS, SHAPES, cell_is_applicable, load_config
@@ -78,8 +78,9 @@ def dataflow_census(cfg, shape) -> dict:
     dataflow driver (analysis passes only: the step is traced on
     ``meta`` inputs, partitioned by Algorithm 1 and the schedule
     summarized).  Decode and long cells trace ``decode_step``
-    (``launch/serve.decode_compiled``), prefill cells ``forward``, each
-    segment one ``scan`` equation as in the reference."""
+    (``launch/serve.decode_compiled``), prefill cells ``forward``, train
+    cells the train step (:func:`train_compiled`), each segment one
+    ``scan`` equation as in the reference."""
     from ..models import model as M
     from . import serve
     if isinstance(shape, str):
@@ -91,8 +92,12 @@ def dataflow_census(cfg, shape) -> dict:
     elif shape.kind == "prefill":
         compiled = forward_compiled(cfg, params, shape)
     else:
-        raise NotImplementedError(f"no dataflow census for {shape.kind} "
-                                  f"cells yet")
+        compiled = train_compiled(cfg, shape)
+    return census_of(compiled)
+
+
+def census_of(compiled) -> dict:
+    """The census fields of a compiled step."""
     sch = compiled.schedule
     return {
         "ops": len(compiled.cdfg.nodes),
@@ -105,13 +110,62 @@ def dataflow_census(cfg, shape) -> dict:
     }
 
 
+def train_compiled(cfg, shape, *, device="meta", backend: str = "eager"):
+    """``make_train_step(cfg, AdamWConfig())`` on the cell's batch,
+    compiled by the dataflow driver: the inputs are the train state's
+    leaves in the reference's layout and order
+    (``steps.stack_train_state``: each segment leaf stacked over its
+    repeats, keys sorted), then the batch's; the outputs the new state's
+    leaves in that order, then the metrics'.  The step traces with
+    ``loss_and_grads`` as a ``grad`` leaf (``core/autodiff.py``: the
+    loss's equations, their residuals and transposes, each segment's
+    forward and backward one ``scan`` equation, the MTP head's layer one
+    ``checkpoint`` equation each way), the embedding's read as
+    ``x[idx]``, and the port's own ``warmup_cosine`` and
+    ``apply_updates``.  ``device`` other than ``meta`` compiles a step
+    that runs (the ``sequential`` backend replays the lowered
+    equations)."""
+    import torch
+
+    from .. import tree
+    from ..core import cdfg
+    from ..dataflow import compile as dataflow_compile
+    from ..models import layers, model as M, transformer
+    from ..optim import adamw
+    from . import steps
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    opt_cfg = adamw.AdamWConfig()
+    state = steps.stack_train_state(steps.abstract_train_state(cfg, opt_cfg))
+    batch = M.input_specs(cfg, shape)
+    train_step = steps.make_train_step(cfg, opt_cfg)
+
+    def step(state_leaves, batch_leaves):
+        new, metrics = train_step(tree.unflatten(state, list(state_leaves)),
+                                  tree.unflatten(batch, list(batch_leaves)))
+        new.opt = {k: new.opt[k] for k in state.opt}    # the input's order
+        return (*tree.leaves(new), *tree.leaves(metrics))
+
+    def example(t):
+        return t if device == "meta" else torch.zeros(
+            t.shape, dtype=t.dtype, device=device)
+
+    with cdfg.leaves(index=[(layers, "take")],
+                     scan=[(transformer, "_segment_forward")],
+                     grad=[(steps, "loss_and_grads")],
+                     remat=[(M, "_mtp_layer")]):
+        return dataflow_compile(step, tuple(map(example, tree.leaves(state))),
+                                tuple(map(example, tree.leaves(batch))),
+                                backend=backend, device=device,
+                                use_cache=False)
+
+
 def forward_compiled(cfg, params: dict, shape):
     """``forward``'s logits on the cell's prompt, compiled by the
     dataflow driver for ``meta`` tensors: the parameter leaves in the
     reference's order (``serve.reference_order``), then the tokens (or
     embeddings); the embedding's read is ``x[idx]`` and each segment one
-    ``scan`` equation.  The input's rank is read before the trace, which
-    cannot branch on it (``transformer.is_embeds``)."""
+    ``scan`` equation."""
     from .. import tree
     from ..core import cdfg
     from ..dataflow import compile as dataflow_compile
@@ -129,10 +183,8 @@ def forward_compiled(cfg, params: dict, shape):
                               inputs, cfg)
         return logits
 
-    embeds = inp.ndim == 3
     with cdfg.leaves(index=[(layers, "take")],
-                     scan=[(transformer, "_segment_forward")]), \
-            mock.patch.object(transformer, "is_embeds", lambda _: embeds):
+                     scan=[(transformer, "_segment_forward")]):
         return dataflow_compile(fwd, tuple(_at(meta, k) for k in order),
                                 inp, backend="eager", device="meta",
                                 use_cache=False)
@@ -188,8 +240,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         got.pop("local_shapes")
         rec.update(got)
         rec["fit"] = _fit_analysis(cfg, shape, n_chips)
-        if shape.kind != "train":
-            rec["dataflow"] = dataflow_census(cfg, shape)
+        rec["dataflow"] = dataflow_census(cfg, shape)
         flops = rec["rank_flops"]
         rec["roofline"] = roofline_terms(flops, rec["rank_bytes"],
                                          rec["coll"]["total"])
@@ -282,18 +333,14 @@ def main(argv: list[str] | None = None) -> None:
             done = pool.map(_cli_cell, cells, chunksize=1)
     else:
         done = [_cli_cell(c) for c in cells]
-    n = {s: sum(d[0] == s for d in done) for s in ("ok", "error", "skip")}
-    n_train = sum(d[0] == "ok" and SHAPES[d[1]].kind == "train"
-                  for d in done)
-    print(f"done: {n['ok']} ok, {n['skip']} skip, {n['error']} error "
-          f"({n_train} train cells carry no dataflow census: not ported "
-          f"yet)")
+    n = {s: done.count(s) for s in ("ok", "error", "skip")}
+    print(f"done: {n['ok']} ok, {n['skip']} skip, {n['error']} error")
     if n["error"]:
         raise SystemExit(1)
 
 
-def _cli_cell(cell: tuple) -> tuple:
-    """One CLI cell (in this process or a pool's): (status, shape)."""
+def _cli_cell(cell: tuple) -> str:
+    """One CLI cell (in this process or a pool's): its status."""
     from ..runtime.sharding import sequence_parallel
     arch, shape, mp, out, device, seq_parallel = cell
     if seq_parallel:
@@ -302,7 +349,7 @@ def _cli_cell(cell: tuple) -> tuple:
                            device=device)
     else:
         rec = run_cell(arch, shape, multi_pod=mp, out_dir=out, device=device)
-    return rec["status"], shape
+    return rec["status"]
 
 
 if __name__ == "__main__":

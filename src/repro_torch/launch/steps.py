@@ -54,6 +54,35 @@ def loss_and_grads(params: Any, batch: dict, cfg: ModelConfig
             tree.unflatten(params, grads))
 
 
+def _unstacked(params: dict, batch: dict, cfg: ModelConfig) -> dict:
+    """The model's tree of ``params`` whose segment leaves are stacked on
+    a leading repeats axis (as the reference holds them, and the dry
+    run's train census traces them): each segment's repeats
+    ``leaf[r]``."""
+    def repeats(key: str) -> int:
+        return cfg.segments[int(key[len("segment_"):])].repeats
+    return {k: [tree.tree_map(lambda t, r=r: t[r], v)
+                for r in range(repeats(k))]
+            if k.startswith("segment_") else v for k, v in params.items()}
+
+
+# what a trace inside ``cdfg.leaves(grad=[(steps, "loss_and_grads")])``
+# differentiates (``core/autodiff.py``), and the tree it reads
+loss_and_grads.value_fn = M.loss_fn
+loss_and_grads.unstacked = _unstacked
+
+
+def stack_train_state(state: TrainState) -> TrainState:
+    """A train state in the reference's layout and leaf order: params and
+    moments by ``transformer.stack_repeats``, the optimiser state's keys
+    sorted (``count``, ``mu``, ``nu``)."""
+    stack = M.transformer.stack_repeats
+    return TrainState(stack(state.params),
+                      {"count": state.opt["count"],
+                       "mu": stack(state.opt["mu"]),
+                       "nu": stack(state.opt["nu"])}, state.step)
+
+
 def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """A sharded leaf's gradient in its param's layout (ZeRO: the
     gradient reduce-scatters into the param's shards), so the optimiser
@@ -73,12 +102,51 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         (_, metrics), grads = loss_and_grads(state.params, batch, cfg)
         lr_scale = warmup_cosine(state.step, warmup_steps=warmup_steps,
                                  total_steps=total_steps)
-        params, opt, info = adamw.apply_updates(
-            state.params, grads, state.opt, opt_cfg, lr_scale)
+        params, opt, info = _apply_updates(state.params, grads, state.opt,
+                                           opt_cfg, lr_scale)
         metrics.update(info)
         return TrainState(params, opt, state.step + 1), metrics
 
     return train_step
+
+
+#: the mean size, in elements, of a segment's leaves (one repeat's) up to
+#: which AdamW updates the segments stacked.  A leaf's update is ~20
+#: elementwise launches: below ~2.5 M elements each costs its launch
+#: (~6 µs of host), above it its passes over the leaf at the card's
+#: memory rate (~8 B an element a pass at 3.35 TB/s).  Stacking saves
+#: the launches and costs copies of params, grads and moments: SmolLM-135M
+#: (0.39 M) gains ~100 ms a step, OLMo-1B (9.6 M) none, for 15 GiB of
+#: peak (PERF.md §6, PR 27).
+STACK_BELOW = 1 << 21
+
+
+def _apply_updates(params: Any, grads: Any, opt: dict,
+                   opt_cfg: adamw.AdamWConfig, lr_scale: torch.Tensor
+                   ) -> tuple[Any, dict, dict]:
+    """``adamw.apply_updates``, for segments of small leaves (a mean
+    below :data:`STACK_BELOW`) on the reference's stacked layout: the
+    port's per-repeat tree of plain tensors is stacked first (one leaf a
+    unit path, so a segment's update costs a few launches a unit path,
+    not a repeat; the stacked copies of params, grads and moments live
+    for the update) and unstacked after, the new leaves views of the
+    stacked ones.  Larger leaves, a stacked tree (the census's) and
+    sharded (DTensor) leaves go as they are."""
+    T = M.transformer
+    seg = [t for k, v in params.items() if k.startswith("segment_")
+           for t in tree.leaves(v)]
+    if (not T.has_repeats(params) or any(map(shr.is_dtensor, seg))
+            or sum(t.numel() for t in seg) > STACK_BELOW * len(seg)):
+        return adamw.apply_updates(params, grads, opt, opt_cfg, lr_scale)
+    S = T.stack_repeats
+    new_p, new_o, info = adamw.apply_updates(
+        S(params), S(grads), {"mu": S(opt["mu"]), "nu": S(opt["nu"]),
+                              "count": opt["count"]}, opt_cfg, lr_scale)
+
+    def back(t: dict) -> Any:
+        return T.unstack_repeats(t, params)
+    return back(new_p), {"mu": back(new_o["mu"]), "nu": back(new_o["nu"]),
+                         "count": new_o["count"]}, info
 
 
 def abstract_train_state(cfg: ModelConfig,

@@ -12,6 +12,7 @@ inputs as ``meta`` tensors (shape and dtype, no storage: the reference's
 from __future__ import annotations
 
 import torch
+import torch.fx
 
 from . import layers, transformer
 from .._device import get_device
@@ -40,19 +41,31 @@ def init_params(gen: torch.Generator | None, cfg: ModelConfig,
     return params
 
 
+def take_along_axis(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take_along_axis(x, idx, axis=-1)``: ``x``'s entries at the
+    integer ``idx`` along the last axis.  A negative index wraps once,
+    and an index still out of range reads NaN (the reference's default
+    ``fill`` mode).  A trace keeps the call as one ``jit`` equation, as
+    the reference's jaxpr does."""
+    n = x.shape[-1]
+    idx = torch.where(idx < 0, idx + n, idx)
+    got = x.gather(-1, idx.clamp(0, n - 1).long())
+    return torch.where((idx >= 0) & (idx < n), got, torch.nan)
+
+
+take_along_axis.jit_name = "take_along_axis"
+torch.fx.wrap("take_along_axis")
+
+
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy in fp32.  logits (..., V), labels (...).
 
     The reference's ``take_along_axis`` semantics: a negative label wraps
     once, and a label still out of range reads NaN, so the mean is NaN
     (no label is dropped)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    V = logp.shape[-1]
-    labels = labels.long()
-    labels = torch.where(labels < 0, labels + V, labels)
-    valid = (labels >= 0) & (labels < V)
-    nll = -logp.gather(-1, labels.clamp(0, V - 1)[..., None])[..., 0]
-    return torch.where(valid, nll, torch.nan).mean()
+    logp = torch.log_softmax(logits.float(), -1)
+    nll = -take_along_axis(logp, labels[..., None])[..., 0]
+    return nll.mean()
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig
@@ -82,8 +95,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig
         nxt = inputs[:, 1:]                             # token t+1
         emb_nxt = layers.embedding_apply(params["embed"], nxt)
         h2 = torch.cat([h, emb_nxt], dim=-1) @ params["mtp"]["proj"]
-        h2 = transformer._layer_apply(
-            params["mtp"]["layer"], h2, cfg.segments[-1].unit[-1], cfg, {})
+        h2 = _mtp_layer(params["mtp"]["layer"], h2, cfg)
         h2 = layers.rmsnorm_apply(params["mtp"]["norm"], h2)
         logits2 = transformer._unembed(params, h2, cfg)
         mtp_loss = _xent(logits2, labels[:, 1:])
@@ -91,6 +103,14 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig
         metrics["mtp_loss"] = mtp_loss
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _mtp_layer(layer: dict, h: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """The MTP head's layer: one layer of the last unit's kind (its MoE's
+    load balance, as in the reference, left out of the loss)."""
+    return transformer._layer_apply(layer, h, cfg.segments[-1].unit[-1],
+                                    cfg, {})
 
 
 def input_specs(cfg: ModelConfig, shape: InputShape | str) -> dict:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import attention, layers, moe, ssm
+from .. import tree
 from .._device import get_device
 from ..configs.base import LayerSpec, ModelConfig
 from ..runtime.sharding import constrain_residual
@@ -252,17 +253,53 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def is_embeds(tokens_or_embeds: torch.Tensor) -> bool:
-    """A 3-D model input is embeddings (a front end's output), a 2-D one
-    token ids.  (A trace that cannot read a rank replaces this.)"""
-    return tokens_or_embeds.ndim == 3
+def stack_repeats(params: Any) -> dict:
+    """``params`` (or a tree beside them: gradients, moments) in the
+    reference's layout: each segment a list over its unit of layer trees
+    whose leaves stack the repeats on a leading axis, every dict's keys
+    sorted (the order ``jax.tree_util`` flattens them in)."""
+    def sort(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: sort(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [sort(v) for v in t]
+        return t
+
+    def stack(*reps: torch.Tensor) -> torch.Tensor:
+        return torch.stack(reps)
+    return {k: [tree.tree_map(stack, *(sort(rep[j]) for rep in params[k]))
+                for j in range(len(params[k][0]))]
+            if k.startswith("segment_") else sort(params[k])
+            for k in sorted(params)}
+
+
+def unstack_repeats(stacked: dict, like: Any) -> Any:
+    """A tree of ``like``'s structure (one entry per repeat) whose leaves
+    are those of ``stacked`` (:func:`stack_repeats`' layout), a segment
+    leaf its repeat ``r`` (a view)."""
+    def at(path: tuple) -> torch.Tensor:
+        t, rep = stacked, None
+        if str(path[0]).startswith("segment_"):
+            rep, path = path[1], path[:1] + path[2:]
+        for k in path:
+            t = t[k]
+        return t if rep is None else t[rep]
+    return tree.unflatten(like, [at(p) for p, _ in
+                                 tree.flatten_with_paths(like)])
+
+
+def has_repeats(params: dict) -> bool:
+    """Whether ``params`` hold one entry per repeat of a segment (the
+    port's layout) rather than stacked leaves."""
+    return any(k.startswith("segment_") and isinstance(v[0], list)
+               for k, v in params.items())
 
 
 def _inputs(params: dict, tokens_or_embeds: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """Token ids through the embedding, or (``cfg.frontend_stub``, 3-D)
     embeddings as they are, in the model's dtype."""
-    if cfg.frontend_stub and is_embeds(tokens_or_embeds):
+    if cfg.frontend_stub and tokens_or_embeds.ndim == 3:
         return constrain_residual(tokens_or_embeds.to(cfg.torch_dtype))
     return constrain_residual(
         layers.embedding_apply(params["embed"], tokens_or_embeds))

@@ -7,9 +7,11 @@ by the global fp32 norm of the raw grads, ``m`` and ``v`` in
 master copy, as in the reference).  ``torch.optim.AdamW`` is another
 update: it places eps differently, decays multiplicatively and does not
 clip.  The optimiser state is a tree congruent with the params; every
-function here is pure (new tensors out, nothing updated in place), and
-the per-leaf arithmetic is grouped by ``torch._foreach_*`` calls, which
-launch a few kernels for all leaves instead of one per leaf.
+function here is pure (new tensors out, nothing updated in place).  The
+update runs leaf by leaf in the reference's operations and order, so a
+trace of the train step on the reference's stacked layout lowers to the
+reference's equations (the dry run's train census,
+``launch/dryrun.dataflow_census``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any
 import torch
 
 from .. import tree
+from ..runtime.sharding import is_dtensor as _is_dtensor
 
 #: parameter names never decayed: norms, biases and the SSMs' per-channel
 #: constants (the reference's list)
@@ -42,15 +45,24 @@ def _decay_mask(path: tuple, leaf: torch.Tensor) -> bool:
     """No weight decay on norms, biases and 1-D params.
 
     The reference decides on the rank of its *stacked* leaves, where a
-    leaf under ``segment_<i>`` carries a leading repeats axis; here each
-    repeat has its own leaves, so such a leaf counts one axis more.
+    leaf under ``segment_<i>`` carries a leading repeats axis; the
+    port's params give each repeat its own leaves, so such a leaf counts
+    one axis more (a stacked leaf, as the census traces, does not).
     Qwen2.5's ``b_q``/``b_k``/``b_v``, Jamba's ``conv_b`` and RWKV-6's
     ``mu_*`` are 1-D here and decayed, as there.  ``embed``, ``unembed``,
     ``final_norm`` and the ``mtp`` head are not stacked in either."""
     if any(str(n) in NO_DECAY for n in path):
         return False
-    stacked = bool(path) and str(path[0]).startswith("segment_")
-    return leaf.ndim + stacked >= 2
+    return leaf.ndim + _per_repeat(path) >= 2
+
+
+def _per_repeat(path: tuple) -> bool:
+    """A leaf of one repeat of a segment (``segment_<i>/<repeat>/<unit>
+    /...``), as the port's params hold them; a stacked leaf
+    (``segment_<i>/<unit>/...``, as the dry run's census traces them)
+    already carries the repeats axis."""
+    return (len(path) > 2 and str(path[0]).startswith("segment_")
+            and isinstance(path[1], int) and isinstance(path[2], int))
 
 
 def init_opt_state(params: Any, cfg: AdamWConfig) -> dict:
@@ -67,75 +79,70 @@ def init_opt_state(params: Any, cfg: AdamWConfig) -> dict:
                                  device=flat[0].device if flat else None)}
 
 
-def _norm(leaves32: list[torch.Tensor]) -> torch.Tensor:
-    if not leaves32:
-        return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(leaves32)))
-
-
 def global_norm(tree_: Any) -> torch.Tensor:
-    """The fp32 L2 norm over every leaf of the tree."""
-    return _norm([leaf.float() for leaf in tree.leaves(tree_)])
+    """The fp32 L2 norm over every leaf of the tree: the reference's sum
+    of each leaf's summed squares, then the square root."""
+    return torch.sqrt(sum(torch.square(leaf.float()).sum()
+                          for leaf in tree.leaves(tree_)))
 
 
 def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
                   lr_scale: torch.Tensor | float = 1.0
                   ) -> tuple[Any, dict, dict]:
     """One AdamW step.  Returns (new_params, new_state, info), info holding
-    the raw grads' global norm and the step's LR (0-d fp32 tensors)."""
-    paths = tree.flatten_with_paths(params)
-    flat_p = [leaf for _, leaf in paths]
-    g32 = [g.float() for g in tree.leaves(grads)]
-    gnorm = _norm(g32)
-    dev = gnorm.device
-    clip = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
+    the raw grads' global norm and the step's LR (0-d fp32 tensors).
+
+    The update runs leaf by leaf in the reference's operations and order,
+    on the tree as it is given: the port's params (one entry per repeat
+    of a segment) or the reference's stacked layout
+    (``launch/steps.make_train_step`` stacks a segment's repeats so that
+    a segment costs a few launches a unit path, not a repeat, and the dry
+    run's census traces that layout).  On sharded (DTensor) leaves each
+    rank updates its own shards."""
+    flat_p = tree.leaves(params)
+    gnorm = global_norm(grads)
+    gn = _whole(gnorm)
+    clip = torch.minimum(gn.new_tensor(1.0), cfg.grad_clip_norm / (gn + 1e-9))
     count = state["count"] + 1
     b1c = 1.0 - cfg.b1 ** count.float()
     b2c = 1.0 - cfg.b2 ** count.float()
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=dev)
+    if isinstance(lr_scale, (int, float)):
+        lr_scale = gn.new_tensor(lr_scale)
+    lr = cfg.lr * lr_scale
 
-    # elementwise from here: on sharded (DTensor) leaves, each rank
-    # updates its own shards (param, gradient and moments share a layout)
+    # elementwise from here: param, gradient and moments share a layout
+    b1c, b2c, lr_l = _whole(b1c), _whole(b2c), _whole(lr)
     sd = cfg.state_dtype
-    g32, mu, nu, flat_l = (_local(t) for t in (
-        g32, tree.leaves(state["mu"]), tree.leaves(state["nu"]), flat_p))
-    clip, b1c, b2c, lr_l = (_whole(t) for t in (clip, b1c, b2c, lr))
-    g = torch._foreach_mul([x.to(sd) for x in g32], clip)
-    m = torch._foreach_mul(mu, cfg.b1)
-    torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
-    v = torch._foreach_mul(nu, cfg.b2)
-    sq = torch._foreach_mul(g, g)
-    torch._foreach_mul_(sq, 1 - cfg.b2)
-    torch._foreach_add_(v, sq)
-    den = torch._foreach_div(v, b2c)
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, cfg.eps)
-    update = torch._foreach_div(torch._foreach_div(m, b1c), den)
-    p32 = [p.to(sd) for p in flat_l]
-    decayed = [i for i, (path, p) in enumerate(paths)
-               if _decay_mask(path, p)]
-    if cfg.weight_decay and decayed:
-        torch._foreach_add_([update[i] for i in decayed], torch._foreach_mul(
-            [p32[i] for i in decayed], cfg.weight_decay))
-    new_p = torch._foreach_sub(p32, torch._foreach_mul(update, lr_l))
+    new_p, new_m, new_v = [], [], []
+    for (path, p), g, m, v in zip(tree.flatten_with_paths(params),
+                                  tree.leaves(grads), tree.leaves(state["mu"]),
+                                  tree.leaves(state["nu"]), strict=True):
+        pl, gl, ml, vl = (_local(t) for t in (p, g, m, v))
+        g32 = gl.to(sd) * clip
+        m = cfg.b1 * ml + (1 - cfg.b1) * g32
+        v = cfg.b2 * vl + (1 - cfg.b2) * torch.square(g32)
+        update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if cfg.weight_decay and _decay_mask(path, p):
+            update = update + cfg.weight_decay * pl.to(sd)
+        new_p.append((pl.to(sd) - lr_l * update).to(pl.dtype))
+        new_m.append(m)
+        new_v.append(v)
 
-    params_out = tree.unflatten(params, _like(
-        [x.to(p.dtype) for x, p in zip(new_p, flat_l)], flat_p))
-    state_out = {"mu": tree.unflatten(params, _like(m, flat_p)),
-                 "nu": tree.unflatten(params, _like(v, flat_p)),
-                 "count": count}
-    return params_out, state_out, {"grad_norm": gnorm, "lr": lr}
+    def out(new: list) -> Any:
+        return tree.unflatten(params, _like(new, flat_p))
+
+    state_out = {"mu": out(new_m), "nu": out(new_v), "count": count}
+    return out(new_p), state_out, {"grad_norm": gnorm, "lr": lr}
 
 
-def _local(ts: list) -> list:
-    """Each tensor's local shard (a DTensor's), else the tensor."""
-    return [t.to_local() if hasattr(t, "to_local") else t for t in ts]
+def _local(t):
+    """A DTensor's local shard, else the tensor."""
+    return t.to_local() if _is_dtensor(t) else t
 
 
 def _whole(t):
     """A scalar's value on every rank (a DTensor's, gathered)."""
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
+    return t.full_tensor() if _is_dtensor(t) else t
 
 
 def _like(new: list, old: list) -> list:
@@ -144,4 +151,4 @@ def _like(new: list, old: list) -> list:
     return [DTensor.from_local(n, o.device_mesh, o.placements,
                                run_check=False, shape=o.shape,
                                stride=o.stride())
-            if isinstance(o, DTensor) else n for n, o in zip(new, old)]
+            if _is_dtensor(o) else n for n, o in zip(new, old)]

@@ -95,20 +95,21 @@ def test_pinned_census_equals_the_reference():
         assert ref.dataflow_census(cfg, s) == want, (a, s)
 
 
-#: ROADMAP §1 item 3's target, the live reference's census of SmolLM-135M
-#: ``train_4k`` (``channel_bytes`` left out), and its step's top-level
-#: equations: the loss alone, its ``value_and_grad``, the whole step
+#: the live reference's census of SmolLM-135M ``train_4k``
+#: (``channel_bytes`` left out), and its step's top-level equations: the
+#: loss alone, its ``value_and_grad``, the whole step
 REF_TRAIN_CENSUS = {"ops": 411, "memory_ops": 2, "long_ops": 183,
                     "stages": 184, "channels": 361, "pipeline_ii": 1}
 REF_TRAIN_EQNS = {"forward": 33, "value_and_grad": 116, "step": 411}
 
 
 def test_reference_train_census_is_the_recorded_one():
-    """The train cells' census is not ported yet: this pins the live
-    reference's, which the port must equal, and splits the step's
-    equations into the forward (the loss), the backward
-    (``value_and_grad`` less the forward) and AdamW (the step less
-    ``value_and_grad``) — 33, 83 and 295."""
+    """The live reference's census of SmolLM-135M ``train_4k``, which the
+    port's equals less its pinned difference
+    (``tests/test_torch_train_census.py``), and the step's equations
+    split into the forward (the loss), the backward (``value_and_grad``
+    less the forward) and AdamW (the step less ``value_and_grad``) — 33,
+    83 and 295."""
     from repro.configs.base import SHAPES as REF_SHAPES
     from repro.launch import steps as ref_steps
     from repro.models import model as ref_M
@@ -178,10 +179,10 @@ def reduced_cells(arch, mesh_dims):
                               save=False, device="cpu", cfg=cfg, shape=shape,
                               mesh_dims=mesh_dims)
         assert rec["status"] == "ok", (name, rec.get("traceback"))
+        assert "dataflow" in rec
         kind, args, specs = steps.cell_inputs(cfg, shape, sizes)
         assert rec["mem_argument_size_in_bytes"] == steps.argument_bytes(
             args, specs, sizes)
-        assert ("dataflow" in rec) == (shape.kind != "train")
         assert rec["rank_flops"] > 0 and rec["peak_bytes"] >= rec[
             "mem_argument_size_in_bytes"]
 
