@@ -295,11 +295,10 @@ Phases, one line (or block) each:
    the train step traced with ``value_and_grad`` and AdamW lowered into
    the CDFG (``core/autodiff.py``) — plus section 2's pinned difference
    (``TRAIN_SECTION2``: the reference hoists the segment body's loop
-   invariants, the port emits its forward scan alone) and, for
-   DeepSeek-V3, its MTP layer's (``TRAIN_MTP_LAYER``: the reference
-   lowers the layer's equations and their transposes, the port one
-   ``checkpoint`` equation each way) equal to the reference's census
-   (``REF_TRAIN_CENSUS``); each cell's wall; (b) SmolLM-135M at
+   invariants, the port emits its forward scan alone) equal to the
+   reference's census (``REF_TRAIN_CENSUS``; DeepSeek-V3's MTP layer
+   lowered inline, its chunked attention's scan partially evaluated as
+   JAX does); each cell's wall; (b) SmolLM-135M at
    published widths, its train step as the census lowers it, run by
    the ``sequential`` backend on the card, 3 steps of 2 x 512 tokens
    from step 200 (LR scale ~1), against ``make_train_step``: in fp32 at
@@ -312,6 +311,12 @@ Phases, one line (or block) each:
    later steps' drift printed; no hand kernel launched; both walls; (c) ``python -m
    repro_torch.launch.dryrun --arch smollm-135m --shape train_4k --mesh
    single``: exit 0, its record ``ok`` and carrying the 16a census;
+   (d) the reduced DeepSeek-V3 on the chunked attention route (1 x
+   2,100 tokens, fp32): ``loss_and_grads`` lowered as the census lowers
+   it — the MTP layer inline, its attention's forward and reverse
+   ``scan`` — and run by the ``sequential`` backend, against
+   ``loss_and_grads``: loss and metrics rtol 1e-4, every gradient leaf
+   rtol 1e-4 + 1e-4·max|g|; no hand kernel launched; the walls;
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), on each path of phase 12 and summed over
@@ -918,32 +923,16 @@ TRAIN_SECTION2 = {
                                "channels": 70}),
     "chameleon-34b": (47, 1, {"ops": 46, "long_ops": 13, "stages": 13,
                               "channels": 59}),
-    # two segments; the channel difference is the MTP layer's entry's
+    # two segments (the MTP head's layer, in section 3, is equal)
     "deepseek-v3-671b": (106, 4, {"ops": 102, "long_ops": 26,
-                                  "stages": 26}),
-}
-
-#: DeepSeek-V3's MTP head's layer (ROADMAP "Decisions"): the sizes of the
-#: reference's windows of section 3 that the port's ``checkpoint``
-#: equations stand for (the layer's forward; the zero tangents of its
-#: attention scan's carries; its transpose), the port's ``checkpoint``
-#: equations, and the census difference, reference less port, that
-#: follows — its channels those of the whole step, section 2's included
-#: (a channel count does not split by section)
-TRAIN_MTP_LAYER = {
-    "deepseek-v3-671b": ((259, 3, 233), 2, {
-        "ops": 493, "memory_ops": 5, "long_ops": 207, "stages": 207,
-        "channels": 590}),
+                                  "stages": 26, "channels": 164}),
 }
 
 
 def train_census_difference(arch: str) -> dict:
     """The census difference, reference less port, of ``arch``'s train
-    cell: section 2's plus the MTP layer's."""
-    diff = dict(TRAIN_SECTION2[arch][2])
-    for k, v in TRAIN_MTP_LAYER.get(arch, ((), 0, {}))[2].items():
-        diff[k] = diff.get(k, 0) + v
-    return diff
+    cell: section 2's."""
+    return dict(TRAIN_SECTION2[arch][2])
 
 
 def report_key(report: str) -> tuple:
@@ -1381,6 +1370,7 @@ def main() -> None:
     train_census_on_card(smi)
     lowered_step_on_card(dev, smi)
     dryrun_cli_train_cell(smi)
+    lowered_mtp_grads_on_card(dev, smi)
     print(f"[16] phase 16 in {time.perf_counter() - t16:.2f} s", flush=True)
 
     # -- 10. the kernels line ---------------------------------------------------
@@ -4285,8 +4275,8 @@ def _change_err(got, want, before) -> float:
 
 def train_census_on_card(smi: str) -> None:
     """Phase 16a: every architecture's ``train_4k`` census at published
-    widths on ``meta``, plus the pinned differences (section 2's, and
-    DeepSeek-V3's MTP layer's), equal to the reference's."""
+    widths on ``meta``, plus section 2's pinned difference, equal to the
+    reference's."""
     from repro_torch.configs import ARCH_IDS, load_config
     from repro_torch.launch import dryrun
     print(f"[16a] card: {smi}", flush=True)
@@ -4300,14 +4290,12 @@ def train_census_on_card(smi: str) -> None:
         have = {k: got[k] + diff.get(k, 0) for k in want}
         require(have == want, f"16a {arch}: census {got} + the pinned "
                 f"{diff} = {have}, the reference's is {want}")
-        mtp = (f", the MTP layer's windows {TRAIN_MTP_LAYER[arch][0]}"
-               if arch in TRAIN_MTP_LAYER else "")
         print(f"[16a] {arch}: ops {got['ops']}, memory ops "
               f"{got['memory_ops']}, long ops {got['long_ops']}, stages "
               f"{got['stages']}, channels {got['channels']} "
               f"({got['channel_bytes']:,} B), II {got['pipeline_ii']}; with "
               f"section 2's difference (reference {n_ref} equations, port "
-              f"{n_port}){mtp} the reference's; in {wall:.2f} s",
+              f"{n_port}) the reference's; in {wall:.2f} s",
               flush=True)
 
 
@@ -4463,6 +4451,98 @@ def lowered_step_on_card(dev, smi: str) -> None:
               f" make_train_step {[round(w, 4) for w in r['walls']['step']]}"
               f" s, lowered {[round(w, 4) for w in r['walls']['lowered']]} s"
               f"; card: {smi}", flush=True)
+
+
+#: phase 16d: the reduced DeepSeek-V3 on the chunked attention route, one
+#: sequence of 2,100 tokens (the MTP layer's 2,099 keys: three chunks of
+#: 1,024, the last padded)
+MTP_BATCH, MTP_SEQ = 1, 2100
+
+
+def lowered_mtp_grads_on_card(dev, smi: str) -> None:
+    """Phase 16d: the reduced DeepSeek-V3 (fp32, ``attn_impl="chunked"``)
+    whose ``loss_and_grads`` is lowered as the census lowers it — the MTP
+    layer inline, its chunked attention one ``scan`` partially evaluated
+    and one reverse ``scan`` — and run by the ``sequential`` backend on
+    the card, against ``loss_and_grads`` (autograd) on the same params and
+    batch: loss and metrics rtol 1e-4, every gradient leaf rtol 1e-4 +
+    1e-4·max|g| (PERF.md §2); no hand kernel launched; the walls."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import load_config, reduced
+    from repro_torch.core import cdfg
+    from repro_torch.dataflow import compile as dataflow_compile
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, model as M
+
+    cfg = dataclasses.replace(reduced(load_config("deepseek-v3-671b")),
+                              attn_impl="chunked")
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MTP_BATCH, MTP_SEQ + 1)).astype(np.int32)).to(
+            dev)}
+    stacked = M.transformer.stack_repeats(params)
+
+    def value_and_grads(p_leaves, b_leaves):
+        (loss, metrics), grads = steps.loss_and_grads(
+            tree.unflatten(stacked, list(p_leaves)),
+            tree.unflatten(batch, list(b_leaves)), cfg)
+        return (loss, *tree.leaves(metrics), *tree.leaves(grads))
+
+    before = dict(_lib.counts())
+    t0 = time.perf_counter()
+    with cdfg.leaves(index=[(layers, "take")],
+                     scan=[(M.transformer, "_segment_forward")],
+                     grad=[(steps, "loss_and_grads")]):
+        comp = dataflow_compile(value_and_grads, tuple(tree.leaves(stacked)),
+                                tuple(tree.leaves(batch)),
+                                backend="sequential", device=dev,
+                                use_cache=False)
+    compile_s = time.perf_counter() - t0
+    scans = sum(e.prim == "scan" for e in comp.graph.eqns)
+    require(scans == 2 * len(cfg.segments) + 2,
+            f"16d {scans} scan equations, not each segment's two and the "
+            f"MTP attention's two")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = comp(tuple(tree.leaves(stacked)), tuple(tree.leaves(batch)))
+    torch.cuda.synchronize()
+    lowered_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (loss, metrics), grads = steps.loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    autograd_s = time.perf_counter() - t0
+    require(dict(_lib.counts()) == before, "16d a hand kernel launched")
+    want = [loss, *tree.leaves(metrics)]
+    for name, a, b in zip(["loss", *metrics], out[:len(want)], want):
+        require(abs(float(a) - float(b)) <= 1e-4 * abs(float(b)),
+                f"16d {name}: lowered {float(a)!r}, loss_and_grads "
+                f"{float(b)!r}")
+    worst = 0.0
+    for (path, g), w in zip(tree.flatten_with_paths(tree.unflatten(
+            stacked, list(out[len(want):]))), tree.leaves(
+            M.transformer.stack_repeats(grads)), strict=True):
+        tol = 1e-4 * float(w.abs().max()) + 1e-4 * w.abs()
+        ratio = float(((g - w).abs() / tol.clamp_min(1e-30)).max())
+        require(ratio <= 1.0, f"16d grad {path}: {ratio:.3g} times the "
+                f"bar rtol 1e-4 + 1e-4·max|g|")
+        worst = max(worst, ratio)
+    rel = abs(float(out[0]) - float(loss)) / abs(float(loss))
+    print(f"[16d] card: {smi}; reduced DeepSeek-V3 fp32, {MTP_BATCH} x "
+          f"{MTP_SEQ} tokens on the chunked route (the MTP layer's "
+          f"attention one forward and one reverse scan): loss "
+          f"{float(out[0]):.6f}, {rel:.3g} from loss_and_grads' (bar "
+          f"1e-4), "
+          f"{len(out) - len(want)} gradient leaves within rtol 1e-4 + "
+          f"1e-4·max|g| (worst {worst:.3g} of the bar); no hand kernel "
+          f"launched; compile {compile_s:.2f} s, the lowered value and "
+          f"gradients {lowered_s:.2f} s, loss_and_grads {autograd_s:.2f} s",
+          flush=True)
 
 
 def dryrun_cli_train_cell(smi: str) -> None:

@@ -37,12 +37,13 @@ repeat's forward under ``torch.autograd``.  JAX's partial evaluation
 instead hoists the body's loop invariants out of the scan and keeps
 every residual the body's rules name (ROADMAP "Decisions": route (b)).
 
-A remat leaf's layer (DeepSeek-V3's multi-token-prediction layer, at
-the loss's top level) departs the same way: its forward is one
-``checkpoint`` equation and its transpose one more, which recomputes
-the layer under ``torch.autograd`` — what ``jax.checkpoint`` of the
-layer would leave; the reference's jaxpr has the layer's own equations
-and their transposes there (ROADMAP "Decisions").
+A scan whose body is a lowered graph (``cdfg.scan``: DeepSeek-V3's MTP
+layer's chunked attention, at the loss's top level) follows JAX's
+``_scan_partial_eval`` instead (:func:`_jvp_loop`): the body's known
+equations that read only consts are hoisted ahead of the loop, the
+forward scan stacks the residuals the tangent program reads, and the
+transpose is one reverse scan of the transposed body — the reference's
+equations.
 
 The segment parameters arrive stacked (one ``(R, …)`` leaf per unit
 path, as the reference holds them); the value function reads each
@@ -53,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import operator
 from typing import Any, Callable
 
@@ -61,7 +63,9 @@ import torch
 
 from .. import tree
 from .._device import get_device
-from .cdfg import Aval, Eqn, Literal, Var, _Lowering
+from .cdfg import (Aval, Eqn, Graph, Literal, Var, _Lowering,
+                   _broadcast_in_dim, _concatenate, _integer_pow, _reshape,
+                   _run_loop, _split, _transpose)
 
 __all__ = ["lower_value_and_grad", "JVP_RULES"]
 
@@ -102,10 +106,6 @@ def _shape(x: Any) -> tuple[int, ...]:
 
 # -- implementations of the equations the backward emits ---------------------
 
-def _reshape(x: torch.Tensor, *, new_sizes: tuple[int, ...]) -> torch.Tensor:
-    return x.reshape(new_sizes)
-
-
 def _pad(x: torch.Tensor, val: Any, *,
          padding_config: tuple[tuple[int, int, int], ...]) -> torch.Tensor:
     pads = []
@@ -114,19 +114,6 @@ def _pad(x: torch.Tensor, val: Any, *,
             raise NotImplementedError("pad with interior padding")
         pads += [lo, hi]
     return torch.nn.functional.pad(x, pads, value=float(val))
-
-
-def _broadcast(x: Any, *, shape: tuple[int, ...],
-               broadcast_dimensions: tuple[int, ...],
-               dtype: torch.dtype) -> torch.Tensor:
-    """``broadcast_in_dim``, also of a number (``lax.full``; a literal, or
-    an equation of literals alone), which lands on the port's device."""
-    if not isinstance(x, torch.Tensor):
-        return torch.full(shape, x, dtype=dtype, device=get_device(None))
-    view = [1] * len(shape)
-    for src, dst in enumerate(broadcast_dimensions):
-        view[dst] = x.shape[src]
-    return x.reshape(view).expand(shape)
 
 
 def _scatter_add(operand: torch.Tensor, indices: torch.Tensor,
@@ -153,15 +140,6 @@ def _dot_general(a: torch.Tensor, b: torch.Tensor, *,
            + [lb[j] for j in range(b.ndim) if j not in (*bc, *bb)])
     return torch.einsum(f"{''.join(la)},{''.join(lb)}->{''.join(out)}",
                         a, b)
-
-
-def _transpose(x: torch.Tensor, *, permutation: tuple[int, ...]
-               ) -> torch.Tensor:
-    return x.permute(permutation)
-
-
-def _split(x: torch.Tensor, *, sizes: tuple[int, ...], axis: int) -> tuple:
-    return tuple(x.split(sizes, axis))
 
 
 # -- the jitted functions' forward with residuals, and their transposes ------
@@ -278,23 +256,6 @@ def _scan_vjp(body: Callable, block_like: Any, slots: list[int], R: int,
     return (ct_carry, *(g for g, keep in zip(grads, read) if keep))
 
 
-# -- a remat leaf's layer: the transpose recomputes it ---------------------
-
-def _remat_vjp(run: Callable, wanted: tuple[int, ...], *args: Any) -> tuple:
-    """The layer's vector–Jacobian product: ``run`` recomputed on the
-    operands under autograd; the cotangents of the operands ``wanted``
-    names (zeros for one the layer does not read)."""
-    ins, ct = list(args[:-1]), args[-1]
-    for i in wanted:
-        ins[i] = ins[i].detach().requires_grad_()
-    with torch.enable_grad():
-        out = run(*ins)
-    got = torch.autograd.grad(out, [ins[i] for i in wanted], ct,
-                              allow_unused=True)
-    return tuple(torch.zeros_like(ins[i]) if g is None else g
-                 for i, g in zip(wanted, got))
-
-
 # -- the tape -----------------------------------------------------------------
 
 class _Tape:
@@ -377,7 +338,7 @@ class _Tape:
                   dims: tuple[int, ...]) -> Var:
         dt = x.aval.dtype
         return self.emit("broadcast_in_dim", [x], Aval(shape, dt),
-                         impl=functools.partial(_broadcast, dtype=dt),
+                         impl=functools.partial(_broadcast_in_dim, dtype=dt),
                          shape=shape, broadcast_dimensions=dims)
 
     # the two passes
@@ -549,13 +510,34 @@ def _jvp_mul(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
 
 
 def _jvp_div(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
-    if lin[1]:
-        raise NotImplementedError("div by a differentiated value")
+    """``div(ẋ, y)``; a differentiated divisor adds
+    ``mul(mul(neg(ẏ), x), integer_pow(y, -2))`` (its ``integer_pow`` in
+    the forward) and an ``add_any``, transposed divisor first."""
     outs = tape.copy(e, ins)
     (x, y), out = ins, outs[0]
-    kx, ko = tape.tan[x], tape.fresh(out)
-    tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.unbroadcast(
-        x.aval, tape.emit("div", [cts[0], y], out.aval)))]))
+    ko = tape.fresh(out)
+    if not lin[1]:
+        kx = tape.tan[x]
+        tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.unbroadcast(
+            x.aval, tape.emit("div", [cts[0], y], out.aval)))]))
+        return outs
+    ipow = tape.emit("integer_pow", [y], y.aval, impl=_integer_pow, y=-2)
+    kx = _Key() if lin[0] else None
+    kn, km, ky = _Key(), _Key(), (_Key() if lin[0] else ko)
+    if lin[0]:
+        tape.linear.append(_Linear([kx], lambda cts: [(
+            tape.tan[x], tape.unbroadcast(x.aval, tape.emit(
+                "div", [cts[0], y], out.aval)))]))
+    tape.linear.append(_Linear([kn], lambda cts: [(
+        tape.tan[y], tape.emit("neg", [cts[0]], y.aval))]))
+    tape.linear.append(_Linear([km], lambda cts: [(
+        kn, tape.unbroadcast(y.aval, tape.emit("mul", [cts[0], x],
+                                               out.aval)))]))
+    tape.linear.append(_Linear([ky], lambda cts: [(
+        km, tape.emit("mul", [cts[0], ipow], out.aval))]))
+    if lin[0]:
+        tape.linear.append(_Linear(
+            [ko], lambda cts: [(kx, cts[0]), (ky, cts[0])]))
     return outs
 
 
@@ -739,7 +721,11 @@ _jvp_var = _jvp_jit(
 def _jvp_scan(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     """A segment's scan over its stacked repeats: the forward keeps each
     repeat's input; the transpose is one ``scan`` of the repeats'
-    vector–Jacobian products in reverse."""
+    vector–Jacobian products in reverse.  A scan whose body is a lowered
+    graph (``cdfg.scan``) is partially evaluated as JAX does
+    (:func:`_jvp_loop`)."""
+    if getattr(e.impl, "func", None) is _run_loop:
+        return _jvp_loop(tape, e, ins, lin)
     body, consts_like, state_like, n_consts = e.impl.args
     carry, views = ins[0], ins[1:]
     R = len(consts_like)
@@ -808,23 +794,571 @@ def _jvp_concatenate(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     return outs
 
 
-def _jvp_checkpoint(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
-    """A remat leaf's layer (``jax.checkpoint``): the forward is the one
-    ``checkpoint`` equation, keeping no residual but its operands; the
-    transpose is one ``checkpoint`` equation that recomputes the layer
-    and gives the cotangents of its differentiated operands."""
+# -- layout ops ----------------------------------------------------------------
+
+def _t_reshape(tape, e, x, ct):
+    return tape.reshape(ct, _shape(x))
+
+
+def _t_transpose(tape, e, x, ct):
+    perm = tuple(int(i) for i in np.argsort(e.params["permutation"]))
+    return tape.emit("transpose", [ct], x.aval, impl=_transpose,
+                     permutation=perm)
+
+
+def _jvp_split(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """Linear; the transpose is one ``concatenate`` of the pieces'
+    cotangents (a zero piece instantiated)."""
     outs = tape.copy(e, ins)
-    ko = tape.fresh(outs[0])
-    wanted = tuple(i for i, x in enumerate(ins)
-                   if tape.has_tangent(x) and _is_float(x.aval))
+    x, axis = ins[0], e.params["axis"]
+    kx = tape.tan[x]
 
     def transpose(cts):
-        got = tape.emit_multi(
-            "checkpoint", [*ins, cts[0]], [ins[i].aval for i in wanted],
-            functools.partial(_remat_vjp, e.impl, wanted))
-        return [(tape.tan[ins[i]], g) for i, g in zip(wanted, got)]
+        parts = [tape.zeros(o.aval) if c is None else c
+                 for c, o in zip(cts, outs)]
+        return [(kx, tape.emit("concatenate", parts, x.aval,
+                               impl=functools.partial(_concatenate,
+                                                      dimension=axis),
+                               dimension=axis))]
+    tape.linear.append(_Linear([tape.fresh(o) for o in outs], transpose))
+    return outs
+
+
+# -- elementwise ---------------------------------------------------------------
+
+def _ones_like(tape: _Tape, aval: Aval, c: float) -> Var:
+    """``lax.full_like(x, c)``: a ``broadcast_in_dim`` of the literal."""
+    return tape.broadcast(Literal(c, Aval((), aval.dtype)), aval.shape, ())
+
+
+def _jvp_scaled(jac: Callable) -> Callable:
+    """A primitive whose tangent is ``mul(ṫ, J)``, ``J`` made in the
+    forward by ``jac(tape, e, ins, out)`` from the primal values: the
+    transpose is ``mul(ct, J)``."""
+    def rule(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+        if any(lin[1:]):
+            raise NotImplementedError(f"{e.prim} differentiated in operand "
+                                      f"> 0")
+        outs = tape.copy(e, ins)
+        x, out = ins[0], outs[0]
+        j = jac(tape, e, ins, out)
+        kx, ko = tape.tan[x], tape.fresh(out)
+        tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.unbroadcast(
+            x.aval, tape.emit("mul", [cts[0], j], out.aval)))]))
+        return outs
+    return rule
+
+
+def _logistic_jac(tape, e, ins, out):
+    """``ans·(1 − ans)``."""
+    one_minus = tape.emit("sub", [Literal(1.0, Aval((), out.aval.dtype)),
+                                  out], out.aval)
+    return tape.emit("mul", [out, one_minus], out.aval)
+
+
+def _integer_pow_jac(tape, e, ins, out):
+    """``y·x^(y−1)``."""
+    x, y = ins[0], e.params["y"]
+    p = tape.emit("integer_pow", [x], x.aval, impl=_integer_pow, y=y - 1)
+    return tape.emit("mul", [Literal(float(y), Aval((), x.aval.dtype)), p],
+                     x.aval)
+
+
+#: ``exp``: ``mul(ṫ, ans)``
+_jvp_exp = _jvp_scaled(lambda tape, e, ins, out: out)
+
+
+def _jvp_pow(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``x ** y`` with a literal exponent (``mul(ṫ, mul(y, pow(x, sub(y,
+    1))))``) or a literal base (``mul(ṫ, mul(log(x), ans))``, the base
+    through ``_replace_zero``), as ``jax.lax``'s ``pow`` rules."""
+    x, y = ins
+    if lin[0] and isinstance(y, Literal):
+        def jac(tape, e, ins, out):
+            f = Aval((), out.aval.dtype)
+            ym1 = tape.emit("sub", [Literal(y.val, f), Literal(1.0, f)], f)
+            p = tape.emit("pow", [x, ym1], out.aval)
+            return tape.emit("mul", [Literal(y.val, f), p], out.aval)
+        return _jvp_scaled(jac)(tape, e, ins, lin)
+    if lin[1] and isinstance(x, Literal):
+        outs = tape.copy(e, ins)
+        out = outs[0]
+        f = Aval((), out.aval.dtype)
+        zero = tape.emit("eq", [Literal(x.val, f), Literal(0.0, f)],
+                         Aval((), torch.bool))
+        base = tape.emit("select_n", [zero, Literal(x.val, f),
+                                      Literal(1.0, f)], f)
+        log = tape.emit("log", [base], f, impl=_log)
+        j = tape.emit("mul", [log, out], out.aval)
+        ky, ko = tape.tan[y], tape.fresh(out)
+        tape.linear.append(_Linear([ko], lambda cts: [(ky, tape.unbroadcast(
+            y.aval, tape.emit("mul", [cts[0], j], out.aval)))]))
+        return outs
+    raise NotImplementedError("pow of two differentiated operands")
+
+
+def _log(x: Any) -> Any:
+    return torch.log(x) if isinstance(x, torch.Tensor) else math.log(x)
+
+
+def _balanced_eq(tape: _Tape, x: Any, z: Var, y: Any) -> Var:
+    """``jax.lax``'s ``_balanced_eq(x, z, y)``: 1 where ``x`` is the
+    extremum ``z`` (½ where ``y`` ties it), else 0."""
+    b = Aval(_shape(z), torch.bool)
+    eq_x = tape.emit("eq", [x, z], b)
+    ones, zeros = _ones_like(tape, z.aval, 1.0), _ones_like(tape, z.aval, 0.0)
+    num = tape.emit("select_n", [eq_x, zeros, ones], z.aval)
+    eq_y = tape.emit("eq", [y, z], b)
+    twos, ones = _ones_like(tape, z.aval, 2.0), _ones_like(tape, z.aval, 1.0)
+    den = tape.emit("select_n", [eq_y, ones, twos], z.aval)
+    return tape.emit("div", [num, den], z.aval)
+
+
+def _jvp_max(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``mul(ẋ, _balanced_eq(x, ans, y))`` and ``mul(ẏ, _balanced_eq(y,
+    ans, x))``, summed by ``add_any`` when both are there."""
+    outs = tape.copy(e, ins)
+    (x, y), out = ins, outs[0]
+    ko = tape.fresh(out)
+    parts = []
+    for k, (a, b) in enumerate(((x, y), (y, x))):
+        if not lin[k]:
+            continue
+        w = _balanced_eq(tape, a, out, b)
+        key = _Key() if all(lin) else ko
+        tape.linear.append(_Linear([key], lambda cts, a=a, w=w: [(
+            tape.tan[a], tape.unbroadcast(a.aval, tape.emit(
+                "mul", [cts[0], w], out.aval)))]))
+        parts.append(key)
+    if all(lin):
+        tape.linear.append(_Linear(
+            [ko], lambda cts: [(parts[0], cts[0]), (parts[1], cts[0])]))
+    return outs
+
+
+def _jvp_reduce_max(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``jax.lax``'s ``_reduce_chooser_jvp_rule``: the locations of the
+    maximum (``eq`` of the operand and the reshaped answer, as floats)
+    and their count in the forward; the tangent ``div(reduce_sum(mul(ṫ,
+    locations)), count)``."""
+    outs = tape.copy(e, ins)
+    x, out = ins[0], outs[0]
+    axes = e.params["axes"]
+    keep = tuple(1 if d in axes else n for d, n in enumerate(_shape(x)))
+    ans = tape.reshape(out, keep)
+    where = tape.emit("eq", [x, ans], Aval(_shape(x), torch.bool))
+    loc = tape.emit("convert_element_type", [where], x.aval,
+                    new_dtype=x.aval.dtype)
+    count = tape.emit("reduce_sum", [loc], out.aval, axes=axes)
+    km, ks, ko = _Key(), _Key(), tape.fresh(out)
+    tape.linear.append(_Linear([km], lambda cts: [(
+        tape.tan[x], tape.emit("mul", [cts[0], loc], x.aval))]))
+    tape.linear.append(_Linear([ks], lambda cts: [(
+        km, _t_reduce_sum(tape, e, x, cts[0]))]))
+    tape.linear.append(_Linear([ko], lambda cts: [(
+        ks, tape.emit("div", [cts[0], count], out.aval))]))
+    return outs
+
+
+# -- gathers and scatters --------------------------------------------------------
+
+def _take_last(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    # ``top_k``'s tangent: the gather of ``x`` at the (..., k, 1) indices
+    # along the last axis, batched over the others
+    return x.gather(-1, indices[..., 0].long())
+
+
+def _scatter_add_last(operand: torch.Tensor, indices: torch.Tensor,
+                      updates: torch.Tensor) -> torch.Tensor:
+    # its transpose: the scatter-add of ``updates`` into ``operand``
+    return operand.scatter_add(-1, indices[..., 0].long(), updates)
+
+
+def _gather_fill(operand: torch.Tensor, indices: torch.Tensor, *,
+                 slice_sizes: tuple[int, ...]) -> torch.Tensor:
+    # the transpose of a dropping scatter-add (at_add): the rows at the
+    # (N, 1) indices, a row out of range read as zeros (FILL_OR_DROP)
+    n = operand.shape[0]
+    rows = indices[..., 0]
+    hit = (rows >= 0) & (rows < n)
+    out = operand.index_select(0, rows.clamp(0, n - 1).reshape(-1).long())
+    out = out.reshape(rows.shape + operand.shape[1:])
+    return out * hit.reshape(hit.shape + (1,) * (out.ndim - hit.ndim)).to(
+        out.dtype)
+
+
+def _jvp_top_k(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """The values' tangent is a ``gather`` of the tangent at the indices
+    (made ``(…, k, 1)`` by a ``reshape`` in the forward); its transpose a
+    ``scatter-add`` into zeros."""
+    outs = tape.copy(e, ins)
+    x, (vals, idx) = ins[0], outs
+    at = tape.reshape(idx, (*_shape(idx), 1))
+    kx, ko = tape.tan[x], tape.fresh(vals)
+
+    def transpose(cts):
+        z = tape.zeros(x.aval)
+        return [(kx, tape.emit("scatter-add", [z, at, cts[0]], x.aval,
+                               impl=_scatter_add_last))]
     tape.linear.append(_Linear([ko], transpose))
     return outs
+
+
+def _jvp_scatter_add(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``scatter-add(ẋ, idx, u̇)``, an operand or updates without a
+    tangent instantiated as zeros in the forward; transposed, the
+    operand's cotangent is the cotangent, the updates' a ``gather`` of
+    it at the indices."""
+    if lin[1]:
+        raise NotImplementedError("scatter-add differentiated in its "
+                                  "indices")
+    outs = tape.copy(e, ins)
+    (x, idx, upd), out = ins, outs[0]
+    for v, l in ((x, lin[0]), (upd, lin[2])):
+        if not l:
+            tape.zeros(v.aval)
+    ko = tape.fresh(out)
+
+    def transpose(cts):
+        got = []
+        if lin[0]:
+            got.append((tape.tan[x], cts[0]))
+        if lin[2]:
+            got.append((tape.tan[upd], tape.emit(
+                "gather", [cts[0], idx], upd.aval, impl=_gather_fill,
+                slice_sizes=(1, *_shape(x)[1:]))))
+        return got
+    tape.linear.append(_Linear([ko], transpose))
+    return outs
+
+
+# -- jitted functions: the forward with its residuals, one transpose ----------
+
+def _silu_fwd(x: torch.Tensor, **_: Any) -> tuple:
+    s = torch.sigmoid(x)
+    return x * s, s * (1 - s), s
+
+
+def _silu_vjp(ds: torch.Tensor, s: torch.Tensor, x: torch.Tensor,
+              ct: torch.Tensor) -> torch.Tensor:
+    return ct * s + x * ct * ds
+
+
+def _jvp_silu(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``jax.nn.silu``: one ``jit`` of the output and two residuals
+    (``s·(1−s)`` and ``s``, ``s`` the logistic); the transpose one ``jit``
+    of them, the operand and the cotangent."""
+    x, out_aval = ins[0], e.outvars[0].aval
+    out, *res = tape.emit_multi("jit", ins, [out_aval] * 3, _silu_fwd,
+                                e.name)
+    kx, ko = tape.tan[x], tape.fresh(out)
+    tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.emit(
+        "jit", [*res, x, cts[0]], x.aval, _silu_vjp, e.name))]))
+    return [out]
+
+
+def _softmax_vjp(y: torch.Tensor, ct: torch.Tensor, *, dim: int = -1
+                 ) -> torch.Tensor:
+    return y * (ct - (ct * y).sum(dim, keepdim=True))
+
+
+def _jvp_softmax(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``softmax``: the output is the residual; the transpose one ``jit``
+    of it and the cotangent, ``y·(ct − Σ ct·y)``."""
+    outs = tape.copy(e, ins)
+    x, out = ins[0], outs[0]
+    kx, ko = tape.tan[x], tape.fresh(out)
+    tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.emit(
+        "jit", [out, cts[0]], x.aval,
+        functools.partial(_softmax_vjp, **_static(e)), e.name))]))
+    return outs
+
+
+def _pad_fwd(x: torch.Tensor, value: Any, *, pads: tuple[int, ...]
+             ) -> tuple:
+    return (torch.nn.functional.pad(x, pads, value=float(value)),
+            torch.tensor(value, dtype=x.dtype, device=x.device))
+
+
+def _pad_vjp(value: torch.Tensor, ct: torch.Tensor, *,
+             pads: tuple[int, ...]) -> torch.Tensor:
+    for k in range(len(pads) // 2):
+        d, lo, hi = ct.ndim - 1 - k, pads[2 * k], pads[2 * k + 1]
+        ct = ct.narrow(d, lo, ct.shape[d] - lo - hi)
+    return ct
+
+
+_jvp_pad = _jvp_jit(
+    lambda e, x, v: functools.partial(_pad_fwd, **e.impl.keywords),
+    lambda e, x, v: [Aval((), x.aval.dtype)],
+    lambda e, x, v: functools.partial(_pad_vjp, **e.impl.keywords))
+
+
+def _where_fwd(c: torch.Tensor, x: Any, y: Any, *, shape: tuple[int, ...],
+               cb: bool, zeros: bool) -> tuple:
+    """``jnp.where``'s forward with its residuals: the predicate
+    broadcast to the output (when it is not), a zero tangent (when a
+    branch has none)."""
+    out = torch.where(c, x, y)
+    res = [c.expand(shape)] if cb else []
+    res += [torch.zeros_like(out)] if zeros else []
+    return (out, *res) if res else out
+
+
+def _where_hoisted(v: Any, *, shape: tuple[int, ...], dtype: torch.dtype
+                   ) -> tuple:
+    """The part of a scan body's ``jnp.where`` that reads only a
+    loop-invariant branch: the zero tangent and that branch broadcast."""
+    dev = v.device if isinstance(v, torch.Tensor) else get_device(None)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.full(shape, v, dtype=dtype, device=dev)
+            if not isinstance(v, torch.Tensor) else v.expand(shape))
+
+
+def _where_vjp(*args: Any, which: tuple[bool, bool]) -> Any:
+    cb, ct = args[0], args[-1]
+    got = [torch.where(cb, ct, 0), torch.where(cb, 0, ct)]
+    got = [g for g, w in zip(got, which) if w]
+    return got[0] if len(got) == 1 else tuple(got)
+
+
+def _jvp_where(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``jnp.where(c, x, y)``: one ``jit`` of the output and its residuals
+    (:func:`_where_fwd`); the transpose one ``jit`` of them and the
+    cotangent, giving the differentiated branches' cotangents."""
+    (c, x, y), out_aval = ins, e.outvars[0].aval
+    if lin[0] or any(l and _shape(v) != out_aval.shape
+                     for v, l in zip(ins, lin)):
+        raise NotImplementedError("jnp.where differentiated in its "
+                                  "predicate or a broadcast branch")
+    shape = out_aval.shape
+    cb, zeros = _shape(c) != shape, not (lin[1] and lin[2])
+    avals = [out_aval] + ([Aval(shape, torch.bool)] if cb else []) + (
+        [out_aval] if zeros else [])
+    out, *res = tape.emit_multi(
+        "jit", ins, avals, functools.partial(_where_fwd, shape=shape, cb=cb,
+                                             zeros=zeros), e.name)
+    reads = res if cb else [c, *res]
+    which = (lin[1], lin[2])
+    ko = tape.fresh(out)
+
+    def transpose(cts):
+        branches = [v for v, w in zip((x, y), which) if w]
+        got = tape.emit_multi("jit", [*reads, cts[0]],
+                              [v.aval for v in branches],
+                              functools.partial(_where_vjp, which=which),
+                              e.name)
+        return [(tape.tan[v], g) for v, g in zip(branches, got)]
+    tape.linear.append(_Linear([ko], transpose))
+    return [out]
+
+
+def _split_where(e: Eqn, invariant: list[bool]) -> tuple | None:
+    """A scan body's forward ``jnp.where`` (:func:`_jvp_where`) split as
+    JAX's hoisting splits a ``jit``: where one branch is loop-invariant,
+    a hoisted ``jit`` of it gives the zero tangent and the branch
+    broadcast; the loop keeps a ``jit`` of the predicate, the other
+    branch and that broadcast.  ``None`` where it does not split so."""
+    kw = e.impl.keywords
+    if not kw["zeros"] or invariant[0] or invariant[1] == invariant[2]:
+        return None
+    k = 1 if invariant[1] else 2
+    out, *res = e.outvars
+    zeros = res[-1]
+    bcast = Var(out.aval, f"{out.name}.b")
+    hoisted = Eqn("jit", [e.invars[k]], [zeros, bcast], {},
+                  functools.partial(_where_hoisted, shape=kw["shape"],
+                                    dtype=out.aval.dtype), e.source, e.name)
+    ins = list(e.invars)
+    ins[k] = bcast
+    loop = Eqn("jit", ins, [out, *res[:-1]], {},
+               functools.partial(_where_fwd, shape=kw["shape"], cb=kw["cb"],
+                                 zeros=False), e.source, e.name)
+    return hoisted, loop
+
+
+# -- a scan whose body is a lowered graph: JAX's partial evaluation ----------
+
+def _tangents_out(body: Graph, lin: list[bool]) -> list[bool]:
+    """Which of ``body``'s outputs depend on an input ``lin`` marks (a
+    float output of an equation that reads such a value)."""
+    has = {v for v, l in zip(body.invars, lin) if l}
+    for e in body.eqns:
+        if any(isinstance(v, Var) and v in has for v in e.invars):
+            has.update(o for o in e.outvars if _is_float(o.aval))
+    return [isinstance(v, Var) and v in has for v in body.outvars]
+
+
+def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """A ``scan`` whose body is a lowered graph (``cdfg.scan``),
+    partially evaluated as JAX's ``_scan_partial_eval`` does:
+
+    * the carries that get a tangent are found by a fixpoint; one that
+      starts without gets a zero tangent in the tangent program;
+    * the body's JVP splits it into a known part (the primal and what
+      the rules keep) and the tangent program's linear equations, whose
+      transposes, in reverse, are the transposed scan's body; the known
+      values they read are the residuals, in the order the tangent
+      program first reads them;
+    * the known equations that read only the consts and literals are
+      hoisted out of the loop, ahead of it (a ``jnp.where``'s split as
+      a ``jit`` is, :func:`_split_where`); a residual so hoisted, or a
+      const itself, is an intensive residual of the transposed scan, the
+      others extensive: stacked outputs of the forward scan (a carry's
+      value at each step among them), or a scanned input forwarded;
+    * the forward is one ``scan`` of the known loop body, its outputs the
+      carries and the extensive residuals; the transpose, one reverse
+      ``scan`` of the intensive residuals, the consts' cotangent
+      accumulators (zeros), the carries' cotangents (a zero one
+      instantiated) and the extensive residuals, whose outputs are the
+      consts', the carries' and the scanned inputs' cotangents."""
+    body, n_c, n_k = e.impl.args
+    consts, init, xs = ins[:n_c], ins[n_c:n_c + n_k], ins[n_c + n_k:]
+
+    def lin_of(v):
+        return tape.has_tangent(v) and _is_float(v.aval)
+    c_lin, k_lin, x_lin = ([lin_of(v) for v in part]
+                           for part in (consts, init, xs))
+    i_lin = list(k_lin)
+    for _ in range(n_k + 1):
+        out = _tangents_out(body, c_lin + k_lin + x_lin)[:n_k]
+        new = [a or b for a, b in zip(k_lin, out)]
+        if new == k_lin:
+            break
+        k_lin = new
+
+    # the body's JVP: known equations, and the linear records
+    known = _Lowering(None)
+    sub = _Tape(known, tape.src)
+    kin = [Var(v.aval, f"{tape.src}.in{i}") for i, v in enumerate(body.invars)]
+    for v, k, l in zip(body.invars, kin, c_lin + k_lin + x_lin):
+        sub.env[v] = k
+        if l:
+            sub.tan[k] = _Key()
+    sub.forward(body.eqns)
+    k_out = [v if isinstance(v, Literal) else sub.env[v]
+             for v in body.outvars]
+    ys_lin = _tangents_out(body, c_lin + k_lin + x_lin)[n_k:]
+
+    # the transposed body: the records' transposes in reverse
+    trans = _Lowering(None)
+    sub.lo = trans
+    ct_k = [Var(v.aval, f"{tape.src}.ct{i}")
+            for i, (v, l) in enumerate(zip(k_out[:n_k], k_lin)) if l]
+    ct_y = [Var(v.aval, f"{tape.src}.cty{i}")
+            for i, (v, l) in enumerate(zip(k_out[n_k:], ys_lin)) if l]
+    outs_lin = [v for v, l in zip(k_out, k_lin + ys_lin) if l]
+    for v, c in zip(outs_lin, ct_k + ct_y):
+        sub.accum(sub.tan.get(v), c)
+    spans = []
+    for i in reversed(range(len(sub.linear))):
+        rec = sub.linear[i]
+        cts = [sub.ct.pop(k, None) for k in rec.outs]
+        if all(c is None for c in cts):
+            continue
+        start = len(trans.eqns)
+        got = rec.transpose(cts)
+        spans.append((i, start, len(trans.eqns)))
+        for key, ct in got:
+            sub.accum(key, ct)
+    acc = [Var(v.aval, f"{tape.src}.acc{i}")
+           for i, (v, l) in enumerate(zip(kin[:n_c], c_lin)) if l]
+
+    def ct_of(v):
+        ct = sub.ct.pop(sub.tan[v], None)
+        return sub.zeros(v.aval) if ct is None else ct
+    acc_out = []
+    for a, v in zip(acc, [v for v, l in zip(kin[:n_c], c_lin) if l]):
+        ct = sub.ct.pop(sub.tan[v], None)
+        acc_out.append(a if ct is None else sub.emit(
+            "add_any", [a, ct], a.aval, impl=operator.add))
+    carry_out = [ct_of(v) for v, l in zip(kin[n_c:n_c + n_k], k_lin) if l]
+    xs_out = [ct_of(v) for v, l in zip(kin[n_c + n_k:], x_lin) if l]
+
+    # the residuals, in the order the tangent program reads them
+    made = set(kin) | {o for q in known.eqns for o in q.outvars}
+    res: dict[Var, None] = {}
+    for _, a, b in sorted(spans):
+        for q in trans.eqns[a:b]:
+            res.update((v, None) for v in q.invars
+                       if isinstance(v, Var) and v in made)
+
+    # hoisting: the known equations that read only consts and literals
+    inv = set(kin[:n_c])
+    hoisted, loop = [], []
+    for q in known.eqns:
+        mask = [isinstance(v, Literal) or v in inv for v in q.invars]
+        if all(mask):
+            hoisted.append(q)
+            inv.update(q.outvars)
+            continue
+        split = (_split_where(q, mask)
+                 if q.prim == "jit" and q.name == "_where" else None)
+        if split is not None:
+            hoisted.append(split[0])
+            inv.update(split[0].outvars)
+            q = split[1]
+        loop.append(q)
+    outer = dict(zip(kin[:n_c], consts))
+    for q in hoisted:
+        got = tape.emit_multi(q.prim, [v if isinstance(v, Literal) else
+                                       outer[v] for v in q.invars],
+                              [o.aval for o in q.outvars], q.impl, q.name,
+                              **q.params)
+        outer.update(zip(q.outvars, got))
+    ires = [v for v in res if v in inv]
+    eres = [v for v in res if v not in inv]
+    stacked = [v for v in eres if v not in kin[n_c + n_k:]]
+
+    # the forward: one scan of the known loop body
+    used: dict[Var, None] = {}
+    for q in loop:
+        used.update((v, None) for v in q.invars
+                    if isinstance(v, Var) and v in inv)
+    used.update((v, None) for v in (*k_out, *stacked)
+                if isinstance(v, Var) and v in inv)
+    k_consts = list(used)
+    fwd_body = Graph(loop, [*k_consts, *kin[n_c:]], [*k_out, *stacked], [],
+                     [], "")
+    R = _shape(xs[0])[0]
+
+    def stack(a):
+        return Aval((R, *a.shape), a.dtype)
+    got = tape.emit_multi(
+        "scan", [*(outer[v] for v in k_consts), *init, *xs],
+        [*(v.aval for v in e.outvars), *(stack(v.aval) for v in stacked)],
+        functools.partial(_run_loop, fwd_body, len(k_consts), n_k))
+    primal = got[:len(e.outvars)]
+    outer.update(zip(stacked, got[len(e.outvars):]))
+    outer.update(zip(kin[n_c + n_k:], xs))
+    for a, (v, l) in zip(k_lin, zip(init, i_lin)):
+        if a and not l:      # a zero carry tangent, in the tangent program
+            tape.pre.append(lambda a=v.aval: tape.zeros(a))
+
+    # the transpose: one reverse scan of the transposed body
+    t_body = Graph(trans.eqns, [*ires, *acc, *ct_k, *ct_y, *eres],
+                   [*acc_out, *carry_out, *xs_out], [], [], "")
+    keys = [tape.fresh(o) for o, l in zip(primal, k_lin + ys_lin) if l]
+    c_with = [v for v, l in zip(consts, c_lin) if l]
+    k_with = [v for v, l in zip(init, k_lin) if l]
+    x_with = [v for v, l in zip(xs, x_lin) if l]
+
+    def transpose(cts):
+        cts = [tape.zeros(v.aval) if c is None else c
+               for c, v in zip(cts, [o for o, l in zip(primal, k_lin + ys_lin)
+                                     if l])]
+        zs = [tape.zeros(v.aval) for v in c_with]
+        outs = tape.emit_multi(
+            "scan", [*(outer[v] for v in ires), *zs, *cts,
+                     *(outer[v] for v in eres)],
+            [*(v.aval for v in c_with), *(v.aval for v in k_with),
+             *(v.aval for v in x_with)],
+            functools.partial(_run_loop, t_body, len(ires),
+                              len(acc) + len(ct_k), reverse=True))
+        return [(tape.tan.get(v), g) for v, g in
+                zip([*c_with, *k_with, *x_with], outs)]
+    tape.linear.append(_Linear(keys, transpose))
+    return primal
 
 
 #: primitive (or ``jit <name>``) -> JVP rule
@@ -843,11 +1377,25 @@ JVP_RULES: dict[str, Callable] = {
     "dot_general": _jvp_dot_general,
     "gather": _jvp_gather,
     "scan": _jvp_scan,
-    "checkpoint": _jvp_checkpoint,
     "concatenate": _jvp_concatenate,
     "jit log_softmax": _jvp_log_softmax,
     "jit take_along_axis": _jvp_take_along_axis,
     "jit _var": _jvp_var,
+    "reshape": _linear1(_t_reshape),
+    "transpose": _linear1(_t_transpose),
+    "split": _jvp_split,
+    "jit _pad": _jvp_pad,
+    "integer_pow": _jvp_scaled(_integer_pow_jac),
+    "pow": _jvp_pow,
+    "logistic": _jvp_scaled(_logistic_jac),
+    "exp": _jvp_exp,
+    "max": _jvp_max,
+    "reduce_max": _jvp_reduce_max,
+    "top_k": _jvp_top_k,
+    "scatter-add": _jvp_scatter_add,
+    "jit silu": _jvp_silu,
+    "jit _where": _jvp_where,
+    "jit softmax": _jvp_softmax,
 }
 
 
@@ -856,7 +1404,7 @@ def lower_value_and_grad(lo: _Lowering, node: Any) -> tuple:
     residuals, and the transposes (the module docstring); returns the
     value's outputs, then one gradient per parameter leaf."""
     gm, where = node.meta["grad"]
-    sub = _Lowering(gm).run()
+    sub = _Lowering(gm, lo.device).run()
     p_nodes, a_nodes = node.args
     params = [lo.read(n) for n in p_nodes]
     tape = _Tape(lo, node.name)

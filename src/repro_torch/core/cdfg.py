@@ -18,6 +18,12 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   equations of the jaxpr's out-of-place store — ``lt, add, select_n,
   broadcast_in_dim, scatter`` (the wrap, the (1,) index, then a scatter
   that drops an index still out of range);
+* :func:`at_add` (the port's ``x.at[idx].add(v)``) into those of
+  ``x.at[idx].add(v)`` — the wrap, the (N, 1) index, one ``scatter-add``
+  that drops an index still out of range; :func:`scan` (the port's
+  ``jax.lax.scan``) into one ``scan`` equation whose body is the step's
+  own lowered sub-graph; a function marked with a ``primitive`` (the
+  MoE's ``top_k``) into one equation of it;
 * inside :func:`leaves`, a function named there as an ``index`` leaf
   (``x[idx]`` with the reference's wrap-then-clamp read) into those of
   ``x[idx]``, one named as a ``scan`` leaf (a loop kept inside one
@@ -29,14 +35,23 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   ``broadcast_in_dim``, ``x.mean`` into ``reduce_sum, broadcast_in_dim,
   div``, ``x.var`` into one ``jit`` (``jnp.var`` is a jitted function),
   as are ``torch.clamp`` (``jnp.clip``), ``%`` (``jnp.remainder``),
-  ``torch.where`` (``jnp.where``), ``torch.log_softmax`` and a function
-  with a ``jit_name``, ``x.float()`` / ``x.to(dtype)`` into
-  ``convert_element_type`` (nothing when the dtype stays), a
-  two-operand ``torch.einsum`` into ``dot_general``, rank promotion
-  into a ``broadcast_in_dim``, and ``t.new_tensor(c)`` into a weakly
-  typed literal (``jnp``'s Python numbers: a typed operand beside a
-  weak value converts it) — what the decode step's and the train
-  step's top levels need;
+  ``torch.where`` and ``masked_fill`` (``jnp.where``),
+  ``torch.log_softmax``, ``F.silu``,
+  ``F.pad``, ``x.cumsum`` and a function with a ``jit_name``,
+  ``x.float()`` / ``x.to(dtype)`` into ``convert_element_type``
+  (nothing when the dtype stays), a two-operand ``torch.einsum`` and
+  ``torch.bmm`` into ``dot_general``, ``reshape`` / ``permute`` /
+  ``transpose`` / ``split`` / ``chunk`` / ``expand`` /
+  ``repeat_interleave`` into the jaxpr's layout equations,
+  ``torch.arange(n)`` into ``iota`` (of several numbers: a constant),
+  ``torch.full`` / ``torch.zeros`` into a ``broadcast_in_dim`` of a
+  literal, ``clamp_min`` / ``amax`` into ``max`` / ``reduce_max``,
+  ``x ** 2`` into ``integer_pow``, rank and dtype promotion into a
+  ``broadcast_in_dim`` / ``convert_element_type``, and
+  ``t.new_tensor(c)`` into a weakly typed literal (``jnp``'s Python
+  numbers: a typed operand beside a weak value converts it) — what the
+  decode step's and the train step's top levels need (every proxy's
+  shape is static: :class:`_Proxy`);
 * ``operator.mul`` → ``mul``, ``operator.add`` → ``add``, and so on.
 
 So :data:`MEMORY_PRIMITIVES`, :data:`DEFAULT_LATENCY`,
@@ -273,7 +288,9 @@ def _extremum(pick: Callable, python: Callable) -> Callable:
     return impl
 
 
-def _select_n(pred: torch.Tensor, on_false: Any, on_true: Any) -> torch.Tensor:
+def _select_n(pred: Any, on_false: Any, on_true: Any) -> Any:
+    if not isinstance(pred, torch.Tensor):     # an equation of literals
+        return on_true if pred else on_false
     return torch.where(pred, on_true, on_false)
 
 
@@ -290,8 +307,14 @@ def _squeeze(x: torch.Tensor, *, dimensions: tuple[int, ...]) -> torch.Tensor:
     return torch.squeeze(x, dim=dimensions)
 
 
-def _broadcast_in_dim(x: torch.Tensor, *, shape: tuple[int, ...],
-                      broadcast_dimensions: tuple[int, ...]) -> torch.Tensor:
+def _broadcast_in_dim(x: Any, *, shape: tuple[int, ...],
+                      broadcast_dimensions: tuple[int, ...],
+                      dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``broadcast_in_dim``, also of a number (``lax.full``: a literal, or
+    an equation of literals alone), which lands on the port's device in
+    ``dtype``."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full(shape, x, dtype=dtype, device=get_device(None))
     view = [1] * len(shape)
     for src, dst in enumerate(broadcast_dimensions):
         view[dst] = x.shape[src]
@@ -337,6 +360,122 @@ def at_set(x: torch.Tensor, i: torch.Tensor, v: Any) -> torch.Tensor:
     i = torch.as_tensor(i, device=x.device)
     idx = torch.where(i < 0, i + x.shape[0], i)
     return _scatter(x, idx.reshape(1), v)
+
+
+def _scatter_add_drop(operand: torch.Tensor, indices: torch.Tensor,
+                      updates: torch.Tensor) -> torch.Tensor:
+    # rows along axis 0 at (N, 1) indices, out of place (the lowering of
+    # at_add); an index out of range after the wrap is dropped, like the
+    # reference's FILL_OR_DROP scatter-add: it lands in a spare row that
+    # is cut off
+    n = operand.shape[0]
+    rows = indices[..., 0]
+    rows = torch.where((rows >= 0) & (rows < n), rows, n).long()
+    spare = torch.cat([operand, operand.new_zeros((1, *operand.shape[1:]))])
+    return spare.index_add_(0, rows, updates.to(operand.dtype))[:-1]
+
+
+def at_add(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+    """``x`` with the rows of ``v`` added at the rows ``idx`` (an (N,)
+    integer tensor), out of place: the port's ``x.at[idx].add(v)``.  A
+    negative index wraps once; an index still out of range drops its row
+    (the reference's ``scatter-add`` mode ``FILL_OR_DROP``).
+
+    Under ``torch.fx`` tracing the call is one node, and the front end
+    lowers it to the jaxpr's five equations (the wrap, the (N, 1) index,
+    one ``scatter-add``)."""
+    if any(isinstance(a, fx.Proxy) for a in (x, idx, v)):
+        tracer = next(a for a in (x, idx, v) if isinstance(a, fx.Proxy)).tracer
+        return tracer.create_proxy("call_function", at_add, (x, idx, v), {})
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    return _scatter_add_drop(x, idx[:, None], v)
+
+
+def scan(f: Callable, init: Sequence[Any], xs: Sequence[Any],
+         consts: Sequence[Any] = ()) -> tuple[tuple, tuple | None]:
+    """The port's ``jax.lax.scan`` over the leading axis of the tensors
+    ``xs``: ``f(consts, carry, x) -> (carry, y)`` with ``carry`` a tuple
+    of tensors of ``init``'s shapes and dtypes, ``x`` the tuple of the
+    ``xs``' rows, ``y`` a tuple of tensors or ``None``; the tensors the
+    body reads from outside come in ``consts``.  Returns ``(carry,
+    ys)``, ``ys`` the ``y``\\ s stacked (``None`` without them).
+
+    Under ``torch.fx`` tracing the call is one node and ``f`` is traced
+    into a sub-graph of its own (its inputs the consts, the carry and one
+    row of each ``xs``), lowered to one ``scan`` equation whose body is
+    that sub-graph — which a ``grad`` leaf partially evaluates and
+    transposes as JAX does (:mod:`repro_torch.core.autodiff`)."""
+    init, xs, consts = tuple(init), tuple(xs), tuple(consts)
+    if any(isinstance(t, fx.Proxy) for t in (*init, *xs, *consts)):
+        return _trace_scan(f, init, xs, consts)
+    carry, ys = init, []
+    for i in range(xs[0].shape[0]):
+        carry, y = f(consts, carry, tuple(x[i] for x in xs))
+        carry = tuple(carry)
+        if y is not None:
+            ys.append(tuple(y))
+    return carry, (tuple(map(torch.stack, zip(*ys))) if ys else None)
+
+
+def _trace_scan(f: Callable, init: tuple, xs: tuple, consts: tuple
+                ) -> tuple[tuple, tuple | None]:
+    tracer = next(t for t in (*init, *xs, *consts)
+                  if isinstance(t, fx.Proxy)).tracer
+    c_ex = [_example_of(t) for t in consts]
+    k_ex = [_example_of(t) for t in init]
+    x_rows = [_example_of(t)[0] for t in xs]
+    n_ys = []
+
+    def body(c_flat, k_flat, x_flat):
+        carry, y = f(tuple(c_flat), tuple(k_flat), tuple(x_flat))
+        n_ys.append(0 if y is None else len(y))
+        return (*carry, *(y or ()))
+
+    gm = _symbolic_trace(body, [*c_ex, *k_ex, *x_rows],
+                         {"c_flat": (fx.PH,) * len(consts),
+                          "k_flat": (fx.PH,) * len(init),
+                          "x_flat": (fx.PH,) * len(xs)})
+    outs = _MetaShapeProp(gm).propagate(tuple(c_ex), tuple(k_ex),
+                                        tuple(x_rows))
+    length = _example_of(xs[0]).shape[0]
+    example = (*map(torch.empty_like, k_ex),
+               *(torch.empty((length, *o.shape), dtype=o.dtype,
+                             device="meta") for o in outs[len(init):]))
+    node = tracer.create_proxy("call_function", _loop_node,
+                               (consts, init, xs), {})
+    node.node.meta["loop"] = gm
+    node.node.meta["example"] = example
+    carry = tuple(node[i] for i in range(len(init)))
+    ys = tuple(node[len(init) + i] for i in range(n_ys[0]))
+    return carry, (ys if n_ys[0] else None)
+
+
+def _loop_node(consts: tuple, init: tuple, xs: tuple) -> tuple:
+    """The call target of a traced :func:`scan` (its body's graph lives
+    in ``meta``; the lowered equation runs it)."""
+    raise RuntimeError("a traced scan runs through its lowered equation")
+
+
+def _run_loop(body: "Graph", n_consts: int, n_carry: int, *args: Any,
+              reverse: bool = False) -> tuple:
+    """A ``scan`` equation whose body is a lowered graph: ``body``'s
+    inputs are the consts, the carry and one row of each scanned input,
+    its outputs the new carry and one row of each stacked output."""
+    from .decouple import _make_stage_fn
+    run = _make_stage_fn(body.eqns, body.invars, body.outvars)
+    consts, carry = args[:n_consts], args[n_consts:n_consts + n_carry]
+    xs = args[n_consts + n_carry:]
+    ys = []
+    steps = range(xs[0].shape[0])
+    for i in (reversed(steps) if reverse else steps):
+        out = run(*consts, *carry, *(x[i] for x in xs))
+        carry = out[:n_carry]
+        ys.append(out[n_carry:])
+    if reverse:
+        ys.reverse()
+    return (*carry, *map(torch.stack, zip(*ys)))
 
 
 def _convert_element_type(x: Any, *, new_dtype: torch.dtype
@@ -389,6 +528,59 @@ def _where(c: Any, x: Any, y: Any) -> torch.Tensor:
     return torch.where(c, x, y)
 
 
+def _reshape(x: torch.Tensor, *, new_sizes: tuple[int, ...]) -> torch.Tensor:
+    return x.reshape(new_sizes)
+
+
+def _transpose(x: torch.Tensor, *, permutation: tuple[int, ...]
+               ) -> torch.Tensor:
+    return x.permute(permutation)
+
+
+def _split(x: torch.Tensor, *, sizes: tuple[int, ...], axis: int) -> tuple:
+    return tuple(x.split(sizes, axis))
+
+
+def _iota(*, dtype: torch.dtype, shape: tuple[int, ...], dimension: int
+          ) -> torch.Tensor:
+    return torch.arange(shape[dimension], dtype=dtype,
+                        device=get_device(None))
+
+
+def _reduce_max(x: torch.Tensor, *, axes: tuple[int, ...]) -> torch.Tensor:
+    return x.amax(dim=axes)
+
+
+def _integer_pow(x: torch.Tensor, *, y: int) -> torch.Tensor:
+    return x ** y
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor, *, dimension_numbers: tuple
+         ) -> torch.Tensor:
+    return torch.bmm(a, b)
+
+
+def _cumsum(x: torch.Tensor, *, axis: int) -> torch.Tensor:
+    # ``jnp.cumsum``: one opaque ``jit`` equation, in the operand's dtype
+    return torch.cumsum(x, axis, dtype=x.dtype)
+
+
+def _pad_jit(x: torch.Tensor, value: Any, *, pads: tuple[int, ...]
+             ) -> torch.Tensor:
+    # ``jnp.pad`` with a constant: one opaque ``jit`` equation
+    return torch.nn.functional.pad(x, pads, value=float(value))
+
+
+def _silu(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+    # ``jax.nn.silu``: one opaque ``jit`` equation
+    return torch.nn.functional.silu(x)
+
+
+def _softmax(x: torch.Tensor, *, dim: int = -1) -> torch.Tensor:
+    # ``jax.nn.softmax``: one ``jit`` equation here
+    return torch.softmax(x, dim)
+
+
 def _log_softmax(x: torch.Tensor, *, dim: int = -1) -> torch.Tensor:
     # ``jax.nn.log_softmax``: one opaque ``jit`` equation
     return torch.log_softmax(x, dim)
@@ -397,8 +589,7 @@ def _log_softmax(x: torch.Tensor, *, dim: int = -1) -> torch.Tensor:
 @contextlib.contextmanager
 def leaves(*, index: Sequence[tuple[Any, str]] = (),
            scan: Sequence[tuple[Any, str]] = (),
-           grad: Sequence[tuple[Any, str]] = (),
-           remat: Sequence[tuple[Any, str]] = ()) -> Iterator[None]:
+           grad: Sequence[tuple[Any, str]] = ()) -> Iterator[None]:
     """Inside the block, trace each named module function as one leaf.
 
     ``index`` names, as ``(module, name)``, functions ``f(x, idx)`` that
@@ -427,18 +618,10 @@ def leaves(*, index: Sequence[tuple[Any, str]] = (),
     reverse (the jaxpr of ``value_and_grad``); ``grads`` has
     ``params``' structure, a stacked leaf's gradient stacked.
 
-    ``remat`` names functions ``f(params, x, *static) -> y`` (a layer:
-    ``y`` has ``x``'s shape and dtype; ``static`` is not traced).  Each
-    traces as one node, lowered to one ``checkpoint`` equation of the
-    leaves of ``params`` and ``x`` — ``jax.checkpoint(f)``'s — which a
-    ``grad`` leaf differentiates as one more ``checkpoint`` equation
-    that recomputes ``f`` (:mod:`repro_torch.core.autodiff`).
-
     Each function is replaced in its module's globals for the block, as
     ``torch.fx.wrap`` does for a trace; called on tensors, it runs
     unchanged."""
-    saved = [(m, n, getattr(m, n))
-             for m, n in (*index, *scan, *grad, *remat)]
+    saved = [(m, n, getattr(m, n)) for m, n in (*index, *scan, *grad)]
     try:
         for m, n in index:
             setattr(m, n, _index_leaf(getattr(m, n)))
@@ -446,8 +629,6 @@ def leaves(*, index: Sequence[tuple[Any, str]] = (),
             setattr(m, n, _scan_leaf(getattr(m, n)))
         for m, n in grad:
             setattr(m, n, _grad_leaf(getattr(m, n)))
-        for m, n in remat:
-            setattr(m, n, _remat_leaf(getattr(m, n)))
         yield
     finally:
         for m, n, fn in reversed(saved):
@@ -490,35 +671,6 @@ def _scan_node(carry: Any, consts: tuple, state: tuple,
     """The call target of a traced ``scan`` leaf (its node's body lives
     in ``meta``; the lowered equation runs it)."""
     raise RuntimeError("a traced scan runs through its lowered equation")
-
-
-def _remat_leaf(fn: Callable) -> Callable:
-    @functools.wraps(fn)
-    def leaf(params: Any, x: Any, *static: Any) -> Any:
-        if not isinstance(x, fx.Proxy):
-            return fn(params, x, *static)
-        out = x.tracer.create_proxy(
-            "call_function", _remat_node, (tuple(tree.leaves(params)), x), {})
-        # the layer rides on the node's meta, so the lowered equation runs it
-        out.node.meta["remat"] = functools.partial(_run_remat, fn, params,
-                                                   static)
-        return out
-    return leaf
-
-
-def _remat_node(p_leaves: tuple, x: Any) -> Any:
-    """The call target of a traced ``remat`` leaf (its node's layer lives
-    in ``meta``; the lowered equation runs it)."""
-    raise RuntimeError("a traced remat leaf runs through its lowered "
-                       "equation")
-
-
-def _run_remat(fn: Callable, params_like: Any, static: tuple,
-               *args: Any) -> Any:
-    """A ``checkpoint`` equation's body: ``fn`` on the parameter leaves
-    and ``x`` (the equation's operands, in that order)."""
-    return fn(tree.unflatten(params_like, list(args[:-1])), args[-1],
-              *static)
 
 
 class _Leaf:
@@ -638,6 +790,27 @@ _JITTED: dict[Any, tuple[Callable[..., Any], int, str, tuple[str, ...]]] = {
     torch.where: (_where, 3, "_where", ()),
     torch.log_softmax: (_log_softmax, 1, "log_softmax", ("dim",)),
     "log_softmax": (_log_softmax, 1, "log_softmax", ("dim",)),
+    torch.nn.functional.silu: (_silu, 1, "silu", ("inplace",)),
+    torch.softmax: (_softmax, 1, "softmax", ("dim",)),
+    "softmax": (_softmax, 1, "softmax", ("dim",)),
+}
+#: FX node target -> the ``_Lowering`` method of a layout op, a factory
+#: or another call the jaxpr spells its own way
+_LAYOUT: dict[Any, str] = {
+    "reshape": "lower_reshape", "view": "lower_reshape",
+    torch.reshape: "lower_reshape",
+    "permute": "lower_transpose", torch.permute: "lower_transpose",
+    "transpose": "lower_transpose", torch.transpose: "lower_transpose",
+    "split": "lower_split", torch.split: "lower_split",
+    "chunk": "lower_split", torch.chunk: "lower_split",
+    "expand": "lower_expand", "repeat_interleave": "lower_repeat",
+    torch.arange: "lower_arange", torch.full: "lower_full",
+    torch.zeros: "lower_full",
+    "clamp_min": "lower_clamp_min", torch.clamp_min: "lower_clamp_min",
+    "amax": "lower_amax", torch.amax: "lower_amax",
+    "cumsum": "lower_cumsum", torch.cumsum: "lower_cumsum",
+    torch.bmm: "lower_bmm", torch.nn.functional.pad: "lower_pad",
+    "masked_fill": "lower_masked_fill",
 }
 #: primitive name -> implementation on tensors (and Python scalars)
 _IMPL: dict[str, Callable[..., Any]] = {
@@ -663,8 +836,11 @@ _IMPL: dict[str, Callable[..., Any]] = {
 class _Lowering:
     """Walks an FX graph and emits :class:`Eqn` records."""
 
-    def __init__(self, gm: fx.GraphModule):
+    def __init__(self, gm: fx.GraphModule | None,
+                 device: torch.device | None = None):
         self.gm = gm
+        #: where the constants the lowering makes live (the examples')
+        self.device = device
         self.env: dict[fx.Node, Any] = {}
         self.eqns: list[Eqn] = []
         self.invars: list[Var] = []
@@ -741,13 +917,17 @@ class _Lowering:
             return self.lower_getitem(node)
         if target is at_set:
             return self.lower_at_set(node)
+        if target is at_add:
+            return self.lower_at_add(node)
         if target is _scan_node:
             return self.lower_scan(node)
-        if target is _remat_node:
-            p_nodes, x = node.args
-            return self.emit("checkpoint", [self.read(n) for n in
-                                            (*p_nodes, x)],
-                             _aval_of(node), node.name, node.meta["remat"])
+        if target is _loop_node:
+            return self.lower_loop(node)
+        if hasattr(target, "primitive"):
+            return self.lower_primitive(node)
+        lowering = _LAYOUT.get(target)
+        if lowering is not None:
+            return getattr(self, lowering)(node)
         if target is _grad_node:
             from .autodiff import lower_value_and_grad
             return lower_value_and_grad(self, node)
@@ -775,9 +955,13 @@ class _Lowering:
                 else self.env[b].aval
             prim = _BINARY[target]
             ops = [self.read(a, like), self.read(b, like)]
+            if prim == "pow" and isinstance(b, int) and not isinstance(
+                    b, bool):        # ``x ** 2``: jnp's ``integer_pow``
+                return self.emit("integer_pow", [ops[0]], aval, node.name,
+                                 impl=_integer_pow, y=b)
             if prim != "dot_general":
-                ops = self.promote_ranks(self.promote_weak(ops, node.name),
-                                         node.name)
+                ops = self.promote_ranks(self.promote_dtypes(
+                    self.promote_weak(ops, node.name), node.name), node.name)
             if all(isinstance(o, Literal) or o.aval.weak for o in ops):
                 aval = dataclasses.replace(aval, weak=True)
             return self.emit(prim, ops, aval, node.name)
@@ -799,6 +983,20 @@ class _Lowering:
         return [self.emit("convert_element_type", [o],
                           Aval(o.aval.shape, dt), source, new_dtype=dt)
                 if isinstance(o, Var) and o.aval.weak else o for o in ops]
+
+    def promote_dtypes(self, ops: list[Any], source: str) -> list[Any]:
+        """Two typed operands of different dtypes: the one whose dtype is
+        not their promoted dtype is converted to it first (``bool`` times
+        ``float32``, ``bfloat16`` times ``float32``), as ``jnp``'s
+        promotion does."""
+        typed = [o.aval.dtype for o in ops if isinstance(o, Var)]
+        if len(set(typed)) < 2:
+            return ops
+        dt = functools.reduce(torch.promote_types, typed)
+        return [self.emit("convert_element_type", [o],
+                          Aval(o.aval.shape, dt), source, new_dtype=dt)
+                if isinstance(o, Var) and o.aval.dtype != dt else o
+                for o in ops]
 
     def promote_ranks(self, ops: list[Any], source: str) -> list[Any]:
         """numpy rank promotion as the jaxpr spells it: of two operands
@@ -931,12 +1129,189 @@ class _Lowering:
             node.name, impl))
 
     def lower_getattr(self, node: fx.Node) -> Any:
-        """``x.dtype``: static, no equation."""
+        """``x.dtype``: static, no equation; ``x.device`` (a factory's
+        keyword: the lowered program places what it makes on the port's
+        device): nothing."""
         x, name = node.args
+        if name == "device":
+            return None
         if name != "dtype":
             raise NotImplementedError(f"attribute {name!r} is not lowered "
                                       f"yet")
         return self.env[x].aval.dtype
+
+    def const(self, value: torch.Tensor, name: str) -> Var:
+        """A new constant of the program (``constvars``/``consts``)."""
+        v = Var(Aval(tuple(value.shape), value.dtype), name)
+        self.constvars.append(v)
+        self.consts.append(value)
+        return v
+
+    def lower_reshape(self, node: fx.Node) -> Var:
+        """``x.reshape(...)`` / ``x.view(...)`` → ``reshape``; nothing
+        when the shape stays, as ``lax.reshape`` then returns its
+        operand."""
+        x, aval = self.env[node.args[0]], _aval_of(node)
+        if aval.shape == x.aval.shape:
+            return x
+        return self.emit("reshape", [x], aval, node.name, impl=_reshape,
+                         new_sizes=aval.shape)
+
+    def lower_transpose(self, node: fx.Node) -> Var:
+        """``x.permute(dims)`` / ``x.transpose(a, b)`` → ``transpose``."""
+        x = self.env[node.args[0]]
+        n = len(x.aval.shape)
+        dims = [*node.args[1:], *node.kwargs.values()]
+        if node.target in ("transpose", torch.transpose):
+            perm = list(range(n))
+            a, b = (d % n for d in dims)
+            perm[a], perm[b] = perm[b], perm[a]
+        else:
+            if len(dims) == 1 and isinstance(dims[0], (tuple, list)):
+                dims = dims[0]
+            perm = [d % n for d in dims]
+        return self.emit("transpose", [x], _aval_of(node), node.name,
+                         impl=_transpose, permutation=tuple(perm))
+
+    def lower_split(self, node: fx.Node) -> tuple[Var, ...]:
+        """``x.split(sizes, dim)`` / ``x.chunk(n, dim)`` → one ``split``
+        of the pieces' sizes (``jnp.split``)."""
+        x = self.env[node.args[0]]
+        dim = (*node.args[2:], *node.kwargs.values(), 0)[0]
+        dim %= len(x.aval.shape)
+        avals = [Aval(tuple(m.shape), m.dtype)
+                 for m in node.meta["tensor_meta"]]
+        sizes = tuple(a.shape[dim] for a in avals)
+        return tuple(self.emit_multi("split", [x], avals, node.name,
+                                     impl=_split, sizes=sizes, axis=dim))
+
+    def lower_expand(self, node: fx.Node) -> Var:
+        """``x.expand(*shape)`` → ``broadcast_in_dim`` onto the trailing
+        axes (``jnp.broadcast_to``); nothing when the shape stays."""
+        x, aval = self.env[node.args[0]], _aval_of(node)
+        if aval.shape == x.aval.shape:
+            return x
+        lead = len(aval.shape) - len(x.aval.shape)
+        return self.emit("broadcast_in_dim", [x], aval, node.name,
+                         shape=aval.shape, broadcast_dimensions=tuple(
+                             range(lead, len(aval.shape))))
+
+    def lower_repeat(self, node: fx.Node) -> Var:
+        """``x.repeat_interleave(r, dim)`` with an int ``r`` → ``jnp.repeat``'s
+        ``broadcast_in_dim`` (a new axis of ``r`` after ``dim``) and
+        ``reshape``."""
+        x = self.env[node.args[0]]
+        params = dict(zip(("repeats", "dim"), node.args[1:]), **node.kwargs)
+        r, shape = params["repeats"], x.aval.shape
+        if not isinstance(r, int) or params.get("dim") is None:
+            raise NotImplementedError("repeat_interleave of other than an "
+                                      "int along one dim")
+        dim = params["dim"] % len(shape)
+        wide = shape[:dim + 1] + (r,) + shape[dim + 1:]
+        b = self.emit("broadcast_in_dim", [x], Aval(wide, x.aval.dtype),
+                      node.name, shape=wide, broadcast_dimensions=tuple(
+                          d if d <= dim else d + 1 for d in range(len(shape))))
+        return self.emit("reshape", [b], _aval_of(node), node.name,
+                         impl=_reshape, new_sizes=_aval_of(node).shape)
+
+    def lower_arange(self, node: fx.Node) -> Var:
+        """``torch.arange(n)`` → ``iota`` (``jnp.arange(n)``);
+        ``torch.arange(start, stop, step)`` → a constant, as
+        ``jnp.arange`` of several numbers is one."""
+        aval = _aval_of(node)
+        if len(node.args) == 1:
+            return self.emit("iota", [], aval, node.name, impl=_iota,
+                             dtype=aval.dtype, shape=aval.shape,
+                             dimension=0)
+        return self.const(torch.arange(*node.args, dtype=aval.dtype,
+                                       device=self.device
+                                       or get_device(None)), node.name)
+
+    def lower_full(self, node: fx.Node) -> Var:
+        """``torch.full(shape, c)`` / ``torch.zeros(shape)`` →
+        ``broadcast_in_dim`` of the literal (``jnp.full``,
+        ``jnp.zeros``)."""
+        aval = _aval_of(node)
+        c = node.args[1] if node.target is torch.full else 0
+        return self.emit("broadcast_in_dim", [Literal(c, Aval((),
+                                                             aval.dtype))],
+                         aval, node.name,
+                         impl=functools.partial(_broadcast_in_dim,
+                                                dtype=aval.dtype),
+                         shape=aval.shape, broadcast_dimensions=())
+
+    def lower_clamp_min(self, node: fx.Node) -> Var:
+        """``x.clamp_min(c)`` → ``max`` of ``x`` and the literal
+        (``jnp.maximum(x, c)``)."""
+        x, c = (*node.args, *node.kwargs.values())[:2]
+        x = self.env[x]
+        return self.emit("max", [x, self.read(c, x.aval)], _aval_of(node),
+                         node.name)
+
+    def lower_amax(self, node: fx.Node) -> Var:
+        """``x.amax(dim)`` → ``reduce_max`` (``x.max(axis)``)."""
+        x = self.env[node.args[0]]
+        params = dict(zip(("dim", "keepdim"), node.args[1:]), **node.kwargs)
+        dim = params["dim"]
+        axes = tuple(sorted(d % len(x.aval.shape) for d in (
+            (dim,) if isinstance(dim, int) else dim)))
+        if params.get("keepdim"):
+            raise NotImplementedError("amax with keepdim=True")
+        return self.emit("reduce_max", [x], _aval_of(node), node.name,
+                         impl=_reduce_max, axes=axes)
+
+    def lower_cumsum(self, node: fx.Node) -> Var:
+        """``x.cumsum(dim)`` (in ``x``'s dtype) → one ``jit`` equation, as
+        ``jnp.cumsum`` is a jitted function."""
+        x, aval = self.env[node.args[0]], _aval_of(node)
+        dim = (*node.args[1:], node.kwargs.get("dim"))[0]
+        if aval.dtype != x.aval.dtype:
+            raise NotImplementedError("cumsum into another dtype")
+        return self.emit("jit", [x], aval, node.name,
+                         impl=functools.partial(
+                             _cumsum, axis=dim % len(aval.shape)),
+                         name="cumsum")
+
+    def lower_bmm(self, node: fx.Node) -> Var:
+        """``torch.bmm(a, b)`` → ``dot_general`` over the leading batch
+        axis (``jnp.einsum("ecd,edf->ecf")``)."""
+        a, b = (self.read(n) for n in node.args)
+        return self.emit("dot_general", [a, b], _aval_of(node), node.name,
+                         impl=_bmm,
+                         dimension_numbers=(((2,), (1,)), ((0,), (0,))))
+
+    def lower_pad(self, node: fx.Node) -> Var:
+        """``F.pad(x, pads)`` with a constant value → one ``jit``
+        equation (``jnp.pad``), its operands ``x`` and the value."""
+        x = self.env[node.args[0]]
+        pads = tuple(node.args[1])
+        value = node.kwargs.get("value") or 0
+        if node.kwargs.get("mode", "constant") != "constant":
+            raise NotImplementedError("F.pad of other than a constant")
+        return self.emit("jit", [x, Literal(value, Aval((), torch.int32))],
+                         _aval_of(node), node.name,
+                         impl=functools.partial(_pad_jit, pads=pads),
+                         name="_pad")
+
+    def lower_primitive(self, node: fx.Node) -> Any:
+        """A function marked with the ``primitive`` it stands for (a
+        leaf wrapped by ``torch.fx.wrap``) → one equation of it: the tensor
+        arguments are its operands, the others its parameters."""
+        fn = node.target
+        bound = inspect.signature(fn).bind(*node.args, **node.kwargs)
+        ops, static = [], {}
+        for name, a in bound.arguments.items():
+            if isinstance(a, fx.Node):
+                ops.append(self.read(a))
+            else:
+                static[name] = a
+        meta = node.meta["tensor_meta"]
+        many = isinstance(meta, (tuple, list))
+        avals = [Aval(tuple(m.shape), m.dtype)
+                 for m in (meta if many else [meta])]
+        outs = self.emit_multi(fn.primitive, ops, avals, node.name, impl=fn,
+                               **static)
+        return tuple(outs) if many else outs[0]
 
     def lower_convert(self, node: fx.Node) -> Var:
         """``x.float()``, ``x.to(dtype)`` → ``convert_element_type``;
@@ -970,6 +1345,8 @@ class _Lowering:
         params = dict(zip(("dim", "keepdim"), node.args[1:]), **node.kwargs)
         x = self.env[node.args[0]]
         shape, dt, src = x.aval.shape, x.aval.dtype, node.name
+        if params.pop("dtype", dt) != dt:
+            raise NotImplementedError("a reduction into another dtype")
         dim = params.get("dim")
         dims = (range(len(shape)) if dim is None
                 else (dim,) if isinstance(dim, int) else dim)
@@ -1032,9 +1409,10 @@ class _Lowering:
         target = node.target
         if target in _JITTED:
             impl, arity, name, statics = _JITTED[target]
-        else:
-            impl, arity, name, statics = (target, len(node.args),
-                                          target.jit_name, ())
+        else:       # the arguments past ``jit_arity`` are static
+            arity = getattr(target, "jit_arity", len(node.args))
+            impl, name = target, target.jit_name
+            statics = tuple(inspect.signature(target).parameters)[arity:]
         static = dict(zip(statics, node.args[arity:]), **node.kwargs)
         if len(node.args) < arity or set(static) - set(statics):
             raise NotImplementedError(
@@ -1050,6 +1428,14 @@ class _Lowering:
             impl = functools.partial(impl, **static)
         return self.emit("jit", ops, aval, node.name, impl=impl, name=name)
 
+    def lower_masked_fill(self, node: fx.Node) -> Var:
+        """``x.masked_fill(mask, c)`` → one ``jit`` equation of
+        ``jnp.where(mask, c, x)``."""
+        x_n, mask_n, c = (*node.args, *node.kwargs.values())[:3]
+        x = self.env[x_n]
+        return self.emit("jit", [self.read(mask_n), self.read(c, x.aval), x],
+                         _aval_of(node), node.name, impl=_where, name="_where")
+
     def lower_new_tensor(self, node: fx.Node) -> Literal:
         """``t.new_tensor(c)`` of a Python number is the weakly typed
         literal ``c``, as a number is in ``jnp``."""
@@ -1058,6 +1444,41 @@ class _Lowering:
             raise NotImplementedError("new_tensor of other than a number")
         return Literal(c, Aval((), node.meta["tensor_meta"].dtype,
                                weak=True))
+
+    def lower_loop(self, node: fx.Node) -> tuple[Var, ...]:
+        """A traced :func:`scan` → one ``scan`` equation: inputs the
+        consts, the carry and the scanned inputs, outputs the new carry and
+        the stacked outputs; its body the lowered sub-graph of the step
+        (:func:`_run_loop` runs it)."""
+        c_ns, k_ns, x_ns = node.args
+        invars = [self.read(a) for a in (*c_ns, *k_ns, *x_ns)]
+        body = _Lowering(node.meta["loop"]).run()
+        if body.constvars:
+            raise NotImplementedError("a scan body that makes constants")
+        impl = functools.partial(_run_loop, body, len(c_ns), len(k_ns))
+        return tuple(self.emit_multi(
+            "scan", invars, [Aval(tuple(m.shape), m.dtype)
+                             for m in node.meta["tensor_meta"]],
+            node.name, impl))
+
+    def lower_at_add(self, node: fx.Node) -> Var:
+        """``at_add(x, idx, v)`` with an (N,) integer ``idx`` → the
+        jaxpr's five equations of ``x.at[idx].add(v)``: wrap negative
+        indices, make them (N, 1), one ``scatter-add`` (which drops an
+        index still out of range)."""
+        arr, idx, upd = (self.read(n) for n in node.args)
+        it, src, shape = idx.aval.dtype, node.name, idx.aval.shape
+        scalar = Aval((), it)
+        neg = self.emit("lt", [idx, Literal(0, scalar)],
+                        Aval(shape, torch.bool), src)
+        wrapped = self.emit("add", [idx, Literal(arr.aval.shape[0], scalar)],
+                            Aval(shape, it), src)
+        sel = self.emit("select_n", [neg, idx, wrapped], Aval(shape, it), src)
+        col = self.emit("broadcast_in_dim", [sel], Aval(shape + (1,), it),
+                        src, shape=shape + (1,),
+                        broadcast_dimensions=tuple(range(len(shape))))
+        return self.emit("scatter-add", [arr, col, upd], arr.aval, src,
+                         impl=_scatter_add_drop)
 
     def lower_at_set(self, node: fx.Node) -> Var:
         """``at_set(x, i, v)`` with a 0-d integer tensor ``i`` → the
@@ -1116,10 +1537,10 @@ class _MetaShapeProp(ShapeProp):
                     *map(torch.empty_like, p_metas))
         if target is operator.getitem and _scalar_index(args):
             return args[0].select(0, 0)
-        if target is at_set:
+        if target is at_set or target is at_add:
             return torch.empty_like(args[0])
-        if target is _remat_node:       # a layer keeps its input's shape
-            return torch.empty_like(args[1])
+        if target is _loop_node:
+            return self._node.meta["example"]
         if target is _scan_node:     # the carry and the state keep shapes
             if len(args) > 3:        # per-repeat outputs in place of state
                 return (torch.empty_like(args[0]),
@@ -1149,21 +1570,55 @@ def _to_meta(x: Any) -> Any:
 
 
 class _Proxy(fx.Proxy):
-    """A trace input's proxy: its example's ``shape`` and ``ndim`` are
-    static, as a jaxpr's input avals are (a trace may branch on them)."""
+    """A proxy whose value's ``shape`` and ``ndim`` are static, as a
+    jaxpr's avals are (a trace may branch on them, and unpack them): its
+    example, a ``meta`` tensor — a trace input's, or one computed from
+    its arguments' examples (:func:`_example_of`)."""
 
     @property
     def shape(self) -> torch.Size:
-        return self.node.meta["example"].shape
+        return _example_of(self).shape
 
     @property
     def ndim(self) -> int:
-        return self.node.meta["example"].ndim
+        return _example_of(self).ndim
+
+
+def _example_of(proxy: Any) -> Any:
+    """The ``meta`` example of a proxy's value (of a tensor: itself),
+    computed once from its node's arguments and kept in the node's
+    ``meta``.  A leaf's node whose result the leaf records after
+    creating it (a ``grad`` leaf's) is computed when first asked for."""
+    if not isinstance(proxy, fx.Proxy):
+        return _to_meta(proxy)
+    node = proxy.node
+    if "example" not in node.meta:
+        args = fx.node.map_aggregate(
+            node.args, lambda a: _example_of(fx.Proxy(a, proxy.tracer))
+            if isinstance(a, fx.Node) else a)
+        kwargs = fx.node.map_aggregate(
+            node.kwargs, lambda a: _example_of(fx.Proxy(a, proxy.tracer))
+            if isinstance(a, fx.Node) else a)
+        prop = _MetaShapeProp.__new__(_MetaShapeProp)
+        prop._node = node
+        if node.op == "call_function":
+            ex = prop.call_function(node.target, args, kwargs)
+        elif node.op == "call_method":
+            ex = prop.call_method(node.target, args, kwargs)
+        elif node.op == "get_attr":
+            ex = _to_meta(operator.attrgetter(node.target)(
+                proxy.tracer.root))
+        else:
+            raise NotImplementedError(f"no example for {node.op} "
+                                      f"{node.target!r}")
+        node.meta["example"] = ex
+    return node.meta["example"]
 
 
 class _Tracer(fx.Tracer):
     """``symbolic_trace``'s tracer, each input carrying its example (a
-    ``meta`` tensor) in ``node.meta["example"]``."""
+    ``meta`` tensor) in ``node.meta["example"]``, and every proxy it
+    makes one whose value's shape is static (:class:`_Proxy`)."""
 
     def __init__(self, examples: Sequence[Any]):
         super().__init__()
@@ -1172,10 +1627,23 @@ class _Tracer(fx.Tracer):
     def proxy(self, node: fx.Node) -> fx.Proxy:
         if node.op == "placeholder":
             ex = next(self._examples, None)
-            if isinstance(ex, torch.Tensor):
-                node.meta["example"] = _to_meta(ex)
-                return _Proxy(node, self)
-        return super().proxy(node)
+            if not isinstance(ex, torch.Tensor):
+                return super().proxy(node)
+            node.meta["example"] = _to_meta(ex)
+        return _Proxy(node, self)
+
+    def create_proxy(self, kind: str, target: Any, *args: Any,
+                     **kwargs: Any) -> fx.Proxy:
+        out = super().create_proxy(kind, target, *args, **kwargs)
+        # examples made as the trace goes, so none is computed through a
+        # long chain of arguments; a leaf's node records its result after
+        # this returns
+        if kind != "placeholder" and target not in (_grad_node, _loop_node):
+            try:
+                _example_of(out)
+            except Exception:       # noqa: BLE001 — raised when asked for
+                pass
+        return out
 
 
 def _symbolic_trace(fn: Callable, examples: Sequence[Any],
@@ -1209,7 +1677,9 @@ def trace(fn: Callable, *example_args: Any, **example_kwargs: Any
     args = tuple(bound.arguments.values())
     gm = _symbolic_trace(fn, pytree.tree_leaves(args), concrete)
     _MetaShapeProp(gm).propagate(*pytree.tree_map(_to_meta, args))
-    lowering = _Lowering(gm)
+    device = next((t.device for t in pytree.tree_leaves(args)
+                   if isinstance(t, torch.Tensor)), None)
+    lowering = _Lowering(gm, device)
     graph = lowering.run()
     if example_kwargs:
         graph.invars = _jaxpr_input_order(graph.invars, bound.arguments,

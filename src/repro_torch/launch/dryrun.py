@@ -26,9 +26,7 @@ that name XLA artifacts:
 
 ``dataflow`` is the stage/channel census of the step through the port's
 dataflow driver, for every kind of cell.  A census error makes the cell
-``error`` (DeepSeek-V3's train cells: its MTP head's layer has no
-differentiation rules yet), and the CLI exits non-zero on any error
-cell.
+``error``, and the CLI exits non-zero on any error cell.
 
 Run:  python -m repro_torch.launch.dryrun --arch all --shape all
       --mesh both [--seq-parallel] [--out build/dryrun] [--device cpu]
@@ -119,10 +117,10 @@ def train_compiled(cfg, shape, *, device="meta", backend: str = "eager"):
     leaves in that order, then the metrics'.  The step traces with
     ``loss_and_grads`` as a ``grad`` leaf (``core/autodiff.py``: the
     loss's equations, their residuals and transposes, each segment's
-    forward and backward one ``scan`` equation, the MTP head's layer one
-    ``checkpoint`` equation each way), the embedding's read as
-    ``x[idx]``, and the port's own ``warmup_cosine`` and
-    ``apply_updates``.  ``device`` other than ``meta`` compiles a step
+    forward and backward one ``scan`` equation; DeepSeek-V3's MTP head's
+    layer inline, its chunked attention one ``scan`` partially evaluated
+    as JAX does), the embedding's read as ``x[idx]``, and the port's own
+    ``warmup_cosine`` and ``apply_updates``.  ``device`` other than ``meta`` compiles a step
     that runs (the ``sequential`` backend replays the lowered
     equations)."""
     import torch
@@ -152,8 +150,7 @@ def train_compiled(cfg, shape, *, device="meta", backend: str = "eager"):
 
     with cdfg.leaves(index=[(layers, "take")],
                      scan=[(transformer, "_segment_forward")],
-                     grad=[(steps, "loss_and_grads")],
-                     remat=[(M, "_mtp_layer")]):
+                     grad=[(steps, "loss_and_grads")]):
         return dataflow_compile(step, tuple(map(example, tree.leaves(state))),
                                 tuple(map(example, tree.leaves(batch))),
                                 backend=backend, device=device,

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers
+from ..core import cdfg
 from ..kernels import ops as kops
 
 
@@ -74,31 +75,55 @@ def _project_qkv(params, x, cfg, positions):
 
 def _chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024,
                        q_offset: int = 0):
-    """Online softmax over KV chunks (flash attention in plain PyTorch).
-    Head dims may differ between q/k (d) and v (dv) — MLA uses 192/128."""
+    """Online softmax over KV chunks (flash attention in plain PyTorch),
+    the reference's scan: the keys and values padded to whole chunks,
+    one step of :func:`repro_torch.core.cdfg.scan` per chunk (a padded
+    key is masked).  Head dims may differ between q/k (d) and v (dv) —
+    MLA uses 192/128."""
     B, H, Sq, d = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    _, Hkv, Sk, _ = k.shape
+    dv = v.shape[-1]
     group = H // Hkv
     scale = 1.0 / math.sqrt(d)
+    nchunks = (Sk + chunk - 1) // chunk
+    pad = nchunks * chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    kc = k.reshape(B, Hkv, nchunks, chunk, d).permute(2, 0, 1, 3, 4)
+    vc = v.reshape(B, Hkv, nchunks, chunk, dv).permute(2, 0, 1, 3, 4)
     qf = q.float()
-    qi = torch.arange(Sq, device=q.device) + q_offset
-    m = torch.full((B, H, Sq), -1e30, device=q.device)
-    l = torch.zeros((B, H, Sq), device=q.device)
-    acc = torch.zeros((B, H, Sq, v.shape[-1]), device=q.device)
-    for c0 in range(0, Sk, chunk):
-        kb = k[:, :, c0:c0 + chunk].repeat_interleave(group, dim=1).float()
-        vb = v[:, :, c0:c0 + chunk].repeat_interleave(group, dim=1).float()
+    qi = torch.arange(Sq, dtype=torch.int32, device=q.device) + q_offset
+
+    def step(consts, carry, inp):
+        qf, qi = consts
+        m, l, acc = carry
+        kb, vb, ci = inp
+        kb = kb.repeat_interleave(group, 1).float()
+        vb = vb.repeat_interleave(group, 1).float()
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
+        ki = ci * chunk + torch.arange(chunk, dtype=torch.int32,
+                                       device=kb.device)
+        mask = ki[None, :] < Sk
         if causal:
-            ki = torch.arange(c0, c0 + kb.shape[2], device=q.device)
-            s = s.masked_fill(ki[None, :] > qi[:, None], -1e30)
+            mask = mask & (ki[None, :] <= qi[:, None])
+        s = torch.where(mask[None, None], s, -1e30)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
-        m = m_new
-    return (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
+        return (m_new, l, acc), None
+
+    m0 = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
+    l0 = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    a0 = torch.zeros((B, H, Sq, dv), dtype=torch.float32, device=q.device)
+    (m, l, acc), _ = cdfg.scan(
+        step, (m0, l0, a0),
+        (kc, vc, torch.arange(nchunks, dtype=torch.int32, device=q.device)),
+        (qf, qi))
+    out = acc / l.clamp_min(1e-20)[..., None]
+    return out.to(q.dtype)
 
 
 def _full_attention(q, k, v, *, causal: bool, q_offset: int = 0):
@@ -363,7 +388,8 @@ def mla_apply(params: dict, x: torch.Tensor, cfg, *,
               positions: torch.Tensor | None = None) -> torch.Tensor:
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, positions)
     return _mla_attend(params, q_nope, q_pe, c_kv, k_pe, cfg, causal=True)
 

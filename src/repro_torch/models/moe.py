@@ -13,9 +13,13 @@ residual passes through) and the combine re-weights by the router
 weights.  A dropped pair's slot ``expert·C + position`` can lie in the
 next expert's range or past ``E·C``.  The reference scatter-adds a zero
 row there (JAX drops the out-of-range writes) and clamps the gather;
-PyTorch's indexing would raise, so the port routes out-of-range writes
-to a spare row that is cut off, and clamps the gather, which the zero
-combine weight of a dropped pair then cancels.
+PyTorch's indexing would raise, so the port scatters through
+``core/cdfg.at_add`` (the port's ``x.at[idx].add(v)``: an out-of-range
+write lands in a spare row that is cut off) and gathers through
+``layers.take``, which clamps; the zero combine weight of a dropped pair
+cancels its read.  Traced, each is the reference's equations
+(``scatter-add``, ``gather``), as are the top-k (one ``top_k``), the
+one-hot and the slot count (``jit _one_hot``, ``jit cumsum``, in int32).
 
 Top-k keeps the lower expert index first among equal scores, as
 ``jax.lax.top_k`` does (device-limited routing zeroes whole groups, so
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers
+from ..core import cdfg
 
 
 def _expert_stack(gen: torch.Generator, E: int, rows: int, cols: int,
@@ -65,9 +70,27 @@ def moe_init(gen: torch.Generator, cfg, device: torch.device) -> dict:
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k`` over the last axis: the k largest, lower index
-    first among ties."""
+    first among ties, and their int32 indices.  A trace keeps the call as
+    one ``top_k`` equation."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+_top_k.primitive = "top_k"
+torch.fx.wrap("_top_k")
+
+
+def _one_hot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """``jax.nn.one_hot(x, num_classes, dtype=jnp.int32)``.  A trace
+    keeps the call as one ``jit`` equation, as the reference's jaxpr
+    does."""
+    return (x[..., None] == torch.arange(num_classes,
+                                         device=x.device)).to(torch.int32)
+
+
+_one_hot.jit_name = "_one_hot"
+_one_hot.jit_arity = 1
+torch.fx.wrap("_one_hot")
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg
@@ -85,17 +108,12 @@ def moe_apply(params: dict, x: torch.Tensor, cfg
     # on DTensors the routing sees every token (the capacity count runs
     # over all of them): on replicas
     cap = int(math.ceil(k * T / E * m.capacity_factor))
-    scores, top_w, top_ids, onehot, keep, slot, spare = layers.on_replicas(
+    scores, top_w, top_ids, onehot, keep, slot = layers.on_replicas(
         lambda lg: _route(lg, m, T, cap), logits)
 
     # --- scatter (dispatch: the memory stage) ------------------------------
-    src = torch.where(keep[..., None], xt[:, None, :], 0)  # (T, k, d)
-    src = src.reshape(T * k, d)
-
-    def scatter(spare, src):
-        # a spare row past E·cap takes the out-of-range writes
-        return torch.zeros((E * cap + 1,) + src.shape[1:], dtype=src.dtype,
-                           device=src.device).index_add_(0, spare, src)
+    src = xt[:, None, :].repeat_interleave(k, 1)           # (T, k, d)
+    src = torch.where(keep[..., None], src, 0)
 
     if m.dispatch_dtype == "int8":
         # quantize the token payload before the scatter; per-token f16
@@ -104,11 +122,19 @@ def moe_apply(params: dict, x: torch.Tensor, cfg
               ).clamp_min(1e-8)
         src_q = torch.clamp(torch.round(src.float() / s8),
                             -127, 127).to(torch.int8)
-        xe_q = layers.on_replicas(scatter, spare, src_q)
-        se = layers.on_replicas(scatter, spare, s8.to(torch.float16))
-        xe = (xe_q[:-1].float() * se[:-1].float()).to(x.dtype)
+        xe_q = layers.on_replicas(
+            cdfg.at_add, torch.zeros((E * cap, d), dtype=torch.int8,
+                                 device=x.device),
+            slot.reshape(-1), src_q.reshape(T * k, d))
+        se = layers.on_replicas(
+            cdfg.at_add, torch.zeros((E * cap, 1), dtype=torch.float16,
+                                 device=x.device),
+            slot.reshape(-1), s8.reshape(T * k, 1).to(torch.float16))
+        xe = (xe_q.float() * se.float()).to(x.dtype)
     else:
-        xe = layers.on_replicas(scatter, spare, src)[:-1]
+        xe = torch.zeros((E * cap, d), dtype=x.dtype, device=x.device)
+        xe = layers.on_replicas(cdfg.at_add, xe, slot.reshape(-1),
+                                src.reshape(T * k, d))
     xe = xe.reshape(E, cap, d)
 
     # --- expert FFN (the long-latency stage) -------------------------------
@@ -118,9 +144,11 @@ def moe_apply(params: dict, x: torch.Tensor, cfg
     ye = torch.bmm(h, params["w_down"])                    # (E, cap, d)
 
     # --- gather (combine: the second memory stage) --------------------------
+    # a dropped pair's slot reads a clamped row; its zero weight cancels it
     yk = layers.on_replicas(
-        lambda ye, slot: ye.reshape(E * cap, d)[
-            slot.clamp(max=E * cap - 1)].reshape(T, k, d), ye, slot)
+        lambda ye, slot: layers.take(ye.reshape(E * cap, d),
+                                     slot.reshape(-1)).reshape(T, k, d),
+        ye, slot)
     yk = yk * (top_w * keep).float()[..., None]
     y = yk.sum(dim=1).to(x.dtype)
 
@@ -130,16 +158,18 @@ def moe_apply(params: dict, x: torch.Tensor, cfg
 
     # --- aux: load-balance loss (Switch-style) ------------------------------
     me = scores.mean(dim=0)                                # (E,)
-    ce = onehot.sum(dim=1).float().mean(dim=0) * (E / k)
+    ce = onehot.sum(dim=1, dtype=torch.int32).float().mean(dim=0) * (E / k)
+    # ``keep.mean()`` of the reference: bool to int32, then to fp32
     aux = {"lb_loss": (me * ce).sum() * E,
-           "dropped_frac": 1.0 - keep.float().mean()}
+           "dropped_frac": 1.0 - keep.to(torch.int32).float().mean()}
     return y.reshape(B, S, d), aux
 
 
 def _route(logits: torch.Tensor, m, T: int, cap: int) -> tuple:
     """Router logits → (scores, top-k weights and ids, their one-hot,
-    keep, slot, spare-row slot): each (token, choice) pair takes the next
-    slot of its expert in token-major order, up to the capacity ``cap``."""
+    keep, slot): each (token, choice) pair takes the next slot of its
+    expert in token-major order, up to the capacity ``cap``; integers in
+    int32, as the reference's."""
     E, k = m.num_experts, m.top_k
     if m.router_fn == "sigmoid":   # DeepSeek-V3 style
         scores = torch.sigmoid(logits)
@@ -151,7 +181,7 @@ def _route(logits: torch.Tensor, m, T: int, cap: int) -> tuple:
         G = m.route_groups
         gs = scores.reshape(T, G, E // G).amax(-1)          # (T, G)
         _, top_g = _top_k(gs, m.route_device_limit)
-        gmask = F.one_hot(top_g, G).to(scores.dtype).sum(1)
+        gmask = _one_hot(top_g, G).to(scores.dtype).sum(1)
         scores = (scores.reshape(T, G, E // G)
                   * gmask[..., None]).reshape(T, E)
     top_w, top_ids = _top_k(scores, k)                     # (T, k)
@@ -159,11 +189,10 @@ def _route(logits: torch.Tensor, m, T: int, cap: int) -> tuple:
         top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # --- position within expert --------------------------------------------
-    onehot = F.one_hot(top_ids, E)                         # (T, k, E)
+    onehot = _one_hot(top_ids, E)                          # (T, k, E)
     flat = onehot.reshape(T * k, E)
-    pos = flat.cumsum(0) - flat                            # pos in expert
-    pos = (pos * flat).sum(-1).reshape(T, k)               # (T, k)
+    pos = flat.cumsum(0, dtype=torch.int32) - flat         # pos in expert
+    pos = (pos * flat).sum(-1, dtype=torch.int32).reshape(T, k)
     keep = pos < cap
-    slot = (top_ids * cap + pos).reshape(-1)               # may pass E*cap
-    spare = torch.where(slot < E * cap, slot, E * cap)     # the cut-off row
-    return scores, top_w, top_ids, onehot, keep, slot, spare
+    slot = top_ids * cap + pos                             # may pass E*cap
+    return scores, top_w, top_ids, onehot, keep, slot

@@ -243,8 +243,8 @@ def test_out_of_range_indices_trace_and_clamp_as_reference(index):
 def test_unlowered_operations_raise():
     x = torch.arange(8.0)
 
-    def body(acc, j):            # cumsum has no lowering rule yet
-        return torch.cumsum(acc * x, 0)[j]
+    def body(acc, j):            # cumprod has no lowering rule yet
+        return torch.cumprod(acc * x, 0)[j]
 
     with pytest.raises(NotImplementedError):
         port_compile(body, torch.zeros(()), torch.zeros((), dtype=torch.int32),

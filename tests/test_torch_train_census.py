@@ -17,10 +17,11 @@ emits the forward ``scan`` alone.  ``chip_smoke.TRAIN_SECTION2`` pins
 both sides' section 2 and the census difference that follows from it,
 and ``REF_TRAIN_CENSUS`` the reference's census of all ten
 architectures.  DeepSeek-V3's section 3 also holds its MTP head's layer,
-which the port lowers as one ``checkpoint`` equation each way (ROADMAP
-"Decisions"): ``chip_smoke.TRAIN_MTP_LAYER`` pins the reference's
-windows of that layer's equations and their census difference, and the
-rest of section 3 is equal equation by equation around them.
+lowered inline on both sides: its chunked attention's ``scan`` partially
+evaluated (the hoisted loop invariants, the stacked residuals, the
+transposed scan) as JAX does.  A constant is named by its first use
+outside section 2 (the reference's section 2 hoists constants of its
+own).
 
 The lowered step also runs: on a reduced SmolLM through the
 ``sequential`` backend, its gradients, loss, metrics, params and
@@ -29,7 +30,7 @@ and each JVP rule's transpose is held to ``torch.autograd`` on a small
 input.
 """
 
-import difflib
+import dataclasses
 import functools
 import os
 import sys
@@ -44,7 +45,6 @@ import repro_torch
 from repro.configs import load_config as ref_load_config
 from repro.configs.base import SHAPES as REF_SHAPES
 from repro.core.cdfg import LatencyModel as RefLatencyModel
-from repro.core.cdfg import MEMORY_PRIMITIVES as REF_MEMORY
 from repro.dataflow import compile as ref_compile
 from repro.launch import steps as ref_steps
 from repro.models import model as ref_M
@@ -55,7 +55,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core import autodiff, cdfg
 from repro_torch.dataflow import compile as dataflow_compile
 from repro_torch.launch import dryrun, steps
-from repro_torch.models import layers, model as M
+from repro_torch.models import attention, layers, model as M, moe
 from repro_torch.optim import adamw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -145,21 +145,25 @@ def _aval(v) -> tuple:
 
 def _rows(eqns: list, inputs: tuple, bounds: tuple) -> list:
     """Each equation as (name, output avals, operand origins): an input's
-    or a constant's index, a literal's fp32 value, or (section, offset,
-    output) of the
-    equation that made it — section 2's equations, which differ by
-    design, only as (2, the output's place among the last forward
-    scan's)."""
+    index, a constant's (numbered by its first use outside section 2), a
+    literal's fp32 value, or (section, offset, output) of the equation
+    that made it — section 2's equations, which differ by design, only
+    as (2, the output's place among the last forward scan's)."""
     s1, s2, s4 = bounds
     invars, constvars = inputs
     where = {v: ("in", i) for i, v in enumerate(invars)}
-    where.update({v: ("const", i) for i, v in enumerate(constvars)})
+    consts = set(constvars)
+    rank: dict = {}
     rows = []
     for k, (name, ins, outs) in enumerate(eqns):
         ops = []
         for v in ins:
             if type(v).__name__ == "Literal":
                 ops.append(("lit", float(np.float32(np.asarray(v.val)))))
+            elif v in consts:
+                if not s1 <= k < s2:
+                    rank.setdefault(v, len(rank))
+                ops.append(("const", rank.get(v)))
             else:
                 ops.append(where[v])
         rows.append((name, tuple(map(_aval, outs)), tuple(ops)))
@@ -189,62 +193,22 @@ def _long(rows: list) -> int:
     return sum(lm.is_long(name.split()[0]) for name, _, _ in rows)
 
 
-def _windows(port3: list, ref3: list) -> tuple[dict, list]:
-    """Section 3 of both sides aligned: the port's row index → the
-    reference's, and the reference's windows (start, end) that the
-    port's ``checkpoint`` rows (or nothing) stand for — the MTP layer's
-    forward, the zero tangents of its scan's carries, its transpose."""
-    names = [(r[0], r[1]) for r in port3]
-    sm = difflib.SequenceMatcher(None, names, [(r[0], r[1]) for r in ref3],
-                                 autojunk=False)
-    at, windows = {}, []
-    for op, i0, i1, j0, j1 in sm.get_opcodes():
-        if op == "equal":
-            at.update(zip(range(i0, i1), range(j0, j1)))
-            continue
-        assert op in ("replace", "insert"), (op, names[i0:i1])
-        assert [n for n, _ in names[i0:i1]] in ([], ["checkpoint"])
-        windows.append((j0, j1))
-    return at, windows
-
-
-def _relocate(rows: list, s3: dict) -> list:
-    """``rows`` with each operand made in section 3 at index ``k``
-    renamed by ``s3``: its place on the other side, or ``"mtp"`` for a
-    value of the MTP layer's windows."""
-    def where(o):
-        if len(o) == 3 and o[0] == 3:
-            k = s3.get(o[1])
-            return "mtp" if k is None else (3, k, o[2])
-        return o
-    return [(n, av, tuple(map(where, ops))) for n, av, ops in rows]
-
-
 @pytest.mark.parametrize("arch", SECTION_ARCHS)
 def test_train_census_sections_equal_the_reference(arch):
-    """Sections 1, 3 and 4 equal equation by equation (the transposed
-    scan's operands excepted: the reference's read section 2's hoisted
-    values; DeepSeek-V3's MTP layer as its pinned windows); section 2
-    as pinned; the census equal to the reference's less the pinned
-    differences."""
+    """Sections 1, 3 and 4 equal equation by equation (a scan's operands
+    excepted: the reference's transposed segment scans read section 2's
+    hoisted values); section 2 as pinned; the census equal to the
+    reference's less section 2's pinned difference."""
     cs = _chip_smoke()
     census, *port = _split(arch, _port)
     ref_census, *ref = _split(arch, _ref, len(port[0]))
-    at, windows = _windows(port[2], ref[2])
-    inside = [r for a, b in windows for r in ref[2][a:b]]
-    kept = [k for k in range(len(ref[2]))
-            if not any(a <= k < b for a, b in windows)]
-    port[2:] = [_relocate(rows, at) for rows in port[2:]]
-    ref[2:] = [_relocate(rows, {k: k for k in kept}) for rows in ref[2:]]
-    ref[2] = [ref[2][k] for k in kept]
-    ckpts = sum(r[0] == "checkpoint" for r in port[2])
-    port[2] = [r for r in port[2] if r[0] != "checkpoint"]
     for sec in (0, 2, 3):
         assert len(port[sec]) == len(ref[sec]), (arch, sec + 1)
         for k, (a, b) in enumerate(zip(port[sec], ref[sec])):
             if a[0] == "scan":
                 a, b = a[:2], b[:2]
             assert a == b, (arch, sec + 1, k)
+    assert not any(r[0] == "checkpoint" for sec in port for r in sec)
     # the port's section 2: each segment's forward scan (and what reads
     # one segment's ys before the next: DeepSeek-V3's load balance)
     scans = [k for k, r in enumerate(port[1]) if r[0] == "scan"]
@@ -252,31 +216,20 @@ def test_train_census_sections_equal_the_reference(arch):
     assert scans[0] == 0 and scans[-1] == len(port[1]) - 1
     n_ref, n_port, diff = cs.TRAIN_SECTION2[arch]
     assert (len(ref[1]), len(port[1])) == (n_ref, n_port)
-    # the census difference follows from section 2 and the MTP windows
+    # the census difference follows from section 2
     assert diff["ops"] == n_ref - n_port
     assert diff["long_ops"] == _long(ref[1]) - _long(port[1])
     assert diff["stages"] == diff["long_ops"]
-    sizes, n_ckpt, mtp = cs.TRAIN_MTP_LAYER.get(arch, ((), 0, {}))
-    assert tuple(b - a for a, b in windows) == sizes
-    assert n_ckpt == ckpts
-    if sizes:
-        assert mtp["ops"] == len(inside) - n_ckpt
-        assert mtp["long_ops"] == mtp["stages"] == _long(inside)
-        assert mtp["memory_ops"] == sum(n.split()[0] in REF_MEMORY
-                                        for n, _, _ in inside)
-    total = {k: diff.get(k, 0) + mtp.get(k, 0) for k in {*diff, *mtp}}
-    assert {k: ref_census[k] - census[k] for k in total} == total
+    assert {k: ref_census[k] - census[k] for k in diff} == diff
     assert census["pipeline_ii"] == ref_census["pipeline_ii"]
-    if "memory_ops" not in total:
-        assert census["memory_ops"] == ref_census["memory_ops"]
+    assert census["memory_ops"] == ref_census["memory_ops"]
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_pinned_train_census_is_the_live_reference(arch):
     """``chip_smoke.REF_TRAIN_CENSUS`` (all ten) is the live reference's
-    census, and the pinned differences (``TRAIN_SECTION2``, and
-    ``TRAIN_MTP_LAYER`` for DeepSeek-V3) give the port's census from
-    it."""
+    census, and section 2's pinned difference (``TRAIN_SECTION2``) gives
+    the port's census from it."""
     cs = _chip_smoke()
     ref_census, eqns, _, step_in = _ref(arch)
     assert cs.REF_TRAIN_CENSUS[arch] == ref_census
@@ -328,14 +281,33 @@ def _smollm(arch="smollm-135m"):
     return cfg, params, batches
 
 
+#: the reduced DeepSeek-V3 that takes the chunked attention route: one
+#: sequence of 2,100 tokens (the MTP layer's 2,099 keys: three chunks of
+#: 1,024, the last padded)
+CHUNKED_B, CHUNKED_S = 1, 2100
+
+
+def _deepseek_chunked():
+    cfg = dataclasses.replace(reduced(load_config("deepseek-v3-671b")),
+                              attn_impl="chunked")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (CHUNKED_B, CHUNKED_S + 1)).astype(np.int32))}
+    return cfg, params, [batch]
+
+
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v3-671b"])
 def test_lowered_grads_equal_loss_and_grads(arch):
     """The ``grad`` leaf alone, lowered and run by the ``sequential``
     backend on a reduced SmolLM and a reduced DeepSeek-V3 (MLA, MoE, its
-    MTP layer a ``checkpoint``): loss, metrics and every gradient leaf
-    (stacked) those of ``steps.loss_and_grads`` (autograd) — loss rtol
-    1e-4, grads rtol 1e-4 + 1e-4·max|g| (PERF.md §2)."""
-    cfg, params, batches = _smollm(arch)
+    MTP layer inline, 2,100 tokens: every attention takes the chunked
+    route, the MTP layer's as the lowered scan and its transpose): loss,
+    metrics and every gradient leaf (stacked) those of
+    ``steps.loss_and_grads`` (autograd) — loss rtol 1e-4, grads rtol
+    1e-4 + 1e-4·max|g| (PERF.md §2)."""
+    cfg, params, batches = (_deepseek_chunked() if arch == "deepseek-v3-671b"
+                            else _smollm(arch))
     stacked = M.transformer.stack_repeats(params)
 
     def value_and_grads(p_leaves, b_leaves):
@@ -346,12 +318,14 @@ def test_lowered_grads_equal_loss_and_grads(arch):
 
     with cdfg.leaves(index=[(layers, "take")],
                      scan=[(M.transformer, "_segment_forward")],
-                     grad=[(steps, "loss_and_grads")],
-                     remat=[(M, "_mtp_layer")]):
+                     grad=[(steps, "loss_and_grads")]):
         comp = dataflow_compile(value_and_grads, tuple(tree.leaves(stacked)),
                                 tuple(tree.leaves(batches[0])),
                                 backend="sequential", device="cpu",
                                 use_cache=False)
+    if arch == "deepseek-v3-671b":
+        assert sum(e.prim == "scan" for e in comp.graph.eqns) == 2 * len(
+            cfg.segments) + 2
     out = comp(tuple(tree.leaves(stacked)), tuple(tree.leaves(batches[0])))
     (loss, metrics), grads = steps.loss_and_grads(params, batches[0], cfg)
     want = [loss, *tree.leaves(metrics)]
@@ -459,20 +433,18 @@ _toy_segment.scan_ys = lambda consts, **_: torch.empty(
 _NS.segment = _toy_segment
 
 
-def _toy_layer(params, x):
-    """A layer (a remat leaf): ``z`` is never read."""
-    return torch.tanh(x @ params["w"]) + x
-
-
-_NS.layer = _toy_layer
-
-
 def _rng(*shape, seed=0):
     g = torch.Generator().manual_seed(seed + 7 * len(shape))
     return torch.rand(*shape, generator=g) + 0.5
 
 
 _IDX = torch.tensor([3, 0, 5], dtype=torch.int32)
+
+
+def _split_case(p, x, i):
+    """Three pieces, the middle one unread (a zero cotangent)."""
+    a, b, c = p["w"].split([1, 2, 1], -1)
+    return (a * x[:, :1]).sum() + (c * c * x[:, 3:]).sum()
 
 #: rule -> (value function (params, x, idx), params, x)
 RULE_CASES = {
@@ -491,7 +463,8 @@ RULE_CASES = {
     "sub": (lambda p, x, i: ((x - p["w"]) * (p["w"] - p["w"] * x)).sum(),
             {"w": _rng(3, 4)}),
     "mul": (lambda p, x, i: (p["w"] * p["w"] * x).sum(), {"w": _rng(3, 4)}),
-    "div": (lambda p, x, i: (p["w"] / x).sum(), {"w": _rng(3, 4)}),
+    "div": (lambda p, x, i: (p["w"] / x + x / (p["w"] * p["v"])).sum(),
+            {"w": _rng(3, 4), "v": _rng(3, 1, seed=1)}),
     "rsqrt": (lambda p, x, i: (torch.rsqrt(p["w"] * p["w"] + 1.0)
                                * x).sum(), {"w": _rng(3, 4)}),
     "dot_general": (lambda p, x, i: (torch.einsum(
@@ -510,10 +483,46 @@ RULE_CASES = {
     "concatenate": (lambda p, x, i: (torch.cat([p["w"] * x, x], -1)
                                      @ p["u"]).sum(),
                     {"u": _rng(8, 5), "w": _rng(3, 4, seed=1)}),
-    "checkpoint": (lambda p, x, i: (_NS.layer(p["layer"], x * p["v"])
-                                    * x).sum(),
-                   {"layer": {"w": _rng(4, 4) / 4, "z": _rng(2)},
-                    "v": _rng(3, 4, seed=1)}),
+    "reshape and transpose": (lambda p, x, i: (p["w"].reshape(4, 3).transpose(
+        0, 1) * x + p["u"].permute(1, 0) * x).sum(),
+        {"w": _rng(3, 4), "u": _rng(4, 3, seed=1)}),
+    "split": (_split_case, {"w": _rng(3, 4)}),
+    "jit _pad": (lambda p, x, i: (torch.nn.functional.pad(
+        p["w"] * p["w"], (0, 0, 0, 1))[1:] * x).sum(), {"w": _rng(3, 4)}),
+    "integer_pow": (lambda p, x, i: (p["w"] ** 3 * x).sum(),
+                    {"w": _rng(3, 4)}),
+    "pow": (lambda p, x, i: (p["w"] ** 1.5 * x + 2.0 ** (p["w"] * x)).sum(),
+            {"w": _rng(3, 4)}),
+    "logistic": (lambda p, x, i: (torch.sigmoid(p["w"]) * x).sum(),
+                 {"w": _rng(3, 4)}),
+    "exp": (lambda p, x, i: (torch.exp(p["w"]) * x).sum(), {"w": _rng(3, 4)}),
+    "max": (lambda p, x, i: (torch.maximum(p["w"], x) * x
+                             + torch.maximum(p["w"], p["u"] * x)
+                             + p["w"].clamp_min(1.0) * x).sum(),
+            {"w": _rng(3, 4), "u": _rng(3, 4, seed=1)}),
+    "reduce_max": (lambda p, x, i: (p["w"].amax(-1) * x[:, 0]).sum(),
+                   {"w": _rng(3, 4)}),
+    "top_k": (lambda p, x, i: (moe._top_k(p["w"] * x, 2)[0] ** 2).sum(),
+              {"w": _rng(3, 4)}),
+    "scatter-add": (lambda p, x, i: (lambda y: (y * y).sum())(cdfg.at_add(
+        p["v"] * 1.5, i + 3, p["w"] * x) + cdfg.at_add(torch.zeros(
+            (6, 4), device=x.device), i, p["w"])), {"v": _rng(6, 4),
+                                                    "w": _rng(3, 4)}),
+    "jit softmax": (lambda p, x, i: (torch.softmax(p["w"] * x, -1)
+                                     * x).sum(), {"w": _rng(3, 4)}),
+    "jit silu": (lambda p, x, i: (torch.nn.functional.silu(p["w"]) * x).sum(),
+                 {"w": _rng(3, 4)}),
+    "jit _where": (lambda p, x, i: (torch.where(x > 1.0, p["w"], 0) * x
+                                    + torch.where(x < 1.0, p["w"], p["w"] * x)
+                                    + torch.where(x[:, :1] > 1.0, 2.0,
+                                                  p["w"] * p["w"])
+                                    + p["w"].masked_fill(x > 1.2, -3.0)
+                                    ).sum(),
+                   {"w": _rng(3, 4)}),
+    "scan and jit _pad": (lambda p, x, i: (attention._chunked_attention(
+        p["q"], p["k"], p["v"], causal=True, chunk=2) ** 2).sum() * x.sum(),
+        {"q": _rng(1, 2, 5, 6), "k": _rng(1, 2, 5, 6, seed=1),
+         "v": _rng(1, 2, 5, 3, seed=2)}),
     "scan": (lambda p, x, i: (lambda y, ys: y.sum() + 3 * ys.sum())(
         *_NS.segment(x, p["segment_0"], (), k=1.5)),
         {"segment_0": [{"v": _rng(3, 4), "w": _rng(3, 4, 4, seed=2)
@@ -554,7 +563,7 @@ def test_transpose_rule_matches_autograd(rule):
         return (v, *tree.leaves(g))
 
     with cdfg.leaves(index=[(layers, "take")], scan=[(_NS, "segment")],
-                     grad=[(_NS, "grad")], remat=[(_NS, "layer")]):
+                     grad=[(_NS, "grad")]):
         comp = dataflow_compile(traced, tuple(tree.leaves(params)), x, _IDX,
                                 backend="sequential", device="cpu",
                                 use_cache=False)
@@ -568,3 +577,210 @@ def test_transpose_rule_matches_autograd(rule):
         torch.testing.assert_close(
             got, torch.zeros_like(p) if g is None else g, rtol=1e-5,
             atol=1e-6)
+
+
+# -- the attention scan's partial evaluation, alone, against the reference ----
+
+#: a chunked attention at a small size: 5 keys in chunks of 2 (3 chunks, the
+#: last padded), bf16 as MLA's, 2 heads of 6 (values 4)
+ATT_B, ATT_H, ATT_S, ATT_D, ATT_DV, ATT_CHUNK = 1, 2, 5, 6, 4, 2
+
+
+def _att_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((ATT_B, ATT_H, ATT_S, n)).astype(np.float32)
+            for n in (ATT_D, ATT_D, ATT_DV)]
+
+
+def _ref_att_jaxpr(q, k, v, chunk, causal=True):
+    import jax.numpy as jnp
+    from repro.models.attention import _chunked_attention as ref_att
+
+    def loss(q, k, v):
+        return ref_att(q, k, v, causal=causal, chunk=chunk).astype(
+            jnp.float32).sum()
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    return jax.make_jaxpr(jax.value_and_grad(loss, argnums=(0, 1, 2)))(
+        *args), args, loss
+
+
+def _port_att(q, k, v, chunk, causal=True, backend="sequential"):
+    def value_and_grad(p):
+        raise AssertionError("traced only")
+    value_and_grad.value_fn = lambda p: (attention._chunked_attention(
+        p["q"], p["k"], p["v"], causal=causal, chunk=chunk).float().sum(), {})
+    value_and_grad.unstacked = lambda p: p
+    _NS.att = value_and_grad
+
+    def traced(p_leaves):
+        (val, _), g = _NS.att(dict(zip("qkv", p_leaves)))
+        return (val, *tree.leaves(g))
+    leaves = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    with cdfg.leaves(grad=[(_NS, "att")]):
+        comp = dataflow_compile(traced, leaves, backend=backend,
+                                device="cpu", use_cache=False)
+    return comp, leaves
+
+
+def _jaxpr_rows(jaxpr) -> list:
+    j = jaxpr.jaxpr
+    eqns = [("jit " + e.params["name"] if e.primitive.name == "jit"
+             else e.primitive.name, e.invars, e.outvars) for e in j.eqns]
+    return _rows(eqns, (j.invars, j.constvars), (0, 0, len(eqns)))
+
+
+def _graph_rows(g) -> list:
+    eqns = [("jit " + e.name if e.prim == "jit" else e.prim, e.invars,
+             e.outvars) for e in g.eqns]
+    return _rows(eqns, (g.invars, g.constvars), (0, 0, len(eqns)))
+
+
+def test_attention_scan_equals_the_reference():
+    """``value_and_grad`` of the chunked attention alone: the port's
+    lowered equations are the reference's (``jax.make_jaxpr`` of
+    ``repro.models.attention._chunked_attention``'s), equation by
+    equation, operands and avals included — the pads, the loop
+    invariants hoisted ahead of the forward scan (12 consts, 3 carries,
+    15 outputs: the carries and 12 stacked residuals), the carries' zero
+    tangents, the reverse scan (2 consts, 4 carries, 6 outputs) and the
+    transposes after it; each scan's operand count and, for the forward,
+    its body's equations too; and the values: the value and gradients
+    equal the reference's (bf16 inputs: rtol 2e-2)."""
+    q, k, v = _att_inputs()
+    jaxpr, args, loss = _ref_att_jaxpr(q, k, v, ATT_CHUNK)
+    comp, leaves = _port_att(q, k, v, ATT_CHUNK)
+    ref, port = _jaxpr_rows(jaxpr), _graph_rows(comp.graph)
+    assert [r[0] for r in port] == [r[0] for r in ref]
+    for k_, (a, b) in enumerate(zip(port, ref)):
+        if a[0] == "scan":
+            a, b = a[:2], b[:2]
+        assert a == b, k_
+    ref_scans = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "scan"]
+    port_scans = [e for e in comp.graph.eqns if e.prim == "scan"]
+    for r, p in zip(ref_scans, port_scans, strict=True):
+        body, n_c, n_k = p.impl.args
+        assert (r.params["num_consts"], r.params["num_carry"], len(r.invars),
+                len(r.outvars)) == (n_c, n_k, len(p.invars), len(p.outvars))
+        assert bool(r.params["reverse"]) == p.impl.keywords.get(
+            "reverse", False)
+    assert [(n.params["num_consts"], n.params["num_carry"], len(n.outvars))
+            for n in ref_scans] == [(12, 3, 15), (2, 4, 6)]
+    fwd_ref = ref_scans[0].params["jaxpr"].jaxpr
+    fwd_port = port_scans[0].impl.args[0]
+    assert ([(("jit " + e.params["name"]) if e.primitive.name == "jit"
+              else e.primitive.name, tuple(map(_aval, e.outvars)))
+             for e in fwd_ref.eqns]
+            == [(("jit " + e.name) if e.prim == "jit" else e.prim,
+                 tuple(map(_aval, e.outvars))) for e in fwd_port.eqns])
+    val, grads = jax.value_and_grad(loss, argnums=(0, 1, 2))(*args)
+    out = comp(leaves)
+    torch.testing.assert_close(out[0], torch.tensor(float(val)), rtol=2e-2,
+                               atol=0)
+    for got, g in zip(out[1:], grads, strict=True):
+        want = torch.from_numpy(np.array(g, dtype=np.float32))
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+# -- edge inputs of the new lowering, against the reference --------------------
+
+def test_top_k_ties_keep_the_lower_index_first():
+    """``moe._top_k`` and its lowered ``top_k`` on rows full of ties (and
+    a row all equal): values and indices ``jax.lax.top_k``'s, the lower
+    index first among equal values."""
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 3, (6, 9)).astype(np.float32)
+    x[0] = 1.0
+    vals, idx = jax.lax.top_k(x, 4)
+    got = moe._top_k(torch.from_numpy(x), 4)
+    def top4(t):
+        got = moe._top_k(t, 4)
+        return got[0], got[1]
+    comp = dataflow_compile(top4, torch.from_numpy(x),
+                            backend="sequential", device="cpu",
+                            use_cache=False)
+    assert [e.prim for e in comp.graph.eqns] == ["top_k"]
+    for a, b in (got, comp(torch.from_numpy(x))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(vals))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(idx))
+        assert b.dtype == torch.int32
+
+
+def test_scatter_add_drops_slots_at_and_past_the_end():
+    """``cdfg.at_add`` (the MoE dispatch's ``x.at[slot].add(src)``) on
+    slots at and past ``E·cap`` rows, a negative slot that wraps and one
+    still out of range after the wrap: the out-of-range rows are dropped,
+    as the reference's ``scatter-add``; the same through its lowering
+    (five equations, one ``scatter-add``), and the gradient of a loss
+    through it (its transpose gathers, out-of-range rows reading 0)
+    equal to ``jax.grad``'s."""
+    import jax.numpy as jnp
+    n, d = 6, 3
+    rng = np.random.default_rng(2)
+    idx = np.array([5, 6, 0, 9, -1, -7, 5, 2], np.int32)
+    src = rng.standard_normal((len(idx), d)).astype(np.float32)
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    want = np.asarray(jnp.asarray(base).at[idx].add(src))
+    got = cdfg.at_add(torch.from_numpy(base), torch.from_numpy(idx),
+                      torch.from_numpy(src))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    comp = dataflow_compile(cdfg.at_add, torch.from_numpy(base),
+                            torch.from_numpy(idx), torch.from_numpy(src),
+                            backend="sequential", device="cpu",
+                            use_cache=False)
+    assert [e.prim for e in comp.graph.eqns] == [
+        "lt", "add", "select_n", "broadcast_in_dim", "scatter-add"]
+    np.testing.assert_allclose(comp(*(torch.from_numpy(a) for a in (
+        base, idx, src))).numpy(), want, rtol=1e-6)
+
+    def ref_loss(b, s):
+        return (b.at[idx].add(s) ** 2).sum()
+    ref_g = jax.grad(ref_loss, argnums=(0, 1))(jnp.asarray(base),
+                                               jnp.asarray(src))
+    fn, params = (lambda p, x, i: (cdfg.at_add(p["b"], i, p["s"]) ** 2).sum(),
+                  {"b": torch.from_numpy(base), "s": torch.from_numpy(src)})
+
+    def value_and_grad(p, *args):
+        raise AssertionError("traced only")
+    value_and_grad.value_fn = lambda p, i: (fn(p, None, i), {})
+    value_and_grad.unstacked = lambda p, *args: p
+    _NS.at_grad = value_and_grad
+
+    def traced(p_leaves, i):
+        (val, _), g = _NS.at_grad(dict(zip("bs", p_leaves)), i)
+        return (val, *tree.leaves(g))
+    with cdfg.leaves(grad=[(_NS, "at_grad")]):
+        comp = dataflow_compile(traced, tuple(params.values()),
+                                torch.from_numpy(idx), backend="sequential",
+                                device="cpu", use_cache=False)
+    out = comp(tuple(params.values()), torch.from_numpy(idx))
+    for got, g in zip(out[1:], ref_g, strict=True):
+        np.testing.assert_allclose(got.numpy(), np.asarray(g), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_all_masked_causal_row_in_a_padded_last_chunk():
+    """5 keys in chunks of 4: the last chunk holds key 4 and 3 padded
+    keys, so queries 0-3 see none of it (every entry masked).  The
+    port's chunked attention on tensors, and the value and gradients of
+    its lowered ``value_and_grad``, equal the reference's (rtol 2e-2,
+    bf16)."""
+    q, k, v = _att_inputs(seed=3)
+    jaxpr, args, loss = _ref_att_jaxpr(q, k, v, 4)
+    from repro.models.attention import _chunked_attention as ref_att
+    want = np.asarray(ref_att(*args, causal=True, chunk=4).astype(
+        np.float32))
+    leaves = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = attention._chunked_attention(*leaves, causal=True, chunk=4)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), torch.from_numpy(want),
+                               rtol=2e-2, atol=2e-2)
+    comp, leaves = _port_att(q, k, v, 4)
+    val, grads = jax.value_and_grad(loss, argnums=(0, 1, 2))(*args)
+    out = comp(leaves)
+    torch.testing.assert_close(out[0], torch.tensor(float(val)), rtol=2e-2,
+                               atol=0)
+    for got, g in zip(out[1:], grads, strict=True):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(
+            got.float(), torch.from_numpy(np.array(g, dtype=np.float32)),
+            rtol=2e-2, atol=2e-2)
