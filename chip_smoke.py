@@ -293,30 +293,38 @@ Phases, one line (or block) each:
    no hand kernel): (a) ``launch.dryrun.dataflow_census`` of every
    architecture's ``train_4k`` cell at published widths on ``meta`` —
    the train step traced with ``value_and_grad`` and AdamW lowered into
-   the CDFG (``core/autodiff.py``) — plus section 2's pinned difference
-   (``TRAIN_SECTION2``: the reference hoists the segment body's loop
-   invariants, the port emits its forward scan alone) equal to the
-   reference's census (``REF_TRAIN_CENSUS``; DeepSeek-V3's MTP layer
-   lowered inline, its chunked attention's scan partially evaluated as
-   JAX does); each cell's wall; (b) SmolLM-135M at
+   the CDFG (``core/autodiff.py``; each attention architecture's segment
+   body one ``cdfg.scan`` partially evaluated as JAX does, its attention
+   scan nested in it, DeepSeek-V3's MTP layer lowered inline) — equal to
+   the reference's census (``REF_TRAIN_CENSUS``) for the eight attention
+   architectures, and with section 2's pinned difference
+   (``TRAIN_SECTION2``: the reference hoists a recurrent segment's loop
+   invariants, the port emits its forward scan alone) for RWKV-6 and
+   Jamba; each cell's wall; (b) SmolLM-135M at
    published widths, its train step as the census lowers it, run by
    the ``sequential`` backend on the card, 3 steps of 2 x 512 tokens
    from step 200 (LR scale ~1), against ``make_train_step``: in fp32 at
    PERF.md §2's three-step bars (loss and metrics rtol 1e-4, each
    params leaf's change within 1e-3 of its L2 norm, the elements beyond
    0.1·lr printed, mu/nu rtol 1e-3 + 1e-4·max); in the published bf16
-   the first step's loss (rtol 1e-4), gradient norm (rtol 1e-3),
-   moments (each leaf within twice the bf16 step's distance to the fp32
-   step) and each params leaf's change (within 0.1 of its L2 norm), the
-   later steps' drift printed; no hand kernel launched; both walls; (c) ``python -m
+   the first step's loss (rtol 1e-4 of make_train_step's) and, against
+   an fp32 step from the same params (the two bf16 backwards round on
+   their own), its gradient norm, each params leaf's change and each
+   moment row at ``BF16_BARS``, the later steps' drift printed; the
+   segment's reverse scan replaying its transposed body's equations
+   (their count printed); no hand kernel launched; both walls; (c)
+   ``python -m
    repro_torch.launch.dryrun --arch smollm-135m --shape train_4k --mesh
    single``: exit 0, its record ``ok`` and carrying the 16a census;
    (d) the reduced DeepSeek-V3 on the chunked attention route (1 x
    2,100 tokens, fp32): ``loss_and_grads`` lowered as the census lowers
-   it — the MTP layer inline, its attention's forward and reverse
-   ``scan`` — and run by the ``sequential`` backend, against
+   it — each segment's hoisted mask ``scan``, forward and reverse
+   ``scan``, the MTP layer inline with its attention's forward and
+   reverse ``scan`` — and run by the ``sequential`` backend, against
    ``loss_and_grads``: loss and metrics rtol 1e-4, every gradient leaf
-   rtol 1e-4 + 1e-4·max|g|; no hand kernel launched; the walls;
+   rtol 1e-4 + 1e-4·max|g|; the segments' transposes replaying their
+   transposed bodies' equations (their count printed); no hand kernel
+   launched; the walls;
 10. one JSON line listing every kernel with its launches on its main path
    (phases 3-4b for the SpMV kernels, run (b) of phase 6 for attention,
    phase 7 for the kernel API), on each path of phase 12 and summed over
@@ -898,41 +906,43 @@ REF_TRAIN_CENSUS = {
 for _c in REF_TRAIN_CENSUS.values():
     del _c["channel_bytes"]
 
-#: section 2 of each train step the port lowers (ROADMAP "Decisions",
-#: route (b)): the reference's equation count there (the segment body's
-#: hoisted loop invariants and its scans), the port's (the forward scan
-#: alone), and the census difference, reference less port, that follows
+#: the reference's ``channel_bytes`` of each ``train_4k`` cell, kept out
+#: of 16a's comparison (``tests/test_torch_train_census.py`` holds the
+#: live reference's to it, and the port's equal to it for every
+#: architecture whose segments take route (a))
+REF_TRAIN_CHANNEL_BYTES = {
+    "jamba-1.5-large-398b": 425_045_627_574_978,
+    "qwen2.5-14b": 99_366_822_127_704,
+    "olmo-1b": 14_808_769_365_852,
+    "smollm-135m": 12_184_684_874_416,
+    "command-r-plus-104b": 313_584_188_491_943,
+    "rwkv6-1.6b": 47_925_040_071_492,
+    "deepseek-v3-671b": 442_814_851_796_744,
+    "llama4-scout-17b-a16e": 113_658_917_270_664,
+    "musicgen-large": 69_294_819_919_188,
+    "chameleon-34b": 157_234_581_014_544,
+}
+
+#: section 2 of each train step whose segments take route (b) (ROADMAP
+#: "Decisions": a recurrent mixer's segment stays one opaque ``scan``):
+#: the reference's equation count there (the segment body's hoisted loop
+#: invariants and its scans), the port's (the forward scan alone), and
+#: the census difference, reference less port, that follows
 #: (``tests/test_torch_train_census.py`` holds all three to the live
-#: reference and the sections around them equation by equation)
+#: reference and the sections around them equation by equation).  Every
+#: other architecture's census is the reference's own.
 TRAIN_SECTION2 = {
     "jamba-1.5-large-398b": (125, 1, {"ops": 124, "long_ops": 13,
                                       "stages": 13, "channels": 529}),
-    "qwen2.5-14b": (47, 1, {"ops": 46, "long_ops": 13, "stages": 13,
-                            "channels": 59}),
-    "olmo-1b": (49, 1, {"ops": 48, "long_ops": 13, "stages": 13,
-                        "channels": 66}),
-    "smollm-135m": (47, 1, {"ops": 46, "long_ops": 13, "stages": 13,
-                            "channels": 59}),
-    "command-r-plus-104b": (48, 1, {"ops": 47, "long_ops": 13,
-                                    "stages": 13, "channels": 60}),
     "rwkv6-1.6b": (12, 1, {"ops": 11, "long_ops": 0, "stages": 0,
                            "channels": 70}),
-    "llama4-scout-17b-a16e": (57, 1, {"ops": 56, "long_ops": 13,
-                                      "stages": 13, "channels": 83}),
-    "musicgen-large": (48, 1, {"ops": 47, "long_ops": 13, "stages": 13,
-                               "channels": 70}),
-    "chameleon-34b": (47, 1, {"ops": 46, "long_ops": 13, "stages": 13,
-                              "channels": 59}),
-    # two segments (the MTP head's layer, in section 3, is equal)
-    "deepseek-v3-671b": (106, 4, {"ops": 102, "long_ops": 26,
-                                  "stages": 26, "channels": 164}),
 }
 
 
 def train_census_difference(arch: str) -> dict:
     """The census difference, reference less port, of ``arch``'s train
-    cell: section 2's."""
-    return dict(TRAIN_SECTION2[arch][2])
+    cell: section 2's for a route-(b) architecture, none otherwise."""
+    return dict(TRAIN_SECTION2[arch][2]) if arch in TRAIN_SECTION2 else {}
 
 
 def report_key(report: str) -> tuple:
@@ -3806,9 +3816,9 @@ def dryrun_phase(dev, smi: str) -> None:
                 f"{rec['mem_argument_size_in_bytes']} != the rules' {want}")
         key = (arch + ("+absorbed" if over else ""), shape)
         less = ""
-        if SHAPES[shape].kind == "train":   # less the pinned difference
-            less = " less the pinned difference"
+        if SHAPES[shape].kind == "train":   # less any pinned difference
             diff = train_census_difference(arch)
+            less = " less the pinned difference" if diff else ""
             want = REF_TRAIN_CENSUS[arch]
             got = {k: rec["dataflow"][k] + diff.get(k, 0) for k in want}
             require(got == want, f"{key}: census {rec['dataflow']} + the "
@@ -4273,10 +4283,140 @@ def _change_err(got, want, before) -> float:
     return worst
 
 
+def lowered_step_inputs(dev) -> tuple:
+    """Phase 16b's SmolLM-135M config, AdamW config, batches (seeded) and
+    initial fp32 params (seeded) on ``dev``."""
+    import torch
+    from repro_torch.configs import load_config
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    base = load_config("smollm-135m")
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, base.vocab_size, (LOWERED_BATCH, LOWERED_SEQ + 1)).astype(
+            np.int32)).to(dev)} for _ in range(LOWERED_STEPS)]
+    init = M.init_params(torch.Generator(device=dev).manual_seed(0), base,
+                         dev)
+    return base, adamw.AdamWConfig(), batches, init
+
+
+def lowered_step_state(cfg, opt_cfg, init):
+    """The train state 16b starts from: ``init`` in ``cfg``'s dtype, zero
+    moments, step ``LOWERED_FROM``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    params = tree.tree_map(lambda t: t.to(cfg.torch_dtype), init)
+    return steps.TrainState(params, adamw.init_opt_state(params, opt_cfg),
+                            torch.tensor(LOWERED_FROM, dtype=torch.int32,
+                                         device=params["embed"]["table"]
+                                         .device))
+
+
+def fp32_yardstick(cfg, opt_cfg, state, batch) -> dict:
+    """16b's bf16 yardstick: one fp32 ``make_train_step`` from ``state``'s
+    bf16 params cast up, so that only the bf16 steps' own rounding parts
+    them from it: its new params cast back to ``cfg``'s dtype and its
+    moments, in the reference's layout, and its gradient norm."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    p32 = tree.tree_map(lambda t: t.float(), state.params)
+    s32, m32 = steps.make_train_step(
+        dataclasses.replace(cfg, dtype="float32"), opt_cfg)(
+        steps.TrainState(p32, adamw.init_opt_state(p32, opt_cfg),
+                         state.step.clone()), batch)
+    s32 = steps.stack_train_state(s32)
+    return dict(params=tree.tree_map(lambda t: t.to(cfg.torch_dtype),
+                                     s32.params),
+                opt={k: s32.opt[k] for k in ("mu", "nu")},
+                grad_norm=float(m32["grad_norm"]))
+
+
+def _row_dists(got: dict, want: dict) -> dict:
+    """Each moment row's relative L2 distance ``‖got − want‖₂ /
+    ‖want‖₂`` (fp32), keyed ``(moment, path, row)``: a row is one repeat
+    of a segment leaf (the reference's layout), or a whole other leaf.
+    A row ``want`` holds at zero counts 0 if ``got`` does too, else
+    inf."""
+    from repro_torch import tree
+    out = {}
+    for k in ("mu", "nu"):
+        for (path, g), w in zip(tree.flatten_with_paths(got[k]),
+                                tree.leaves(want[k]), strict=True):
+            g, w = g.detach().float(), w.detach().float()
+            if not str(path[0]).startswith("segment_"):
+                g, w = g[None], w[None]
+            d = (g - w).flatten(1).norm(dim=1).tolist()
+            n = w.flatten(1).norm(dim=1).tolist()
+            for i, (e, m) in enumerate(zip(d, n)):
+                out[(k, path, i)] = e / m if m else (math.inf if e else 0.0)
+    return out
+
+
+def bf16_readings(first: dict, metrics: dict, same: dict, start) -> dict:
+    """How far the first bf16 step of each side (``lowered``, and
+    ``step``: make_train_step's), from the params ``start``, is from the
+    fp32 yardstick ``same`` (:func:`fp32_yardstick`): the gradient
+    norm's relative distance, a params leaf's change
+    (:func:`_change_err`) and the worst moment row (:func:`_row_dists`);
+    and the largest ratio, over moment rows, of the lowered step's
+    distance to make_train_step's, with the row it is at."""
+    rows, out = {}, {}
+    for w in ("lowered", "step"):
+        rows[w] = _row_dists(first[w].opt, same["opt"])
+        out[w] = dict(grad_norm=abs(metrics[w]["grad_norm"]
+                                    - same["grad_norm"]) / same["grad_norm"],
+                      change=_change_err(first[w].params, same["params"],
+                                         start),
+                      moment=max(rows[w].values()))
+    ratio, where = max((rows["lowered"][k] / max(rows["step"][k], 1e-6), k)
+                       for k in rows["step"])
+    out["moment_ratio"], out["moment_where"] = ratio, str(where)
+    return out
+
+
+#: 16b's bf16 bars, each on the lowered step's first bf16 step against
+#: an fp32 step from the same params (two bf16 backwards, JAX's
+#: transposed equations and autograd, round on their own), set from the
+#: readings of ``scripts/bf16_step_bars.py`` (PERF.md §2: three sound
+#: runs alike; a planted fault): ``grad_norm``, the gradient norm's
+#: relative distance (sound 5.2e-4, make_train_step's 8.4e-4);
+#: ``change``, a params leaf's change as a multiple of make_train_step's
+#: (sound 1.004; Adam's first step is ~lr·sign(g), so this reads signs,
+#: not scale); ``moment``, a moment row's distance as a multiple of
+#: make_train_step's at that row (sound 1.39; one row of one leaf's
+#: gradient scaled by 1.03 reads 3.3)
+BF16_BARS = {"grad_norm": 7.5e-4, "change": 1.25, "moment": 1.75}
+
+
+def hold_bf16(r: dict, phase: str) -> None:
+    """Fail unless the :func:`bf16_readings` ``r`` are within
+    :data:`BF16_BARS`."""
+    low, step = r["lowered"], r["step"]
+    require(low["grad_norm"] <= BF16_BARS["grad_norm"], f"{phase} bf16 "
+            f"gradient norm {low['grad_norm']:.3g} from the fp32 step's "
+            f"(make_train_step's {step['grad_norm']:.3g}), beyond "
+            f"{BF16_BARS['grad_norm']:g}")
+    require(low["change"] <= BF16_BARS["change"] * step["change"],
+            f"{phase} bf16 params: a leaf's change {low['change']:.3g} of "
+            f"its L2 norm from the fp32 step's, beyond "
+            f"{BF16_BARS['change']:g} x make_train_step's "
+            f"({step['change']:.3g})")
+    require(r["moment_ratio"] <= BF16_BARS["moment"], f"{phase} bf16 "
+            f"moments: at {r['moment_where']} {r['moment_ratio']:.3g} x "
+            f"make_train_step's distance from the fp32 step's, beyond "
+            f"{BF16_BARS['moment']:g}")
+
+
 def train_census_on_card(smi: str) -> None:
     """Phase 16a: every architecture's ``train_4k`` census at published
-    widths on ``meta``, plus section 2's pinned difference, equal to the
-    reference's."""
+    widths on ``meta`` equal to the reference's: the eight attention
+    architectures' outright, RWKV-6's and Jamba's plus section 2's pinned
+    difference."""
     from repro_torch.configs import ARCH_IDS, load_config
     from repro_torch.launch import dryrun
     print(f"[16a] card: {smi}", flush=True)
@@ -4284,19 +4424,47 @@ def train_census_on_card(smi: str) -> None:
         t0 = time.perf_counter()
         got = dryrun.dataflow_census(load_config(arch), "train_4k")
         wall = time.perf_counter() - t0
-        n_ref, n_port, _ = TRAIN_SECTION2[arch]
         diff = train_census_difference(arch)
         want = REF_TRAIN_CENSUS[arch]
         have = {k: got[k] + diff.get(k, 0) for k in want}
         require(have == want, f"16a {arch}: census {got} + the pinned "
                 f"{diff} = {have}, the reference's is {want}")
+        if arch in TRAIN_SECTION2:
+            n_ref, n_port, _ = TRAIN_SECTION2[arch]
+            how = (f"less section 2's pinned difference (reference {n_ref} "
+                   f"equations, port {n_port}) the reference's")
+        else:
+            how = "equal to the reference"
         print(f"[16a] {arch}: ops {got['ops']}, memory ops "
               f"{got['memory_ops']}, long ops {got['long_ops']}, stages "
               f"{got['stages']}, channels {got['channels']} "
-              f"({got['channel_bytes']:,} B), II {got['pipeline_ii']}; with "
-              f"section 2's difference (reference {n_ref} equations, port "
-              f"{n_port}) the reference's; in {wall:.2f} s",
-              flush=True)
+              f"({got['channel_bytes']:,} B), II {got['pipeline_ii']}; "
+              f"{how}; in {wall:.2f} s", flush=True)
+
+
+def replayed(e) -> int:
+    """The equations the lowered body of the ``scan`` equation ``e``
+    replays in one run, a nested scan's as many times as it steps."""
+    body, n_c, n_k = e.impl.args
+    return e.invars[n_c + n_k].aval.shape[0] * sum(
+        replayed(q) if q.prim == "scan" else 1 for q in body.eqns)
+
+
+def transposes_replayed(graph) -> int:
+    """The equations the reverse ``scan`` equations of a lowered step
+    replay in one run (:func:`replayed`); raises if a segment's transpose
+    runs ``torch.autograd`` (route (b)'s ``autodiff._scan_vjp``)."""
+    from repro_torch.core import autodiff, cdfg
+    total = 0
+    for e in graph.eqns:
+        if e.prim != "scan":
+            continue
+        func = getattr(e.impl, "func", None)
+        require(func is not autodiff._scan_vjp, "a segment's transpose "
+                "ran torch.autograd (route (b))")
+        if func is cdfg._run_loop and e.impl.keywords.get("reverse"):
+            total += replayed(e)
+    return total
 
 
 def lowered_step_on_card(dev, smi: str) -> None:
@@ -4308,36 +4476,26 @@ def lowered_step_on_card(dev, smi: str) -> None:
 
     import torch
     from repro_torch import tree
-    from repro_torch.configs import load_config
     from repro_torch.configs.base import InputShape
     from repro_torch.kernels import _lib
     from repro_torch.launch import dryrun, steps
-    from repro_torch.models import model as M
-    from repro_torch.optim import adamw
 
     B, S = LOWERED_BATCH, LOWERED_SEQ
     shape = InputShape("train", S, B, "train")
-    opt_cfg = adamw.AdamWConfig()
-    base = load_config("smollm-135m")
-    rng = np.random.default_rng(0)
-    batches = [{"tokens": torch.from_numpy(rng.integers(
-        0, base.vocab_size, (B, S + 1)).astype(np.int32)).to(dev)}
-        for _ in range(LOWERED_STEPS)]
-    init = M.init_params(torch.Generator(device=dev).manual_seed(0), base,
-                         dev)
+    base, opt_cfg, batches, init = lowered_step_inputs(dev)
     before = dict(_lib.counts())
     runs = {}
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dtype=dtype)
-        params = tree.tree_map(lambda t: t.to(cfg.torch_dtype), init)
-        state = steps.TrainState(params,
-                                 adamw.init_opt_state(params, opt_cfg),
-                                 torch.tensor(LOWERED_FROM,
-                                              dtype=torch.int32, device=dev))
+        state = lowered_step_state(cfg, opt_cfg, init)
+        same = (fp32_yardstick(cfg, opt_cfg, state, batches[0])
+                if dtype == "bfloat16" else None)
         t0 = time.perf_counter()
         comp = dryrun.train_compiled(cfg, shape, device=dev,
                                      backend="sequential")
         compile_s = time.perf_counter() - t0
+        replayed = transposes_replayed(comp.graph)
+        require(replayed > 0, "16b no transposed body replayed")
         step = steps.make_train_step(cfg, opt_cfg)
         lowered = start = steps.stack_train_state(state)
         n = len(tree.leaves(lowered))
@@ -4363,8 +4521,9 @@ def lowered_step_on_card(dev, smi: str) -> None:
         runs[dtype] = dict(step=steps.stack_train_state(state),
                            lowered=lowered, start=start,
                            first=first, metrics=metrics, walls=walls,
-                           compile_s=compile_s, stages=comp.num_stages)
-        del comp, state, lowered, params
+                           compile_s=compile_s, stages=comp.num_stages,
+                           replayed=replayed, same=same)
+        del comp, state, lowered
         _free()
     require(dict(_lib.counts()) == before,
             "16b the lowered step launched a hand kernel")
@@ -4404,53 +4563,44 @@ def lowered_step_on_card(dev, smi: str) -> None:
           f"{0.1 * opt_cfg.lr:.3g}), mu {m_err['mu']:.3g}, nu "
           f"{m_err['nu']:.3g}", flush=True)
 
-    # bf16: the first step from one state (LR scale ~1).  Two bf16
-    # backward passes round on their own, so their gradients' distance
-    # may reach the sum of their errors: the moments each within twice
-    # the bf16 step's distance to the fp32 step (+1e-6 of the fp32
-    # value), the loss rtol 1e-4 (the same forward), the gradient norm
-    # rtol 1e-3, and each params leaf's change within 0.1 of its L2 norm
-    # (an element's new value may round the other way in bf16).  Later
-    # steps part further on such flips: printed, not held.
+    # bf16: the first step from one state (LR scale ~1), the loss and
+    # lr those of make_train_step (the same forward); its gradient norm,
+    # params and moments held against an fp32 step from the same params
+    # (BF16_BARS).  Later steps part further on rounding: printed.
     bf = runs["bfloat16"]
     a, b = bf["metrics"]["lowered"][0], bf["metrics"]["step"][0]
-    for k, rtol in (("loss", 1e-4), ("lm_loss", 1e-4), ("grad_norm", 1e-3),
-                    ("lr", 0.0)):
+    for k, rtol in (("loss", 1e-4), ("lm_loss", 1e-4), ("lr", 0.0)):
         require(abs(a[k] - b[k]) <= rtol * abs(b[k]), f"16b bf16 {k} step "
                 f"0: lowered {a[k]} vs step {b[k]}")
-    low, want, w32 = (bf["first"]["lowered"], bf["first"]["step"],
-                      f32["first"]["step"])
-    bf_c = _change_err(low.params, want.params, bf["start"].params)
-    require(bf_c <= 0.1, f"16b bf16 params after the first step: a leaf's "
-            f"change {bf_c:.3g} of its L2 norm from make_train_step's, "
-            f"beyond 0.1")
-    worst = 0.0
-    for k in ("mu", "nu"):
-        for (path, x), y, w in zip(tree.flatten_with_paths(low.opt[k]),
-                                   tree.leaves(want.opt[k]),
-                                   tree.leaves(w32.opt[k]), strict=True):
-            d = float((x - y).abs().max())
-            bar = 2 * float((y - w).abs().max()) + 1e-6 * float(
-                w.abs().max())
-            require(d <= bar, f"16b bf16 {k} {path}: lowered vs step "
-                    f"max|Δ| {d:.3g} beyond twice the bf16 step's distance "
-                    f"to fp32 ({bar:.3g})")
-            worst = max(worst, d / bar)
+    r = bf16_readings(bf["first"], dict(lowered=a, step=b), bf["same"],
+                      bf["start"].params)
+    hold_bf16(r, "16b")
     loss_d = [abs(x["loss"] - y["loss"]) for x, y in
               zip(bf["metrics"]["lowered"], bf["metrics"]["step"])]
     p_err, _ = _max_err(bf["lowered"].params, bf["step"].params, rtol=0)
     print(f"[16b] SmolLM-135M bf16 (published), {B} x {S} tokens: the "
-          f"first step's loss, gradient norm and moments those of "
-          f"make_train_step (worst moment leaf at {worst:.3f} of its "
-          f"bar), params' change {bf_c:.3g} of its L2 norm (bar 0.1); "
-          f"after {LOWERED_STEPS} steps: loss "
+          f"first step's loss that of make_train_step; against an fp32 "
+          f"step from the same params (lowered / make_train_step): "
+          f"gradient norm {r['lowered']['grad_norm']:.3g} / "
+          f"{r['step']['grad_norm']:.3g} away (bar "
+          f"{BF16_BARS['grad_norm']:g}), a params leaf's change "
+          f"{r['lowered']['change']:.3g} / {r['step']['change']:.3g} of its "
+          f"L2 norm (bar {BF16_BARS['change']:g} x make_train_step's), a "
+          f"moment row {r['lowered']['moment']:.3g} / "
+          f"{r['step']['moment']:.3g} of its L2 norm, the worst row's "
+          f"ratio {r['moment_ratio']:.3g} (bar {BF16_BARS['moment']:g}, at "
+          f"{r['moment_where']}); after {LOWERED_STEPS} steps: loss "
           f"|Δ| by step {[f'{d:.3g}' for d in loss_d]}, params max|Δ| "
           f"{p_err:.3g}; no hand kernel launched", flush=True)
-    for dtype, r in runs.items():
-        print(f"[16b] walls {dtype}: compile {r['compile_s']:.2f} s; a step"
-              f" make_train_step {[round(w, 4) for w in r['walls']['step']]}"
-              f" s, lowered {[round(w, 4) for w in r['walls']['lowered']]} s"
-              f"; card: {smi}", flush=True)
+    print(f"[16b] the segment's transpose ran its transposed body's "
+          f"equations: {f32['replayed']} replayed a step, no "
+          f"torch.autograd", flush=True)
+    for dtype, run in runs.items():
+        print(f"[16b] walls {dtype}: compile {run['compile_s']:.2f} s; a "
+              f"step make_train_step "
+              f"{[round(w, 4) for w in run['walls']['step']]} s, lowered "
+              f"{[round(w, 4) for w in run['walls']['lowered']]} s; card: "
+              f"{smi}", flush=True)
 
 
 #: phase 16d: the reduced DeepSeek-V3 on the chunked attention route, one
@@ -4505,9 +4655,11 @@ def lowered_mtp_grads_on_card(dev, smi: str) -> None:
                                 use_cache=False)
     compile_s = time.perf_counter() - t0
     scans = sum(e.prim == "scan" for e in comp.graph.eqns)
-    require(scans == 2 * len(cfg.segments) + 2,
-            f"16d {scans} scan equations, not each segment's two and the "
-            f"MTP attention's two")
+    require(scans == 3 * len(cfg.segments) + 2,
+            f"16d {scans} scan equations, not each segment's three (its "
+            f"hoisted mask scan, forward, reverse) and the MTP attention's "
+            f"two")
+    replayed = transposes_replayed(comp.graph)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = comp(tuple(tree.leaves(stacked)), tuple(tree.leaves(batch)))
@@ -4539,7 +4691,9 @@ def lowered_mtp_grads_on_card(dev, smi: str) -> None:
           f"{float(out[0]):.6f}, {rel:.3g} from loss_and_grads' (bar "
           f"1e-4), "
           f"{len(out) - len(want)} gradient leaves within rtol 1e-4 + "
-          f"1e-4·max|g| (worst {worst:.3g} of the bar); no hand kernel "
+          f"1e-4·max|g| (worst {worst:.3g} of the bar); the transposes "
+          f"replayed {replayed} equations of their transposed bodies, no "
+          f"torch.autograd; no hand kernel "
           f"launched; compile {compile_s:.2f} s, the lowered value and "
           f"gradients {lowered_s:.2f} s, loss_and_grads {autograd_s:.2f} s",
           flush=True)

@@ -28,26 +28,31 @@ functions ``log_softmax``, ``take_along_axis`` and ``_var`` keep their
 residuals as extra outputs of one ``jit`` equation and transpose to one
 ``jit`` equation, as JAX's partial evaluation of a ``jit`` does.
 
-A segment's ``scan`` (one equation per segment, its body the model's
-own code) is the one rule that departs from JAX's equations: its
+A scan whose body is a lowered graph (``cdfg.scan``: an attention
+architecture's segment over its stacked repeats, the chunked attention
+inside it, DeepSeek-V3's MTP layer's attention at the loss's top level)
+follows JAX's linearization of a scan (:func:`_jvp_loop`): the body's
+JVP splits it into its known part and the tangent program; the known
+part, less what nothing needs, is partially evaluated on the consts
+(:func:`_partial_eval`) — what reads only consts and literals is hoisted
+ahead of the loop, a ``jit`` split as JAX splits one (a ``jit`` left
+with no output among them), a scan in the body split by
+:func:`_split_loop` (a segment's attention masks become a scan of their
+own ahead of both loops); the forward scan stacks the residuals the
+tangent program reads, and the transpose is one reverse scan of the
+transposed body, a nested scan's transposed scan inside it — the
+reference's equations.
+
+A segment of a recurrent mixer (RWKV-6, Mamba) stays one opaque
+``scan`` equation, its body the model's code, and is the one rule that
+departs from JAX's equations (ROADMAP "Decisions": route (b)): its
 forward keeps, as its only residual, the stack of each repeat's input;
 its transpose is one ``scan`` equation that runs the segment's
 vector–Jacobian product repeat by repeat, in reverse, recomputing each
-repeat's forward under ``torch.autograd``.  JAX's partial evaluation
-instead hoists the body's loop invariants out of the scan and keeps
-every residual the body's rules name (ROADMAP "Decisions": route (b)).
-
-A scan whose body is a lowered graph (``cdfg.scan``: DeepSeek-V3's MTP
-layer's chunked attention, at the loss's top level) follows JAX's
-``_scan_partial_eval`` instead (:func:`_jvp_loop`): the body's known
-equations that read only consts are hoisted ahead of the loop, the
-forward scan stacks the residuals the tangent program reads, and the
-transpose is one reverse scan of the transposed body — the reference's
-equations.
-
-The segment parameters arrive stacked (one ``(R, …)`` leaf per unit
-path, as the reference holds them); the value function reads each
-repeat ``leaf[r]``, which only its segment's scan may read.
+repeat's forward under ``torch.autograd``.  Its parameters arrive
+stacked (one ``(R, …)`` leaf per unit path, as the reference holds
+them); the value function reads each repeat ``leaf[r]``, which only its
+segment's scan may read.
 """
 
 from __future__ import annotations
@@ -64,8 +69,8 @@ import torch
 from .. import tree
 from .._device import get_device
 from .cdfg import (Aval, Eqn, Graph, Literal, Var, _Lowering,
-                   _broadcast_in_dim, _concatenate, _integer_pow, _reshape,
-                   _run_loop, _split, _transpose)
+                   _broadcast_in_dim, _concatenate, _integer_pow, _pad_jit,
+                   _reshape, _run_loop, _split, _transpose, _where)
 
 __all__ = ["lower_value_and_grad", "JVP_RULES"]
 
@@ -94,6 +99,9 @@ class _Linear:
 
     outs: list[_Key]
     transpose: Callable[[list[Any]], list[tuple[_Key, Any]]]
+    #: known values the tangent equation reads that its transpose does
+    #: not (a zero tangent it instantiates): residuals all the same
+    reads: list[Any] = dataclasses.field(default_factory=list)
 
 
 def _is_float(aval: Aval) -> bool:
@@ -172,14 +180,37 @@ def _take_along_axis_vjp(res: torch.Tensor, ct: torch.Tensor, *, n: int
 
 def _var_fwd(var: Callable, x: torch.Tensor, correction: int, *,
              axes: tuple[int, ...]) -> tuple:
+    """``jnp.var``'s forward with its residuals: the centred operand, the
+    count, whether it is positive, and the zero tangent of the ``nan``
+    its ``jnp.where`` picks otherwise."""
     mean = x.mean(axes, keepdim=True)
     n = float(np.prod([x.shape[a] for a in axes]) - correction)
     return (var(x, correction, axes=axes), x - mean, x.new_tensor(n),
-            torch.tensor(n > 0, device=x.device), mean)
+            torch.tensor(n > 0, device=x.device), torch.zeros_like(mean))
+
+
+def _var_consts(correction: Any, *, count: int, shape: tuple[int, ...],
+                dtype: torch.dtype) -> tuple:
+    """The part of :func:`_var_fwd` that reads only the correction (a
+    scan body's loop invariant): the count, whether it is positive, the
+    zero tangent and the ``nan`` broadcast."""
+    dev = get_device(None)
+    n = torch.tensor(float(count - int(correction)), dtype=dtype, device=dev)
+    return (n, n > 0, torch.zeros(shape, dtype=dtype, device=dev),
+            torch.full(shape, math.nan, dtype=dtype, device=dev))
+
+
+def _var_loop(x: torch.Tensor, n: torch.Tensor, ok: torch.Tensor,
+              nan: torch.Tensor, *, axes: tuple[int, ...]) -> tuple:
+    """The rest of :func:`_var_fwd`: the variance and the centred
+    operand."""
+    centered = x - x.mean(axes, keepdim=True)
+    var = (centered * centered).sum(axes, keepdim=True) / n
+    return torch.where(ok, var, nan), centered
 
 
 def _var_vjp(centered: torch.Tensor, n: torch.Tensor, ok: torch.Tensor,
-             mean: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+             zeros: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     return ct * 2 * centered / n
 
 
@@ -719,11 +750,11 @@ _jvp_var = _jvp_jit(
 
 
 def _jvp_scan(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
-    """A segment's scan over its stacked repeats: the forward keeps each
-    repeat's input; the transpose is one ``scan`` of the repeats'
-    vector–Jacobian products in reverse.  A scan whose body is a lowered
-    graph (``cdfg.scan``) is partially evaluated as JAX does
-    (:func:`_jvp_loop`)."""
+    """A scan whose body is a lowered graph (``cdfg.scan``) is partially
+    evaluated as JAX does (:func:`_jvp_loop`).  A route-(b) segment's
+    opaque scan over its stacked repeats: the forward keeps each repeat's
+    input; the transpose is one ``scan`` of the repeats' vector–Jacobian
+    products in reverse."""
     if getattr(e.impl, "func", None) is _run_loop:
         return _jvp_loop(tape, e, ins, lin)
     body, consts_like, state_like, n_consts = e.impl.args
@@ -866,6 +897,30 @@ def _integer_pow_jac(tape, e, ins, out):
 
 #: ``exp``: ``mul(ṫ, ans)``
 _jvp_exp = _jvp_scaled(lambda tape, e, ins, out: out)
+
+
+def _jvp_stop_gradient(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``stop_gradient``: the output has no tangent."""
+    return tape.copy(e, ins)
+
+
+def _jvp_tanh(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``mul(add(ṫ, mul(ṫ, ans)), sub(1, ans))``, as ``jax.lax``'s
+    ``tanh`` rule (``sub(1, ans)`` in the forward); transposed, the
+    cotangent times ``sub(1, ans)`` reaches ``ṫ`` directly and through
+    ``mul(·, ans)``."""
+    outs = tape.copy(e, ins)
+    x, out = ins[0], outs[0]
+    r = tape.emit("sub", [Literal(1.0, Aval((), out.aval.dtype)), out],
+                  out.aval)
+    kx, km, ka, ko = tape.tan[x], _Key(), _Key(), tape.fresh(out)
+    tape.linear.append(_Linear([km], lambda cts: [(kx, tape.emit(
+        "mul", [cts[0], out], out.aval))]))
+    tape.linear.append(_Linear([ka], lambda cts: [(kx, cts[0]),
+                                                  (km, cts[0])]))
+    tape.linear.append(_Linear([ko], lambda cts: [(ka, tape.emit(
+        "mul", [cts[0], r], out.aval))]))
+    return outs
 
 
 def _jvp_pow(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
@@ -1014,9 +1069,8 @@ def _jvp_scatter_add(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
                                   "indices")
     outs = tape.copy(e, ins)
     (x, idx, upd), out = ins, outs[0]
-    for v, l in ((x, lin[0]), (upd, lin[2])):
-        if not l:
-            tape.zeros(v.aval)
+    zeros = [tape.zeros(v.aval) for v, l in ((x, lin[0]), (upd, lin[2]))
+             if not l]
     ko = tape.fresh(out)
 
     def transpose(cts):
@@ -1028,7 +1082,7 @@ def _jvp_scatter_add(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
                 "gather", [cts[0], idx], upd.aval, impl=_gather_fill,
                 slice_sizes=(1, *_shape(x)[1:]))))
         return got
-    tape.linear.append(_Linear([ko], transpose))
+    tape.linear.append(_Linear([ko], transpose, zeros))
     return outs
 
 
@@ -1105,16 +1159,6 @@ def _where_fwd(c: torch.Tensor, x: Any, y: Any, *, shape: tuple[int, ...],
     return (out, *res) if res else out
 
 
-def _where_hoisted(v: Any, *, shape: tuple[int, ...], dtype: torch.dtype
-                   ) -> tuple:
-    """The part of a scan body's ``jnp.where`` that reads only a
-    loop-invariant branch: the zero tangent and that branch broadcast."""
-    dev = v.device if isinstance(v, torch.Tensor) else get_device(None)
-    return (torch.zeros(shape, dtype=dtype, device=dev),
-            torch.full(shape, v, dtype=dtype, device=dev)
-            if not isinstance(v, torch.Tensor) else v.expand(shape))
-
-
 def _where_vjp(*args: Any, which: tuple[bool, bool]) -> Any:
     cb, ct = args[0], args[-1]
     got = [torch.where(cb, ct, 0), torch.where(cb, 0, ct)]
@@ -1153,28 +1197,347 @@ def _jvp_where(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     return [out]
 
 
-def _split_where(e: Eqn, invariant: list[bool]) -> tuple | None:
+def _split_where(e: Eqn, known: list[bool]) -> tuple | None:
     """A scan body's forward ``jnp.where`` (:func:`_jvp_where`) split as
-    JAX's hoisting splits a ``jit``: where one branch is loop-invariant,
-    a hoisted ``jit`` of it gives the zero tangent and the branch
-    broadcast; the loop keeps a ``jit`` of the predicate, the other
-    branch and that broadcast.  ``None`` where it does not split so."""
+    JAX's partial evaluation splits a ``jit``, or ``None`` where it does
+    not split so:
+
+    * one branch known, the predicate not: a ``jit`` of that branch
+      gives the zero tangent and the branch broadcast; the rest keeps a
+      ``jit`` of the predicate, the other branch and that broadcast;
+    * the predicate known: a ``jit`` of the predicate (and a known
+      branch) gives the predicate broadcast (when it is a residual); the
+      rest keeps a ``jit`` selecting by it;
+    * the predicate broadcast alone (the part above), its predicate
+      unknown: a ``jit`` of the known branch gives nothing."""
     kw = e.impl.keywords
-    if not kw["zeros"] or invariant[0] or invariant[1] == invariant[2]:
-        return None
-    k = 1 if invariant[1] else 2
     out, *res = e.outvars
+    if e.impl.func is _where_known:
+        if known[0] or not all(known[1:]):
+            return None
+        cb = e.outvars[:1] if kw["cb"] else []
+        return (Eqn("jit", e.invars[1:], e.outvars[len(cb):], {},
+                    functools.partial(_where_known_branches, **{
+                        k: kw[k] for k in ("shape", "dtype", "zeros",
+                                           "bcast")}),
+                    e.source, e.name),
+                Eqn("jit", e.invars[:1], cb, {},
+                    functools.partial(_where_mask, shape=kw["shape"])
+                    if cb else _nothing, e.source, e.name))
+    if e.impl.func is not _where_fwd:
+        return None
+    if known[0]:
+        shape = kw["shape"]
+        k = [j for j in (1, 2) if known[j]]
+        made = (res[:1] if kw["cb"] else []) + (res[-1:] if kw["zeros"]
+                                                 else [])
+        ins = list(e.invars)
+        if kw["cb"]:
+            ins[0] = res[0]
+        for j in k:         # a known branch not yet of the output's shape
+            if _shape(e.invars[j]) != shape:
+                ins[j] = Var(out.aval, f"{out.name}.b{j}")
+                made.append(ins[j])
+        return (Eqn("jit", [e.invars[0], *(e.invars[j] for j in k)], made,
+                    {}, functools.partial(
+                        _where_known, shape=shape, dtype=out.aval.dtype,
+                        cb=kw["cb"], zeros=kw["zeros"],
+                        bcast=tuple(_shape(e.invars[j]) != shape
+                                    for j in k)),
+                    e.source, e.name),
+                Eqn("jit", ins, [out], {}, _where, e.source,
+                    e.name))
+    if not kw["zeros"] or known[1] == known[2]:
+        return None
+    k = 1 if known[1] else 2
     zeros = res[-1]
     bcast = Var(out.aval, f"{out.name}.b")
     hoisted = Eqn("jit", [e.invars[k]], [zeros, bcast], {},
-                  functools.partial(_where_hoisted, shape=kw["shape"],
-                                    dtype=out.aval.dtype), e.source, e.name)
+                  functools.partial(_where_known_branches, shape=kw["shape"],
+                                    dtype=out.aval.dtype, zeros=True,
+                                    bcast=(True,)), e.source, e.name)
     ins = list(e.invars)
     ins[k] = bcast
     loop = Eqn("jit", ins, [out, *res[:-1]], {},
                functools.partial(_where_fwd, shape=kw["shape"], cb=kw["cb"],
                                  zeros=False), e.source, e.name)
     return hoisted, loop
+
+
+def _where_branches(*branches: Any, shape: tuple[int, ...],
+                    dtype: torch.dtype, zeros: bool,
+                    bcast: tuple[bool, ...]) -> list:
+    """The part of a ``jnp.where``'s forward that its known branches
+    alone determine: the zero tangent, and each known branch not yet of
+    the output's shape broadcast to it."""
+    dev = next((v.device for v in branches if isinstance(v, torch.Tensor)),
+               None) or get_device(None)
+    out = [torch.zeros(shape, dtype=dtype, device=dev)] if zeros else []
+    for v, b in zip(branches, bcast):
+        if b:
+            out.append(torch.full(shape, v, dtype=dtype, device=dev)
+                       if not isinstance(v, torch.Tensor)
+                       else v.to(dtype).expand(shape))
+    return out
+
+
+def _one_or_tuple(out: list) -> Any:
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def _where_known(c: torch.Tensor, *branches: Any, shape: tuple[int, ...],
+                 dtype: torch.dtype, cb: bool, zeros: bool,
+                 bcast: tuple[bool, ...]) -> Any:
+    """The part of a ``jnp.where``'s forward (:func:`_where_fwd`) that a
+    known predicate and known branches determine: the predicate
+    broadcast (a residual), then :func:`_where_branches`."""
+    return _one_or_tuple(([c.expand(shape)] if cb else []) + _where_branches(
+        *branches, shape=shape, dtype=dtype, zeros=zeros, bcast=bcast))
+
+
+def _where_known_branches(*branches: Any, **kw: Any) -> Any:
+    return _one_or_tuple(_where_branches(*branches, **kw))
+
+
+def _where_mask(c: torch.Tensor, *, shape: tuple[int, ...]
+                ) -> torch.Tensor:
+    """The predicate of a ``jnp.where`` broadcast to its output."""
+    return c.expand(shape)
+
+
+def _split_var(e: Eqn, known: list[bool]) -> tuple | None:
+    """``jnp.var``'s forward (:func:`_var_fwd`) on an unknown operand: a
+    ``jit`` of the correction gives the count, whether it is positive,
+    the zero tangent and the ``nan`` broadcast (:func:`_var_consts`); the
+    rest keeps a ``jit`` of the operand and those (:func:`_var_loop`)."""
+    if known[0] or not known[1] or getattr(e.impl, "func", None) \
+            is not _var_fwd:
+        return None
+    var, centered, n, ok, zeros = e.outvars
+    axes = e.impl.keywords["axes"]
+    shape = e.invars[0].aval.shape
+    nan = Var(var.aval, f"{var.name}.nan")
+    count = int(np.prod([shape[a] for a in axes]))
+    return (Eqn("jit", e.invars[1:], [n, ok, zeros, nan], {},
+                functools.partial(_var_consts, count=count,
+                                  shape=var.aval.shape, dtype=var.aval.dtype),
+                e.source, e.name),
+            Eqn("jit", [e.invars[0], n, ok, nan], [var, centered], {},
+                functools.partial(_var_loop, axes=axes), e.source, e.name))
+
+
+def _one_hot_classes(*, num_classes: int, ndim: int) -> torch.Tensor:
+    return torch.arange(num_classes, dtype=torch.int32,
+                        device=get_device(None)).reshape(
+        (1,) * ndim + (num_classes,))
+
+
+def _one_hot_of(x: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+    return (x[..., None] == classes).to(torch.int32)
+
+
+def _split_one_hot(e: Eqn, known: list[bool]) -> tuple | None:
+    """``jax.nn.one_hot`` of an unknown operand: a ``jit`` of nothing
+    gives the classes (``iota``, shaped to broadcast); the rest keeps a
+    ``jit`` comparing the operand with them."""
+    if any(known):
+        return None
+    n = e.impl.keywords["num_classes"]
+    nd = len(_shape(e.invars[0]))
+    classes = Var(Aval((1,) * nd + (n,), torch.int32),
+                  f"{e.outvars[0].name}.classes")
+    return (Eqn("jit", [], [classes], {},
+                functools.partial(_one_hot_classes, num_classes=n, ndim=nd),
+                e.source, e.name),
+            Eqn("jit", [e.invars[0], classes], e.outvars, {}, _one_hot_of,
+                e.source, e.name))
+
+
+def _dce(eqns: list[Eqn], needed: list[Any]) -> list[Eqn]:
+    """``eqns`` less those none of whose outputs ``needed`` (or a kept
+    equation) reads."""
+    live = {v for v in needed if isinstance(v, Var)}
+    kept = []
+    for e in reversed(eqns):
+        if any(o in live for o in e.outvars):
+            kept.append(e)
+            live.update(v for v in e.invars if isinstance(v, Var))
+    return kept[::-1]
+
+
+def _pad_value(value: Any, *, dtype: torch.dtype) -> tuple:
+    dev = get_device(None)
+    return (torch.zeros((), dtype=dtype, device=dev),
+            torch.tensor(value, dtype=dtype, device=dev))
+
+
+def _split_pad(e: Eqn, known: list[bool]) -> tuple | None:
+    """``jnp.pad``'s forward (:func:`_pad_fwd`) of an unknown operand: a
+    ``jit`` of the padding value gives the tangent's (zero) padding value
+    (the transpose's residual) and the value in the operand's dtype; the
+    rest keeps a ``jit`` padding the operand with it."""
+    if known[0] or not known[1] or getattr(e.impl, "func", None) \
+            is not _pad_fwd:
+        return None
+    out, res = e.outvars
+    value = Var(res.aval, f"{res.name}.v")
+    return (Eqn("jit", e.invars[1:], [res, value], {},
+                functools.partial(_pad_value, dtype=res.aval.dtype),
+                e.source, e.name),
+            Eqn("jit", [e.invars[0], value], [out], {},
+                functools.partial(_pad_jit, **e.impl.keywords), e.source,
+                e.name))
+
+
+def _nothing(*_: Any) -> tuple:
+    return ()
+
+
+#: ``jit`` name -> its split (:func:`_split_jit`)
+_JIT_SPLITS: dict[str, Callable] = {
+    "_where": _split_where, "_var": _split_var, "_one_hot": _split_one_hot,
+    "_pad": _split_pad,
+}
+
+
+def _split_jit(e: Eqn, known: list[bool]) -> tuple[Eqn, Eqn]:
+    """A ``jit`` equation not all of whose operands are known, split as
+    JAX's partial evaluation of a ``jit`` splits it: a ``jit`` of the
+    known operands giving what they alone determine — emitted even with
+    no output, as JAX emits it — and a ``jit`` of the rest."""
+    split = _JIT_SPLITS.get(e.name)
+    got = split(e, known) if split is not None else None
+    if got is not None:
+        return got
+    if not any(known):
+        return Eqn("jit", [], [], {}, _nothing, e.source, e.name), e
+    raise NotImplementedError(
+        f"no partial evaluation of jit {e.name!r} on its known operands "
+        f"{known} yet (core/autodiff.py)")
+
+
+def _partial_eval(eqns: list[Eqn], known: set) -> tuple[list, list]:
+    """``eqns`` split as JAX's partial evaluation splits a jaxpr whose
+    inputs in ``known`` are known: the equations that read only known
+    values (and literals), in order, and the rest.  A ``jit`` that reads
+    both is split (:func:`_split_jit`), a ``scan`` whose body is a
+    lowered graph too (:func:`_split_loop`).  ``known`` gains every
+    known value."""
+    kn, un = [], []
+    for e in eqns:
+        mask = [isinstance(v, Literal) or v in known for v in e.invars]
+        if all(mask):
+            kn.append(e)
+            known.update(e.outvars)
+            continue
+        if e.prim == "jit":
+            k, e = _split_jit(e, mask)
+            kn.append(k)
+            known.update(k.outvars)
+        elif e.prim == "scan" and getattr(e.impl, "func", None) is _run_loop:
+            ks, e = _split_loop(e, mask)
+            kn.extend(ks)
+            for k in ks:
+                known.update(k.outvars)
+            if e is None:
+                continue
+        un.append(e)
+    return kn, un
+
+
+def _split_loop(e: Eqn, mask: list[bool]) -> tuple[list[Eqn], Eqn | None]:
+    """A ``scan`` of a lowered body some of whose operands are known,
+    split as JAX's ``_scan_partial_eval`` splits it: the carries that
+    stay known found by a fixpoint; the body partially evaluated
+    (:func:`_partial_eval`); the known part one ``scan`` (when it has an
+    output) of the known consts, carries and scanned inputs, whose
+    outputs are the known carries and ``ys`` and the residuals the rest
+    reads, stacked — itself hoisted first, its equations that read only
+    its consts emitted ahead of it; the rest one ``scan`` of the
+    residuals that do not vary (hoisted, or a known const) as consts,
+    the unknown consts, the unknown carries, the unknown scanned inputs
+    and the stacked residuals (a known scanned input forwarded).
+    Returns the equations of this level (the hoisted ones, the known
+    scan) and the unknown scan (``None`` when nothing is unknown)."""
+    body, n_c, n_k = e.impl.args
+    reverse = e.impl.keywords.get("reverse", False)
+    ins, outs = e.invars, e.outvars
+    c_kn, x_kn = mask[:n_c], mask[n_c + n_k:]
+    k_kn = list(mask[n_c:n_c + n_k])
+    for _ in range(n_k + 1):
+        known = {v for v, m in zip(body.invars, c_kn + k_kn + x_kn) if m}
+        kn, un = _partial_eval(body.eqns, known)
+        o_kn = [isinstance(v, Literal) or v in known for v in body.outvars]
+        new = [a and b for a, b in zip(k_kn, o_kn)]
+        if new == k_kn:
+            break
+        k_kn = new
+    o_kn = k_kn + o_kn[n_k:]
+    b_c, b_k = body.invars[:n_c], body.invars[n_c:n_c + n_k]
+    b_x = body.invars[n_c + n_k:]
+    outer = dict(zip(body.invars, ins))
+
+    # the residuals: the known values the rest reads, in order
+    res: dict[Var, None] = {}
+    for q in un:
+        res.update((v, None) for v in q.invars
+                   if isinstance(v, Var) and v in known)
+    res.update((v, None) for v, k in zip(body.outvars, o_kn)
+               if not k and isinstance(v, Var) and v in known)
+
+    # the known part, hoisted (JAX's ``_scan_known_hoisting``)
+    inv = {v for v, m in zip(b_c, c_kn) if m}
+    hoisted, kloop = _partial_eval(kn, inv)
+    here = [dataclasses.replace(q, invars=[
+        outer.get(v, v) if isinstance(v, Var) else v for v in q.invars])
+        for q in hoisted]
+    fwd_c = [v for v in res if v in b_c]
+    fwd_x = [v for v in res if v in b_x]
+    int_res = [v for v in res if v in inv and v not in b_c] + fwd_c
+    ext = [v for v in res if v not in inv and v not in b_x]
+    R = _shape(ins[n_c + n_k])[0]
+
+    def stack(a: Aval) -> Aval:
+        return Aval((R, *a.shape), a.dtype)
+    k_outs = [v for v, k in zip(body.outvars, o_kn) if k]
+    used: dict[Var, None] = {}
+    for q in kloop:
+        used.update((v, None) for v in q.invars
+                    if isinstance(v, Var) and v in inv)
+    used.update((v, None) for v in (*k_outs, *ext)
+                if isinstance(v, Var) and v in inv)
+    k_consts = list(used)
+    k_carry = [v for v, k in zip(b_k, k_kn) if k]
+    k_xs = [v for v, k in zip(b_x, x_kn) if k]
+    ext_out = [Var(stack(v.aval), f"{e.source}.res{i}")
+               for i, v in enumerate(ext)]
+    if k_outs or ext:
+        here.append(Eqn(
+            "scan", [*(outer.get(v, v) for v in k_consts),
+                     *(outer[v] for v in (*k_carry, *k_xs))],
+            [o for o, k in zip(outs, o_kn) if k] + ext_out, {},
+            functools.partial(_run_loop, Graph(
+                kloop, [*k_consts, *k_carry, *k_xs], [*k_outs, *ext], [],
+                [], ""), len(k_consts), len(k_carry), reverse=reverse),
+            e.source))
+    if all(o_kn):
+        return here, None
+    stacked = dict(zip(ext, ext_out))
+    u_c = [v for v, m in zip(b_c, c_kn) if not m]
+    u_k = [v for v, k in zip(b_k, k_kn) if not k]
+    u_x = [v for v, m in zip(b_x, x_kn) if not m]
+    e_res = ext + fwd_x
+    loop = Eqn(
+        "scan", [*(outer.get(v, v) for v in int_res),
+                 *(outer[v] for v in (*u_c, *u_k, *u_x)),
+                 *(stacked[v] if v in stacked else outer[v] for v in e_res)],
+        [o for o, k in zip(outs, o_kn) if not k], {},
+        functools.partial(_run_loop, Graph(
+            un, [*int_res, *u_c, *u_k, *u_x, *e_res],
+            [v for v, k in zip(body.outvars, o_kn) if not k], [], [], ""),
+            len(int_res) + len(u_c), len(u_k), reverse=reverse),
+        e.source)
+    return here, loop
 
 
 # -- a scan whose body is a lowered graph: JAX's partial evaluation ----------
@@ -1199,19 +1562,27 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
       the rules keep) and the tangent program's linear equations, whose
       transposes, in reverse, are the transposed scan's body; the known
       values they read are the residuals, in the order the tangent
-      program first reads them;
-    * the known equations that read only the consts and literals are
-      hoisted out of the loop, ahead of it (a ``jnp.where``'s split as
-      a ``jit`` is, :func:`_split_where`); a residual so hoisted, or a
-      const itself, is an intensive residual of the transposed scan, the
-      others extensive: stacked outputs of the forward scan (a carry's
-      value at each step among them), or a scanned input forwarded;
+      program first reads them.  A scan in the body is itself split so
+      (this function, one level down): its known loop in the known
+      part, its transposed scan in the transposed body;
+    * the known part is partially evaluated on the consts
+      (:func:`_partial_eval`): what reads only consts and literals is
+      hoisted ahead of the loop — a ``jit`` split as JAX splits one, a
+      scan in the body split by :func:`_split_loop` (the part of a
+      segment's attention scan that reads only loop invariants, its
+      masks, becomes a scan of its own ahead of both loops); a residual
+      so hoisted, or a const itself, is an intensive residual of the
+      transposed scan, the others extensive: stacked outputs of the
+      forward scan (a carry's value at each step among them), or a
+      scanned input forwarded;
     * the forward is one ``scan`` of the known loop body, its outputs the
       carries and the extensive residuals; the transpose, one reverse
       ``scan`` of the intensive residuals, the consts' cotangent
       accumulators (zeros), the carries' cotangents (a zero one
       instantiated) and the extensive residuals, whose outputs are the
-      consts', the carries' and the scanned inputs' cotangents."""
+      consts', the carries' and the scanned inputs' cotangents — of
+      those the tangent program reads: an input whose tangent it never
+      reads has none, as JAX's dead-code elimination leaves it."""
     body, n_c, n_k = e.impl.args
     consts, init, xs = ins[:n_c], ins[n_c:n_c + n_k], ins[n_c + n_k:]
 
@@ -1240,9 +1611,13 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
              for v in body.outvars]
     ys_lin = _tangents_out(body, c_lin + k_lin + x_lin)[n_k:]
 
-    # the transposed body: the records' transposes in reverse
+    # the transposed body: the tangent program's equations that read no
+    # tangent (a nested scan's zero carry tangents), then the records'
+    # transposes in reverse
     trans = _Lowering(None)
     sub.lo = trans
+    for emit in sub.pre:
+        emit()
     ct_k = [Var(v.aval, f"{tape.src}.ct{i}")
             for i, (v, l) in enumerate(zip(k_out[:n_k], k_lin)) if l]
     ct_y = [Var(v.aval, f"{tape.src}.cty{i}")
@@ -1258,47 +1633,40 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
             continue
         start = len(trans.eqns)
         got = rec.transpose(cts)
-        spans.append((i, start, len(trans.eqns)))
+        spans.append((i, rec.reads, start, len(trans.eqns)))
         for key, ct in got:
             sub.accum(key, ct)
-    acc = [Var(v.aval, f"{tape.src}.acc{i}")
-           for i, (v, l) in enumerate(zip(kin[:n_c], c_lin)) if l]
 
     def ct_of(v):
         ct = sub.ct.pop(sub.tan[v], None)
         return sub.zeros(v.aval) if ct is None else ct
-    acc_out = []
-    for a, v in zip(acc, [v for v, l in zip(kin[:n_c], c_lin) if l]):
-        ct = sub.ct.pop(sub.tan[v], None)
-        acc_out.append(a if ct is None else sub.emit(
-            "add_any", [a, ct], a.aval, impl=operator.add))
+    # an input's tangent the tangent program never reads: no cotangent
+    c_lin = [l and sub.tan[v] in sub.ct for v, l in zip(kin[:n_c], c_lin)]
+    x_lin = [l and sub.tan[v] in sub.ct
+             for v, l in zip(kin[n_c + n_k:], x_lin)]
+    acc = [Var(v.aval, f"{tape.src}.acc{i}")
+           for i, (v, l) in enumerate(zip(kin[:n_c], c_lin)) if l]
+    acc_out = [sub.emit("add_any", [a, sub.ct.pop(sub.tan[v])], a.aval,
+                        impl=operator.add)
+               for a, v in zip(acc, [v for v, l in zip(kin[:n_c], c_lin)
+                                     if l])]
     carry_out = [ct_of(v) for v, l in zip(kin[n_c:n_c + n_k], k_lin) if l]
     xs_out = [ct_of(v) for v, l in zip(kin[n_c + n_k:], x_lin) if l]
 
     # the residuals, in the order the tangent program reads them
     made = set(kin) | {o for q in known.eqns for o in q.outvars}
     res: dict[Var, None] = {}
-    for _, a, b in sorted(spans):
+    for _, reads, a, b in sorted(spans, key=lambda t: t[0]):
+        res.update((v, None) for v in reads if v in made)
         for q in trans.eqns[a:b]:
             res.update((v, None) for v in q.invars
                        if isinstance(v, Var) and v in made)
 
-    # hoisting: the known equations that read only consts and literals
+    # hoisting: the known part, less what neither the primal outputs nor
+    # the residuals need (JAX's linearization of a scan drops it),
+    # partially evaluated on the consts
     inv = set(kin[:n_c])
-    hoisted, loop = [], []
-    for q in known.eqns:
-        mask = [isinstance(v, Literal) or v in inv for v in q.invars]
-        if all(mask):
-            hoisted.append(q)
-            inv.update(q.outvars)
-            continue
-        split = (_split_where(q, mask)
-                 if q.prim == "jit" and q.name == "_where" else None)
-        if split is not None:
-            hoisted.append(split[0])
-            inv.update(split[0].outvars)
-            q = split[1]
-        loop.append(q)
+    hoisted, loop = _partial_eval(_dce(known.eqns, [*k_out, *res]), inv)
     outer = dict(zip(kin[:n_c], consts))
     for q in hoisted:
         got = tape.emit_multi(q.prim, [v if isinstance(v, Literal) else
@@ -1389,6 +1757,8 @@ JVP_RULES: dict[str, Callable] = {
     "pow": _jvp_pow,
     "logistic": _jvp_scaled(_logistic_jac),
     "exp": _jvp_exp,
+    "tanh": _jvp_tanh,
+    "stop_gradient": _jvp_stop_gradient,
     "max": _jvp_max,
     "reduce_max": _jvp_reduce_max,
     "top_k": _jvp_top_k,

@@ -86,6 +86,7 @@ import contextlib
 import dataclasses
 import functools
 import inspect
+import math
 import operator
 from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence
 
@@ -439,6 +440,9 @@ def _trace_scan(f: Callable, init: tuple, xs: tuple, consts: tuple
                           "x_flat": (fx.PH,) * len(xs)})
     outs = _MetaShapeProp(gm).propagate(tuple(c_ex), tuple(k_ex),
                                         tuple(x_rows))
+    # a ``y`` that is a number (a dense layer's load balance, 0.0) is a
+    # literal output of the body, stacked as fp32
+    outs = [torch.as_tensor(o, device="meta") for o in outs]
     length = _example_of(xs[0]).shape[0]
     example = (*map(torch.empty_like, k_ex),
                *(torch.empty((length, *o.shape), dtype=o.dtype,
@@ -467,12 +471,15 @@ def _run_loop(body: "Graph", n_consts: int, n_carry: int, *args: Any,
     run = _make_stage_fn(body.eqns, body.invars, body.outvars)
     consts, carry = args[:n_consts], args[n_consts:n_consts + n_carry]
     xs = args[n_consts + n_carry:]
+    dev = xs[0].device
     ys = []
     steps = range(xs[0].shape[0])
     for i in (reversed(steps) if reverse else steps):
         out = run(*consts, *carry, *(x[i] for x in xs))
         carry = out[:n_carry]
-        ys.append(out[n_carry:])
+        ys.append([y if isinstance(y, torch.Tensor) else torch.as_tensor(
+            y, dtype=v.aval.dtype, device=dev)
+            for y, v in zip(out[n_carry:], body.outvars[n_carry:])])
     if reverse:
         ys.reverse()
     return (*carry, *map(torch.stack, zip(*ys)))
@@ -611,11 +618,15 @@ def leaves(*, index: Sequence[tuple[Any, str]] = (),
     ``grad`` names functions ``f(params, *args) -> ((value, aux),
     grads)`` — ``jax.value_and_grad(g, has_aux=True)`` of the function
     ``f.value_fn`` = ``g`` — whose ``f.unstacked(params, *args)`` gives
-    the tree ``g`` reads: ``params``' leaves, a leaf stacked on a leading
-    repeat axis as its repeats ``leaf[r]``.  Each traces as one node,
-    lowered by :mod:`repro_torch.core.autodiff` to ``g``'s equations,
-    the residuals its JVP rules keep and the transpose of each, in
-    reverse (the jaxpr of ``value_and_grad``); ``grads`` has
+    the tree ``g`` reads: ``params``' leaves, either whole (a stacked
+    leaf that ``g`` scans over with :func:`scan` — route (a), an
+    attention architecture's segment: the body traced as a sub-graph)
+    or, stacked on a leading repeat axis, as its repeats ``leaf[r]`` (a
+    ``scan`` leaf's consts — route (b), a recurrent mixer's segment).
+    Each traces as one node, lowered by :mod:`repro_torch.core.autodiff`
+    to ``g``'s equations, the residuals its JVP rules keep and the
+    transpose of each, in reverse (the jaxpr of ``value_and_grad``); a
+    scan's body partially evaluated as JAX does; ``grads`` has
     ``params``' structure, a stacked leaf's gradient stacked.
 
     Each function is replaced in its module's globals for the block, as
@@ -811,6 +822,8 @@ _LAYOUT: dict[Any, str] = {
     "cumsum": "lower_cumsum", torch.cumsum: "lower_cumsum",
     torch.bmm: "lower_bmm", torch.nn.functional.pad: "lower_pad",
     "masked_fill": "lower_masked_fill",
+    torch.nn.functional.gelu: "lower_gelu",
+    "detach": "lower_detach",
 }
 #: primitive name -> implementation on tensors (and Python scalars)
 _IMPL: dict[str, Callable[..., Any]] = {
@@ -824,7 +837,7 @@ _IMPL: dict[str, Callable[..., Any]] = {
     "exp": torch.exp, "log": torch.log, "tanh": torch.tanh,
     "logistic": torch.sigmoid, "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
     "sin": torch.sin, "cos": torch.cos, "pow": operator.pow,
-    "square": torch.square,
+    "square": torch.square, "stop_gradient": torch.Tensor.detach,
     "select_n": _select_n, "dynamic_slice": _dynamic_slice,
     "squeeze": _squeeze, "broadcast_in_dim": _broadcast_in_dim,
     "gather": _gather, "scatter": _scatter,
@@ -1293,6 +1306,31 @@ class _Lowering:
                          impl=functools.partial(_pad_jit, pads=pads),
                          name="_pad")
 
+    def lower_detach(self, node: fx.Node) -> Var:
+        """``x.detach()`` → ``stop_gradient`` (``lax.stop_gradient``)."""
+        x = self.env[node.args[0]]
+        return self.emit("stop_gradient", [x], x.aval, node.name)
+
+    def lower_gelu(self, node: fx.Node) -> Var:
+        """``F.gelu(x, approximate="tanh")`` → the equations of
+        ``jax.nn.gelu(x)`` (its default, the tanh approximation):
+        ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``."""
+        if node.kwargs.get("approximate") != "tanh" or len(node.args) != 1:
+            raise NotImplementedError("F.gelu other than approximate='tanh'")
+        x = self.env[node.args[0]]
+        a, src = x.aval, node.name
+
+        def lit(c):
+            return Literal(c, Aval((), a.dtype))
+        cube = self.emit("integer_pow", [x], a, src, impl=_integer_pow, y=3)
+        t = self.emit("mul", [lit(0.044715), cube], a, src)
+        t = self.emit("add", [x, t], a, src)
+        t = self.emit("mul", [lit(math.sqrt(2 / math.pi)), t], a, src)
+        t = self.emit("tanh", [t], a, src)
+        t = self.emit("add", [lit(1.0), t], a, src)
+        t = self.emit("mul", [lit(0.5), t], a, src)
+        return self.emit("mul", [x, t], a, src)
+
     def lower_primitive(self, node: fx.Node) -> Any:
         """A function marked with the ``primitive`` it stands for (a
         leaf wrapped by ``torch.fx.wrap``) → one equation of it: the tensor
@@ -1447,15 +1485,24 @@ class _Lowering:
 
     def lower_loop(self, node: fx.Node) -> tuple[Var, ...]:
         """A traced :func:`scan` → one ``scan`` equation: inputs the
-        consts, the carry and the scanned inputs, outputs the new carry and
-        the stacked outputs; its body the lowered sub-graph of the step
-        (:func:`_run_loop` runs it)."""
+        consts (the constants the body makes first), the carry and the
+        scanned inputs, outputs the new carry and the stacked outputs; its
+        body the lowered sub-graph of the step (:func:`_run_loop` runs
+        it)."""
         c_ns, k_ns, x_ns = node.args
-        invars = [self.read(a) for a in (*c_ns, *k_ns, *x_ns)]
-        body = _Lowering(node.meta["loop"]).run()
-        if body.constvars:
-            raise NotImplementedError("a scan body that makes constants")
-        impl = functools.partial(_run_loop, body, len(c_ns), len(k_ns))
+        body = _Lowering(node.meta["loop"], self.device).run()
+        # the constants the body makes are constants of this program and,
+        # closure-converted as ``jax.lax.scan`` does, the scan's first
+        # consts
+        for v, c in zip(body.constvars, body.consts):
+            self.constvars.append(v)
+            self.consts.append(c)
+        invars = [*body.constvars,
+                  *(self.read(a) for a in (*c_ns, *k_ns, *x_ns))]
+        n_consts = len(body.constvars) + len(c_ns)
+        body = Graph(body.eqns, [*body.constvars, *body.invars],
+                     body.outvars, [], [], body.code)
+        impl = functools.partial(_run_loop, body, n_consts, len(k_ns))
         return tuple(self.emit_multi(
             "scan", invars, [Aval(tuple(m.shape), m.dtype)
                              for m in node.meta["tensor_meta"]],

@@ -66,7 +66,8 @@ def _make_stage_fn(eqns: Sequence[Eqn], in_vars: Sequence[Any],
                 env[eqn.outvars[0]] = out
             else:                   # a scan: the carry and the state
                 env.update(zip(eqn.outvars, out))
-        return tuple(env[v] for v in out_vars)
+        return tuple(v.val if isinstance(v, Literal) else env[v]
+                     for v in out_vars)
 
     return fn
 

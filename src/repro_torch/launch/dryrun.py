@@ -76,9 +76,9 @@ def dataflow_census(cfg, shape) -> dict:
     dataflow driver (analysis passes only: the step is traced on
     ``meta`` inputs, partitioned by Algorithm 1 and the schedule
     summarized).  Decode and long cells trace ``decode_step``
-    (``launch/serve.decode_compiled``), prefill cells ``forward``, train
-    cells the train step (:func:`train_compiled`), each segment one
-    ``scan`` equation as in the reference."""
+    (``launch/serve.decode_compiled``), prefill cells ``forward``, each
+    segment one ``scan`` equation as in the reference; train cells the
+    train step (:func:`train_compiled`)."""
     from ..models import model as M
     from . import serve
     if isinstance(shape, str):
@@ -116,10 +116,13 @@ def train_compiled(cfg, shape, *, device="meta", backend: str = "eager"):
     repeats, keys sorted), then the batch's; the outputs the new state's
     leaves in that order, then the metrics'.  The step traces with
     ``loss_and_grads`` as a ``grad`` leaf (``core/autodiff.py``: the
-    loss's equations, their residuals and transposes, each segment's
-    forward and backward one ``scan`` equation; DeepSeek-V3's MTP head's
-    layer inline, its chunked attention one ``scan`` partially evaluated
-    as JAX does), the embedding's read as ``x[idx]``, and the port's own
+    loss's equations, their residuals and transposes; an attention
+    architecture's segment one ``cdfg.scan`` over its stacked leaves
+    partially evaluated as JAX does — its loop invariants and its
+    attention's masks hoisted, its forward and reverse scans, the
+    attention's scan nested in each; a recurrent mixer's segment one
+    opaque ``scan`` forward and one backward; DeepSeek-V3's MTP head's
+    layer inline), the embedding's read as ``x[idx]``, and the port's own
     ``warmup_cosine`` and ``apply_updates``.  ``device`` other than ``meta`` compiles a step
     that runs (the ``sequential`` backend replays the lowered
     equations)."""

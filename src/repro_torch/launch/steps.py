@@ -57,13 +57,16 @@ def loss_and_grads(params: Any, batch: dict, cfg: ModelConfig
 def _unstacked(params: dict, batch: dict, cfg: ModelConfig) -> dict:
     """The model's tree of ``params`` whose segment leaves are stacked on
     a leading repeats axis (as the reference holds them, and the dry
-    run's train census traces them): each segment's repeats
-    ``leaf[r]``."""
-    def repeats(key: str) -> int:
-        return cfg.segments[int(key[len("segment_"):])].repeats
-    return {k: [tree.tree_map(lambda t, r=r: t[r], v)
-                for r in range(repeats(k))]
-            if k.startswith("segment_") else v for k, v in params.items()}
+    run's train census traces them): a segment whose body the trace
+    scans (``transformer.body_traced``) keeps its stacked leaves, any
+    other is read as its repeats ``leaf[r]``."""
+    def seg(key: str):
+        return cfg.segments[int(key[len("segment_"):])]
+    return {k: v if not k.startswith("segment_")
+            or M.transformer.body_traced(seg(k).unit, cfg)
+            else [tree.tree_map(lambda t, r=r: t[r], v)
+                  for r in range(seg(k).repeats)]
+            for k, v in params.items()}
 
 
 # what a trace inside ``cdfg.leaves(grad=[(steps, "loss_and_grads")])``

@@ -159,8 +159,9 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg, *,
               positions: torch.Tensor | None = None) -> torch.Tensor:
     """Training / prefill forward (causal)."""
     B, S, _ = x.shape
-    if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
+    if positions is None:       # int32, as ``jnp.arange`` makes them
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
     q, k, v = _project_qkv(params, x, cfg, positions)
     out = layers.merge_last(_attend(q, k, v, cfg).transpose(1, 2))
     return out @ params["w_o"]

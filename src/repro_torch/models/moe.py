@@ -93,6 +93,18 @@ _one_hot.jit_arity = 1
 torch.fx.wrap("_one_hot")
 
 
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax(x, axis=-1)``: traced, the reference's equations
+    — ``exp`` of ``x`` less its maximum (at least ``-inf``, kept dims,
+    not differentiated: ``stop_gradient``) over their sum; on tensors
+    ``torch.softmax``."""
+    if not isinstance(x, torch.fx.Proxy):
+        return torch.softmax(x, dim=-1)
+    top = x.amax(-1).clamp_min(-math.inf)[..., None].detach()
+    e = torch.exp(x - top)
+    return e / e.sum(-1, keepdim=True)
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg
               ) -> tuple[torch.Tensor, dict]:
     """x: (B, S, d) → (y, aux) with the load-balance loss and the share of
@@ -174,7 +186,7 @@ def _route(logits: torch.Tensor, m, T: int, cap: int) -> tuple:
     if m.router_fn == "sigmoid":   # DeepSeek-V3 style
         scores = torch.sigmoid(logits)
     else:
-        scores = torch.softmax(logits, dim=-1)
+        scores = _softmax(logits)
     if m.route_groups > 1 and m.route_device_limit > 0:
         # device-limited routing: keep only each token's top-M expert
         # groups before the top-k

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention, layers, moe, ssm
 from .. import tree
+from ..core import cdfg
 from .._device import get_device
 from ..configs.base import LayerSpec, ModelConfig
 from ..runtime.sharding import constrain_residual
@@ -305,19 +306,25 @@ def _inputs(params: dict, tokens_or_embeds: torch.Tensor,
         layers.embedding_apply(params["embed"], tokens_or_embeds))
 
 
-def _repeat_apply(rep_params: list, x: torch.Tensor, unit, cfg
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def _repeat_body(rep_params: list, x: torch.Tensor, unit, cfg
+                 ) -> tuple[torch.Tensor, Any]:
     """One repeat of a segment's unit: the output and the repeat's summed
-    load-balance loss (fp32; 0 without MoE layers).  Each layer's output
-    goes through ``constrain_residual`` where the reference calls
+    load-balance loss (the number 0.0 without MoE layers).  Each layer's
+    output goes through ``constrain_residual`` where the reference calls
     ``sp_constrain`` (a no-op on plain tensors)."""
     aux_acc: dict[str, Any] = {}
     for j, spec in enumerate(unit):
         x = _layer_apply(rep_params[j], x, spec, cfg, aux_acc)
         x = constrain_residual(x)
-    lb = torch.as_tensor(aux_acc.get("lb_loss", 0.0), dtype=torch.float32,
-                         device=x.device)
-    return x, lb
+    return x, aux_acc.get("lb_loss", 0.0)
+
+
+def _repeat_apply(rep_params: list, x: torch.Tensor, unit, cfg
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_repeat_body` with the load-balance loss a 0-d fp32
+    tensor."""
+    x, lb = _repeat_body(rep_params, x, unit, cfg)
+    return x, torch.as_tensor(lb, dtype=torch.float32, device=x.device)
 
 
 def _segment_forward(x: torch.Tensor, seg_params: list, state: tuple = (),
@@ -345,18 +352,55 @@ _segment_forward.scan_ys = lambda consts, **_: torch.empty(
     len(consts), dtype=torch.float32, device="meta")
 
 
+def body_traced(unit, cfg: ModelConfig) -> bool:
+    """Whether a segment of this unit takes its repeats as one
+    :func:`repro_torch.core.cdfg.scan` over its stacked leaves where a
+    ``grad`` leaf traces the loss (:func:`_segment_scan`): every unit but
+    one with a recurrent mixer (``rwkv``, ``mamba``), and none under
+    ``cfg.remat`` (``jax.checkpoint`` is not lowered), whose segment
+    stays the one opaque ``scan`` leaf :func:`_segment_forward`."""
+    return not cfg.remat and not any(spec.mixer in ("rwkv", "mamba")
+                                     for spec in unit)
+
+
+def _segment_scan(x: torch.Tensor, stacked: list, *, unit,
+                  cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """One segment whose parameters are stacked (a list over the unit of
+    layer trees, each leaf ``(repeats, ...)``): the reference's
+    ``jax.lax.scan(body, x, stacked)``, the carry ``x``, the scanned
+    inputs the stacked leaves, the ``ys`` each repeat's load-balance
+    loss.  (The reference's ``cfg.remat`` wraps the body in
+    ``jax.checkpoint``, which this does not emit: :func:`body_traced`
+    keeps such a segment opaque.)"""
+    if cfg.remat:
+        raise NotImplementedError("a stacked segment with cfg.remat")
+    leaves = tree.leaves(stacked)
+
+    def body(consts, carry, row):
+        x, lb = _repeat_body(tree.unflatten(stacked, list(row)), carry[0],
+                             unit, cfg)
+        return (x,), (lb,)
+    (x,), (lbs,) = cdfg.scan(body, (x,), leaves)
+    return x, lbs
+
+
 def forward(params: dict, tokens_or_embeds: torch.Tensor,
             cfg: ModelConfig, *,
             return_hidden: bool = False) -> tuple[torch.Tensor, dict]:
     """Full-sequence causal forward.  Returns (logits, aux), aux holding
     the MoE layers' summed load-balance loss and, with ``return_hidden``,
     the final-normed hidden states (DeepSeek-V3's MTP loss reads them).
-    Each segment is :func:`_segment_forward`."""
+    Each segment is :func:`_segment_forward` on one entry per repeat, or
+    :func:`_segment_scan` on stacked leaves (a ``grad`` leaf's trace)."""
     x = _inputs(params, tokens_or_embeds, cfg)
     lb = 0.0
     for si, seg in enumerate(cfg.segments):
-        x, lbs = _segment_forward(x, params[f"segment_{si}"], (),
-                                  unit=seg.unit, cfg=cfg)
+        seg_params = params[f"segment_{si}"]
+        if isinstance(seg_params[0], list):     # one entry per repeat
+            x, lbs = _segment_forward(x, seg_params, (), unit=seg.unit,
+                                      cfg=cfg)
+        else:
+            x, lbs = _segment_scan(x, seg_params, unit=seg.unit, cfg=cfg)
         lb = lb + lbs.sum()
     x = _final_norm(params, x, cfg)
     aux = {"lb_loss": lb}

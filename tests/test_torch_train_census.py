@@ -5,23 +5,26 @@ The reference's train step (``make_train_step(cfg, AdamWConfig())`` on
 the abstract train state, ``value_and_grad`` and AdamW inlined) is
 compiled by ``repro.dataflow`` at ``train_4k`` and published widths; the
 port's by ``train_compiled``.  Both equation lists split into four
-sections: (1) what comes before the first forward ``scan`` (the token
-slices and the embedding's read), (2) from there to the last forward
-``scan``, (3) the loss tail and the backward, (4) the schedule and
-AdamW (from the first equation that reads the step).  Sections 1, 3 and
-4 must be equal equation by equation — primitive, ``jit`` name, output
-avals, and where each operand comes from.  Section 2 differs by design
-(ROADMAP "Decisions", route (b)): the reference's partial evaluation
-hoists the segment body's loop invariants out of the scan; the port
-emits the forward ``scan`` alone.  ``chip_smoke.TRAIN_SECTION2`` pins
-both sides' section 2 and the census difference that follows from it,
-and ``REF_TRAIN_CENSUS`` the reference's census of all ten
-architectures.  DeepSeek-V3's section 3 also holds its MTP head's layer,
-lowered inline on both sides: its chunked attention's ``scan`` partially
-evaluated (the hoisted loop invariants, the stacked residuals, the
-transposed scan) as JAX does.  A constant is named by its first use
-outside section 2 (the reference's section 2 hoists constants of its
-own).
+sections: (1) what comes before the first segment (the token slices and
+the embedding's read), (2) from there to the last forward ``scan`` (the
+segments' hoisted loop invariants, their forward scans), (3) the loss
+tail and the backward, (4) the schedule and AdamW (from the first
+equation that reads the step).  For the eight attention architectures
+(route (a), ROADMAP "Decisions": each segment's body a ``cdfg.scan``
+partially evaluated as JAX does, its attention scan nested in it) all
+four must be equal equation by equation — primitive, ``jit`` name,
+output avals, and where each operand comes from (a scan's operands by
+count) — and the census is the reference's (``chip_smoke.
+REF_TRAIN_CENSUS``).  For RWKV-6 and Jamba (route (b): the segment one
+opaque ``scan``) section 2 differs by design: the reference's partial
+evaluation hoists the segment body's loop invariants out of the scan,
+the port emits the forward ``scan`` alone; ``chip_smoke.TRAIN_SECTION2``
+pins both sides' section 2 and the census difference that follows from
+it, and sections 1, 3 and 4 are equal (a scan's operands excepted), a
+constant named by its first use outside section 2.  DeepSeek-V3's
+section 3 also holds its MTP head's layer, lowered inline on both
+sides.  A two-level scan alone (a scan whose body holds the chunked
+attention's) is held against ``jax.make_jaxpr`` equation by equation.
 
 The lowered step also runs: on a reduced SmolLM through the
 ``sequential`` backend, its gradients, loss, metrics, params and
@@ -62,14 +65,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 #: the architectures held section by section, one for each mechanism:
-#: tied embeddings and RMSNorm; LayerNorm (``jit _var``); embeddings in
-#: (a zero carry tangent, an unread ``embed``); stacked leaves the body
-#: never reads (Command-R's ``ln2``); the MoE load balance's cotangent
-#: into the scan's ``ys``; the MTP head (a ``checkpoint`` layer, a
-#: ``concatenate``, a dense segment's constant ``ys``)
+#: tied embeddings and RMSNorm; LayerNorm (``jit _var``, split where the
+#: segment's loop invariants are hoisted); embeddings in (a zero carry
+#: tangent, an unread ``embed``) and the tanh GELU; stacked leaves the
+#: body never reads (Command-R's ``ln2``: no cotangent out of the
+#: transposed scan); the MoE load balance's cotangent into the scan's
+#: ``ys``, and the router's softmax (``stop_gradient``); the MTP head and
+#: two segments; RWKV-6, a route-(b) segment (its section 2 pinned)
 SECTION_ARCHS = ("smollm-135m", "olmo-1b", "musicgen-large",
                  "command-r-plus-104b", "llama4-scout-17b-a16e",
-                 "deepseek-v3-671b")
+                 "deepseek-v3-671b", "rwkv6-1.6b")
 _FIELDS = ("ops", "memory_ops", "long_ops", "stages", "channels",
            "pipeline_ii")
 
@@ -88,10 +93,8 @@ def _chip_smoke():
 
 
 def _census(compiled) -> dict:
-    """``dryrun.census_of`` less ``channel_bytes`` (of either package's
-    ``Compiled``)."""
-    return {k: v for k, v in dryrun.census_of(compiled).items()
-            if k != "channel_bytes"}
+    """``dryrun.census_of`` (of either package's ``Compiled``)."""
+    return dict(dryrun.census_of(compiled))
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,18 +127,28 @@ def _port(arch: str) -> tuple:
         step_in
 
 
-def _sections(eqns: list, step_in, s1: int | None) -> tuple[int, int, int]:
+def _sections(eqns: list, step_in, s1: int | None, invars=()
+              ) -> tuple[int, int, int]:
     """(end of section 1, end of section 2, start of section 4).  Section
-    1 ends at the first forward ``scan`` of the port's, whose section 2
-    starts with its forward scan (the reference's with hoisted loop
-    invariants and other scans): ``s1`` gives the port's end to the
+    1 ends at the first equation that reads only constants (the first
+    segment's hoisted loop invariants) or at the first forward ``scan``,
+    whichever comes first: ``s1`` gives the port's end to the
     reference."""
     names = [n for n, _, _ in eqns]
     fwd = [i for i in range(names.index("jit log_softmax"))
            if names[i] == "scan"]
     s4 = next(i for i, (_, ins, _) in enumerate(eqns)
               if any(v is step_in for v in ins))
-    return fwd[0] if s1 is None else s1, fwd[-1] + 1, s4
+    if s1 is None:
+        made, invars = set(), set(invars)
+        s1 = fwd[0]
+        for i, (name, ins, outs) in enumerate(eqns[:fwd[0]]):
+            if all(type(v).__name__ == "Literal" or v not in made
+                   and v not in invars for v in ins):
+                s1 = i
+                break
+            made.update(outs)
+    return s1, fwd[-1] + 1, s4
 
 
 def _aval(v) -> tuple:
@@ -143,12 +156,16 @@ def _aval(v) -> tuple:
     return tuple(v.aval.shape), dt
 
 
-def _rows(eqns: list, inputs: tuple, bounds: tuple) -> list:
+def _rows(eqns: list, inputs: tuple, bounds: tuple, exact: bool = True
+          ) -> list:
     """Each equation as (name, output avals, operand origins): an input's
-    index, a constant's (numbered by its first use outside section 2), a
-    literal's fp32 value, or (section, offset, output) of the equation
-    that made it — section 2's equations, which differ by design, only
-    as (2, the output's place among the last forward scan's)."""
+    index, a constant's (numbered by its first use), a literal's fp32
+    value, or (section, offset, output) of the equation that made it.
+    Without ``exact`` (a route-(b) segment, whose section 2 differs by
+    design), section 2's equations only as (2, the output's place among
+    the last forward scan's), and a constant numbered by its first use
+    outside section 2 (the reference's section 2 hoists constants of its
+    own)."""
     s1, s2, s4 = bounds
     invars, constvars = inputs
     where = {v: ("in", i) for i, v in enumerate(invars)}
@@ -161,7 +178,7 @@ def _rows(eqns: list, inputs: tuple, bounds: tuple) -> list:
             if type(v).__name__ == "Literal":
                 ops.append(("lit", float(np.float32(np.asarray(v.val)))))
             elif v in consts:
-                if not s1 <= k < s2:
+                if exact or not s1 <= k < s2:
                     rank.setdefault(v, len(rank))
                 ops.append(("const", rank.get(v)))
             else:
@@ -170,6 +187,8 @@ def _rows(eqns: list, inputs: tuple, bounds: tuple) -> list:
         for o, v in enumerate(outs):
             if k < s1:
                 where[v] = (1, k, o)
+            elif k < s2 and exact:
+                where[v] = (2, k - s1, o)
             elif k < s2:
                 where[v] = (2, o if k == s2 - 1 else None)
             elif k < s4:
@@ -179,11 +198,19 @@ def _rows(eqns: list, inputs: tuple, bounds: tuple) -> list:
     return rows
 
 
+def _route_a(arch: str) -> bool:
+    """Whether every segment of ``arch`` takes route (a)
+    (``transformer.body_traced``)."""
+    cfg = load_config(arch)
+    return all(M.transformer.body_traced(seg.unit, cfg)
+               for seg in cfg.segments)
+
+
 def _split(arch: str, side, s1: int | None = None) -> tuple:
     """The census and the four sections' rows of ``side(arch)``."""
     census, eqns, inputs, step_in = side(arch)
-    bounds = _sections(eqns, step_in, s1)
-    rows = _rows(eqns, inputs, bounds)
+    bounds = _sections(eqns, step_in, s1, inputs[0])
+    rows = _rows(eqns, inputs, bounds, _route_a(arch))
     s1, s2, s4 = bounds
     return census, rows[:s1], rows[s1:s2], rows[s2:s4], rows[s4:]
 
@@ -195,22 +222,37 @@ def _long(rows: list) -> int:
 
 @pytest.mark.parametrize("arch", SECTION_ARCHS)
 def test_train_census_sections_equal_the_reference(arch):
-    """Sections 1, 3 and 4 equal equation by equation (a scan's operands
-    excepted: the reference's transposed segment scans read section 2's
-    hoisted values); section 2 as pinned; the census equal to the
-    reference's less section 2's pinned difference."""
+    """Route (a): all four sections equal equation by equation, operands
+    included (a scan's by count: its operand order is not held) — section
+    2's hoisted loop invariants (RoPE tables, the split ``jit`` equations, the
+    zero carries, the ``jit`` equations left with no output, the hoisted mask
+    ``scan``) among them — and the census the reference's.  Route (b):
+    sections 1, 3 and 4 equal (a scan's operands excepted: the
+    reference's transposed segment scans read section 2's hoisted
+    values), section 2 as pinned, the census the reference's less section
+    2's pinned difference."""
     cs = _chip_smoke()
     census, *port = _split(arch, _port)
     ref_census, *ref = _split(arch, _ref, len(port[0]))
+    assert not any(r[0] == "checkpoint" for sec in port for r in sec)
+    if _route_a(arch):
+        for sec in range(4):
+            assert len(port[sec]) == len(ref[sec]), (arch, sec + 1)
+            for k, (a, b) in enumerate(zip(port[sec], ref[sec])):
+                if a[0] == "scan":
+                    a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
+                assert a == b, (arch, sec + 1, k)
+        assert arch not in cs.TRAIN_SECTION2
+        assert census == ref_census
+        return
     for sec in (0, 2, 3):
         assert len(port[sec]) == len(ref[sec]), (arch, sec + 1)
         for k, (a, b) in enumerate(zip(port[sec], ref[sec])):
             if a[0] == "scan":
                 a, b = a[:2], b[:2]
             assert a == b, (arch, sec + 1, k)
-    assert not any(r[0] == "checkpoint" for sec in port for r in sec)
     # the port's section 2: each segment's forward scan (and what reads
-    # one segment's ys before the next: DeepSeek-V3's load balance)
+    # one segment's ys before the next)
     scans = [k for k, r in enumerate(port[1]) if r[0] == "scan"]
     assert len(scans) == len(load_config(arch).segments)
     assert scans[0] == 0 and scans[-1] == len(port[1]) - 1
@@ -227,18 +269,28 @@ def test_train_census_sections_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_pinned_train_census_is_the_live_reference(arch):
-    """``chip_smoke.REF_TRAIN_CENSUS`` (all ten) is the live reference's
-    census, and section 2's pinned difference (``TRAIN_SECTION2``) gives
-    the port's census from it."""
+    """``chip_smoke.REF_TRAIN_CENSUS`` and ``REF_TRAIN_CHANNEL_BYTES``
+    (all ten) are the live reference's census; the port's census equals
+    it for the route-(a) architectures, ``channel_bytes`` included, and
+    with section 2's pinned difference (``TRAIN_SECTION2``, RWKV-6 and
+    Jamba only) for the route-(b) ones."""
     cs = _chip_smoke()
     ref_census, eqns, _, step_in = _ref(arch)
-    assert cs.REF_TRAIN_CENSUS[arch] == ref_census
+    assert {**cs.REF_TRAIN_CENSUS[arch],
+            "channel_bytes": cs.REF_TRAIN_CHANNEL_BYTES[arch]} == ref_census
     census, s1, *_ = _split(arch, _port)
+    assert set(cs.TRAIN_SECTION2) == {a for a in ARCH_IDS
+                                      if not _route_a(a)}
+    if _route_a(arch):
+        assert census == ref_census
+        assert cs.train_census_difference(arch) == {}
+        return
     n_ref, n_port, _ = cs.TRAIN_SECTION2[arch]
     s1, s2, _ = _sections(eqns, step_in, len(s1))
     assert s2 - s1 == n_ref
     diff = cs.train_census_difference(arch)
-    assert {k: census[k] + diff.get(k, 0) for k in _FIELDS} == ref_census
+    assert {k: census[k] + diff.get(k, 0) for k in _FIELDS} == {
+        k: ref_census[k] for k in _FIELDS}
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -297,7 +349,18 @@ def _deepseek_chunked():
     return cfg, params, [batch]
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v3-671b"])
+def _no_autograd_transpose(graph):
+    """Every segment's transpose replays its transposed body's equations
+    (a reverse scan of a lowered body), none runs ``torch.autograd``
+    (route (b)'s ``autodiff._scan_vjp``)."""
+    funcs = [getattr(e.impl, "func", None) for e in graph.eqns
+             if e.prim == "scan"]
+    assert autodiff._scan_vjp not in funcs
+    assert _chip_smoke().transposes_replayed(graph) > 0
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v3-671b",
+                                  "smollm-135m+remat"])
 def test_lowered_grads_equal_loss_and_grads(arch):
     """The ``grad`` leaf alone, lowered and run by the ``sequential``
     backend on a reduced SmolLM and a reduced DeepSeek-V3 (MLA, MoE, its
@@ -305,9 +368,14 @@ def test_lowered_grads_equal_loss_and_grads(arch):
     route, the MTP layer's as the lowered scan and its transpose): loss,
     metrics and every gradient leaf (stacked) those of
     ``steps.loss_and_grads`` (autograd) — loss rtol 1e-4, grads rtol
-    1e-4 + 1e-4·max|g| (PERF.md §2)."""
+    1e-4 + 1e-4·max|g| (PERF.md §2); each segment's transpose replays its
+    transposed body's equations, none runs ``torch.autograd``.  Under
+    ``cfg.remat`` (SmolLM's) the segment keeps route (b), its transpose
+    ``autodiff._scan_vjp`` (``jax.checkpoint`` is not lowered)."""
+    remat = arch.endswith("+remat")
     cfg, params, batches = (_deepseek_chunked() if arch == "deepseek-v3-671b"
-                            else _smollm(arch))
+                            else _smollm(arch.removesuffix("+remat")))
+    cfg = dataclasses.replace(cfg, remat=remat)
     stacked = M.transformer.stack_repeats(params)
 
     def value_and_grads(p_leaves, b_leaves):
@@ -323,9 +391,16 @@ def test_lowered_grads_equal_loss_and_grads(arch):
                                 tuple(tree.leaves(batches[0])),
                                 backend="sequential", device="cpu",
                                 use_cache=False)
-    if arch == "deepseek-v3-671b":
-        assert sum(e.prim == "scan" for e in comp.graph.eqns) == 2 * len(
+    if arch == "deepseek-v3-671b":      # each segment's hoisted mask scan,
+        # forward and reverse scans; the MTP attention's two
+        assert sum(e.prim == "scan" for e in comp.graph.eqns) == 3 * len(
             cfg.segments) + 2
+    if remat:
+        assert autodiff._scan_vjp in [getattr(e.impl, "func", None)
+                                      for e in comp.graph.eqns
+                                      if e.prim == "scan"]
+    else:
+        _no_autograd_transpose(comp.graph)
     out = comp(tuple(tree.leaves(stacked)), tuple(tree.leaves(batches[0])))
     (loss, metrics), grads = steps.loss_and_grads(params, batches[0], cfg)
     want = [loss, *tree.leaves(metrics)]
@@ -363,6 +438,7 @@ def test_lowered_step_equals_make_train_step():
                              torch.tensor(200, dtype=torch.int32))
     comp = dryrun.train_compiled(cfg, SHAPE, device="cpu",
                                  backend="sequential")
+    _no_autograd_transpose(comp.graph)
     step = steps.make_train_step(cfg, opt_cfg)
     lowered = before = steps.stack_train_state(state)
     n = len(tree.leaves(lowered))
@@ -510,6 +586,13 @@ RULE_CASES = {
                                                     "w": _rng(3, 4)}),
     "jit softmax": (lambda p, x, i: (torch.softmax(p["w"] * x, -1)
                                      * x).sum(), {"w": _rng(3, 4)}),
+    "tanh": (lambda p, x, i: (torch.tanh(p["w"] * x) * x
+                              + torch.nn.functional.gelu(
+                                  p["w"] - x, approximate="tanh")).sum(),
+             {"w": _rng(3, 4)}),
+    "stop_gradient": (lambda p, x, i: (p["w"] * p["w"].detach() * x
+                                       + moe._softmax(p["w"] * x)).sum(),
+                      {"w": _rng(3, 4)}),
     "jit silu": (lambda p, x, i: (torch.nn.functional.silu(p["w"]) * x).sum(),
                  {"w": _rng(3, 4)}),
     "jit _where": (lambda p, x, i: (torch.where(x > 1.0, p["w"], 0) * x
@@ -679,6 +762,89 @@ def test_attention_scan_equals_the_reference():
     for got, g in zip(out[1:], grads, strict=True):
         want = torch.from_numpy(np.array(g, dtype=np.float32))
         torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+# -- a scan in a scan body, against the reference ------------------------------
+
+#: two repeats of a body that attends in chunks of 2 over 5 positions (2
+#: heads of 4): the inner scan's masks read only loop invariants
+NEST_R, NEST_SHAPE, NEST_CHUNK = 2, (1, 2, 5, 4), 2
+
+
+def _nested_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((NEST_R, 4, 4)).astype(np.float32) / 2
+    x = rng.standard_normal(NEST_SHAPE).astype(np.float32)
+    return w, x
+
+
+def _nested_port(w, x):
+    """``((h ** 2).sum())`` of ``h`` after the repeats ``h + att(tanh(h @
+    w[r]), ·, h)`` — a ``cdfg.scan`` over ``w`` whose body holds the
+    chunked attention's scan."""
+    def body(consts, carry, row):
+        h, = carry
+        q = torch.tanh(h @ row[0])
+        return (h + attention._chunked_attention(
+            q, q, h, causal=True, chunk=NEST_CHUNK),), None
+    (h,), _ = cdfg.scan(body, (x,), (w,))
+    return (h ** 2).sum()
+
+
+def test_scan_in_a_scan_equals_the_reference():
+    """``value_and_grad`` of a scan whose body holds a scan with a part
+    that reads only loop invariants (the chunked attention's masks): the
+    port's lowered equations are ``jax.make_jaxpr(jax.value_and_grad)``'s
+    of the same function, equation by equation, operands and avals
+    included (a scan's operands by count) — the inner scan's invariant
+    part hoisted out of both loops as a scan of its own, the forward
+    scan, the reverse scan whose body holds the inner transposed scan —
+    and its value and gradients ``torch.autograd``'s (rtol 1e-5); the
+    transposes run the transposed bodies' equations."""
+    import jax.numpy as jnp
+    from repro.models.attention import _chunked_attention as ref_att
+    w, x = _nested_inputs()
+
+    def ref_f(w, x):
+        def body(h, wr):
+            q = jnp.tanh(h @ wr)
+            return h + ref_att(q, q, h, causal=True, chunk=NEST_CHUNK), None
+        h, _ = jax.lax.scan(body, x, w)
+        return (h ** 2).sum()
+    jaxpr = jax.make_jaxpr(jax.value_and_grad(ref_f, argnums=(0, 1)))(w, x)
+
+    def value_and_grad(p):
+        raise AssertionError("traced only")
+    value_and_grad.value_fn = lambda p: (_nested_port(p["w"], p["x"]), {})
+    value_and_grad.unstacked = lambda p: p
+    _NS.nested = value_and_grad
+
+    def traced(p_leaves):
+        (val, _), g = _NS.nested(dict(zip("wx", p_leaves)))
+        return (val, *tree.leaves(g))
+    leaves = (torch.from_numpy(w), torch.from_numpy(x))
+    with cdfg.leaves(grad=[(_NS, "nested")]):
+        comp = dataflow_compile(traced, leaves, backend="sequential",
+                                device="cpu", use_cache=False)
+    ref, port = _jaxpr_rows(jaxpr), _graph_rows(comp.graph)
+    assert [r[0] for r in port] == [r[0] for r in ref]
+    for k, (a, b) in enumerate(zip(port, ref)):
+        if a[0] == "scan":
+            a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
+        assert a == b, k
+    scans = [e for e in comp.graph.eqns if e.prim == "scan"]
+    assert len(scans) == 3
+    assert all(e.impl.func is cdfg._run_loop for e in scans)
+    t_body = scans[-1].impl.args[0]
+    assert scans[-1].impl.keywords["reverse"]
+    assert sum(e.prim == "scan" for e in t_body.eqns) == 1
+    out = comp(leaves)
+    p = [t.clone().requires_grad_() for t in leaves]
+    want = _nested_port(*p)
+    grads = torch.autograd.grad(want, p)
+    torch.testing.assert_close(out[0], want.detach(), rtol=1e-5, atol=0)
+    for got, g in zip(out[1:], grads, strict=True):
+        torch.testing.assert_close(got, g, rtol=1e-5, atol=1e-6)
 
 
 # -- edge inputs of the new lowering, against the reference --------------------
