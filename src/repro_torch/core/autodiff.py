@@ -28,9 +28,10 @@ functions ``log_softmax``, ``take_along_axis`` and ``_var`` keep their
 residuals as extra outputs of one ``jit`` equation and transpose to one
 ``jit`` equation, as JAX's partial evaluation of a ``jit`` does.
 
-A scan whose body is a lowered graph (``cdfg.scan``: an attention
-architecture's segment over its stacked repeats, the chunked attention
-inside it, DeepSeek-V3's MTP layer's attention at the loss's top level)
+A scan whose body is a lowered graph (``cdfg.scan``: a segment over its
+stacked repeats, the chunked attention, the WKV recurrence or Mamba's
+selective scan inside it, DeepSeek-V3's MTP layer's attention at the
+loss's top level)
 follows JAX's linearization of a scan (:func:`_jvp_loop`): the body's
 JVP splits it into its known part and the tangent program; the known
 part, less what nothing needs, is partially evaluated on the consts
@@ -43,7 +44,8 @@ tangent program reads, and the transpose is one reverse scan of the
 transposed body, a nested scan's transposed scan inside it — the
 reference's equations.
 
-A segment of a recurrent mixer (RWKV-6, Mamba) stays one opaque
+A segment under ``cfg.remat`` (``jax.checkpoint`` is not lowered), or
+with a Mamba mixer whose scan is the chunked one, stays one opaque
 ``scan`` equation, its body the model's code, and is the one rule that
 departs from JAX's equations (ROADMAP "Decisions": route (b)): its
 forward keeps, as its only residual, the stack of each repeat's input;
@@ -70,7 +72,8 @@ from .. import tree
 from .._device import get_device
 from .cdfg import (Aval, Eqn, Graph, Literal, Var, _Lowering,
                    _broadcast_in_dim, _concatenate, _integer_pow, _pad_jit,
-                   _reshape, _run_loop, _split, _transpose, _where)
+                   _reshape, _run_loop, _softplus, _split, _transpose,
+                   _where)
 
 __all__ = ["lower_value_and_grad", "JVP_RULES"]
 
@@ -810,6 +813,10 @@ def _jvp_concatenate(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     """Linear in every operand; the transpose is one ``split`` of the
     cotangent into the operands' pieces."""
     outs = tape.copy(e, ins)
+    # an operand without a tangent gets a zero one (JAX's
+    # ``linear_jvp`` instantiates it), a residual its transpose does not
+    # read
+    zeros = [tape.zeros(x.aval) for x, d in zip(ins, lin) if not d]
     ko = tape.fresh(outs[0])
     axis = e.params["dimension"]
     sizes = tuple(_shape(x)[axis] for x in ins)
@@ -821,7 +828,7 @@ def _jvp_concatenate(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
             functools.partial(_split, sizes=sizes, axis=axis),
             sizes=sizes, axis=axis)
         return [(tape.tan[x], g) for x, g, d in zip(ins, got, lin) if d]
-    tape.linear.append(_Linear([ko], transpose))
+    tape.linear.append(_Linear([ko], transpose, zeros))
     return outs
 
 
@@ -892,6 +899,13 @@ def _integer_pow_jac(tape, e, ins, out):
     x, y = ins[0], e.params["y"]
     p = tape.emit("integer_pow", [x], x.aval, impl=_integer_pow, y=y - 1)
     return tape.emit("mul", [Literal(float(y), Aval((), x.aval.dtype)), p],
+                     x.aval)
+
+
+def _square_jac(tape, e, ins, out):
+    """``mul(2, x)``."""
+    x = ins[0]
+    return tape.emit("mul", [Literal(2.0, Aval((), x.aval.dtype)), x],
                      x.aval)
 
 
@@ -1109,6 +1123,68 @@ def _jvp_silu(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.emit(
         "jit", [*res, x, cts[0]], x.aval, _silu_vjp, e.name))]))
     return [out]
+
+
+def _jvp_relu(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``jax.nn.relu``'s ``custom_jvp``: ``select_n(gt(x, 0), zeros,
+    ṫ)``, the predicate and the zero tangent made in the forward (the
+    zero a residual its transpose does not read); transposed, a
+    ``select_n`` of the predicate, fresh zeros and the cotangent."""
+    outs = tape.copy(e, ins)
+    x, out = ins[0], outs[0]
+    f = Aval((), x.aval.dtype)
+    pred = tape.emit("gt", [x, Literal(0.0, f)], Aval(_shape(x), torch.bool))
+    zero = tape.zeros(x.aval)
+    kx, ko = tape.tan[x], tape.fresh(out)
+    tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.emit(
+        "select_n", [pred, tape.zeros(x.aval), cts[0]], x.aval))], [zero]))
+    return outs
+
+
+def _replace_inf(x: Any, zeros: Any) -> Any:
+    # ``jax._src.lax.other._replace_inf``: ``x`` with ``+inf`` replaced
+    # by the zeros
+    return torch.where(x == math.inf, zeros, x)
+
+
+def _softplus_loop(x: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+                   s: torch.Tensor, t: torch.Tensor) -> tuple:
+    """``jax.nn.softplus``'s forward with its residuals, given the part
+    that reads no operand (:func:`_softplus_consts`): ``logaddexp(x,
+    0)``, the tangent's factor ``exp(x − ans)`` and the zero tangent of
+    the ``0`` times its own factor (each ``_replace_inf``'d as
+    ``logaddexp``'s ``custom_jvp`` does)."""
+    ans = _softplus(x)
+    y = torch.exp(_replace_inf(x, q) - _replace_inf(ans, r))
+    return ans, y, 0.0 * torch.exp(s - _replace_inf(ans, t))
+
+
+def _softplus_consts(*, shape: tuple[int, ...], dtype: torch.dtype
+                     ) -> tuple:
+    """The part of :func:`_softplus_loop` that reads no operand: three
+    zeros of the operand's shape and the ``0`` with ``+inf`` replaced."""
+    dev = get_device(None)
+    z = torch.zeros(shape, dtype=dtype, device=dev)
+    return z, z, torch.zeros((), dtype=dtype, device=dev), z
+
+
+def _softplus_fwd(x: torch.Tensor) -> tuple:
+    return _softplus_loop(x, *_softplus_consts(shape=tuple(x.shape),
+                                               dtype=x.dtype))
+
+
+def _softplus_vjp(y: torch.Tensor, z: torch.Tensor, ct: torch.Tensor
+                  ) -> torch.Tensor:
+    return ct * y
+
+
+#: ``jax.nn.softplus`` (``logaddexp(x, 0)``, through ``logaddexp``'s
+#: ``custom_jvp``): one ``jit`` of the output and two residuals
+#: (:func:`_softplus_loop`); the transpose one ``jit`` of them and the
+#: cotangent, ``ct·exp(x − ans)``
+_jvp_softplus = _jvp_jit(lambda e, x: _softplus_fwd,
+                         lambda e, x: [x.aval, x.aval],
+                         lambda e, x: _softplus_vjp)
 
 
 def _softmax_vjp(y: torch.Tensor, ct: torch.Tensor, *, dim: int = -1
@@ -1393,10 +1469,27 @@ def _nothing(*_: Any) -> tuple:
     return ()
 
 
+def _split_softplus(e: Eqn, known: list[bool]) -> tuple | None:
+    """``jax.nn.softplus``'s forward (:func:`_softplus_fwd`) of an
+    unknown operand: a ``jit`` of nothing gives what reads no operand
+    (:func:`_softplus_consts`); the rest keeps a ``jit`` of the operand
+    and those (:func:`_softplus_loop`)."""
+    if known[0] or e.impl is not _softplus_fwd:
+        return None
+    out = e.outvars[0]
+    consts = [Var(a, f"{out.name}.c{i}") for i, a in enumerate(
+        (out.aval, out.aval, Aval((), out.aval.dtype), out.aval))]
+    return (Eqn("jit", [], consts, {}, functools.partial(
+                _softplus_consts, shape=out.aval.shape,
+                dtype=out.aval.dtype), e.source, e.name),
+            Eqn("jit", [e.invars[0], *consts], e.outvars, {},
+                _softplus_loop, e.source, e.name))
+
+
 #: ``jit`` name -> its split (:func:`_split_jit`)
 _JIT_SPLITS: dict[str, Callable] = {
     "_where": _split_where, "_var": _split_var, "_one_hot": _split_one_hot,
-    "_pad": _split_pad,
+    "_pad": _split_pad, "softplus": _split_softplus,
 }
 
 
@@ -1766,6 +1859,9 @@ JVP_RULES: dict[str, Callable] = {
     "jit silu": _jvp_silu,
     "jit _where": _jvp_where,
     "jit softmax": _jvp_softmax,
+    "square": _jvp_scaled(_square_jac),
+    "jit relu": _jvp_relu,
+    "jit softplus": _jvp_softplus,
 }
 
 

@@ -412,8 +412,10 @@ def scan(f: Callable, init: Sequence[Any], xs: Sequence[Any],
     if any(isinstance(t, fx.Proxy) for t in (*init, *xs, *consts)):
         return _trace_scan(f, init, xs, consts)
     carry, ys = init, []
-    for i in range(xs[0].shape[0]):
-        carry, y = f(consts, carry, tuple(x[i] for x in xs))
+    # the rows as views made by one call each (``unbind``), not an index
+    # a step: the host's cost of a step is the card's time on a recurrence
+    for row in zip(*(x.unbind(0) for x in xs)):
+        carry, y = f(consts, carry, row)
         carry = tuple(carry)
         if y is not None:
             ys.append(tuple(y))
@@ -583,6 +585,18 @@ def _silu(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     return torch.nn.functional.silu(x)
 
 
+def _relu(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+    # ``jax.nn.relu``: one ``jit`` equation (``max(x, 0)``)
+    return torch.nn.functional.relu(x)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # ``jax.nn.softplus``: one ``jit`` equation of ``logaddexp(x, 0)``,
+    # ``max(x, 0) + log1p(exp(-|x|))`` at every ``x`` (``F.softplus``
+    # returns ``x`` itself above its threshold of 20)
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def _softmax(x: torch.Tensor, *, dim: int = -1) -> torch.Tensor:
     # ``jax.nn.softmax``: one ``jit`` equation here
     return torch.softmax(x, dim)
@@ -619,10 +633,11 @@ def leaves(*, index: Sequence[tuple[Any, str]] = (),
     grads)`` — ``jax.value_and_grad(g, has_aux=True)`` of the function
     ``f.value_fn`` = ``g`` — whose ``f.unstacked(params, *args)`` gives
     the tree ``g`` reads: ``params``' leaves, either whole (a stacked
-    leaf that ``g`` scans over with :func:`scan` — route (a), an
-    attention architecture's segment: the body traced as a sub-graph)
-    or, stacked on a leading repeat axis, as its repeats ``leaf[r]`` (a
-    ``scan`` leaf's consts — route (b), a recurrent mixer's segment).
+    leaf that ``g`` scans over with :func:`scan` — route (a), a
+    segment: the body traced as a sub-graph) or, stacked on a leading
+    repeat axis, as its repeats ``leaf[r]`` (a ``scan`` leaf's consts —
+    route (b), a segment under ``cfg.remat`` or with a chunked Mamba
+    scan).
     Each traces as one node, lowered by :mod:`repro_torch.core.autodiff`
     to ``g``'s equations, the residuals its JVP rules keep and the
     transpose of each, in reverse (the jaxpr of ``value_and_grad``); a
@@ -802,6 +817,8 @@ _JITTED: dict[Any, tuple[Callable[..., Any], int, str, tuple[str, ...]]] = {
     torch.log_softmax: (_log_softmax, 1, "log_softmax", ("dim",)),
     "log_softmax": (_log_softmax, 1, "log_softmax", ("dim",)),
     torch.nn.functional.silu: (_silu, 1, "silu", ("inplace",)),
+    torch.nn.functional.relu: (_relu, 1, "relu", ("inplace",)),
+    torch.nn.functional.softplus: (_softplus, 1, "softplus", ()),
     torch.softmax: (_softmax, 1, "softmax", ("dim",)),
     "softmax": (_softmax, 1, "softmax", ("dim",)),
 }
@@ -816,14 +833,14 @@ _LAYOUT: dict[Any, str] = {
     "chunk": "lower_split", torch.chunk: "lower_split",
     "expand": "lower_expand", "repeat_interleave": "lower_repeat",
     torch.arange: "lower_arange", torch.full: "lower_full",
-    torch.zeros: "lower_full",
+    torch.zeros: "lower_full", torch.zeros_like: "lower_full",
     "clamp_min": "lower_clamp_min", torch.clamp_min: "lower_clamp_min",
     "amax": "lower_amax", torch.amax: "lower_amax",
     "cumsum": "lower_cumsum", torch.cumsum: "lower_cumsum",
     torch.bmm: "lower_bmm", torch.nn.functional.pad: "lower_pad",
     "masked_fill": "lower_masked_fill",
     torch.nn.functional.gelu: "lower_gelu",
-    "detach": "lower_detach",
+    "detach": "lower_detach", "contiguous": "lower_contiguous",
 }
 #: primitive name -> implementation on tensors (and Python scalars)
 _IMPL: dict[str, Callable[..., Any]] = {
@@ -1241,9 +1258,9 @@ class _Lowering:
                                        or get_device(None)), node.name)
 
     def lower_full(self, node: fx.Node) -> Var:
-        """``torch.full(shape, c)`` / ``torch.zeros(shape)`` →
-        ``broadcast_in_dim`` of the literal (``jnp.full``,
-        ``jnp.zeros``)."""
+        """``torch.full(shape, c)`` / ``torch.zeros(shape)`` /
+        ``torch.zeros_like(x)`` → ``broadcast_in_dim`` of the literal
+        (``jnp.full``, ``jnp.zeros``, ``jnp.zeros_like``)."""
         aval = _aval_of(node)
         c = node.args[1] if node.target is torch.full else 0
         return self.emit("broadcast_in_dim", [Literal(c, Aval((),
@@ -1310,6 +1327,11 @@ class _Lowering:
         """``x.detach()`` → ``stop_gradient`` (``lax.stop_gradient``)."""
         x = self.env[node.args[0]]
         return self.emit("stop_gradient", [x], x.aval, node.name)
+
+    def lower_contiguous(self, node: fx.Node) -> Var:
+        """``x.contiguous()`` → no equation: a jaxpr has no memory
+        layout."""
+        return self.env[node.args[0]]
 
     def lower_gelu(self, node: fx.Node) -> Var:
         """``F.gelu(x, approximate="tanh")`` → the equations of

@@ -116,16 +116,15 @@ def train_compiled(cfg, shape, *, device="meta", backend: str = "eager"):
     repeats, keys sorted), then the batch's; the outputs the new state's
     leaves in that order, then the metrics'.  The step traces with
     ``loss_and_grads`` as a ``grad`` leaf (``core/autodiff.py``: the
-    loss's equations, their residuals and transposes; an attention
-    architecture's segment one ``cdfg.scan`` over its stacked leaves
-    partially evaluated as JAX does — its loop invariants and its
-    attention's masks hoisted, its forward and reverse scans, the
-    attention's scan nested in each; a recurrent mixer's segment one
-    opaque ``scan`` forward and one backward; DeepSeek-V3's MTP head's
-    layer inline), the embedding's read as ``x[idx]``, and the port's own
-    ``warmup_cosine`` and ``apply_updates``.  ``device`` other than ``meta`` compiles a step
-    that runs (the ``sequential`` backend replays the lowered
-    equations)."""
+    loss's equations, their residuals and transposes; each segment one
+    ``cdfg.scan`` over its stacked leaves partially evaluated as JAX
+    does — its loop invariants and its attention's masks hoisted, its
+    forward and reverse scans, the attention's scan, the WKV recurrence
+    or the Mamba scans nested in each; DeepSeek-V3's MTP head's layer
+    inline), the embedding's read as ``x[idx]``, and the port's own
+    ``warmup_cosine`` and ``apply_updates``.  ``device`` other than
+    ``meta`` compiles a step that runs (the ``sequential`` backend
+    replays the lowered equations)."""
     import torch
 
     from .. import tree

@@ -4,15 +4,20 @@ The port of the reference's ``models/ssm.py``.  Both recurrences are
 loop-carried SCCs in the paper's terms: the state update
 ``h_t = f(h_{t-1}, x_t)`` is a dependence cycle that Algorithm 1 keeps
 inside one stage.  The reference computes them outside any Pallas
-kernel, so plain PyTorch is their port: Python loops over time (or
-chunks) of tensor ops on the port's device.
+kernel, so plain PyTorch is their port: loops over time (or chunks) of
+tensor ops on the port's device.  The WKV recurrence and Mamba's
+sequential scan are the reference's ``jax.lax.scan`` over the time-major
+inputs as :func:`repro_torch.core.cdfg.scan` (a Python loop on tensors;
+one ``scan`` equation, its body a sub-graph, when a train step is
+traced and differentiated).
 
 Two Mamba scans, by ``cfg.ssm.scan_impl``:
 
-* ``sequential`` — a loop over time with O(B·d_inner·N) state; the
+* ``sequential`` — a scan over time with O(B·d_inner·N) state; the
   default and the decode path;
-* ``chunked``    — a loop over chunks with an in-chunk parallel prefix
-  (materializes (B, chunk, chunk, d_inner, N) per chunk).
+* ``chunked``    — a Python loop over chunks with an in-chunk parallel
+  prefix (materializes (B, chunk, chunk, d_inner, N) per chunk; not
+  lowered: a segment with it stays opaque in a traced train step).
 
 Prompts are padded on the right by the server, so the state a prefill
 hands to decode has seen the padding, as the reference's does.
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers
+from ..core import cdfg
 from ..runtime.sharding import constrain_residual
 
 
@@ -84,16 +90,26 @@ def _selective_step(dt_t, A, b_t, c_t, x_t, h):
 
 
 def _selective_scan_seq(dt, A, Bc, Cc, x):
-    """Sequential scan.  dt,x: (B,L,dI); A: (dI,N); Bc,Cc: (B,L,N)."""
+    """Sequential scan.  dt,x: (B,L,dI); A: (dI,N); Bc,Cc: (B,L,N).  The
+    reference's ``jax.lax.scan`` over the time-major inputs, the state
+    the carry (:func:`repro_torch.core.cdfg.scan`: a loop over time on
+    tensors, one ``scan`` equation when traced)."""
     B, _, dI = x.shape
-    h = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    ys = []
-    for dt_t, x_t, b_t, c_t in zip(dt.unbind(1), x.unbind(1), Bc.unbind(1),
-                                   Cc.unbind(1)):
-        y, h = _selective_step(dt_t, A, b_t, c_t, x_t, h)
-        ys.append(y)
-    return torch.stack(ys, dim=1), h                       # (B,L,dI), h
+    h0 = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
+                     device=x.device)
+
+    def step(consts, carry, row):
+        dt_t, b_t, c_t, x_t = row
+        y, h = _selective_step(dt_t, consts[0], b_t, c_t, x_t, carry[0])
+        return (h,), (y,)
+    (h,), (ys,) = cdfg.scan(step, (h0,), (dt.transpose(0, 1),
+                                          Bc.transpose(0, 1),
+                                          Cc.transpose(0, 1),
+                                          x.transpose(0, 1)), (A,))
+    # batch-major in memory too: ``y @ w_out`` then folds the batch into
+    # one product, as it did on the loop's stack (a strided ``y`` takes a
+    # batched product, which rounds otherwise on the card)
+    return ys.transpose(0, 1).contiguous(), h              # (B,L,dI), h
 
 
 def _selective_scan_chunked(dt, A, Bc, Cc, x, chunk: int = 16):
@@ -267,15 +283,18 @@ def _rwkv_step(r_t, k_t, v_t, w_t, u, S):
 
 def _rwkv_scan(rh, kh, vh, wh, u):
     """The WKV recurrence over L from a zero state.  r,k,v,w: (B, L, H,
-    hd); u: (H, hd).  Returns y (B, L, H, hd) and the final state."""
+    hd); u: (H, hd).  Returns y (B, L, H, hd) and the final state: the
+    reference's ``jax.lax.scan`` over the time-major inputs, ``u`` a
+    const (:func:`repro_torch.core.cdfg.scan`)."""
     B, _, H, hd = rh.shape
-    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=rh.device)
-    ys = []
-    for r_t, k_t, v_t, w_t in zip(rh.unbind(1), kh.unbind(1), vh.unbind(1),
-                                  wh.unbind(1)):
-        y, S = _rwkv_step(r_t, k_t, v_t, w_t, u, S)
-        ys.append(y)
-    return torch.stack(ys, dim=1), S
+    S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=rh.device)
+
+    def step(consts, carry, row):
+        y, S = _rwkv_step(*row, consts[0], carry[0])
+        return (S,), (y,)
+    (S,), (ys,) = cdfg.scan(step, (S0,), tuple(
+        t.transpose(0, 1) for t in (rh, kh, vh, wh)), (u,))
+    return ys.transpose(0, 1).contiguous(), S    # batch-major, as Mamba's
 
 
 def rwkv6_apply(params: dict, x: torch.Tensor, cfg,

@@ -355,12 +355,15 @@ _segment_forward.scan_ys = lambda consts, **_: torch.empty(
 def body_traced(unit, cfg: ModelConfig) -> bool:
     """Whether a segment of this unit takes its repeats as one
     :func:`repro_torch.core.cdfg.scan` over its stacked leaves where a
-    ``grad`` leaf traces the loss (:func:`_segment_scan`): every unit but
-    one with a recurrent mixer (``rwkv``, ``mamba``), and none under
-    ``cfg.remat`` (``jax.checkpoint`` is not lowered), whose segment
-    stays the one opaque ``scan`` leaf :func:`_segment_forward`."""
-    return not cfg.remat and not any(spec.mixer in ("rwkv", "mamba")
-                                     for spec in unit)
+    ``grad`` leaf traces the loss (:func:`_segment_scan`, route (a)):
+    every unit, its recurrent mixers' scans nested in the body, but none
+    under ``cfg.remat`` (``jax.checkpoint`` is not lowered) and none with
+    a ``mamba`` mixer under ``cfg.ssm.scan_impl == "chunked"`` (its
+    chunked scan is not lowered).  Such a segment stays the one opaque
+    ``scan`` leaf :func:`_segment_forward` (route (b))."""
+    return not cfg.remat and not (
+        cfg.ssm is not None and cfg.ssm.scan_impl == "chunked"
+        and any(spec.mixer == "mamba" for spec in unit))
 
 
 def _segment_scan(x: torch.Tensor, stacked: list, *, unit,
@@ -370,10 +373,13 @@ def _segment_scan(x: torch.Tensor, stacked: list, *, unit,
     ``jax.lax.scan(body, x, stacked)``, the carry ``x``, the scanned
     inputs the stacked leaves, the ``ys`` each repeat's load-balance
     loss.  (The reference's ``cfg.remat`` wraps the body in
-    ``jax.checkpoint``, which this does not emit: :func:`body_traced`
-    keeps such a segment opaque.)"""
-    if cfg.remat:
-        raise NotImplementedError("a stacked segment with cfg.remat")
+    ``jax.checkpoint``, which this does not emit, and a chunked Mamba
+    scan is not lowered: :func:`body_traced` keeps either segment
+    opaque.)"""
+    if not body_traced(unit, cfg):
+        raise NotImplementedError(
+            "a stacked segment with cfg.remat, or with a mamba mixer under "
+            "cfg.ssm.scan_impl == 'chunked'")
     leaves = tree.leaves(stacked)
 
     def body(consts, carry, row):

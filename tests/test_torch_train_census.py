@@ -9,28 +9,24 @@ sections: (1) what comes before the first segment (the token slices and
 the embedding's read), (2) from there to the last forward ``scan`` (the
 segments' hoisted loop invariants, their forward scans), (3) the loss
 tail and the backward, (4) the schedule and AdamW (from the first
-equation that reads the step).  For the eight attention architectures
-(route (a), ROADMAP "Decisions": each segment's body a ``cdfg.scan``
-partially evaluated as JAX does, its attention scan nested in it) all
-four must be equal equation by equation — primitive, ``jit`` name,
-output avals, and where each operand comes from (a scan's operands by
-count) — and the census is the reference's (``chip_smoke.
-REF_TRAIN_CENSUS``).  For RWKV-6 and Jamba (route (b): the segment one
-opaque ``scan``) section 2 differs by design: the reference's partial
-evaluation hoists the segment body's loop invariants out of the scan,
-the port emits the forward ``scan`` alone; ``chip_smoke.TRAIN_SECTION2``
-pins both sides' section 2 and the census difference that follows from
-it, and sections 1, 3 and 4 are equal (a scan's operands excepted), a
-constant named by its first use outside section 2.  DeepSeek-V3's
-section 3 also holds its MTP head's layer, lowered inline on both
-sides.  A two-level scan alone (a scan whose body holds the chunked
-attention's) is held against ``jax.make_jaxpr`` equation by equation.
+equation that reads the step).  For all ten architectures (route (a),
+ROADMAP "Decisions": each segment's body a ``cdfg.scan`` partially
+evaluated as JAX does, its attention scan, WKV recurrence or Mamba
+selective scans nested in it) all four must be equal equation by
+equation — primitive, ``jit`` name, output avals, and where each operand
+comes from (a scan's operands by count) — and the census is the
+reference's (``chip_smoke.REF_TRAIN_CENSUS``).  DeepSeek-V3's section 3
+also holds its MTP head's layer, lowered inline on both sides.  A
+two-level scan alone (a scan whose body holds the chunked attention's),
+and one reduced RWKV-6 layer and one reduced Mamba layer as the body of
+a scan, are held against ``jax.make_jaxpr`` equation by equation.
 
 The lowered step also runs: on a reduced SmolLM through the
 ``sequential`` backend, its gradients, loss, metrics, params and
 moments are those of ``steps.loss_and_grads`` / ``make_train_step``;
 and each JVP rule's transpose is held to ``torch.autograd`` on a small
-input.
+input.  The recurrences, a ``cdfg.scan`` each, equal on tensors the
+Python loop over time they replace, bit for bit.
 """
 
 import dataclasses
@@ -47,7 +43,6 @@ import torch
 import repro_torch
 from repro.configs import load_config as ref_load_config
 from repro.configs.base import SHAPES as REF_SHAPES
-from repro.core.cdfg import LatencyModel as RefLatencyModel
 from repro.dataflow import compile as ref_compile
 from repro.launch import steps as ref_steps
 from repro.models import model as ref_M
@@ -58,7 +53,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core import autodiff, cdfg
 from repro_torch.dataflow import compile as dataflow_compile
 from repro_torch.launch import dryrun, steps
-from repro_torch.models import attention, layers, model as M, moe
+from repro_torch.models import attention, layers, model as M, moe, ssm
 from repro_torch.optim import adamw
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,12 +66,13 @@ sys.path.insert(0, ROOT)
 #: body never reads (Command-R's ``ln2``: no cotangent out of the
 #: transposed scan); the MoE load balance's cotangent into the scan's
 #: ``ys``, and the router's softmax (``stop_gradient``); the MTP head and
-#: two segments; RWKV-6, a route-(b) segment (its section 2 pinned)
+#: two segments; RWKV-6 (the WKV recurrence nested in the segment's scan,
+#: the token shifts' zero tangents, ``jit relu`` and ``square``); Jamba
+#: (seven Mamba scans and an attention scan nested in one body, ``jit
+#: softplus`` split where the loop invariants are hoisted)
 SECTION_ARCHS = ("smollm-135m", "olmo-1b", "musicgen-large",
                  "command-r-plus-104b", "llama4-scout-17b-a16e",
-                 "deepseek-v3-671b", "rwkv6-1.6b")
-_FIELDS = ("ops", "memory_ops", "long_ops", "stages", "channels",
-           "pipeline_ii")
+                 "deepseek-v3-671b", "rwkv6-1.6b", "jamba-1.5-large-398b")
 
 
 @pytest.fixture(autouse=True)
@@ -116,9 +112,16 @@ def _ref(arch: str) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
+def _port_compiled(arch: str):
+    """The port's compiled train step (as ``dataflow_census`` compiles
+    it)."""
+    return dryrun.train_compiled(load_config(arch), "train_4k")
+
+
+@functools.lru_cache(maxsize=None)
 def _port(arch: str) -> tuple:
     cfg = load_config(arch)
-    c = dryrun.train_compiled(cfg, "train_4k")
+    c = _port_compiled(arch)
     g = c.graph
     step_in = g.invars[-(2 if cfg.frontend_stub else 1) - 1]
     eqns = [("jit " + e.name if e.prim == "jit" else e.prim, e.invars,
@@ -156,16 +159,10 @@ def _aval(v) -> tuple:
     return tuple(v.aval.shape), dt
 
 
-def _rows(eqns: list, inputs: tuple, bounds: tuple, exact: bool = True
-          ) -> list:
+def _rows(eqns: list, inputs: tuple, bounds: tuple) -> list:
     """Each equation as (name, output avals, operand origins): an input's
     index, a constant's (numbered by its first use), a literal's fp32
-    value, or (section, offset, output) of the equation that made it.
-    Without ``exact`` (a route-(b) segment, whose section 2 differs by
-    design), section 2's equations only as (2, the output's place among
-    the last forward scan's), and a constant numbered by its first use
-    outside section 2 (the reference's section 2 hoists constants of its
-    own)."""
+    value, or (section, offset, output) of the equation that made it."""
     s1, s2, s4 = bounds
     invars, constvars = inputs
     where = {v: ("in", i) for i, v in enumerate(invars)}
@@ -178,19 +175,16 @@ def _rows(eqns: list, inputs: tuple, bounds: tuple, exact: bool = True
             if type(v).__name__ == "Literal":
                 ops.append(("lit", float(np.float32(np.asarray(v.val)))))
             elif v in consts:
-                if exact or not s1 <= k < s2:
-                    rank.setdefault(v, len(rank))
-                ops.append(("const", rank.get(v)))
+                rank.setdefault(v, len(rank))
+                ops.append(("const", rank[v]))
             else:
                 ops.append(where[v])
         rows.append((name, tuple(map(_aval, outs)), tuple(ops)))
         for o, v in enumerate(outs):
             if k < s1:
                 where[v] = (1, k, o)
-            elif k < s2 and exact:
-                where[v] = (2, k - s1, o)
             elif k < s2:
-                where[v] = (2, o if k == s2 - 1 else None)
+                where[v] = (2, k - s1, o)
             elif k < s4:
                 where[v] = (3, k - s2, o)
             else:
@@ -210,87 +204,46 @@ def _split(arch: str, side, s1: int | None = None) -> tuple:
     """The census and the four sections' rows of ``side(arch)``."""
     census, eqns, inputs, step_in = side(arch)
     bounds = _sections(eqns, step_in, s1, inputs[0])
-    rows = _rows(eqns, inputs, bounds, _route_a(arch))
+    rows = _rows(eqns, inputs, bounds)
     s1, s2, s4 = bounds
     return census, rows[:s1], rows[s1:s2], rows[s2:s4], rows[s4:]
 
 
-def _long(rows: list) -> int:
-    lm = RefLatencyModel()
-    return sum(lm.is_long(name.split()[0]) for name, _, _ in rows)
-
-
 @pytest.mark.parametrize("arch", SECTION_ARCHS)
 def test_train_census_sections_equal_the_reference(arch):
-    """Route (a): all four sections equal equation by equation, operands
-    included (a scan's by count: its operand order is not held) — section
-    2's hoisted loop invariants (RoPE tables, the split ``jit`` equations, the
-    zero carries, the ``jit`` equations left with no output, the hoisted mask
-    ``scan``) among them — and the census the reference's.  Route (b):
-    sections 1, 3 and 4 equal (a scan's operands excepted: the
-    reference's transposed segment scans read section 2's hoisted
-    values), section 2 as pinned, the census the reference's less section
-    2's pinned difference."""
-    cs = _chip_smoke()
+    """All four sections equal equation by equation, operands included
+    (a scan's by count: its operand order is not held) — section 2's
+    hoisted loop invariants (RoPE tables, the split ``jit`` equations,
+    the zero carries and zero tangents, the ``jit`` equations left with
+    no output, the hoisted mask ``scan``) among them — and the census
+    the reference's; every segment takes route (a)."""
     census, *port = _split(arch, _port)
     ref_census, *ref = _split(arch, _ref, len(port[0]))
+    assert _route_a(arch)
     assert not any(r[0] == "checkpoint" for sec in port for r in sec)
-    if _route_a(arch):
-        for sec in range(4):
-            assert len(port[sec]) == len(ref[sec]), (arch, sec + 1)
-            for k, (a, b) in enumerate(zip(port[sec], ref[sec])):
-                if a[0] == "scan":
-                    a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
-                assert a == b, (arch, sec + 1, k)
-        assert arch not in cs.TRAIN_SECTION2
-        assert census == ref_census
-        return
-    for sec in (0, 2, 3):
+    for sec in range(4):
         assert len(port[sec]) == len(ref[sec]), (arch, sec + 1)
         for k, (a, b) in enumerate(zip(port[sec], ref[sec])):
             if a[0] == "scan":
-                a, b = a[:2], b[:2]
+                a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
             assert a == b, (arch, sec + 1, k)
-    # the port's section 2: each segment's forward scan (and what reads
-    # one segment's ys before the next)
-    scans = [k for k, r in enumerate(port[1]) if r[0] == "scan"]
-    assert len(scans) == len(load_config(arch).segments)
-    assert scans[0] == 0 and scans[-1] == len(port[1]) - 1
-    n_ref, n_port, diff = cs.TRAIN_SECTION2[arch]
-    assert (len(ref[1]), len(port[1])) == (n_ref, n_port)
-    # the census difference follows from section 2
-    assert diff["ops"] == n_ref - n_port
-    assert diff["long_ops"] == _long(ref[1]) - _long(port[1])
-    assert diff["stages"] == diff["long_ops"]
-    assert {k: ref_census[k] - census[k] for k in diff} == diff
-    assert census["pipeline_ii"] == ref_census["pipeline_ii"]
-    assert census["memory_ops"] == ref_census["memory_ops"]
+    assert census == ref_census
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_pinned_train_census_is_the_live_reference(arch):
-    """``chip_smoke.REF_TRAIN_CENSUS`` and ``REF_TRAIN_CHANNEL_BYTES``
-    (all ten) are the live reference's census; the port's census equals
-    it for the route-(a) architectures, ``channel_bytes`` included, and
-    with section 2's pinned difference (``TRAIN_SECTION2``, RWKV-6 and
-    Jamba only) for the route-(b) ones."""
+    """``chip_smoke.REF_TRAIN_CENSUS`` (all ten, ``channel_bytes``
+    included) is the live reference's census, and the port's census
+    equals it outright; no segment scan of the port's step runs
+    ``torch.autograd`` (route (b)'s ``autodiff._scan_vjp``)."""
     cs = _chip_smoke()
-    ref_census, eqns, _, step_in = _ref(arch)
-    assert {**cs.REF_TRAIN_CENSUS[arch],
-            "channel_bytes": cs.REF_TRAIN_CHANNEL_BYTES[arch]} == ref_census
-    census, s1, *_ = _split(arch, _port)
-    assert set(cs.TRAIN_SECTION2) == {a for a in ARCH_IDS
-                                      if not _route_a(a)}
-    if _route_a(arch):
-        assert census == ref_census
-        assert cs.train_census_difference(arch) == {}
-        return
-    n_ref, n_port, _ = cs.TRAIN_SECTION2[arch]
-    s1, s2, _ = _sections(eqns, step_in, len(s1))
-    assert s2 - s1 == n_ref
-    diff = cs.train_census_difference(arch)
-    assert {k: census[k] + diff.get(k, 0) for k in _FIELDS} == {
-        k: ref_census[k] for k in _FIELDS}
+    ref_census = _ref(arch)[0]
+    assert cs.REF_TRAIN_CENSUS[arch] == ref_census
+    assert _port(arch)[0] == ref_census
+    assert not hasattr(cs, "TRAIN_SECTION2")
+    assert autodiff._scan_vjp not in [
+        getattr(e.impl, "func", None) for e in _port_compiled(arch).graph.eqns
+        if e.prim == "scan"]
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -360,22 +313,32 @@ def _no_autograd_transpose(graph):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v3-671b",
-                                  "smollm-135m+remat"])
+                                  "rwkv6-1.6b", "jamba-1.5-large-398b",
+                                  "smollm-135m+remat",
+                                  "jamba-1.5-large-398b+chunked"])
 def test_lowered_grads_equal_loss_and_grads(arch):
     """The ``grad`` leaf alone, lowered and run by the ``sequential``
-    backend on a reduced SmolLM and a reduced DeepSeek-V3 (MLA, MoE, its
+    backend on a reduced SmolLM, a reduced DeepSeek-V3 (MLA, MoE, its
     MTP layer inline, 2,100 tokens: every attention takes the chunked
-    route, the MTP layer's as the lowered scan and its transpose): loss,
-    metrics and every gradient leaf (stacked) those of
+    route, the MTP layer's as the lowered scan and its transpose), a
+    reduced RWKV-6 (the WKV recurrence a scan nested in the segment's)
+    and a reduced Jamba (Mamba's selective scans, attention and MoE in
+    one unit): loss, metrics and every gradient leaf (stacked) those of
     ``steps.loss_and_grads`` (autograd) — loss rtol 1e-4, grads rtol
     1e-4 + 1e-4·max|g| (PERF.md §2); each segment's transpose replays its
     transposed body's equations, none runs ``torch.autograd``.  Under
-    ``cfg.remat`` (SmolLM's) the segment keeps route (b), its transpose
-    ``autodiff._scan_vjp`` (``jax.checkpoint`` is not lowered)."""
-    remat = arch.endswith("+remat")
+    ``cfg.remat`` (SmolLM's), and with a Mamba mixer under
+    ``scan_impl="chunked"`` (Jamba's), the segment keeps route (b), its
+    transpose ``autodiff._scan_vjp`` (``jax.checkpoint`` and the chunked
+    scan are not lowered)."""
+    base, _, variant = arch.partition("+")
     cfg, params, batches = (_deepseek_chunked() if arch == "deepseek-v3-671b"
-                            else _smollm(arch.removesuffix("+remat")))
-    cfg = dataclasses.replace(cfg, remat=remat)
+                            else _smollm(base))
+    cfg = dataclasses.replace(cfg, remat=variant == "remat")
+    if variant == "chunked":
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, scan_impl="chunked", chunk=4))
+    route_b = bool(variant)
     stacked = M.transformer.stack_repeats(params)
 
     def value_and_grads(p_leaves, b_leaves):
@@ -395,7 +358,7 @@ def test_lowered_grads_equal_loss_and_grads(arch):
         # forward and reverse scans; the MTP attention's two
         assert sum(e.prim == "scan" for e in comp.graph.eqns) == 3 * len(
             cfg.segments) + 2
-    if remat:
+    if route_b:
         assert autodiff._scan_vjp in [getattr(e.impl, "func", None)
                                       for e in comp.graph.eqns
                                       if e.prim == "scan"]
@@ -602,6 +565,12 @@ RULE_CASES = {
                                     + p["w"].masked_fill(x > 1.2, -3.0)
                                     ).sum(),
                    {"w": _rng(3, 4)}),
+    "square": (lambda p, x, i: (torch.square(p["w"] * x) * x).sum(),
+               {"w": _rng(3, 4)}),
+    "jit relu": (lambda p, x, i: (torch.nn.functional.relu(p["w"] - x)
+                                  * x).sum(), {"w": _rng(3, 4)}),
+    "jit softplus": (lambda p, x, i: (torch.nn.functional.softplus(
+        p["w"] * x - 1.5) * x).sum(), {"w": _rng(3, 4)}),
     "scan and jit _pad": (lambda p, x, i: (attention._chunked_attention(
         p["q"], p["k"], p["v"], causal=True, chunk=2) ** 2).sum() * x.sum(),
         {"q": _rng(1, 2, 5, 6), "k": _rng(1, 2, 5, 6, seed=1),
@@ -845,6 +814,183 @@ def test_scan_in_a_scan_equals_the_reference():
     torch.testing.assert_close(out[0], want.detach(), rtol=1e-5, atol=0)
     for got, g in zip(out[1:], grads, strict=True):
         torch.testing.assert_close(got, g, rtol=1e-5, atol=1e-6)
+
+
+# -- a recurrent layer in a scan body, against the reference -------------------
+
+#: two repeats of one reduced layer (the unit's first: RWKV-6's time and
+#: channel mix, Jamba's Mamba mixer and dense MLP) over 2 sequences of 5
+#: tokens
+LAYER_R, LAYER_B, LAYER_L = 2, 2, 5
+
+
+def _sorted_tree(t):
+    """A reference tree's leaves as tensors, every dict's keys sorted (the
+    order ``jax.tree_util`` flattens them in)."""
+    if isinstance(t, dict):
+        return {k: _sorted_tree(t[k]) for k in sorted(t)}
+    return torch.from_numpy(np.array(t))
+
+
+def _port_layer_scan(p, x, spec, cfg):
+    """``(h ** 2).sum()`` of ``h`` after the repeats of ``_layer_apply``
+    over the stacked leaves of ``p``: a ``cdfg.scan`` whose body holds
+    the layer's recurrence (a scan of its own)."""
+    def body(consts, carry, row):
+        return (M.transformer._layer_apply(tree.unflatten(p, list(row)),
+                                           carry[0], spec, cfg, {}),), None
+    (h,), _ = cdfg.scan(body, (x,), tree.leaves(p))
+    return (h ** 2).sum()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_recurrent_layer_scan_equals_the_reference(arch):
+    """``value_and_grad`` of a two-repeat scan whose body is one reduced
+    recurrent layer: the port's lowered equations are
+    ``jax.make_jaxpr(jax.value_and_grad)``'s of the reference's layer,
+    equation by equation, operands and avals included (a scan's operands
+    by count) — the token shifts' and ``jit relu``'s zero tangents, the
+    ``jit`` equations left with no output (``relu``, ``silu``) and ``jit
+    softplus``'s hoisted part ahead of the loop, the forward scan with
+    the recurrence nested in it, the reverse scan with its transposed
+    scan nested — and the top-level scans' consts, carries, operands
+    and outputs; the value and gradients those of ``jax.value_and_grad``
+    (rtol 1e-4 + 1e-4·max|g|)."""
+    import jax.numpy as jnp
+    from repro.configs import reduced as ref_reduced
+    from repro.models import transformer as ref_T
+    ref_cfg, cfg = ref_reduced(ref_load_config(arch)), reduced(
+        load_config(arch))
+    ref_spec, spec = ref_cfg.segments[0].unit[0], cfg.segments[0].unit[0]
+    assert spec.mixer in ("rwkv", "mamba")
+    stacked = jax.tree_util.tree_map(
+        lambda *r: jnp.stack(r), *(ref_T._layer_init(k, ref_spec, ref_cfg)
+                                   for k in jax.random.split(
+                                       jax.random.PRNGKey(0), LAYER_R)))
+    x = np.random.default_rng(0).standard_normal(
+        (LAYER_B, LAYER_L, cfg.d_model)).astype(np.float32)
+
+    def ref_f(p, x):
+        def body(h, rp):
+            return ref_T._layer_apply(rp, h, ref_spec, ref_cfg, {}), None
+        h, _ = jax.lax.scan(body, x, p)
+        return (h ** 2).sum()
+    vg = jax.value_and_grad(ref_f, argnums=(0, 1))
+    jaxpr = jax.make_jaxpr(vg)(stacked, x)
+    params = {"p": _sorted_tree(stacked), "x": torch.from_numpy(x)}
+
+    def value_and_grad(p):
+        raise AssertionError("traced only")
+    value_and_grad.value_fn = lambda p: (_port_layer_scan(
+        p["p"], p["x"], spec, cfg), {})
+    value_and_grad.unstacked = lambda p: p
+    _NS.layer = value_and_grad
+
+    def traced(p_leaves):
+        (val, _), g = _NS.layer(tree.unflatten(params, list(p_leaves)))
+        return (val, *tree.leaves(g))
+    leaves = tuple(tree.leaves(params))
+    with cdfg.leaves(grad=[(_NS, "layer")]):
+        comp = dataflow_compile(traced, leaves, backend="sequential",
+                                device="cpu", use_cache=False)
+    ref, port = _jaxpr_rows(jaxpr), _graph_rows(comp.graph)
+    assert [r[0] for r in port] == [r[0] for r in ref]
+    for k, (a, b) in enumerate(zip(port, ref)):
+        if a[0] == "scan":
+            a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
+        assert a == b, k
+    ref_scans = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "scan"]
+    port_scans = [e for e in comp.graph.eqns if e.prim == "scan"]
+    for r, p in zip(ref_scans, port_scans, strict=True):
+        body, n_c, n_k = p.impl.args
+        assert (r.params["num_consts"], r.params["num_carry"], len(r.invars),
+                len(r.outvars)) == (n_c, n_k, len(p.invars), len(p.outvars))
+        assert sum(e.primitive.name == "scan"
+                   for e in r.params["jaxpr"].jaxpr.eqns) == sum(
+            e.prim == "scan" for e in body.eqns) == 1
+    val, (g_p, g_x) = vg(stacked, x)
+    out = comp(leaves)
+    torch.testing.assert_close(out[0], torch.tensor(float(val)), rtol=1e-4,
+                               atol=0)
+    want = [*jax.tree_util.tree_leaves(g_p), g_x]
+    for got, g in zip(out[1:], want, strict=True):
+        g = torch.from_numpy(np.array(g))
+        torch.testing.assert_close(got, g, rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()))
+
+
+def _loop_rwkv_scan(rh, kh, vh, wh, u):
+    """The WKV recurrence as a Python loop over time (the port's before
+    it was a ``cdfg.scan``)."""
+    B, _, H, hd = rh.shape
+    S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=rh.device)
+    ys = []
+    for r_t, k_t, v_t, w_t in zip(rh.unbind(1), kh.unbind(1), vh.unbind(1),
+                                  wh.unbind(1)):
+        y, S = ssm._rwkv_step(r_t, k_t, v_t, w_t, u, S)
+        ys.append(y)
+    return torch.stack(ys, dim=1), S
+
+
+def _loop_selective_scan(dt, A, Bc, Cc, x):
+    """Mamba's sequential scan as a Python loop over time (the port's
+    before it was a ``cdfg.scan``)."""
+    B, _, dI = x.shape
+    h = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for dt_t, x_t, b_t, c_t in zip(dt.unbind(1), x.unbind(1), Bc.unbind(1),
+                                   Cc.unbind(1)):
+        y, h = ssm._selective_step(dt_t, A, b_t, c_t, x_t, h)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recurrences_on_tensors_equal_the_loop(dtype, monkeypatch):
+    """``ssm.rwkv6_apply`` and ``ssm.mamba_apply`` (the sequential scan)
+    of the reduced RWKV-6's and Jamba's layers on tensors, output and
+    cache, equal bit for bit what they give with the recurrence a
+    Python loop over time, in fp32 and bf16; each scan's outputs also
+    in the loop's memory layout (a strided output would send the next
+    product to another GEMM on the card, which rounds otherwise)."""
+    g = torch.Generator().manual_seed(2)
+    B, L, H, hd, N = 3, 7, 2, 4, 5
+    r, k, v = (torch.randn((B, L, H, hd), generator=g) for _ in range(3))
+    w, u = torch.rand((B, L, H, hd), generator=g), torch.randn((H, hd),
+                                                               generator=g)
+    dt, x = torch.rand((B, L, H * hd), generator=g), torch.randn(
+        (B, L, H * hd), generator=g)
+    A = -torch.rand((H * hd, N), generator=g)
+    Bc, Cc = (torch.randn((B, L, N), generator=g) for _ in range(2))
+    for got, want in ((ssm._rwkv_scan(r, k, v, w, u),
+                       _loop_rwkv_scan(r, k, v, w, u)),
+                      (ssm._selective_scan_seq(dt, A, Bc, Cc, x),
+                       _loop_selective_scan(dt, A, Bc, Cc, x))):
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b) and a.stride() == b.stride()
+    seen = set()
+    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
+        cfg = dataclasses.replace(reduced(load_config(arch)), dtype=dtype)
+        params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        x = torch.randn((3, 7, cfg.d_model), generator=torch.Generator()
+                        .manual_seed(1)).to(cfg.torch_dtype)
+        for spec, layer in zip(cfg.segments[0].unit,
+                               params["segment_0"][0]):
+            if spec.mixer not in ("rwkv", "mamba"):
+                continue
+            fn, name, loop = ((ssm.rwkv6_apply, "_rwkv_scan", _loop_rwkv_scan)
+                              if spec.mixer == "rwkv" else
+                              (ssm.mamba_apply, "_selective_scan_seq",
+                               _loop_selective_scan))
+            got = fn(layer["mixer"], x, cfg, return_cache=True)
+            with monkeypatch.context() as m:
+                m.setattr(ssm, name, loop)
+                want = fn(layer["mixer"], x, cfg, return_cache=True)
+            for a, b in zip(tree.leaves(got), tree.leaves(want), strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b), spec.mixer
+            seen.add(spec.mixer)
+    assert seen == {"rwkv", "mamba"}
 
 
 # -- edge inputs of the new lowering, against the reference --------------------
