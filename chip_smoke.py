@@ -343,6 +343,7 @@ device, or outside the repository, the script exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -915,6 +916,12 @@ REF_TRAIN_CENSUS = {
         _census(546, 2, 247, 248, 499, 113_658_917_270_664, 1),
     "musicgen-large": _census(480, 0, 214, 215, 432, 69_294_819_919_188, 1),
     "chameleon-34b": _census(428, 0, 193, 194, 376, 157_234_581_014_544, 1),
+    # the two options of the train step no published config sets: the
+    # segment's body under ``jax.checkpoint``, the chunked Mamba scan
+    # (chunk 16)
+    "smollm-135m+remat": _census(395, 2, 182, 183, 319, 716_107_034_288, 1),
+    "jamba-1.5-large-398b+chunked":
+        _census(2923, 2, 1388, 1389, 3120, 2_646_935_289_010_926, 1),
 }
 
 
@@ -1977,8 +1984,35 @@ def serve_rwkv(dev) -> None:
     _free()
 
 
+def mamba_chunked_loop(dt, A, Bc, Cc, x, chunk: int = 16):
+    """Mamba's chunked scan as the Python loop over chunks it was before
+    it became a ``cdfg.scan`` (``ssm._selective_scan_chunked``): what the
+    scan must equal bit for bit on tensors."""
+    import torch
+    B, L, dI = x.shape
+    h = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    ys = []
+    for c0 in range(0, L, chunk):
+        dtc, bcc = dt[:, c0:c0 + chunk], Bc[:, c0:c0 + chunk]
+        ccc, xc = Cc[:, c0:c0 + chunk], x[:, c0:c0 + chunk]
+        cum = torch.cumsum(dtc[..., None] * A, dim=1)
+        h_part = torch.exp(cum) * h[:, None]
+        contrib = (dtc * xc)[..., None] * bcc[:, :, None, :]
+        dec = torch.exp(cum[:, :, None] - cum[:, None])
+        dec = torch.where(mask[None, :, :, None, None], dec, 0.0)
+        hs = h_part + torch.einsum("bijdn,bjdn->bidn", dec, contrib)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, ccc))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
 def mamba_layer(dev) -> None:
-    """Phase 6f: one Jamba-1.5-Large Mamba layer at full width, fp32."""
+    """Phase 6f: one Jamba-1.5-Large Mamba layer at full width, fp32; the
+    chunked scan (a ``cdfg.scan`` over chunks) bit for bit the Python
+    loop over chunks it replaced (:func:`mamba_chunked_loop`)."""
     import dataclasses
 
     import torch
@@ -2008,6 +2042,17 @@ def mamba_layer(dev) -> None:
         whole_c = ssm.mamba_apply(p, x, chunked)
         torch.cuda.synchronize()
         t_chunk = time.perf_counter() - t0
+        scan = ssm._selective_scan_chunked
+        ssm._selective_scan_chunked = mamba_chunked_loop
+        try:
+            t0 = time.perf_counter()
+            loop_c = ssm.mamba_apply(p, x, chunked)
+            torch.cuda.synchronize()
+            t_loop = time.perf_counter() - t0
+        finally:
+            ssm._selective_scan_chunked = scan
+        same = torch.equal(whole_c, loop_c)
+        del loop_c
         head, cache = ssm.mamba_apply(p, x[:, :PROMPT_LEN], seq,
                                       return_cache=True)
         worst = float((head - whole[:, :PROMPT_LEN]).abs().max())
@@ -2026,15 +2071,19 @@ def mamba_layer(dev) -> None:
             f"mamba_apply {n}: max err {worst}")
     require(torch.allclose(whole_c, whole, rtol=1e-3, atol=1e-3),
             f"6f chunked scan != sequential: max err {err_c}")
+    require(same, "6f the chunked scan is not bit for bit the loop over "
+            "chunks it replaced")
     print(f"[6f] jamba-1.5-large-398b Mamba layer, fp32, full width "
           f"(d_model {cfg.d_model}, d_inner {s.d_inner}, d_state "
           f"{s.d_state}, dt_rank {s.dt_rank}; {n_params} params), batch "
           f"{SERVE_BATCH}: mamba_apply over {PROMPT_LEN} then {GEN} "
           f"mamba_decode steps == mamba_apply over {n} (max|Δ| {worst:.3g}), "
           f"chunked scan == sequential (max|Δ| {err_c:.3g}; rtol=atol=1e-3);"
-          f" mamba_apply over {n}: sequential {t_seq:.3f} s, chunked "
-          f"{t_chunk:.3f} s; decode {t_dec * 1e3:.3f} ms/step (host clock, "
-          f"one layer); {_memory(dev)}", flush=True)
+          f" the chunked scan bit for bit the loop over chunks it "
+          f"replaced; mamba_apply over {n}: sequential {t_seq:.3f} s, "
+          f"chunked {t_chunk:.3f} s (the loop over chunks {t_loop:.3f} s, "
+          f"after it); decode {t_dec * 1e3:.3f} ms/step (host clock, one "
+          f"layer); {_memory(dev)}", flush=True)
     del p, x, whole, whole_c, head, cache
     _free()
 
@@ -4380,16 +4429,40 @@ def hold_bf16(r: dict, phase: str) -> None:
             f"{BF16_BARS['moment']:g}")
 
 
+#: the 16a cells beyond the published configs: an option of the train
+#: step on one of them (:func:`train_config`)
+TRAIN_VARIANTS = ("smollm-135m+remat", "jamba-1.5-large-398b+chunked")
+
+
+def train_config(name: str, load=None):
+    """The config of a 16a cell: an architecture's (``load``, default the
+    port's ``load_config``), with ``+remat`` each segment's body under
+    ``jax.checkpoint``, with ``+chunked`` its Mamba scans the chunked
+    one (chunk 16)."""
+    import dataclasses
+
+    from repro_torch.configs import load_config
+    arch, _, variant = name.partition("+")
+    cfg = (load or load_config)(arch)
+    if variant == "remat":
+        return dataclasses.replace(cfg, remat=True)
+    if variant == "chunked":
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, scan_impl="chunked", chunk=16))
+    return cfg
+
+
 def train_census_on_card(smi: str) -> None:
     """Phase 16a: every architecture's ``train_4k`` census at published
     widths on ``meta`` equal to the reference's outright, channel bytes
-    included; each cell's wall."""
-    from repro_torch.configs import ARCH_IDS, load_config
+    included, and SmolLM-135M's under remat and Jamba-1.5-Large's with
+    the chunked Mamba scan; each cell's wall."""
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import dryrun
     print(f"[16a] card: {smi}", flush=True)
-    for arch in ARCH_IDS:
+    for arch in (*ARCH_IDS, *TRAIN_VARIANTS):
         t0 = time.perf_counter()
-        got = dryrun.dataflow_census(load_config(arch), "train_4k")
+        got = dryrun.dataflow_census(train_config(arch), "train_4k")
         wall = time.perf_counter() - t0
         want = REF_TRAIN_CENSUS[arch]
         require(dict(got) == want, f"16a {arch}: census {got}, the "
@@ -4403,27 +4476,56 @@ def train_census_on_card(smi: str) -> None:
 
 def replayed(e) -> int:
     """The equations the lowered body of the ``scan`` equation ``e``
-    replays in one run, a nested scan's as many times as it steps."""
+    replays in one run, a nested scan's as many times as it steps, a
+    ``remat2`` or ``closed_call`` body's each time it runs."""
+    if e.prim != "scan":
+        graph = e.params.get("jaxpr") or e.params["call_jaxpr"]
+        return _replayed(graph.eqns)
     body, n_c, n_k = e.impl.args
-    return e.invars[n_c + n_k].aval.shape[0] * sum(
-        replayed(q) if q.prim == "scan" else 1 for q in body.eqns)
+    return e.invars[n_c + n_k].aval.shape[0] * _replayed(body.eqns)
+
+
+def _replayed(eqns) -> int:
+    return sum(replayed(q) if q.prim in ("scan", "remat2", "closed_call")
+               else 1 for q in eqns)
 
 
 def transposes_replayed(graph) -> int:
     """The equations the reverse ``scan`` equations of a lowered step
-    replay in one run (:func:`replayed`); raises if a segment's transpose
-    runs ``torch.autograd`` (route (b)'s ``autodiff._scan_vjp``)."""
-    from repro_torch.core import autodiff, cdfg
+    replay in one run (:func:`replayed`); raises unless every scan of the
+    step replays a lowered body."""
+    from repro_torch.core import cdfg
     total = 0
     for e in graph.eqns:
         if e.prim != "scan":
             continue
-        func = getattr(e.impl, "func", None)
-        require(func is not autodiff._scan_vjp, "a segment's transpose "
-                "ran torch.autograd (route (b))")
-        if func is cdfg._run_loop and e.impl.keywords.get("reverse"):
+        require(getattr(e.impl, "func", None) is cdfg._run_loop,
+                "a scan of the lowered step does not replay a lowered body")
+        if e.impl.keywords.get("reverse"):
             total += replayed(e)
     return total
+
+
+@contextlib.contextmanager
+def autograd_calls():
+    """The calls of ``torch.autograd.grad`` / ``backward`` made inside
+    the block (a list it fills), the functions themselves unchanged."""
+    import torch
+    calls: list = []
+    saved = torch.autograd.grad, torch.autograd.backward
+
+    def grad(*args, **kwargs):
+        calls.append("grad")
+        return saved[0](*args, **kwargs)
+
+    def backward(*args, **kwargs):
+        calls.append("backward")
+        return saved[1](*args, **kwargs)
+    torch.autograd.grad, torch.autograd.backward = grad, backward
+    try:
+        yield calls
+    finally:
+        torch.autograd.grad, torch.autograd.backward = saved
 
 
 def lowered_step_on_card(dev, smi: str) -> None:
@@ -4572,7 +4674,8 @@ MTP_BATCH, MTP_SEQ = 1, 2100
 RECURRENT_BATCH, RECURRENT_SEQ = 1, 256
 
 
-def lowered_grads(dev, cfg, batch_size: int, seq: int, phase: str) -> dict:
+def lowered_grads(dev, cfg, batch_size: int, seq: int, phase: str,
+                  adjust=None) -> dict:
     """``loss_and_grads`` of ``cfg`` (fp32) on params and one batch from
     seed 0, lowered as the census lowers it (``cdfg.leaves(grad=)``) and
     run by the ``sequential`` backend on the card, against
@@ -4582,7 +4685,8 @@ def lowered_grads(dev, cfg, batch_size: int, seq: int, phase: str) -> dict:
     equations, none ``torch.autograd``; no hand kernel launched.  Returns
     the readings: the loss and its distance, the worst leaf's share of
     its bar, the equations replayed, the scan equations, the walls and
-    the peak GiB."""
+    the peak GiB.  ``adjust(params)``, when given, sets some of the
+    params (in place) before both runs."""
     import torch
     from repro_torch import tree
     from repro_torch.core import cdfg
@@ -4595,6 +4699,8 @@ def lowered_grads(dev, cfg, batch_size: int, seq: int, phase: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            dev)
+    if adjust is not None:
+        adjust(params)
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch_size, seq + 1)).astype(np.int32)).to(
@@ -4622,9 +4728,12 @@ def lowered_grads(dev, cfg, batch_size: int, seq: int, phase: str) -> dict:
     require(replayed > 0, f"{phase} no transposed body replayed")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = comp(tuple(tree.leaves(stacked)), tuple(tree.leaves(batch)))
-    torch.cuda.synchronize()
+    with autograd_calls() as calls:
+        out = comp(tuple(tree.leaves(stacked)), tuple(tree.leaves(batch)))
+        torch.cuda.synchronize()
     lowered_s = time.perf_counter() - t0
+    require(not calls, f"{phase} the lowered step called torch.autograd "
+            f"({len(calls)} times)")
     t0 = time.perf_counter()
     (loss, metrics), grads = steps.loss_and_grads(params, batch, cfg)
     torch.cuda.synchronize()
@@ -4688,24 +4797,68 @@ def _lowered_line(r: dict) -> str:
             f"{r['autograd_s']:.2f} s; peak {r['peak']:.2f} GiB allocated")
 
 
+#: Mamba's initial step ``dt`` (its ``dt_bias`` the inverse softplus of
+#: it) in the 16e model with the chunked scan: with the reference's
+#: ``dt_bias`` of 0 (a step of ~0.69), ``exp(cum_i − cum_j)`` over a
+#: chunk of 16 overflows in the masked upper triangle, and the gradient
+#: there, 0·inf, is NaN in JAX and autograd alike
+MAMBA_DT = 0.01
+
+
+def mamba_dt_bias(params) -> None:
+    """Every Mamba mixer's ``dt_bias`` set to the inverse softplus of
+    :data:`MAMBA_DT` (Mamba's own initial step), in place."""
+    for seg in (v for k, v in params.items() if k.startswith("segment_")):
+        for rep in seg:
+            for layer in rep:
+                if "A_log" in layer["mixer"]:
+                    layer["mixer"]["dt_bias"].fill_(
+                        math.log(math.expm1(MAMBA_DT)))
+
+
+def mamba_layer_model(cfg):
+    """``cfg`` (Jamba-1.5-Large's) cut to one layer: its Mamba mixer and a
+    dense MLP at full width, the body of a one-repeat segment, the Mamba
+    scan the chunked one (chunk 16)."""
+    import dataclasses
+
+    from repro_torch.configs.base import LayerSpec, Segment
+    return dataclasses.replace(
+        cfg, num_layers=1, segments=(Segment(unit=(
+            LayerSpec(mixer="mamba", mlp="dense"),), repeats=1),),
+        ssm=dataclasses.replace(cfg.ssm, scan_impl="chunked", chunk=16))
+
+
 def lowered_recurrent_grads_on_card(dev, smi: str) -> None:
     """Phase 16e: RWKV-6 1.6B whole at published widths (24 layers, 32
-    heads of 64) and the reduced Jamba (Mamba, attention and MoE in one
-    unit), fp32, one sequence of 256 tokens each: ``loss_and_grads``
-    lowered as the census lowers it — the WKV recurrence and the Mamba
-    selective scans each a scan nested in the segment's, partially
-    evaluated as JAX does, and their transposed scans nested in the
-    segment's reverse scan — and run by the ``sequential`` backend on the
-    card, against ``loss_and_grads`` (:func:`lowered_grads`)."""
+    heads of 64), the reduced Jamba (Mamba, attention and MoE in one
+    unit), SmolLM-135M whole under remat and one Jamba-1.5-Large Mamba
+    layer at full width with the chunked scan (:func:`mamba_layer_model`),
+    fp32, one sequence of 256 tokens each: ``loss_and_grads`` lowered as
+    the census lowers it — the WKV recurrence and the Mamba selective or
+    chunk scans each a scan nested in the segment's, partially evaluated
+    as JAX does, and their transposed scans nested in the segment's
+    reverse scan; under remat the reverse scan's body one ``remat2``
+    equation recomputing the repeat — and run by the ``sequential``
+    backend on the card, against ``loss_and_grads``
+    (:func:`lowered_grads`)."""
     import dataclasses
 
     from repro_torch.configs import load_config, reduced
 
-    for name, cfg in (
-            ("RWKV-6 1.6B whole", load_config("rwkv6-1.6b")),
-            ("reduced Jamba", reduced(load_config("jamba-1.5-large-398b")))):
+    for name, cfg, adjust in (
+            ("RWKV-6 1.6B whole", load_config("rwkv6-1.6b"), None),
+            ("reduced Jamba", reduced(load_config("jamba-1.5-large-398b")),
+             None),
+            ("SmolLM-135M whole under remat",
+             train_config("smollm-135m+remat"), None),
+            (f"one Jamba-1.5-Large Mamba layer, chunked scan (dt_bias "
+             f"for dt {MAMBA_DT})",
+             mamba_layer_model(load_config("jamba-1.5-large-398b")),
+             mamba_dt_bias)):
         cfg = dataclasses.replace(cfg, dtype="float32")
-        r = lowered_grads(dev, cfg, RECURRENT_BATCH, RECURRENT_SEQ, "16e")
+        r = lowered_grads(dev, cfg, RECURRENT_BATCH, RECURRENT_SEQ, "16e",
+                          adjust)
         print(f"[16e] {name} fp32 ({r['params']:,} params, "
               f"{cfg.num_layers} layers, d_model {cfg.d_model}), "
               f"{RECURRENT_BATCH} x {RECURRENT_SEQ} tokens: "

@@ -44,17 +44,14 @@ tangent program reads, and the transpose is one reverse scan of the
 transposed body, a nested scan's transposed scan inside it — the
 reference's equations.
 
-A segment under ``cfg.remat`` (``jax.checkpoint`` is not lowered), or
-with a Mamba mixer whose scan is the chunked one, stays one opaque
-``scan`` equation, its body the model's code, and is the one rule that
-departs from JAX's equations (ROADMAP "Decisions": route (b)): its
-forward keeps, as its only residual, the stack of each repeat's input;
-its transpose is one ``scan`` equation that runs the segment's
-vector–Jacobian product repeat by repeat, in reverse, recomputing each
-repeat's forward under ``torch.autograd``.  Its parameters arrive
-stacked (one ``(R, …)`` leaf per unit path, as the reference holds
-them); the value function reads each repeat ``leaf[r]``, which only its
-segment's scan may read.
+A segment under ``cfg.remat`` is a scan of one ``remat2`` equation
+(``cdfg.checkpoint``), linearized as JAX's remat with ``policy=None``
+(:func:`_jvp_remat`): the forward scan runs the body's primal alone (a
+scan in it one ``closed_call``), its only residuals the body's inputs;
+the reverse scan's body is one ``remat2`` equation that recomputes the
+primal, its residuals and the transposes — the JVP partially evaluated
+as JAX does there (a few rules keep other residuals, and a nested scan
+orders its residuals as JAX's partial evaluation makes them).
 """
 
 from __future__ import annotations
@@ -68,23 +65,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .. import tree
 from .._device import get_device
 from .cdfg import (Aval, Eqn, Graph, Literal, Var, _Lowering,
-                   _broadcast_in_dim, _concatenate, _integer_pow, _pad_jit,
-                   _reshape, _run_loop, _softplus, _split, _transpose,
+                   _broadcast_in_dim, _concatenate, _dot_general,
+                   _dynamic_update_slice, _integer_pow, _pad_jit, _reshape,
+                   _run_graph, _run_loop, _softplus, _split, _transpose,
                    _where)
 
 __all__ = ["lower_value_and_grad", "JVP_RULES"]
-
-
-class _View:
-    """Repeat ``r`` of the stacked value ``var``."""
-
-    __slots__ = ("var", "r")
-
-    def __init__(self, var: Var, r: int):
-        self.var, self.r = var, r
 
 
 class _Key:
@@ -105,6 +93,10 @@ class _Linear:
     #: known values the tangent equation reads that its transpose does
     #: not (a zero tangent it instantiates): residuals all the same
     reads: list[Any] = dataclasses.field(default_factory=list)
+    #: the tangent equation's operands in order (a key for a tangent, a
+    #: value for a residual), where its transpose reads them in another
+    #: (:func:`_tangent_parents`)
+    ins: list[Any] | None = None
 
 
 def _is_float(aval: Aval) -> bool:
@@ -136,21 +128,6 @@ def _scatter_add(operand: torch.Tensor, indices: torch.Tensor,
     return operand.float().index_add(
         0, rows.reshape(-1).long(),
         updates.reshape(-1, *operand.shape[1:]).float()).to(operand.dtype)
-
-
-def _dot_general(a: torch.Tensor, b: torch.Tensor, *,
-                 dimension_numbers: tuple) -> torch.Tensor:
-    (ac, bc), (ab, bb) = dimension_numbers
-    letters = iter("abcdefghijklmnopqrstuvwxyz")
-    la = [next(letters) for _ in range(a.ndim)]
-    lb = [next(letters) for _ in range(b.ndim)]
-    for i, j in (*zip(ac, bc), *zip(ab, bb)):
-        lb[j] = la[i]
-    out = ([la[i] for i in ab]
-           + [la[i] for i in range(a.ndim) if i not in (*ac, *ab)]
-           + [lb[j] for j in range(b.ndim) if j not in (*bc, *bb)])
-    return torch.einsum(f"{''.join(la)},{''.join(lb)}->{''.join(out)}",
-                        a, b)
 
 
 # -- the jitted functions' forward with residuals, and their transposes ------
@@ -217,79 +194,6 @@ def _var_vjp(centered: torch.Tensor, n: torch.Tensor, ok: torch.Tensor,
     return ct * 2 * centered / n
 
 
-# -- a segment's scan: the forward with its residual, and the transpose ------
-
-def _scan_fwd(body: Callable, block_like: Any, slots: list[int], R: int,
-              carry: torch.Tensor, *stacked: torch.Tensor) -> tuple:
-    """The segment's repeats in order, keeping each repeat's input."""
-    xs, ys = [], []
-    for r in range(R):
-        xs.append(carry)
-        params = tree.unflatten(block_like, [stacked[s][r] for s in slots])
-        carry, y = body(carry, [params], ())
-        ys.append(tree.leaves(y))
-    return (carry, *(torch.cat(parts) for parts in zip(*ys)),
-            torch.stack(xs))
-
-
-def _read_by_body(body: Callable, block_like: Any, slots: list[int],
-                  carry: Aval, stacked: list[Aval]
-                  ) -> tuple[list[bool], list[bool]]:
-    """Which stacked leaves one repeat's output depends on, and which of
-    its per-repeat outputs (``ys``) depend on the carry or a leaf: the
-    body run once on ``meta`` tensors under autograd, on one sequence of
-    at most 8 positions (which leaves it reads does not depend on the
-    batch).  A leaf it does not read has a zero cotangent, which JAX's
-    scan transpose leaves out; a constant output (a dense layer's load
-    balance) has no tangent."""
-    def meta(aval, shape):
-        return torch.empty(shape, dtype=aval.dtype, device="meta",
-                           requires_grad=True)
-    x = meta(carry, (1, min(8, carry.shape[1]), *carry.shape[2:])
-             if len(carry.shape) >= 2 else carry.shape)
-    leaves = [meta(stacked[s], stacked[s].shape[1:]) for s in slots]
-    with torch.enable_grad():
-        out, y = body(x, [tree.unflatten(block_like, leaves)], ())
-        live = [t.requires_grad for t in tree.leaves(y)]
-        outs = [out, *(t for t in tree.leaves(y) if t.requires_grad)]
-        got = torch.autograd.grad(outs, leaves, list(map(torch.empty_like,
-                                                         outs)),
-                                  allow_unused=True)
-    read = [False] * len(stacked)
-    for s, g in zip(slots, got):
-        read[s] = read[s] or g is not None
-    return read, live
-
-
-def _scan_vjp(body: Callable, block_like: Any, slots: list[int], R: int,
-              n_stacked: int, ys_mask: tuple[bool, ...],
-              read: tuple[bool, ...], *args: Any) -> tuple:
-    """The segment's vector–Jacobian product, repeat by repeat in
-    reverse, each repeat's forward recomputed from its kept input; the
-    carry's cotangent, then those of the stacked leaves ``read`` marks."""
-    stacked, xs = args[:n_stacked], args[n_stacked]
-    ct_carry, ct_ys = args[n_stacked + 1], list(args[n_stacked + 2:])
-    grads = [torch.zeros_like(s) for s in stacked]
-    for r in reversed(range(R)):
-        x = xs[r].detach().requires_grad_()
-        leaves = [stacked[s][r].detach().requires_grad_() for s in slots]
-        with torch.enable_grad():
-            out, y = body(x, [tree.unflatten(block_like, leaves)], ())
-        outs, cts = [out], [ct_carry]
-        it = iter(ct_ys)
-        for leaf, keep in zip(tree.leaves(y), ys_mask):
-            if keep:
-                outs.append(leaf)
-                cts.append(next(it)[r:r + 1])
-        got = torch.autograd.grad(outs, [x, *leaves], cts,
-                                  allow_unused=True)
-        ct_carry = torch.zeros_like(x) if got[0] is None else got[0]
-        for s, g in zip(slots, got[1:]):
-            if g is not None:
-                grads[s][r] += g
-    return (ct_carry, *(g for g, keep in zip(grads, read) if keep))
-
-
 # -- the tape -----------------------------------------------------------------
 
 class _Tape:
@@ -301,8 +205,16 @@ class _Tape:
         self.tan: dict[Any, _Key] = {}      # value here -> its tangent
         self.linear: list[_Linear] = []
         self.pre: list[Callable[[], Any]] = []
+        #: emit the tangent program's equations that read no tangent where
+        #: the JVP makes them (a ``remat2`` body's, which JAX partially
+        #: evaluates as a whole), not ahead of the transposes
+        self.eager_pre = False
+        self.eager_made: list[Var] = []
+        #: a body under ``jax.checkpoint``: the rules that differ between
+        #: JAX's linearization and its JVP partially evaluated take the
+        #: latter
+        self.remat = False
         self.ct: dict[_Key, Any] = {}
-        self.order: dict[Var, int] = {}     # parameter -> its position
 
     # emission
     def emit(self, prim: str, ins: list[Any], aval: Aval,
@@ -323,8 +235,6 @@ class _Tape:
 
     # tangents
     def has_tangent(self, x: Any) -> bool:
-        if isinstance(x, _View):
-            x = x.var
         return isinstance(x, Var) and x in self.tan
 
     def fresh(self, out: Var) -> _Key:
@@ -375,15 +285,18 @@ class _Tape:
                          impl=functools.partial(_broadcast_in_dim, dtype=dt),
                          shape=shape, broadcast_dimensions=dims)
 
+    def defer(self, emit: Callable[[], Any]) -> None:
+        """An equation of the tangent program that reads no tangent."""
+        if self.eager_pre:
+            self.eager_made.append(emit())
+        else:
+            self.pre.append(emit)
+
     # the two passes
     def forward(self, eqns: list[Eqn]) -> None:
         for e in eqns:
             ins = [v if isinstance(v, Literal) else self.env[v]
                    for v in e.invars]
-            if e.prim != "scan" and any(isinstance(x, _View) for x in ins):
-                raise NotImplementedError(
-                    f"{e.prim} reads one repeat of a stacked parameter: "
-                    f"only a segment's scan may")
             lin = [self.has_tangent(x) for x in ins]
             if not any(lin) or not any(_is_float(v.aval)
                                        for v in e.outvars):
@@ -486,6 +399,37 @@ def _t_slice(tape, e, x, ct):
         e.params["start_indices"], e.params["limit_indices"], _shape(x)))
     return tape.emit("pad", [ct, Literal(0.0, Aval((), ct.aval.dtype))],
                      x.aval, impl=_pad, padding_config=config)
+
+
+def _reverse_cumsum(ct: torch.Tensor, *, axis: int) -> torch.Tensor:
+    # ``cumsum[reverse=True]``: the transpose of a cumulative sum
+    return torch.cumsum(ct.flip(axis), axis, dtype=ct.dtype).flip(axis)
+
+
+def _t_cumsum(tape, e, x, ct):
+    """``jnp.cumsum`` is linear: its transpose one ``jit cumsum`` of the
+    cotangent, a ``cumsum[reverse=True]`` inside."""
+    axis = e.impl.keywords["axis"]
+    return tape.emit("jit", [ct], x.aval, functools.partial(
+        _reverse_cumsum, axis=axis), "cumsum")
+
+
+def _jvp_dynamic_slice(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """Linear in the operand (the starts are integers, with no tangent);
+    the transpose writes the cotangent into zeros at the starts
+    (``dynamic_update_slice``)."""
+    if any(lin[1:]):
+        raise NotImplementedError("dynamic_slice differentiated in a start")
+    outs = tape.copy(e, ins)
+    x, starts = ins[0], ins[1:]
+    kx, ko = tape.tan[x], tape.fresh(outs[0])
+
+    def transpose(cts):
+        z = tape.zeros(x.aval)
+        return [(kx, tape.emit("dynamic_update_slice", [z, cts[0], *starts],
+                               x.aval, impl=_dynamic_update_slice))]
+    tape.linear.append(_Linear([ko], transpose))
+    return outs
 
 
 def _jvp_add_sub(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
@@ -677,13 +621,15 @@ def _jvp_dot_general(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
         return [(tape.tan[y], _dot_transpose_lhs(
             tape, cts[0], y.aval, x, ((yc, xc), (yb, xb)), swap_ans=True))]
 
+    right = [x, tape.tan[y]] if lin[1] else None
     if lin[0] and lin[1]:
         tape.linear.append(_Linear([parts[0]], t_left))
-        tape.linear.append(_Linear([parts[1]], t_right))
+        tape.linear.append(_Linear([parts[1]], t_right, ins=right))
         tape.linear.append(_Linear(
             [ko], lambda cts: [(parts[0], cts[0]), (parts[1], cts[0])]))
     else:
-        tape.linear.append(_Linear([ko], t_left if lin[0] else t_right))
+        tape.linear.append(_Linear([ko], t_left if lin[0] else t_right,
+                                   ins=None if lin[0] else right))
     return outs
 
 
@@ -753,60 +699,13 @@ _jvp_var = _jvp_jit(
 
 
 def _jvp_scan(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
-    """A scan whose body is a lowered graph (``cdfg.scan``) is partially
-    evaluated as JAX does (:func:`_jvp_loop`).  A route-(b) segment's
-    opaque scan over its stacked repeats: the forward keeps each repeat's
-    input; the transpose is one ``scan`` of the repeats' vector–Jacobian
-    products in reverse."""
-    if getattr(e.impl, "func", None) is _run_loop:
-        return _jvp_loop(tape, e, ins, lin)
-    body, consts_like, state_like, n_consts = e.impl.args
-    carry, views = ins[0], ins[1:]
-    R = len(consts_like)
-    if tree.leaves(state_like) or not R or len(views) % R or not all(
-            isinstance(v, _View) for v in views):
-        raise NotImplementedError("a scan other than a segment's repeats "
-                                  "over stacked parameters")
-    L = len(views) // R
-    stacked = sorted({id(v.var): v.var for v in views}.values(),
-                     key=tape.order.__getitem__)
-    slot = {id(s): k for k, s in enumerate(stacked)}
-    slots = [slot[id(views[j].var)] for j in range(L)]
-    if any(views[r * L + j].var is not stacked[slots[j]]
-           or views[r * L + j].r != r for r in range(R) for j in range(L)):
-        raise NotImplementedError("a scan whose repeats are not one "
-                                  "stacked leaf per unit path")
-    block_like = consts_like[0]
-    ys_avals = [v.aval for v in e.outvars[1:]]
-    c_aval = carry.aval
-    out, *ys, xs = tape.emit_multi(
-        "scan", [carry, *stacked],
-        [c_aval, *ys_avals, Aval((R, *c_aval.shape), c_aval.dtype)],
-        functools.partial(_scan_fwd, body, block_like, slots, R))
-    kc = tape.tan.get(carry)
-    if kc is None:      # a zero carry tangent, made in the tangent program
-        tape.pre.append(lambda: tape.zeros(c_aval))
-    read, live = _read_by_body(body, block_like, slots, c_aval,
-                               [s.aval for s in stacked])
-    ko = tape.fresh(out)
-    kys = [tape.fresh(y) if keep and _is_float(y.aval) else _Key()
-           for y, keep in zip(ys, live)]
-    wanted = [s for s, keep in zip(stacked, read) if keep]
-
-    def transpose(cts):
-        ct_c, ct_ys = cts[0], cts[1:]
-        if ct_c is None:
-            ct_c = tape.zeros(c_aval)
-        mask = tuple(c is not None for c in ct_ys)
-        got = tape.emit_multi(
-            "scan", [*stacked, xs, ct_c, *(c for c in ct_ys if c is not None)],
-            [c_aval, *(s.aval for s in wanted)],
-            functools.partial(_scan_vjp, body, block_like, slots, R,
-                              len(stacked), mask, tuple(read)))
-        return [*((tape.tan.get(s), g) for s, g in zip(wanted, got[1:])),
-                (kc, got[0])]
-    tape.linear.append(_Linear([ko, *kys], transpose))
-    return [out, *ys]
+    """A scan whose body is a lowered graph (``cdfg.scan``), partially
+    evaluated as JAX does (:func:`_jvp_loop`); a ``scan`` leaf (a
+    segment's repeats kept in one call) is not differentiated."""
+    if getattr(e.impl, "func", None) is not _run_loop:
+        raise NotImplementedError("a scan leaf differentiated: a grad leaf's "
+                                  "segments scan their stacked leaves")
+    return _jvp_loop(tape, e, ins, lin)
 
 
 def _jvp_concatenate(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
@@ -1112,6 +1011,11 @@ def _silu_vjp(ds: torch.Tensor, s: torch.Tensor, x: torch.Tensor,
     return ct * s + x * ct * ds
 
 
+def _silu_vjp_remat(ds: torch.Tensor, x: torch.Tensor, s: torch.Tensor,
+                    ct: torch.Tensor) -> torch.Tensor:
+    return _silu_vjp(ds, s, x, ct)
+
+
 def _jvp_silu(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     """``jax.nn.silu``: one ``jit`` of the output and two residuals
     (``s·(1−s)`` and ``s``, ``s`` the logistic); the transpose one ``jit``
@@ -1120,8 +1024,12 @@ def _jvp_silu(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     out, *res = tape.emit_multi("jit", ins, [out_aval] * 3, _silu_fwd,
                                 e.name)
     kx, ko = tape.tan[x], tape.fresh(out)
+    # the residuals in the order JAX's linearization reads them, or (a body
+    # under ``jax.checkpoint``) its JVP partially evaluated
+    ops = [res[0], x, res[1]] if tape.remat else [*res, x]
+    vjp = _silu_vjp_remat if tape.remat else _silu_vjp
     tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.emit(
-        "jit", [*res, x, cts[0]], x.aval, _silu_vjp, e.name))]))
+        "jit", [*ops, cts[0]], x.aval, vjp, e.name))]))
     return [out]
 
 
@@ -1218,10 +1126,32 @@ def _pad_vjp(value: torch.Tensor, ct: torch.Tensor, *,
     return ct
 
 
-_jvp_pad = _jvp_jit(
+_jvp_pad_linearized = _jvp_jit(
     lambda e, x, v: functools.partial(_pad_fwd, **e.impl.keywords),
     lambda e, x, v: [Aval((), x.aval.dtype)],
     lambda e, x, v: functools.partial(_pad_vjp, **e.impl.keywords))
+
+
+def _pad_ct(ct: torch.Tensor, *, pads: tuple[int, ...]) -> torch.Tensor:
+    return _pad_vjp(None, ct, pads=pads)
+
+
+def _jvp_pad(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """``jnp.pad``: its linearization keeps the tangent's padding value
+    (a zero) as a residual; in a body under ``jax.checkpoint`` (JVP, then
+    partial evaluation) that value is a literal of the tangent ``jit``,
+    so the forward is the primal ``jit`` and the transpose one ``jit`` of
+    the cotangent alone."""
+    if not tape.remat:
+        return _jvp_pad_linearized(tape, e, ins, lin)
+    if any(lin[1:]):
+        raise NotImplementedError("jit _pad differentiated in its value")
+    outs = tape.copy(e, ins)
+    x, kx, ko = ins[0], tape.tan[ins[0]], tape.fresh(outs[0])
+    tape.linear.append(_Linear([ko], lambda cts: [(kx, tape.emit(
+        "jit", [cts[0]], x.aval, functools.partial(
+            _pad_ct, **e.impl.keywords), e.name))]))
+    return outs
 
 
 def _where_fwd(c: torch.Tensor, x: Any, y: Any, *, shape: tuple[int, ...],
@@ -1269,7 +1199,8 @@ def _jvp_where(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
                               functools.partial(_where_vjp, which=which),
                               e.name)
         return [(tape.tan[v], g) for v, g in zip(branches, got)]
-    tape.linear.append(_Linear([ko], transpose))
+    tape.linear.append(_Linear([ko], transpose, ins=[
+        tape.tan[v] for v, w in zip((x, y), which) if w] + reads))
     return [out]
 
 
@@ -1285,7 +1216,14 @@ def _split_where(e: Eqn, known: list[bool]) -> tuple | None:
       branch) gives the predicate broadcast (when it is a residual); the
       rest keeps a ``jit`` selecting by it;
     * the predicate broadcast alone (the part above), its predicate
-      unknown: a ``jit`` of the known branch gives nothing."""
+      unknown: a ``jit`` of the known branch gives nothing.
+
+    A ``jnp.where`` of the primal alone (``_where``, in a body under
+    ``jax.checkpoint``) splits the same way, with no zero tangent: the
+    known part gives the known predicate and branches broadcast where
+    they are not yet of the output's shape (nothing when they are)."""
+    if e.impl is _where or getattr(e.impl, "func", None) is _where_at:
+        return _split_primal_where(e, known)
     kw = e.impl.keywords
     out, *res = e.outvars
     if e.impl.func is _where_known:
@@ -1321,8 +1259,7 @@ def _split_where(e: Eqn, known: list[bool]) -> tuple | None:
                         bcast=tuple(_shape(e.invars[j]) != shape
                                     for j in k)),
                     e.source, e.name),
-                Eqn("jit", ins, [out], {}, _where, e.source,
-                    e.name))
+                _where_rest(e, ins, known))
     if not kw["zeros"] or known[1] == known[2]:
         return None
     k = 1 if known[1] else 2
@@ -1338,6 +1275,63 @@ def _split_where(e: Eqn, known: list[bool]) -> tuple | None:
                functools.partial(_where_fwd, shape=kw["shape"], cb=kw["cb"],
                                  zeros=False), e.source, e.name)
     return hoisted, loop
+
+
+def _where_at(*args: Any, at: tuple[int, int, int]) -> torch.Tensor:
+    """``jnp.where`` whose predicate and branches are the operands at
+    ``at``: the part of a split ``jnp.where`` that reads an unknown
+    operand."""
+    c, x, y = (args[i] for i in at)
+    return torch.where(c, x, y)
+
+
+def _where_rest(e: Eqn, ins: list, known: list[bool]) -> Eqn:
+    """The part of a split ``jnp.where`` (predicate and branches ``ins``)
+    that reads an unknown operand, as JAX's partial evaluation of a
+    ``jit`` stages it: the unknown operands first, then the residuals —
+    the predicate, the second branch, the first, as ``select_n`` reads
+    them."""
+    order = [j for j in range(3) if not known[j]] + [
+        j for j in (0, 2, 1) if known[j]]
+    return Eqn("jit", [ins[j] for j in order], e.outvars[:1], {},
+               functools.partial(_where_at, at=tuple(
+                   order.index(j) for j in range(3))), e.source, e.name)
+
+
+def _split_primal_where(e: Eqn, known: list[bool]) -> tuple | None:
+    """:func:`_split_where` of a ``jnp.where`` of the primal alone
+    (``_where``, or the rest :func:`_where_rest` left)."""
+    at = getattr(e.impl, "keywords", {}).get("at", (0, 1, 2))
+    roles, role_known = [e.invars[i] for i in at], [known[i] for i in at]
+    if all(role_known) or not any(role_known):
+        return None
+    out = e.outvars[0]
+    shape = out.aval.shape
+    ins, made = list(roles), []
+    for j in range(3):
+        if role_known[j] and _shape(roles[j]) != shape:
+            ins[j] = Var(Aval(shape, torch.bool if j == 0 else out.aval.dtype),
+                         f"{out.name}.b{j}")
+            made.append(ins[j])
+    k = [j for j in (1, 2) if role_known[j]]
+    bcast = tuple(_shape(roles[j]) != shape for j in k)
+    kin = [v for v, kn in zip(e.invars, known) if kn]
+    if not made:
+        impl = _nothing
+    elif kin != [roles[j] for j in range(3) if role_known[j]]:
+        raise NotImplementedError("a split jnp.where broadcasting operands "
+                                  "out of order")
+    elif role_known[0]:
+        impl = functools.partial(_where_known, shape=shape,
+                                 dtype=out.aval.dtype,
+                                 cb=_shape(roles[0]) != shape, zeros=False,
+                                 bcast=bcast)
+    else:
+        impl = functools.partial(_where_known_branches, shape=shape,
+                                 dtype=out.aval.dtype, zeros=False,
+                                 bcast=bcast)
+    return (Eqn("jit", kin, made, {}, impl, e.source, e.name),
+            _where_rest(e, ins, role_known))
 
 
 def _where_branches(*branches: Any, shape: tuple[int, ...],
@@ -1431,14 +1425,71 @@ def _split_one_hot(e: Eqn, known: list[bool]) -> tuple | None:
 
 def _dce(eqns: list[Eqn], needed: list[Any]) -> list[Eqn]:
     """``eqns`` less those none of whose outputs ``needed`` (or a kept
-    equation) reads."""
+    equation) reads; a kept ``closed_call`` less its unread outputs and
+    what only they need (:func:`_dce_call`)."""
     live = {v for v in needed if isinstance(v, Var)}
     kept = []
     for e in reversed(eqns):
         if any(o in live for o in e.outvars):
+            if e.prim == "closed_call":
+                e = _dce_call(e, [o in live for o in e.outvars])
             kept.append(e)
             live.update(v for v in e.invars if isinstance(v, Var))
     return kept[::-1]
+
+
+def _dce_call(e: Eqn, used: list[bool]) -> Eqn:
+    """JAX's dead-code elimination of a ``closed_call``: the outputs
+    nothing reads go, its body is cut to what the rest need (a scan in
+    it by :func:`_dce_loop`), and the operands the body no longer reads
+    go."""
+    g = e.params["call_jaxpr"]
+    outs = [v for v, u in zip(g.outvars, used) if u]
+    live = {v for v in outs if isinstance(v, Var)}
+    kept = []
+    for q in reversed(g.eqns):
+        u = [o in live for o in q.outvars]
+        if not any(u):
+            continue
+        if q.prim == "scan" and getattr(q.impl, "func", None) is _run_loop:
+            q = _dce_loop(q, u)
+        kept.append(q)
+        live.update(v for v in q.invars if isinstance(v, Var))
+    kept.reverse()
+    ins = [v in live for v in g.invars]
+    return Eqn("closed_call", [v for v, i in zip(e.invars, ins) if i],
+               [o for o, u in zip(e.outvars, used) if u],
+               {"call_jaxpr": Graph(kept, [v for v, i in zip(g.invars, ins)
+                                           if i], outs, [], [], "")},
+               e.impl, e.source)
+
+
+def _dce_loop(e: Eqn, used: list[bool]) -> Eqn:
+    """JAX's dead-code elimination of a scan of a lowered body: a carry
+    kept while its output or the body's other kept outputs need it (a
+    fixpoint), an unread ``ys`` output gone, then the consts and scanned
+    inputs the body no longer reads."""
+    body, n_c, n_k = e.impl.args
+    u_k, u_y = list(used[:n_k]), list(used[n_k:])
+    while True:
+        keep = _dce(body.eqns, [v for v, u in zip(body.outvars, u_k + u_y)
+                                if u])
+        live = {v for q in keep for v in q.invars if isinstance(v, Var)}
+        live.update(v for v, u in zip(body.outvars, u_k + u_y)
+                    if u and isinstance(v, Var))
+        new = [a or v in live for a, v in zip(u_k, body.invars[n_c:n_c + n_k])]
+        if new == u_k:
+            break
+        u_k = new
+    ins = [v in live for v in body.invars[:n_c]] + u_k + [
+        v in live for v in body.invars[n_c + n_k:]]
+    outs = u_k + u_y
+    graph = Graph(keep, [v for v, i in zip(body.invars, ins) if i],
+                  [v for v, o in zip(body.outvars, outs) if o], [], [], "")
+    return Eqn("scan", [v for v, i in zip(e.invars, ins) if i],
+               [v for v, o in zip(e.outvars, outs) if o], {},
+               functools.partial(_run_loop, graph, sum(ins[:n_c]), sum(u_k),
+                                 **e.impl.keywords), e.source)
 
 
 def _pad_value(value: Any, *, dtype: torch.dtype) -> tuple:
@@ -1452,6 +1503,8 @@ def _split_pad(e: Eqn, known: list[bool]) -> tuple | None:
     ``jit`` of the padding value gives the tangent's (zero) padding value
     (the transpose's residual) and the value in the operand's dtype; the
     rest keeps a ``jit`` padding the operand with it."""
+    if getattr(e.impl, "func", None) is _pad_jit:
+        return _split_primal_pad(e, known)
     if known[0] or not known[1] or getattr(e.impl, "func", None) \
             is not _pad_fwd:
         return None
@@ -1463,6 +1516,25 @@ def _split_pad(e: Eqn, known: list[bool]) -> tuple | None:
             Eqn("jit", [e.invars[0], value], [out], {},
                 functools.partial(_pad_jit, **e.impl.keywords), e.source,
                 e.name))
+
+
+def _split_primal_pad(e: Eqn, known: list[bool]) -> tuple | None:
+    """``jnp.pad``'s primal (``_pad_jit``, in a body under
+    ``jax.checkpoint``) of an unknown operand: a ``jit`` of the padding
+    value gives it in the operand's dtype; the rest keeps a ``jit``
+    padding the operand with it."""
+    if known[0] or not known[1]:
+        return None
+    out = e.outvars[0]
+    value = Var(Aval((), out.aval.dtype), f"{out.name}.v")
+    return (Eqn("jit", e.invars[1:], [value], {}, functools.partial(
+                _pad_value1, dtype=out.aval.dtype), e.source, e.name),
+            Eqn("jit", [e.invars[0], value], [out], {}, e.impl, e.source,
+                e.name))
+
+
+def _pad_value1(value: Any, *, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=get_device(None))
 
 
 def _nothing(*_: Any) -> tuple:
@@ -1525,6 +1597,10 @@ def _partial_eval(eqns: list[Eqn], known: set) -> tuple[list, list]:
             continue
         if e.prim == "jit":
             k, e = _split_jit(e, mask)
+            kn.append(k)
+            known.update(k.outvars)
+        elif e.prim == "closed_call":
+            k, e = _split_call(e, mask)
             kn.append(k)
             known.update(k.outvars)
         elif e.prim == "scan" and getattr(e.impl, "func", None) is _run_loop:
@@ -1640,9 +1716,102 @@ def _tangents_out(body: Graph, lin: list[bool]) -> list[bool]:
     float output of an equation that reads such a value)."""
     has = {v for v, l in zip(body.invars, lin) if l}
     for e in body.eqns:
-        if any(isinstance(v, Var) and v in has for v in e.invars):
+        got = [isinstance(v, Var) and v in has for v in e.invars]
+        if e.prim == "remat2" and any(got):    # a literal output has none
+            has.update(o for o, t in zip(e.outvars, _tangents_out(
+                e.params["jaxpr"], got)) if t)
+        elif any(got):
             has.update(o for o in e.outvars if _is_float(o.aval))
     return [isinstance(v, Var) and v in has for v in body.outvars]
+
+
+def _tangent_parents(cts: list, got: list, eqns: list[Eqn],
+                     reads: list) -> list:
+    """A linear equation's operands in order, from its transpose: each
+    equation the transpose emits read in order, a cotangent (or what a
+    cotangent made) standing for the tangents the equation reads (the
+    keys the transpose gives), any other value a residual."""
+    keys = [k for k, _ in got]
+    carried, out, put = {id(c) for c in cts}, [], False
+    for q in eqns:
+        hit = False
+        for v in q.invars:
+            if isinstance(v, Literal):
+                continue
+            if id(v) in carried:
+                hit = True
+                if not put:
+                    out += keys
+                    put = True
+            else:
+                out.append(v)
+        if hit:
+            carried.update(id(o) for o in q.outvars)
+    return (out if put else keys + out) + list(reads)
+
+
+class _Use:
+    """One use of a residual by a linear equation (JAX instantiates a
+    constant tracer for each)."""
+
+    __slots__ = ("var",)
+
+    def __init__(self, var: Var):
+        self.var = var
+
+
+def _toposort(ends: list, parents: Callable[[Any], list]) -> list:
+    """``jax._src.util.toposort``: Kahn's algorithm from ``ends``,
+    reversed."""
+    ends = list(dict.fromkeys(ends))
+    counts: dict[Any, int] = {}
+    stack = list(ends)
+    while stack:
+        node = stack.pop()
+        if node in counts:
+            counts[node] += 1
+        else:
+            counts[node] = 1
+            stack.extend(parents(node))
+    for node in ends:
+        counts[node] -= 1
+    out, free = [], [n for n in ends if counts[n] == 0]
+    while free:
+        node = free.pop()
+        out.append(node)
+        for p in parents(node):
+            if counts[p] == 1:
+                free.append(p)
+            else:
+                counts[p] -= 1
+    return out[::-1]
+
+
+def _toposort_residuals(sub: _Tape, parents: dict, res: dict, ins: list,
+                        outs: list) -> dict:
+    """The residuals ``res`` of a scan's body in the order JAX's partial
+    evaluation of the body's JVP makes them (``tracers_to_jaxpr``: its
+    constants in :func:`_toposort` order of the tangent program, from
+    the tangent inputs and outputs): each linear equation's outputs
+    nodes whose parents are its operands (``parents``, by record), each
+    use of a residual a node of its own."""
+    rec_of = {k: i for i, rec in enumerate(sub.linear) for k in rec.outs}
+    uses: dict[tuple[int, int], _Use] = {}
+
+    def parents_of(node):
+        i = rec_of.get(node) if isinstance(node, _Key) else None
+        if i is None or i not in parents:
+            return []
+        out = []
+        for j, p in enumerate(parents[i]):
+            if isinstance(p, _Key):
+                out.append(p)
+            elif isinstance(p, Var) and p in res:
+                out.append(uses.setdefault((i, j), _Use(p)))
+        return out
+    order = dict.fromkeys(n.var for n in _toposort([*ins, *outs], parents_of)
+                          if isinstance(n, _Use))
+    return order | {v: None for v in res if v not in order}
 
 
 def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
@@ -1694,6 +1863,7 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     # the body's JVP: known equations, and the linear records
     known = _Lowering(None)
     sub = _Tape(known, tape.src)
+    sub.remat = tape.remat
     kin = [Var(v.aval, f"{tape.src}.in{i}") for i, v in enumerate(body.invars)]
     for v, k, l in zip(body.invars, kin, c_lin + k_lin + x_lin):
         sub.env[v] = k
@@ -1715,10 +1885,18 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
             for i, (v, l) in enumerate(zip(k_out[:n_k], k_lin)) if l]
     ct_y = [Var(v.aval, f"{tape.src}.cty{i}")
             for i, (v, l) in enumerate(zip(k_out[n_k:], ys_lin)) if l]
+    c_lin0, x_lin0 = list(c_lin), list(x_lin)
+    # each const's cotangent accumulates onto its accumulator (the
+    # transposed scan's carry) as each part of it is made, as JAX's
+    # ``ValAccum`` seeded with it does
+    c_keys = [sub.tan[v] for v, l in zip(kin[:n_c], c_lin) if l]
+    acc = [Var(v.aval, f"{tape.src}.acc{i}")
+           for i, (v, l) in enumerate(zip(kin[:n_c], c_lin)) if l]
+    sub.ct.update(zip(c_keys, acc))
     outs_lin = [v for v, l in zip(k_out, k_lin + ys_lin) if l]
     for v, c in zip(outs_lin, ct_k + ct_y):
         sub.accum(sub.tan.get(v), c)
-    spans = []
+    spans, parents = [], {}
     for i in reversed(range(len(sub.linear))):
         rec = sub.linear[i]
         cts = [sub.ct.pop(k, None) for k in rec.outs]
@@ -1727,6 +1905,10 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
         start = len(trans.eqns)
         got = rec.transpose(cts)
         spans.append((i, rec.reads, start, len(trans.eqns)))
+        if tape.remat:
+            parents[i] = rec.ins if rec.ins is not None else \
+                _tangent_parents([c for c in cts if c is not None], got,
+                                 trans.eqns[start:], rec.reads)
         for key, ct in got:
             sub.accum(key, ct)
 
@@ -1734,19 +1916,20 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
         ct = sub.ct.pop(sub.tan[v], None)
         return sub.zeros(v.aval) if ct is None else ct
     # an input's tangent the tangent program never reads: no cotangent
-    c_lin = [l and sub.tan[v] in sub.ct for v, l in zip(kin[:n_c], c_lin)]
+    got = [sub.ct.pop(k) for k in c_keys]
+    read = iter([g is not a for g, a in zip(got, acc)])
+    c_lin = [l and next(read) for l in c_lin]
+    acc, acc_out = map(list, zip(*[(a, g) for a, g in zip(acc, got)
+                                   if g is not a])) if any(c_lin) else ([], [])
     x_lin = [l and sub.tan[v] in sub.ct
              for v, l in zip(kin[n_c + n_k:], x_lin)]
-    acc = [Var(v.aval, f"{tape.src}.acc{i}")
-           for i, (v, l) in enumerate(zip(kin[:n_c], c_lin)) if l]
-    acc_out = [sub.emit("add_any", [a, sub.ct.pop(sub.tan[v])], a.aval,
-                        impl=operator.add)
-               for a, v in zip(acc, [v for v, l in zip(kin[:n_c], c_lin)
-                                     if l])]
     carry_out = [ct_of(v) for v, l in zip(kin[n_c:n_c + n_k], k_lin) if l]
     xs_out = [ct_of(v) for v, l in zip(kin[n_c + n_k:], x_lin) if l]
 
-    # the residuals, in the order the tangent program reads them
+    # the residuals, in the order the tangent program reads them (JAX's
+    # linearization of a scan) or, in a body under ``jax.checkpoint``
+    # (its JVP partially evaluated), in JAX's topological order of the
+    # tangent program (:func:`_toposort_residuals`)
     made = set(kin) | {o for q in known.eqns for o in q.outvars}
     res: dict[Var, None] = {}
     for _, reads, a, b in sorted(spans, key=lambda t: t[0]):
@@ -1754,10 +1937,18 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
         for q in trans.eqns[a:b]:
             res.update((v, None) for v in q.invars
                        if isinstance(v, Var) and v in made)
+    if tape.remat:
+        res = _toposort_residuals(
+            sub, parents, res,
+            [sub.tan[k] for k, l in zip(kin, c_lin0 + k_lin + x_lin0) if l],
+            [sub.tan[v] for v in outs_lin if sub.has_tangent(v)])
 
     # hoisting: the known part, less what neither the primal outputs nor
     # the residuals need (JAX's linearization of a scan drops it),
     # partially evaluated on the consts
+    for a, (v, l) in zip(k_lin, zip(init, i_lin)):
+        if a and not l:      # a zero carry tangent, in the tangent program
+            tape.defer(lambda a=v.aval: tape.zeros(a))
     inv = set(kin[:n_c])
     hoisted, loop = _partial_eval(_dce(known.eqns, [*k_out, *res]), inv)
     outer = dict(zip(kin[:n_c], consts))
@@ -1792,9 +1983,6 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
     primal = got[:len(e.outvars)]
     outer.update(zip(stacked, got[len(e.outvars):]))
     outer.update(zip(kin[n_c + n_k:], xs))
-    for a, (v, l) in zip(k_lin, zip(init, i_lin)):
-        if a and not l:      # a zero carry tangent, in the tangent program
-            tape.pre.append(lambda a=v.aval: tape.zeros(a))
 
     # the transpose: one reverse scan of the transposed body
     t_body = Graph(trans.eqns, [*ires, *acc, *ct_k, *ct_y, *eres],
@@ -1820,6 +2008,173 @@ def _jvp_loop(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
                 zip([*c_with, *k_with, *x_with], outs)]
     tape.linear.append(_Linear(keys, transpose))
     return primal
+
+
+# -- a body under ``jax.checkpoint``: JAX's remat with ``policy=None`` -------
+
+def _known_loop_call(e: Eqn, src: str) -> tuple[Eqn, list[Var]]:
+    """A scan of a lowered body, in the forward of a body under
+    ``jax.checkpoint``: one ``closed_call`` (JAX's
+    ``_scan_partial_eval_custom``, nothing saved) of the body's part that
+    reads only its consts, hoisted, then a ``scan`` of the rest, whose
+    consts are the hoisted values and the consts it reads, in the order
+    it reads them.  Returns the equation (its operands ``e``'s) and its
+    outputs (``e``'s, fresh)."""
+    body, n_c, n_k = e.impl.args
+    reverse = e.impl.keywords.get("reverse", False)
+    b_c = body.invars[:n_c]
+    hoisted, loop = _partial_eval(body.eqns, set(b_c))
+    made = set(b_c) | {o for q in hoisted for o in q.outvars}
+    lp: dict[Var, None] = {}
+    for q in loop:
+        lp.update((v, None) for v in q.invars
+                  if isinstance(v, Var) and v in made)
+    lp.update((v, None) for v in body.outvars
+              if isinstance(v, Var) and v in made)
+    lp = list(lp)
+    cin = [Var(v.aval, f"{src}.c{i}") for i, v in enumerate(e.invars)]
+    ren = dict(zip(b_c, cin))
+    outs = [Var(v.aval, f"{src}.o{i}") for i, v in enumerate(e.outvars)]
+    scan = Eqn("scan", [ren.get(v, v) for v in lp] + cin[n_c:], outs, {},
+               functools.partial(_run_loop, Graph(
+                   loop, [*lp, *body.invars[n_c:]], body.outvars, [], [],
+                   ""), len(lp), n_k, reverse=reverse), e.source)
+    call = Graph([_renamed(q, ren) for q in hoisted] + [scan], cin, outs,
+                 [], [], "")
+    return Eqn("closed_call", e.invars, e.outvars, {"call_jaxpr": call},
+               _run_graph, e.source), outs
+
+
+def _renamed(e: Eqn, ren: dict) -> Eqn:
+    return dataclasses.replace(e, invars=[
+        ren.get(v, v) if isinstance(v, Var) else v for v in e.invars])
+
+
+def _remat_forward(tape: _Tape, body: Graph, ins: list) -> list:
+    """The forward of a body under ``jax.checkpoint``: its equations of
+    the primal alone, none of the residuals the JVP rules keep (JAX's
+    known side of a remat with nothing saveable), a scan in it one
+    ``closed_call`` (:func:`_known_loop_call`)."""
+    env = dict(zip(body.invars, ins))
+
+    def read(v):
+        return v if isinstance(v, Literal) else env[v]
+    for q in body.eqns:
+        if q.prim == "scan" and getattr(q.impl, "func", None) is _run_loop:
+            q, _ = _known_loop_call(q, tape.src)
+        outs = tape.emit_multi(q.prim, [read(v) for v in q.invars],
+                               [o.aval for o in q.outvars], q.impl, q.name,
+                               **q.params)
+        env.update(zip(q.outvars, outs))
+    return [read(v) for v in body.outvars]
+
+
+def _remat_transposed(src: str, body: Graph, lin: list[bool],
+                      ct_nz: list[bool]) -> tuple:
+    """The body of the transposed ``remat2`` equation: JAX's
+    ``remat_transpose`` — the body's JVP partially evaluated with the
+    primal known (the recomputed primal and the residuals its rules keep,
+    less what no tangent needs, a scan in it linearized as at any level),
+    then each linear equation's transpose in reverse.  ``lin`` marks the
+    inputs with a tangent, ``ct_nz`` the outputs (of those with one)
+    whose cotangent is not zero.  Returns the graph (inputs: the primal
+    inputs it reads, then the cotangents; outputs: the cotangents of the
+    inputs that get one), which inputs it reads and which get one."""
+    known = _Lowering(None)
+    st = _Tape(known, src)
+    st.eager_pre = st.remat = True
+    kin = [Var(v.aval, f"{src}.r{i}") for i, v in enumerate(body.invars)]
+    for v, k, l in zip(body.invars, kin, lin):
+        st.env[v] = k
+        if l:
+            st.tan[k] = _Key()
+    st.forward(body.eqns)
+    outs = [v if isinstance(v, Literal) else st.env[v] for v in body.outvars]
+    trans = _Lowering(None)
+    st.lo = trans
+    with_tan = [o for o in outs if st.has_tangent(o) and _is_float(o.aval)]
+    cts = [Var(o.aval, f"{src}.ct{i}") for i, (o, nz) in enumerate(zip(
+        with_tan, ct_nz)) if nz]
+    for o, c in zip([o for o, nz in zip(with_tan, ct_nz) if nz], cts):
+        st.accum(st.tan[o], c)
+    reads: list = []
+    for rec in reversed(st.linear):
+        got_ct = [st.ct.pop(k, None) for k in rec.outs]
+        if all(c is None for c in got_ct):
+            continue
+        reads += rec.reads
+        for key, ct in rec.transpose(got_ct):
+            st.accum(key, ct)
+    got = [st.ct.pop(st.tan[k], None) if l else None
+           for k, l in zip(kin, lin)]
+    needed = reads + st.eager_made + [v for q in trans.eqns for v in q.invars]
+    eqns = [*_dce(known.eqns, needed), *trans.eqns]
+    used = {v for q in eqns for v in q.invars if isinstance(v, Var)}
+    used.update(v for v in got if isinstance(v, Var))
+    reads_in = [k in used for k in kin]
+    return (Graph(eqns, [k for k, r in zip(kin, reads_in) if r] + cts,
+                  [g for g in got if g is not None], [], [], ""),
+            reads_in, [g is not None for g in got])
+
+
+def _jvp_remat(tape: _Tape, e: Eqn, ins: list, lin: list) -> list:
+    """A ``remat2`` equation (``cdfg.checkpoint``: a scan body under
+    ``jax.checkpoint``), linearized as JAX's remat with ``policy=None``:
+    the forward is the body's primal alone (:func:`_remat_forward`), its
+    residuals the inputs themselves; the transpose one ``remat2``
+    equation of the inputs it reads and the cotangents, whose body
+    recomputes the primal and transposes (:func:`_remat_transposed`)."""
+    body = e.params["jaxpr"]
+    lin = [l and _is_float(x.aval) for x, l in zip(ins, lin)]
+    outs = _remat_forward(tape, body, ins)
+    out_lin = [l and _is_float(o.aval) for o, l in zip(
+        outs, _tangents_out(body, lin))]
+    keys = [tape.fresh(o) for o, l in zip(outs, out_lin) if l]
+
+    def transpose(cts):
+        graph, reads_in, got = _remat_transposed(
+            tape.src, body, lin, [c is not None for c in cts])
+        x_in = [x for x, r in zip(ins, reads_in) if r]
+        res = tape.emit_multi(
+            "remat2", [*x_in, *(c for c in cts if c is not None)],
+            [v.aval for v in graph.outvars], _run_graph, jaxpr=graph,
+            prevent_cse=True, differentiated=True, policy=None)
+        return list(zip([tape.tan[x] for x, g in zip(ins, got) if g], res))
+    tape.linear.append(_Linear(keys, transpose))
+    return outs
+
+
+def _split_call(e: Eqn, mask: list[bool]) -> tuple[Eqn, Eqn]:
+    """A ``closed_call`` some of whose operands are known, split as JAX's
+    partial evaluation of a call: a ``closed_call`` of the known operands
+    (all of them) giving the known outputs and the residuals it makes;
+    one of the residuals (those it makes, and the known operands the rest
+    reads, in the order the rest reads them) and the unknown operands
+    giving the rest."""
+    g = e.params["call_jaxpr"]
+    known = {v for v, m in zip(g.invars, mask) if m}
+    kn, un = _partial_eval(g.eqns, known)
+    o_kn = [isinstance(v, Literal) or v in known for v in g.outvars]
+    res: dict[Var, None] = {}
+    for q in un:
+        res.update((v, None) for v in q.invars
+                   if isinstance(v, Var) and v in known)
+    k_in = [v for v, m in zip(g.invars, mask) if m]
+    made = [v for v in res if v not in k_in]
+    made_out = [Var(v.aval, f"{e.source}.res{i}") for i, v in enumerate(made)]
+    outer = dict(zip(g.invars, e.invars)) | dict(zip(made, made_out))
+    k_call = Eqn("closed_call", [v for v, m in zip(e.invars, mask) if m],
+                 [o for o, k in zip(e.outvars, o_kn) if k] + made_out,
+                 {"call_jaxpr": Graph(kn, k_in, [v for v, k in zip(
+                     g.outvars, o_kn) if k] + made, [], [], "")},
+                 _run_graph, e.source)
+    u_in = [v for v, m in zip(g.invars, mask) if not m]
+    u_call = Eqn("closed_call", [outer[v] for v in res] + [
+        o for o, m in zip(e.invars, mask) if not m],
+        [o for o, k in zip(e.outvars, o_kn) if not k],
+        {"call_jaxpr": Graph(un, [*res, *u_in], [v for v, k in zip(
+            g.outvars, o_kn) if not k], [], [], "")}, _run_graph, e.source)
+    return k_call, u_call
 
 
 #: primitive (or ``jit <name>``) -> JVP rule
@@ -1862,6 +2217,9 @@ JVP_RULES: dict[str, Callable] = {
     "square": _jvp_scaled(_square_jac),
     "jit relu": _jvp_relu,
     "jit softplus": _jvp_softplus,
+    "jit cumsum": _linear1(_t_cumsum),
+    "dynamic_slice": _jvp_dynamic_slice,
+    "remat2": _jvp_remat,
 }
 
 
@@ -1874,12 +2232,11 @@ def lower_value_and_grad(lo: _Lowering, node: Any) -> tuple:
     p_nodes, a_nodes = node.args
     params = [lo.read(n) for n in p_nodes]
     tape = _Tape(lo, node.name)
-    for k, p in enumerate(params):
+    for p in params:
         tape.tan[p] = _Key()
-        tape.order[p] = k
     n_p = len(where)
-    for v, (i, r) in zip(sub.invars[:n_p], where):
-        tape.env[v] = params[i] if r is None else _View(params[i], r)
+    for v, i in zip(sub.invars[:n_p], where):
+        tape.env[v] = params[i]
     for v, n in zip(sub.invars[n_p:], a_nodes):
         tape.env[v] = lo.read(n)
     for v, c in zip(sub.constvars, sub.consts):

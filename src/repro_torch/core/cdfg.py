@@ -22,8 +22,10 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   ``x.at[idx].add(v)`` — the wrap, the (N, 1) index, one ``scatter-add``
   that drops an index still out of range; :func:`scan` (the port's
   ``jax.lax.scan``) into one ``scan`` equation whose body is the step's
-  own lowered sub-graph; a function marked with a ``primitive`` (the
-  MoE's ``top_k``) into one equation of it;
+  own lowered sub-graph, and :func:`checkpoint` (``jax.checkpoint`` of a
+  scan body) into one ``remat2`` equation whose body is the body's; a
+  function marked with a ``primitive`` (the MoE's ``top_k``) into one
+  equation of it;
 * inside :func:`leaves`, a function named there as an ``index`` leaf
   (``x[idx]`` with the reference's wrap-then-clamp read) into those of
   ``x[idx]``, one named as a ``scan`` leaf (a loop kept inside one
@@ -32,20 +34,22 @@ reference's primitive vocabulary through one table (:data:`_LOWERING`):
   leaf (``value_and_grad`` of a loss) into the loss's equations and
   their transposes (:mod:`repro_torch.core.autodiff`);
 * a static index (``...`` too) into ``slice`` / ``squeeze`` /
-  ``broadcast_in_dim``, ``x.mean`` into ``reduce_sum, broadcast_in_dim,
+  ``broadcast_in_dim`` (one with a negative int into ``jnp``'s
+  ``dynamic_slice``), ``x.mean`` into ``reduce_sum, broadcast_in_dim,
   div``, ``x.var`` into one ``jit`` (``jnp.var`` is a jitted function),
   as are ``torch.clamp`` (``jnp.clip``), ``%`` (``jnp.remainder``),
   ``torch.where`` and ``masked_fill`` (``jnp.where``),
-  ``torch.log_softmax``, ``F.silu``,
+  ``torch.log_softmax``, ``F.silu``, ``torch.tril``,
   ``F.pad``, ``x.cumsum`` and a function with a ``jit_name``,
   ``x.float()`` / ``x.to(dtype)`` into ``convert_element_type``
-  (nothing when the dtype stays), a two-operand ``torch.einsum`` and
-  ``torch.bmm`` into ``dot_general``, ``reshape`` / ``permute`` /
+  (nothing when the dtype stays), a two-operand ``torch.einsum`` (as
+  ``jnp.einsum`` spells it, a ``transpose`` after where it takes one)
+  and ``torch.bmm`` into ``dot_general``, ``reshape`` / ``permute`` /
   ``transpose`` / ``split`` / ``chunk`` / ``expand`` /
   ``repeat_interleave`` into the jaxpr's layout equations,
   ``torch.arange(n)`` into ``iota`` (of several numbers: a constant),
-  ``torch.full`` / ``torch.zeros`` into a ``broadcast_in_dim`` of a
-  literal, ``clamp_min`` / ``amax`` into ``max`` / ``reduce_max``,
+  ``torch.full`` / ``torch.zeros`` / ``torch.ones`` into a
+  ``broadcast_in_dim`` of a literal, ``clamp_min`` / ``amax`` into ``max`` / ``reduce_max``,
   ``x ** 2`` into ``integer_pow``, rank and dtype promotion into a
   ``broadcast_in_dim`` / ``convert_element_type``, and
   ``t.new_tensor(c)`` into a weakly typed literal (``jnp``'s Python
@@ -295,13 +299,35 @@ def _select_n(pred: Any, on_false: Any, on_true: Any) -> Any:
     return torch.where(pred, on_true, on_false)
 
 
-def _dynamic_slice(operand: torch.Tensor, start: torch.Tensor,
-                   *other_starts: Any, slice_sizes: tuple[int, ...]
-                   ) -> torch.Tensor:
-    # only axis 0 is dynamic (the lowering of x[j]); the start is clamped
-    # into range like the reference's dynamic_slice
-    start = torch.clamp(start, 0, operand.shape[0] - slice_sizes[0])
-    return torch.index_select(operand, 0, start.reshape(1).long())
+def _dynamic_slice(operand: torch.Tensor, *starts: Any,
+                   slice_sizes: tuple[int, ...]) -> torch.Tensor:
+    # each start clamped into range like the reference's dynamic_slice; a
+    # start that is a tensor (the lowering of x[j]) read on the device, a
+    # number (a negative static index wrapped) a view
+    out = operand
+    for d, (start, n) in enumerate(zip(starts, slice_sizes)):
+        hi = operand.shape[d] - n
+        if isinstance(start, torch.Tensor):
+            rows = torch.clamp(start, 0, hi).reshape(1).long()
+            if n > 1:
+                rows = rows + torch.arange(n, device=rows.device)
+            out = torch.index_select(out, d, rows)
+        elif n != operand.shape[d]:
+            out = out.narrow(d, min(max(int(start), 0), hi), n)
+    return out
+
+
+def _dynamic_update_slice(operand: torch.Tensor, update: torch.Tensor,
+                          *starts: Any) -> torch.Tensor:
+    # the transpose of a dynamic_slice whose starts are numbers (``x[:,
+    # -1]``): ``update`` written into a copy of ``operand`` at the clamped
+    # starts
+    out = operand.clone()
+    view = out
+    for d, (start, n) in enumerate(zip(starts, update.shape)):
+        view = view.narrow(d, min(max(int(start), 0), operand.shape[d] - n), n)
+    view.copy_(update)
+    return out
 
 
 def _squeeze(x: torch.Tensor, *, dimensions: tuple[int, ...]) -> torch.Tensor:
@@ -401,7 +427,9 @@ def scan(f: Callable, init: Sequence[Any], xs: Sequence[Any],
     of tensors of ``init``'s shapes and dtypes, ``x`` the tuple of the
     ``xs``' rows, ``y`` a tuple of tensors or ``None``; the tensors the
     body reads from outside come in ``consts``.  Returns ``(carry,
-    ys)``, ``ys`` the ``y``\\ s stacked (``None`` without them).
+    ys)``, ``ys`` the ``y``\\ s stacked (``None`` without them); over
+    ``xs`` of no rows, each ``y`` stacked to length 0, its shape and
+    dtype learnt from one call of ``f`` on ``meta`` rows.
 
     Under ``torch.fx`` tracing the call is one node and ``f`` is traced
     into a sub-graph of its own (its inputs the consts, the carry and one
@@ -411,6 +439,13 @@ def scan(f: Callable, init: Sequence[Any], xs: Sequence[Any],
     init, xs, consts = tuple(init), tuple(xs), tuple(consts)
     if any(isinstance(t, fx.Proxy) for t in (*init, *xs, *consts)):
         return _trace_scan(f, init, xs, consts)
+    if xs[0].shape[0] == 0:
+        _, y = f(tuple(map(_to_meta, consts)), tuple(map(_to_meta, init)),
+                 tuple(torch.empty(x.shape[1:], dtype=x.dtype, device="meta")
+                       for x in xs))
+        return init, (None if y is None else tuple(
+            torch.empty((0, *t.shape), dtype=t.dtype, device=xs[0].device)
+            for t in y))
     carry, ys = init, []
     # the rows as views made by one call each (``unbind``), not an index
     # a step: the host's cost of a step is the card's time on a recurrence
@@ -458,6 +493,62 @@ def _trace_scan(f: Callable, init: tuple, xs: tuple, consts: tuple
     return carry, (ys if n_ys[0] else None)
 
 
+def checkpoint(f: Callable) -> Callable:
+    """The port's ``jax.checkpoint`` of a scan body ``f(consts, carry,
+    x) -> (carry, y)`` (:func:`scan`'s): called on tensors, ``f``
+    unchanged; traced, one ``remat2`` equation whose body is ``f``'s own
+    lowered sub-graph (its inputs the body's constants, then the consts,
+    the carry and the row), which a ``grad`` leaf linearizes as JAX's
+    ``remat2`` with ``policy=None`` (:mod:`repro_torch.core.autodiff`):
+    the forward keeps no residual of its own, the transpose recomputes
+    the body."""
+    @functools.wraps(f)
+    def body(consts: Sequence[Any], carry: Sequence[Any], x: Sequence[Any]
+             ) -> tuple:
+        parts = (tuple(consts), tuple(carry), tuple(x))
+        flat = [t for part in parts for t in part]
+        if not any(isinstance(t, fx.Proxy) for t in flat):
+            return f(*parts)
+        tracer = next(t for t in flat if isinstance(t, fx.Proxy)).tracer
+        n_ys = []
+
+        def inner(c_flat, k_flat, x_flat):
+            carry, y = f(tuple(c_flat), tuple(k_flat), tuple(x_flat))
+            n_ys.append(0 if y is None else len(y))
+            return (*carry, *(y or ()))
+        ex = [[_example_of(t) for t in part] for part in parts]
+        gm = _symbolic_trace(inner, [e for part in ex for e in part],
+                             {"c_flat": (fx.PH,) * len(parts[0]),
+                              "k_flat": (fx.PH,) * len(parts[1]),
+                              "x_flat": (fx.PH,) * len(parts[2])})
+        outs = _MetaShapeProp(gm).propagate(*map(tuple, ex))
+        node = tracer.create_proxy("call_function", _remat_node, parts, {})
+        node.node.meta["remat"] = gm
+        node.node.meta["example"] = tuple(torch.as_tensor(o, device="meta")
+                                          for o in outs)
+        n_k = len(parts[1])
+        return (tuple(node[i] for i in range(n_k)),
+                tuple(node[n_k + i] for i in range(n_ys[0])) if n_ys[0]
+                else None)
+    return body
+
+
+def _remat_node(consts: tuple, carry: tuple, x: tuple) -> tuple:
+    """The call target of a traced :func:`checkpoint` (its body's graph
+    lives in ``meta``; the lowered equation runs it)."""
+    raise RuntimeError("a traced checkpoint runs through its lowered "
+                       "equation")
+
+
+def _run_graph(*args: Any, jaxpr: "Graph | None" = None,
+               call_jaxpr: "Graph | None" = None, **_: Any) -> Any:
+    """A ``remat2`` or ``closed_call`` equation: its body replayed."""
+    from .decouple import _make_stage_fn
+    body = jaxpr or call_jaxpr
+    out = _make_stage_fn(body.eqns, body.invars, body.outvars)(*args)
+    return out[0] if len(out) == 1 else out
+
+
 def _loop_node(consts: tuple, init: tuple, xs: tuple) -> tuple:
     """The call target of a traced :func:`scan` (its body's graph lives
     in ``meta``; the lowered equation runs it)."""
@@ -484,7 +575,8 @@ def _run_loop(body: "Graph", n_consts: int, n_carry: int, *args: Any,
             for y, v in zip(out[n_carry:], body.outvars[n_carry:])])
     if reverse:
         ys.reverse()
-    return (*carry, *map(torch.stack, zip(*ys)))
+    out = (*carry, *map(torch.stack, zip(*ys)))
+    return out[0] if len(out) == 1 else out
 
 
 def _convert_element_type(x: Any, *, new_dtype: torch.dtype
@@ -530,6 +622,21 @@ def _concatenate(*xs: torch.Tensor, dimension: int) -> torch.Tensor:
 def _einsum(a: torch.Tensor, b: torch.Tensor, *, equation: str
             ) -> torch.Tensor:
     return torch.einsum(equation, a, b)
+
+
+def _dot_general(a: torch.Tensor, b: torch.Tensor, *,
+                 dimension_numbers: tuple) -> torch.Tensor:
+    (ac, bc), (ab, bb) = dimension_numbers
+    letters = iter("abcdefghijklmnopqrstuvwxyz")
+    la = [next(letters) for _ in range(a.ndim)]
+    lb = [next(letters) for _ in range(b.ndim)]
+    for i, j in (*zip(ac, bc), *zip(ab, bb)):
+        lb[j] = la[i]
+    out = ([la[i] for i in ab]
+           + [la[i] for i in range(a.ndim) if i not in (*ac, *ab)]
+           + [lb[j] for j in range(b.ndim) if j not in (*bc, *bb)])
+    return torch.einsum(f"{''.join(la)},{''.join(lb)}->{''.join(out)}",
+                        a, b)
 
 
 def _where(c: Any, x: Any, y: Any) -> torch.Tensor:
@@ -578,6 +685,11 @@ def _pad_jit(x: torch.Tensor, value: Any, *, pads: tuple[int, ...]
              ) -> torch.Tensor:
     # ``jnp.pad`` with a constant: one opaque ``jit`` equation
     return torch.nn.functional.pad(x, pads, value=float(value))
+
+
+def _tril(x: torch.Tensor, diagonal: int = 0) -> torch.Tensor:
+    # ``jnp.tril``: one ``jit`` equation
+    return torch.tril(x, diagonal)
 
 
 def _silu(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
@@ -632,12 +744,9 @@ def leaves(*, index: Sequence[tuple[Any, str]] = (),
     ``grad`` names functions ``f(params, *args) -> ((value, aux),
     grads)`` — ``jax.value_and_grad(g, has_aux=True)`` of the function
     ``f.value_fn`` = ``g`` — whose ``f.unstacked(params, *args)`` gives
-    the tree ``g`` reads: ``params``' leaves, either whole (a stacked
-    leaf that ``g`` scans over with :func:`scan` — route (a), a
-    segment: the body traced as a sub-graph) or, stacked on a leading
-    repeat axis, as its repeats ``leaf[r]`` (a ``scan`` leaf's consts —
-    route (b), a segment under ``cfg.remat`` or with a chunked Mamba
-    scan).
+    the tree ``g`` reads, of ``params``' leaves (a segment's stacked
+    leaves ``g`` scans over with :func:`scan`, the body traced as a
+    sub-graph).
     Each traces as one node, lowered by :mod:`repro_torch.core.autodiff`
     to ``g``'s equations, the residuals its JVP rules keep and the
     transpose of each, in reverse (the jaxpr of ``value_and_grad``); a
@@ -700,17 +809,13 @@ def _scan_node(carry: Any, consts: tuple, state: tuple,
 
 
 class _Leaf:
-    """Leaf ``index`` of a tree — its repeat ``repeat`` when the leaf is
-    stacked on a leading axis — as a ``grad`` leaf's ``unstacked`` hook
+    """Leaf ``index`` of a tree, as a ``grad`` leaf's ``unstacked`` hook
     sees it."""
 
-    __slots__ = ("index", "repeat")
+    __slots__ = ("index",)
 
-    def __init__(self, index: int, repeat: int | None = None):
-        self.index, self.repeat = index, repeat
-
-    def __getitem__(self, r: int) -> "_Leaf":
-        return _Leaf(self.index, r)
+    def __init__(self, index: int):
+        self.index = index
 
 
 def _example(proxy: Any) -> torch.Tensor:
@@ -730,7 +835,7 @@ def _grad_leaf(fn: Callable) -> Callable:
             return fn(params, *args)
         marks = fn.unstacked(tree.unflatten(
             params, [_Leaf(i) for i in range(len(p_leaves))]), *args)
-        where = [(m.index, m.repeat) for m in tree.leaves(marks)]
+        where = [m.index for m in tree.leaves(marks)]
         dyn = [i for i, a in enumerate(args)
                if any(isinstance(t, fx.Proxy) for t in tree.leaves(a))]
         a_leaves = [t for i in dyn for t in tree.leaves(args[i])]
@@ -742,8 +847,7 @@ def _grad_leaf(fn: Callable) -> Callable:
                     args[i], [next(it) for _ in tree.leaves(args[i])])
             return fn.value_fn(tree.unflatten(marks, list(p_flat)), *full)
 
-        examples = [_example(p_leaves[i]) if r is None
-                    else _example(p_leaves[i])[r] for i, r in where]
+        examples = [_example(p_leaves[i]) for i in where]
         examples += [_example(a) for a in a_leaves]
         gm = _symbolic_trace(value, examples,
                              {"p_flat": (fx.PH,) * len(where),
@@ -820,6 +924,7 @@ _JITTED: dict[Any, tuple[Callable[..., Any], int, str, tuple[str, ...]]] = {
     torch.nn.functional.relu: (_relu, 1, "relu", ("inplace",)),
     torch.nn.functional.softplus: (_softplus, 1, "softplus", ()),
     torch.softmax: (_softmax, 1, "softmax", ("dim",)),
+    torch.tril: (_tril, 1, "tril", ("diagonal",)),
     "softmax": (_softmax, 1, "softmax", ("dim",)),
 }
 #: FX node target -> the ``_Lowering`` method of a layout op, a factory
@@ -834,6 +939,7 @@ _LAYOUT: dict[Any, str] = {
     "expand": "lower_expand", "repeat_interleave": "lower_repeat",
     torch.arange: "lower_arange", torch.full: "lower_full",
     torch.zeros: "lower_full", torch.zeros_like: "lower_full",
+    torch.ones: "lower_full",
     "clamp_min": "lower_clamp_min", torch.clamp_min: "lower_clamp_min",
     "amax": "lower_amax", torch.amax: "lower_amax",
     "cumsum": "lower_cumsum", torch.cumsum: "lower_cumsum",
@@ -856,6 +962,7 @@ _IMPL: dict[str, Callable[..., Any]] = {
     "sin": torch.sin, "cos": torch.cos, "pow": operator.pow,
     "square": torch.square, "stop_gradient": torch.Tensor.detach,
     "select_n": _select_n, "dynamic_slice": _dynamic_slice,
+    "dynamic_update_slice": _dynamic_update_slice,
     "squeeze": _squeeze, "broadcast_in_dim": _broadcast_in_dim,
     "gather": _gather, "scatter": _scatter,
     "convert_element_type": _convert_element_type, "reduce_sum": _reduce_sum,
@@ -953,6 +1060,8 @@ class _Lowering:
             return self.lower_scan(node)
         if target is _loop_node:
             return self.lower_loop(node)
+        if target is _remat_node:
+            return self.lower_remat(node)
         if hasattr(target, "primitive"):
             return self.lower_primitive(node)
         lowering = _LAYOUT.get(target)
@@ -1109,6 +1218,9 @@ class _Lowering:
             raise NotImplementedError(
                 f"indexing with {index!r} is not lowered yet")
         axes += [slice(None)] * (len(shape) - len(axes))
+        if None not in index and any(isinstance(i, int) and i < 0
+                                     for i in axes):
+            return self.lower_negative_index(node, arr, axes)
         bounds, dropped = [], []
         for d, (i, n) in enumerate(zip(axes, shape)):
             if isinstance(i, int):
@@ -1143,6 +1255,42 @@ class _Lowering:
             out = self.emit("broadcast_in_dim", [out], Aval(final, dt), src,
                             shape=final, broadcast_dimensions=tuple(pos))
         return out
+
+    def lower_negative_index(self, node: fx.Node, arr: Var, axes: list
+                             ) -> Var:
+        """A static basic index with a negative int (``hs[:, -1]``) → the
+        jaxpr's ``dynamic_slice`` of it: each negative start wrapped by
+        ``lt, add, select_n`` of literals, the slices' starts literal,
+        then ``dynamic_slice`` and ``squeeze`` of the int axes."""
+        shape, dt, src = arr.aval.shape, arr.aval.dtype, node.name
+        it = Aval((), torch.int32)
+        starts, sizes, dropped = [], [], []
+        for d, (i, n) in enumerate(zip(axes, shape)):
+            if isinstance(i, slice):
+                lo, hi, step = i.indices(n)
+                if step != 1:
+                    raise NotImplementedError(
+                        f"indexing with a step and a negative int is not "
+                        f"lowered yet")
+                starts.append(Literal(lo, it))
+                sizes.append(max(0, hi - lo))
+                continue
+            if i >= 0:
+                starts.append(Literal(i, it))
+            else:
+                neg = self.emit("lt", [Literal(i, it), Literal(0, it)],
+                                Aval((), torch.bool), src)
+                wrapped = self.emit("add", [Literal(i, it), Literal(n, it)],
+                                    it, src)
+                starts.append(self.emit("select_n", [neg, Literal(i, it),
+                                                     wrapped], it, src))
+            sizes.append(1)
+            dropped.append(d)
+        row = self.emit("dynamic_slice", [arr, *starts],
+                        Aval(tuple(sizes), dt), src, slice_sizes=tuple(sizes))
+        return self.emit("squeeze", [row], Aval(tuple(
+            n for d, n in enumerate(sizes) if d not in dropped), dt), src,
+            dimensions=tuple(dropped))
 
     def lower_scan(self, node: fx.Node) -> tuple[Var, ...]:
         """A traced ``scan`` leaf → one ``scan`` equation: inputs the
@@ -1259,10 +1407,14 @@ class _Lowering:
 
     def lower_full(self, node: fx.Node) -> Var:
         """``torch.full(shape, c)`` / ``torch.zeros(shape)`` /
-        ``torch.zeros_like(x)`` → ``broadcast_in_dim`` of the literal
-        (``jnp.full``, ``jnp.zeros``, ``jnp.zeros_like``)."""
+        ``torch.zeros_like(x)`` / ``torch.ones(shape)`` →
+        ``broadcast_in_dim`` of the literal (``jnp.full``, ``jnp.zeros``,
+        ``jnp.zeros_like``, ``jnp.ones``)."""
         aval = _aval_of(node)
-        c = node.args[1] if node.target is torch.full else 0
+        c = (node.args[1] if node.target is torch.full
+             else int(node.target is torch.ones))
+        if aval.dtype == torch.bool:
+            c = bool(c)
         return self.emit("broadcast_in_dim", [Literal(c, Aval((),
                                                              aval.dtype))],
                          aval, node.name,
@@ -1440,13 +1592,51 @@ class _Lowering:
                          out.aval, src)
 
     def lower_einsum(self, node: fx.Node) -> Var:
-        """A two-operand ``torch.einsum`` → ``dot_general``."""
+        """A two-operand ``torch.einsum`` → ``dot_general``, as
+        ``jnp.einsum`` spells it: the batch axes in the output's order,
+        then the first operand's free axes, then the second's — or, when
+        that is not the output's order, ``dot_general`` of the second
+        operand and the first, then a ``transpose`` to the output (an
+        axis summed in one operand alone: one ``dot_general`` of the
+        einsum)."""
         equation, *operands = node.args
         if len(operands) != 2:
             raise NotImplementedError("einsum of other than two operands")
-        return self.emit("dot_general", [self.read(o) for o in operands],
-                         _aval_of(node), node.name,
-                         impl=functools.partial(_einsum, equation=equation))
+        a, b = (self.read(o) for o in operands)
+        eq = equation.replace(" ", "")
+        lhs, rest = eq.split(",")
+        rhs, out = rest.split("->")
+        batch = [c for c in out if c in lhs and c in rhs]
+
+        def free(x, y):
+            return [c for c in x if c not in y]
+        lone = any(c not in out for c in (*free(lhs, rhs), *free(rhs, lhs)))
+        if "..." in eq or lone or (
+                batch == [c for c in lhs if c in rhs and c in out]
+                and batch + free(lhs, rhs) + free(rhs, lhs) == list(out)):
+            return self.emit("dot_general", [a, b], _aval_of(node), node.name,
+                             impl=functools.partial(_einsum,
+                                                    equation=equation))
+        contract = sorted(c for c in lhs if c in rhs and c not in out)
+        for (x, xs), (y, ys) in (((a, lhs), (b, rhs)), ((b, rhs), (a, lhs))):
+            names = batch + free(xs, ys) + free(ys, xs)
+            dims = (([xs.index(c) for c in contract],
+                     [ys.index(c) for c in contract]),
+                    ([xs.index(c) for c in batch],
+                     [ys.index(c) for c in batch]))
+            if names == list(out) or x is b:
+                break
+        dims = tuple(tuple(map(tuple, d)) for d in dims)
+        shape = dict(zip(lhs, a.aval.shape)) | dict(zip(rhs, b.aval.shape))
+        aval = _aval_of(node)
+        prod = self.emit("dot_general", [x, y], Aval(tuple(
+            shape[c] for c in names), aval.dtype), node.name,
+            impl=_dot_general, dimension_numbers=dims)
+        if names == list(out):
+            return prod
+        return self.emit("transpose", [prod], aval, node.name,
+                         impl=_transpose, permutation=tuple(
+                             names.index(c) for c in out))
 
     def lower_cat(self, node: fx.Node) -> Var:
         """``torch.cat(xs, dim)`` → one ``concatenate`` equation."""
@@ -1530,6 +1720,26 @@ class _Lowering:
                              for m in node.meta["tensor_meta"]],
             node.name, impl))
 
+    def lower_remat(self, node: fx.Node) -> tuple[Var, ...]:
+        """A traced :func:`checkpoint` → one ``remat2`` equation: inputs
+        the constants its body makes (constants of this program, as
+        ``jax.checkpoint`` passes its jaxpr's), then the consts, the carry
+        and the row; its body the lowered sub-graph (:func:`_run_graph`
+        runs it)."""
+        body = _Lowering(node.meta["remat"], self.device).run()
+        for v, c in zip(body.constvars, body.consts):
+            self.constvars.append(v)
+            self.consts.append(c)
+        invars = [*body.constvars,
+                  *(self.read(a) for part in node.args for a in part)]
+        body = Graph(body.eqns, [*body.constvars, *body.invars],
+                     body.outvars, [], [], body.code)
+        return tuple(self.emit_multi(
+            "remat2", invars, [Aval(tuple(m.shape), m.dtype)
+                               for m in node.meta["tensor_meta"]],
+            node.name, _run_graph, jaxpr=body, prevent_cse=True,
+            differentiated=False, policy=None))
+
     def lower_at_add(self, node: fx.Node) -> Var:
         """``at_add(x, idx, v)`` with an (N,) integer ``idx`` → the
         jaxpr's five equations of ``x.at[idx].add(v)``: wrap negative
@@ -1599,8 +1809,7 @@ class _MetaShapeProp(ShapeProp):
         if target is _grad_node:        # value, aux, then grads
             gm, where = self._node.meta["grad"]
             p_metas, a_metas = args
-            ex = [p_metas[i] if r is None else p_metas[i][r]
-                  for i, r in where]
+            ex = [p_metas[i] for i in where]
             val = _MetaShapeProp(gm).propagate(tuple(ex), tuple(a_metas))
             return (*pytree.tree_leaves(val),
                     *map(torch.empty_like, p_metas))
@@ -1608,7 +1817,7 @@ class _MetaShapeProp(ShapeProp):
             return args[0].select(0, 0)
         if target is at_set or target is at_add:
             return torch.empty_like(args[0])
-        if target is _loop_node:
+        if target is _loop_node or target is _remat_node:
             return self._node.meta["example"]
         if target is _scan_node:     # the carry and the state keep shapes
             if len(args) > 3:        # per-repeat outputs in place of state
@@ -1707,7 +1916,8 @@ class _Tracer(fx.Tracer):
         # examples made as the trace goes, so none is computed through a
         # long chain of arguments; a leaf's node records its result after
         # this returns
-        if kind != "placeholder" and target not in (_grad_node, _loop_node):
+        if kind != "placeholder" and target not in (_grad_node, _loop_node,
+                                                    _remat_node):
             try:
                 _example_of(out)
             except Exception:       # noqa: BLE001 — raised when asked for

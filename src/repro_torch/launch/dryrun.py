@@ -120,8 +120,9 @@ def train_compiled(cfg, shape, *, device="meta", backend: str = "eager"):
     ``cdfg.scan`` over its stacked leaves partially evaluated as JAX
     does — its loop invariants and its attention's masks hoisted, its
     forward and reverse scans, the attention's scan, the WKV recurrence
-    or the Mamba scans nested in each; DeepSeek-V3's MTP head's layer
-    inline), the embedding's read as ``x[idx]``, and the port's own
+    or the Mamba scans nested in each, under ``cfg.remat`` the body one
+    ``remat2`` equation; DeepSeek-V3's MTP head's layer inline), the
+    embedding's read as ``x[idx]``, and the port's own
     ``warmup_cosine`` and ``apply_updates``.  ``device`` other than
     ``meta`` compiles a step that runs (the ``sequential`` backend
     replays the lowered equations)."""

@@ -55,18 +55,11 @@ def loss_and_grads(params: Any, batch: dict, cfg: ModelConfig
 
 
 def _unstacked(params: dict, batch: dict, cfg: ModelConfig) -> dict:
-    """The model's tree of ``params`` whose segment leaves are stacked on
-    a leading repeats axis (as the reference holds them, and the dry
-    run's train census traces them): a segment whose body the trace
-    scans (``transformer.body_traced``) keeps its stacked leaves, any
-    other is read as its repeats ``leaf[r]``."""
-    def seg(key: str):
-        return cfg.segments[int(key[len("segment_"):])]
-    return {k: v if not k.startswith("segment_")
-            or M.transformer.body_traced(seg(k).unit, cfg)
-            else [tree.tree_map(lambda t, r=r: t[r], v)
-                  for r in range(seg(k).repeats)]
-            for k, v in params.items()}
+    """The tree the loss reads of ``params`` whose segment leaves are
+    stacked on a leading repeats axis (as the reference holds them, and
+    the dry run's train census traces them): the params themselves, each
+    segment one scan over its stacked leaves."""
+    return params
 
 
 # what a trace inside ``cdfg.leaves(grad=[(steps, "loss_and_grads")])``
@@ -204,6 +197,9 @@ def batch_specs(mesh: Any, batch: dict) -> dict:
             for k, v in batch.items()}
 
 
+_batch_pspecs = batch_specs
+
+
 def _spec_map(fn, specs: Any) -> Any:
     """``fn`` over a spec tree's specs, in its structure (a spec is a
     tuple, which ``tree`` would walk into)."""
@@ -236,10 +232,12 @@ def train_state_shardings(mesh: Any, state: TrainState) -> TrainState:
     return _shardings(mesh, train_state_specs(mesh, state))
 
 
-def batch_shardings(mesh: Any, batch: dict) -> dict:
-    """:func:`batch_specs` as a tree of
-    :class:`~repro_torch.runtime.sharding.NamedSharding` on ``mesh``."""
-    return _shardings(mesh, batch_specs(mesh, batch))
+def batch_shardings(mesh: Any, batch_specs: dict) -> dict:
+    """The specs of the batch ``batch_specs`` (its tensors, or their
+    ``meta`` twins) as a tree of
+    :class:`~repro_torch.runtime.sharding.NamedSharding` on ``mesh``: the
+    reference's keywords."""
+    return _shardings(mesh, _batch_pspecs(mesh, batch_specs))
 
 
 def _param_bytes(params: Any) -> int:

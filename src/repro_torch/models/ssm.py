@@ -15,9 +15,10 @@ Two Mamba scans, by ``cfg.ssm.scan_impl``:
 
 * ``sequential`` — a scan over time with O(B·d_inner·N) state; the
   default and the decode path;
-* ``chunked``    — a Python loop over chunks with an in-chunk parallel
-  prefix (materializes (B, chunk, chunk, d_inner, N) per chunk; not
-  lowered: a segment with it stays opaque in a traced train step).
+* ``chunked``    — a scan over chunks with an in-chunk parallel prefix
+  (materializes (B, chunk, chunk, d_inner, N) per chunk), the
+  reference's ``jax.lax.scan`` over the chunk-major inputs as
+  :func:`repro_torch.core.cdfg.scan`.
 
 Prompts are padded on the right by the server, so the state a prefill
 hands to decode has seen the padding, as the reference's does.
@@ -28,6 +29,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.fx as fx
 import torch.nn.functional as F
 
 from . import layers
@@ -112,34 +114,62 @@ def _selective_scan_seq(dt, A, Bc, Cc, x):
     return ys.transpose(0, 1).contiguous(), h              # (B,L,dI), h
 
 
+def _decayed_carry(decay: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The carried state decayed to each position of the chunk: the
+    reference's ``jnp.einsum("bcin,bin->bcin", decay, h)``, a product
+    over no contracted axis, which a traced step lowers as ``jnp.einsum``
+    does; on tensors the broadcast product it equals (``torch.einsum``
+    might take a batched product, which rounds otherwise on the card)."""
+    if isinstance(decay, fx.Proxy):
+        return torch.einsum("bcin,bin->bcin", decay, h)
+    return decay * h[:, None]
+
+
+def _chunk_step(consts, carry, row):
+    """One chunk of the chunked scan: the reference's ``chunk_step``,
+    the state the carry and ``A`` a const.  dtc,xc: (B,c,dI); bcc,ccc:
+    (B,c,N); h: (B,dI,N)."""
+    A, = consts
+    h, = carry
+    dtc, bcc, ccc, xc = row
+    chunk = dtc.shape[1]
+    # log-decay prefix within the chunk
+    cum = torch.cumsum(dtc[..., None] * A, dim=1)          # (B,c,dI,N)
+    # the carried state's contribution to each position
+    h_part = _decayed_carry(torch.exp(cum), h)
+    # pairwise within-chunk contributions j → i (j <= i):
+    # decay(i, j) = exp(cum_i − cum_j)
+    contrib = (dtc * xc)[..., None] * bcc[:, :, None, :]
+    dec = torch.exp(cum[:, :, None] - cum[:, None])        # (B,c,c,dI,N)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=dtc.device))
+    dec = torch.where(mask[None, :, :, None, None], dec, 0.0)
+    hs = h_part + torch.einsum("bijdn,bjdn->bidn", dec, contrib)
+    y = torch.einsum("bcdn,bcn->bcd", hs, ccc)
+    return (hs[:, -1],), (y,)
+
+
 def _selective_scan_chunked(dt, A, Bc, Cc, x, chunk: int = 16):
     """Chunked scan: sequential over L/chunk, parallel inside the chunk via
-    materialized decay products (the SSD-style formulation)."""
+    materialized decay products (the SSD-style formulation).  The
+    reference's ``jax.lax.scan`` of ``chunk_step`` over the chunk-major
+    inputs (nc, B, chunk, ·), the state the carry
+    (:func:`repro_torch.core.cdfg.scan`)."""
     B, L, dI = x.shape
+    N = A.shape[1]
     if L % chunk:
         raise ValueError(f"chunked scan: length {L} is not a multiple of "
                          f"the chunk {chunk}")
-    h = torch.zeros((B, dI, A.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=x.device))
-    ys = []
-    for c0 in range(0, L, chunk):
-        dtc, bcc = dt[:, c0:c0 + chunk], Bc[:, c0:c0 + chunk]
-        ccc, xc = Cc[:, c0:c0 + chunk], x[:, c0:c0 + chunk]
-        # log-decay prefix within the chunk
-        cum = torch.cumsum(dtc[..., None] * A, dim=1)      # (B,c,dI,N)
-        # the carried state's contribution to each position
-        h_part = torch.exp(cum) * h[:, None]
-        # pairwise within-chunk contributions j → i (j <= i):
-        # decay(i, j) = exp(cum_i − cum_j)
-        contrib = (dtc * xc)[..., None] * bcc[:, :, None, :]
-        dec = torch.exp(cum[:, :, None] - cum[:, None])    # (B,c,c,dI,N)
-        dec = torch.where(mask[None, :, :, None, None], dec, 0.0)
-        hs = h_part + torch.einsum("bijdn,bjdn->bidn", dec, contrib)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs, ccc))
-        h = hs[:, -1]
-    return torch.cat(ys, dim=1), h
+    nc = L // chunk
+    dt_c = dt.reshape(B, nc, chunk, dI)
+    Bc_c = Bc.reshape(B, nc, chunk, N)
+    Cc_c = Cc.reshape(B, nc, chunk, N)
+    x_c = x.reshape(B, nc, chunk, dI)
+    h0 = torch.zeros((B, dI, N), dtype=torch.float32, device=x.device)
+    (h,), (ys,) = cdfg.scan(_chunk_step, (h0,), (
+        dt_c.transpose(0, 1), Bc_c.transpose(0, 1), Cc_c.transpose(0, 1),
+        x_c.transpose(0, 1)), (A,))
+    return ys.transpose(0, 1).reshape(B, L, dI), h
 
 
 def mamba_apply(params: dict, x: torch.Tensor, cfg,

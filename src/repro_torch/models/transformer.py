@@ -352,40 +352,22 @@ _segment_forward.scan_ys = lambda consts, **_: torch.empty(
     len(consts), dtype=torch.float32, device="meta")
 
 
-def body_traced(unit, cfg: ModelConfig) -> bool:
-    """Whether a segment of this unit takes its repeats as one
-    :func:`repro_torch.core.cdfg.scan` over its stacked leaves where a
-    ``grad`` leaf traces the loss (:func:`_segment_scan`, route (a)):
-    every unit, its recurrent mixers' scans nested in the body, but none
-    under ``cfg.remat`` (``jax.checkpoint`` is not lowered) and none with
-    a ``mamba`` mixer under ``cfg.ssm.scan_impl == "chunked"`` (its
-    chunked scan is not lowered).  Such a segment stays the one opaque
-    ``scan`` leaf :func:`_segment_forward` (route (b))."""
-    return not cfg.remat and not (
-        cfg.ssm is not None and cfg.ssm.scan_impl == "chunked"
-        and any(spec.mixer == "mamba" for spec in unit))
-
-
 def _segment_scan(x: torch.Tensor, stacked: list, *, unit,
                   cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """One segment whose parameters are stacked (a list over the unit of
     layer trees, each leaf ``(repeats, ...)``): the reference's
     ``jax.lax.scan(body, x, stacked)``, the carry ``x``, the scanned
     inputs the stacked leaves, the ``ys`` each repeat's load-balance
-    loss.  (The reference's ``cfg.remat`` wraps the body in
-    ``jax.checkpoint``, which this does not emit, and a chunked Mamba
-    scan is not lowered: :func:`body_traced` keeps either segment
-    opaque.)"""
-    if not body_traced(unit, cfg):
-        raise NotImplementedError(
-            "a stacked segment with cfg.remat, or with a mamba mixer under "
-            "cfg.ssm.scan_impl == 'chunked'")
+    loss; with ``cfg.remat`` the body under ``jax.checkpoint``
+    (``cdfg.checkpoint``), as the reference wraps it."""
     leaves = tree.leaves(stacked)
 
     def body(consts, carry, row):
         x, lb = _repeat_body(tree.unflatten(stacked, list(row)), carry[0],
                              unit, cfg)
         return (x,), (lb,)
+    if cfg.remat:
+        body = cdfg.checkpoint(body)
     (x,), (lbs,) = cdfg.scan(body, (x,), leaves)
     return x, lbs
 

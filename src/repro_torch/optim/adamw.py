@@ -21,7 +21,7 @@ from typing import Any
 
 import torch
 
-from .. import tree
+from .. import tree as tree_util
 from ..runtime.sharding import is_dtensor as _is_dtensor
 
 #: parameter names never decayed: norms, biases and the SSMs' per-channel
@@ -68,22 +68,22 @@ def _per_repeat(path: tuple) -> bool:
 def init_opt_state(params: Any, cfg: AdamWConfig) -> dict:
     """Zero moments in ``cfg.state_dtype`` beside each param, and the
     step count (int32, on the params' device)."""
-    flat = tree.leaves(params)
+    flat = tree_util.leaves(params)
 
     def zeros(p):
         return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
 
-    return {"mu": tree.tree_map(zeros, params),
-            "nu": tree.tree_map(zeros, params),
+    return {"mu": tree_util.tree_map(zeros, params),
+            "nu": tree_util.tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32,
                                  device=flat[0].device if flat else None)}
 
 
-def global_norm(tree_: Any) -> torch.Tensor:
+def global_norm(tree: Any) -> torch.Tensor:
     """The fp32 L2 norm over every leaf of the tree: the reference's sum
     of each leaf's summed squares, then the square root."""
     return torch.sqrt(sum(torch.square(leaf.float()).sum()
-                          for leaf in tree.leaves(tree_)))
+                          for leaf in tree_util.leaves(tree)))
 
 
 def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
@@ -99,7 +99,7 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     a segment costs a few launches a unit path, not a repeat, and the dry
     run's census traces that layout).  On sharded (DTensor) leaves each
     rank updates its own shards."""
-    flat_p = tree.leaves(params)
+    flat_p = tree_util.leaves(params)
     gnorm = global_norm(grads)
     gn = _whole(gnorm)
     clip = torch.minimum(gn.new_tensor(1.0), cfg.grad_clip_norm / (gn + 1e-9))
@@ -114,9 +114,10 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     b1c, b2c, lr_l = _whole(b1c), _whole(b2c), _whole(lr)
     sd = cfg.state_dtype
     new_p, new_m, new_v = [], [], []
-    for (path, p), g, m, v in zip(tree.flatten_with_paths(params),
-                                  tree.leaves(grads), tree.leaves(state["mu"]),
-                                  tree.leaves(state["nu"]), strict=True):
+    for (path, p), g, m, v in zip(tree_util.flatten_with_paths(params),
+                                  tree_util.leaves(grads),
+                                  tree_util.leaves(state["mu"]),
+                                  tree_util.leaves(state["nu"]), strict=True):
         pl, gl, ml, vl = (_local(t) for t in (p, g, m, v))
         g32 = gl.to(sd) * clip
         m = cfg.b1 * ml + (1 - cfg.b1) * g32
@@ -129,7 +130,7 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
         new_v.append(v)
 
     def out(new: list) -> Any:
-        return tree.unflatten(params, _like(new, flat_p))
+        return tree_util.unflatten(params, _like(new, flat_p))
 
     state_out = {"mu": out(new_m), "nu": out(new_v), "count": count}
     return out(new_p), state_out, {"grad_norm": gnorm, "lr": lr}

@@ -508,6 +508,27 @@ def test_mamba_matches_reference(scan):
     _close(cache["h"], rcache["h"])
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_empty_sequence_matches_reference(arch):
+    """A recurrence over no tokens: the reduced RWKV-6's ``forward`` on
+    (1, 0) tokens gives (1, 0, vocab) logits, and a reduced Jamba Mamba
+    layer's ``mamba_apply`` on (2, 0, d) gives (2, 0, d), both the
+    reference's (``cdfg.scan`` stacks each ``y`` to length 0)."""
+    if arch == "rwkv6-1.6b":
+        ref_cfg, cfg, ref_params, params = model(arch)
+        tok = np.zeros((1, 0), np.int32)
+        want, _ = ref_forward(ref_params, jnp.asarray(tok), ref_cfg)
+        got, _ = forward(params, _t(tok), cfg)
+    else:
+        ref_cfg, cfg, rp, p = _mixer(arch, "mamba")
+        x = np.zeros((2, 0, cfg.d_model), np.float32)
+        want = ref_mamba_apply(rp["mixer"], jnp.asarray(x), ref_cfg, False)
+        got = ssm.mamba_apply(p["mixer"], _t(x), cfg)
+    assert tuple(got.shape) == want.shape == (
+        (1, 0, cfg.vocab_size) if arch == "rwkv6-1.6b" else (2, 0, cfg.d_model))
+    _close(got, want)
+
+
 def test_rwkv6_and_channel_mix_match_reference():
     """RWKV-6 with its cache and decode, and the channel mix with a
     carried ``prev``."""

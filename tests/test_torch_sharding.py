@@ -354,3 +354,34 @@ def test_train_state_and_batch_shardings():
         assert b["token"].placements == (Shard(0), Replicate())
         assert b["cache"]["segment_0"][0][0]["mixer"]["k"].placements == (
             Shard(0), Shard(2))
+
+
+def test_global_norm_and_batch_shardings_take_the_reference_keywords():
+    """``adamw.global_norm(tree=...)`` and ``steps.batch_shardings(mesh,
+    batch_specs=...)``: the reference's parameter names, called by them
+    on both packages."""
+    import inspect
+
+    import jax.numpy as jnp
+    import torch
+    from repro.optim import adamw as ref_adamw
+    from repro_torch.optim import adamw
+    for ref_fn, fn in ((ref_adamw.global_norm, adamw.global_norm),
+                       (ref_steps.batch_shardings, steps.batch_shardings)):
+        assert list(inspect.signature(fn).parameters) == list(
+            inspect.signature(ref_fn).parameters)
+    leaves = [[3.0, 4.0], [12.0]]
+    assert float(adamw.global_norm(tree={"a": [
+        torch.tensor(v) for v in leaves]})) == float(ref_adamw.global_norm(
+            tree={"a": [jnp.asarray(v) for v in leaves]})) == 13.0
+    cfg = load_config("smollm-135m")
+    with lm.fake_world(8):
+        mesh = lm.make_mesh((2, 4), ("data", "model"), "cpu")
+        b = steps.batch_shardings(mesh, batch_specs=M.input_specs(
+            cfg, "train_4k"))
+    assert b["tokens"].placements == steps.batch_shardings(
+        mesh, M.input_specs(cfg, "train_4k"))["tokens"].placements
+    ref = ref_steps.batch_shardings(
+        AbstractMesh((2, 4), ("data", "model")), batch_specs=ref_M.input_specs(
+            ref_load_config("smollm-135m"), "train_4k"))
+    assert set(ref) == set(b) == {"tokens"}

@@ -9,24 +9,27 @@ sections: (1) what comes before the first segment (the token slices and
 the embedding's read), (2) from there to the last forward ``scan`` (the
 segments' hoisted loop invariants, their forward scans), (3) the loss
 tail and the backward, (4) the schedule and AdamW (from the first
-equation that reads the step).  For all ten architectures (route (a),
-ROADMAP "Decisions": each segment's body a ``cdfg.scan`` partially
-evaluated as JAX does, its attention scan, WKV recurrence or Mamba
-selective scans nested in it) all four must be equal equation by
-equation — primitive, ``jit`` name, output avals, and where each operand
-comes from (a scan's operands by count) — and the census is the
-reference's (``chip_smoke.REF_TRAIN_CENSUS``).  DeepSeek-V3's section 3
-also holds its MTP head's layer, lowered inline on both sides.  A
-two-level scan alone (a scan whose body holds the chunked attention's),
-and one reduced RWKV-6 layer and one reduced Mamba layer as the body of
-a scan, are held against ``jax.make_jaxpr`` equation by equation.
+equation that reads the step).  For all ten architectures, SmolLM-135M
+under remat and Jamba-1.5-Large with the chunked Mamba scan (ROADMAP
+"Decisions": each segment's body a ``cdfg.scan`` partially evaluated as
+JAX does, its attention scan, WKV recurrence or Mamba scans nested in
+it; under remat one ``remat2`` equation) all four must be equal
+equation by equation — primitive, ``jit`` name, output avals, and where
+each operand comes from (a scan's operands by count) — and the census
+is the reference's (``chip_smoke.REF_TRAIN_CENSUS``).  DeepSeek-V3's
+section 3 also holds its MTP head's layer, lowered inline on both
+sides.  A two-level scan alone (a scan whose body holds the chunked
+attention's), and one reduced RWKV-6 layer, one reduced Mamba layer
+(either scan) and one reduced SmolLM layer under ``jax.checkpoint`` as
+the body of a scan, are held against ``jax.make_jaxpr`` equation by
+equation, nested bodies included.
 
 The lowered step also runs: on a reduced SmolLM through the
 ``sequential`` backend, its gradients, loss, metrics, params and
 moments are those of ``steps.loss_and_grads`` / ``make_train_step``;
 and each JVP rule's transpose is held to ``torch.autograd`` on a small
 input.  The recurrences, a ``cdfg.scan`` each, equal on tensors the
-Python loop over time they replace, bit for bit.
+Python loops they replace, bit for bit.
 """
 
 import dataclasses
@@ -93,11 +96,17 @@ def _census(compiled) -> dict:
     return dict(dryrun.census_of(compiled))
 
 
+#: the cells held beyond the published configs (``chip_smoke.
+#: TRAIN_VARIANTS``): SmolLM-135M under remat, Jamba-1.5-Large with the
+#: chunked Mamba scan
+VARIANTS = ("smollm-135m+remat", "jamba-1.5-large-398b+chunked")
+
+
 @functools.lru_cache(maxsize=None)
 def _ref(arch: str) -> tuple:
     """The reference's census, equations and step input (as
     ``dataflow_census`` compiles it)."""
-    cfg = ref_load_config(arch)
+    cfg = _chip_smoke().train_config(arch, ref_load_config)
     opt = ref_adamw.AdamWConfig()
     specs = ref_M.input_specs(cfg, REF_SHAPES["train_4k"])
     c = ref_compile(ref_steps.make_train_step(cfg, opt),
@@ -115,12 +124,13 @@ def _ref(arch: str) -> tuple:
 def _port_compiled(arch: str):
     """The port's compiled train step (as ``dataflow_census`` compiles
     it)."""
-    return dryrun.train_compiled(load_config(arch), "train_4k")
+    return dryrun.train_compiled(_chip_smoke().train_config(arch),
+                                 "train_4k")
 
 
 @functools.lru_cache(maxsize=None)
 def _port(arch: str) -> tuple:
-    cfg = load_config(arch)
+    cfg = _chip_smoke().train_config(arch)
     c = _port_compiled(arch)
     g = c.graph
     step_in = g.invars[-(2 if cfg.frontend_stub else 1) - 1]
@@ -192,12 +202,11 @@ def _rows(eqns: list, inputs: tuple, bounds: tuple) -> list:
     return rows
 
 
-def _route_a(arch: str) -> bool:
-    """Whether every segment of ``arch`` takes route (a)
-    (``transformer.body_traced``)."""
-    cfg = load_config(arch)
-    return all(M.transformer.body_traced(seg.unit, cfg)
-               for seg in cfg.segments)
+def _segments_scanned(arch: str) -> bool:
+    """Whether every scan of ``arch``'s lowered step replays a lowered
+    body (each segment one ``cdfg.scan`` over its stacked leaves)."""
+    return all(getattr(e.impl, "func", None) is cdfg._run_loop
+               for e in _port_compiled(arch).graph.eqns if e.prim == "scan")
 
 
 def _split(arch: str, side, s1: int | None = None) -> tuple:
@@ -209,17 +218,18 @@ def _split(arch: str, side, s1: int | None = None) -> tuple:
     return census, rows[:s1], rows[s1:s2], rows[s2:s4], rows[s4:]
 
 
-@pytest.mark.parametrize("arch", SECTION_ARCHS)
+@pytest.mark.parametrize("arch", (*SECTION_ARCHS, *VARIANTS))
 def test_train_census_sections_equal_the_reference(arch):
     """All four sections equal equation by equation, operands included
     (a scan's by count: its operand order is not held) — section 2's
     hoisted loop invariants (RoPE tables, the split ``jit`` equations,
     the zero carries and zero tangents, the ``jit`` equations left with
-    no output, the hoisted mask ``scan``) among them — and the census
-    the reference's; every segment takes route (a)."""
+    no output, the hoisted mask ``scan``, under remat the hoisted mask
+    ``closed_call``) among them — and the census the reference's; every
+    segment is one scan of a lowered body."""
     census, *port = _split(arch, _port)
     ref_census, *ref = _split(arch, _ref, len(port[0]))
-    assert _route_a(arch)
+    assert _segments_scanned(arch)
     assert not any(r[0] == "checkpoint" for sec in port for r in sec)
     for sec in range(4):
         assert len(port[sec]) == len(ref[sec]), (arch, sec + 1)
@@ -230,20 +240,23 @@ def test_train_census_sections_equal_the_reference(arch):
     assert census == ref_census
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", (*ARCH_IDS, *VARIANTS))
 def test_pinned_train_census_is_the_live_reference(arch):
-    """``chip_smoke.REF_TRAIN_CENSUS`` (all ten, ``channel_bytes``
-    included) is the live reference's census, and the port's census
-    equals it outright; no segment scan of the port's step runs
-    ``torch.autograd`` (route (b)'s ``autodiff._scan_vjp``)."""
+    """``chip_smoke.REF_TRAIN_CENSUS`` (all ten and the two options,
+    ``channel_bytes`` included) is the live reference's census, and the
+    port's census equals it outright; every scan of the port's step
+    replays a lowered body, and the segment scan that transposed under
+    ``torch.autograd`` is gone."""
     cs = _chip_smoke()
+    assert cs.TRAIN_VARIANTS == VARIANTS
     ref_census = _ref(arch)[0]
     assert cs.REF_TRAIN_CENSUS[arch] == ref_census
     assert _port(arch)[0] == ref_census
     assert not hasattr(cs, "TRAIN_SECTION2")
-    assert autodiff._scan_vjp not in [
-        getattr(e.impl, "func", None) for e in _port_compiled(arch).graph.eqns
-        if e.prim == "scan"]
+    assert _segments_scanned(arch)
+    assert not any(hasattr(autodiff, name) for name in (
+        "_scan_fwd", "_read_by_body", "_scan_vjp", "_View"))
+    assert not hasattr(M.transformer, "body_traced")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -304,11 +317,9 @@ def _deepseek_chunked():
 
 def _no_autograd_transpose(graph):
     """Every segment's transpose replays its transposed body's equations
-    (a reverse scan of a lowered body), none runs ``torch.autograd``
-    (route (b)'s ``autodiff._scan_vjp``)."""
-    funcs = [getattr(e.impl, "func", None) for e in graph.eqns
-             if e.prim == "scan"]
-    assert autodiff._scan_vjp not in funcs
+    (a reverse scan of a lowered body), none runs ``torch.autograd``."""
+    assert all(getattr(e.impl, "func", None) is cdfg._run_loop
+               for e in graph.eqns if e.prim == "scan")
     assert _chip_smoke().transposes_replayed(graph) > 0
 
 
@@ -326,11 +337,10 @@ def test_lowered_grads_equal_loss_and_grads(arch):
     one unit): loss, metrics and every gradient leaf (stacked) those of
     ``steps.loss_and_grads`` (autograd) — loss rtol 1e-4, grads rtol
     1e-4 + 1e-4·max|g| (PERF.md §2); each segment's transpose replays its
-    transposed body's equations, none runs ``torch.autograd``.  Under
-    ``cfg.remat`` (SmolLM's), and with a Mamba mixer under
-    ``scan_impl="chunked"`` (Jamba's), the segment keeps route (b), its
-    transpose ``autodiff._scan_vjp`` (``jax.checkpoint`` and the chunked
-    scan are not lowered)."""
+    transposed body's equations, none runs ``torch.autograd`` — under
+    ``cfg.remat`` too (SmolLM's: the reverse scan's body one ``remat2``
+    equation) and with a Mamba mixer under ``scan_impl="chunked"``
+    (Jamba's: the chunk scan nested in the segment's)."""
     base, _, variant = arch.partition("+")
     cfg, params, batches = (_deepseek_chunked() if arch == "deepseek-v3-671b"
                             else _smollm(base))
@@ -338,7 +348,6 @@ def test_lowered_grads_equal_loss_and_grads(arch):
     if variant == "chunked":
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, scan_impl="chunked", chunk=4))
-    route_b = bool(variant)
     stacked = M.transformer.stack_repeats(params)
 
     def value_and_grads(p_leaves, b_leaves):
@@ -358,12 +367,10 @@ def test_lowered_grads_equal_loss_and_grads(arch):
         # forward and reverse scans; the MTP attention's two
         assert sum(e.prim == "scan" for e in comp.graph.eqns) == 3 * len(
             cfg.segments) + 2
-    if route_b:
-        assert autodiff._scan_vjp in [getattr(e.impl, "func", None)
-                                      for e in comp.graph.eqns
-                                      if e.prim == "scan"]
-    else:
-        _no_autograd_transpose(comp.graph)
+    _no_autograd_transpose(comp.graph)
+    if variant == "remat":
+        assert [q.prim for q in [e for e in comp.graph.eqns if e.prim ==
+                                 "scan"][-1].impl.args[0].eqns] == ["remat2"]
     out = comp(tuple(tree.leaves(stacked)), tuple(tree.leaves(batches[0])))
     (loss, metrics), grads = steps.loss_and_grads(params, batches[0], cfg)
     want = [loss, *tree.leaves(metrics)]
@@ -457,19 +464,18 @@ def test_train_step_stacks_small_segment_leaves_only(stack_below,
 _NS = types.SimpleNamespace()
 
 
-def _toy_segment(x, seg_params, state=(), *, k):
-    """A segment's repeats (a scan leaf): a tanh layer, and each repeat's
-    mean square as its ``ys``; ``v`` is never read."""
-    ys = []
-    for rep in seg_params:
-        x = torch.tanh(x @ rep[0]["w"]) * k
-        ys.append((x * x).mean()[None])
-    return x, torch.cat(ys)
-
-
-_toy_segment.scan_ys = lambda consts, **_: torch.empty(
-    len(consts), device="meta")
-_NS.segment = _toy_segment
+def _toy_segment(p, x, *, remat=False):
+    """A ``cdfg.scan`` over a segment's stacked leaves: a tanh layer, and
+    each repeat's mean square as its ``ys``; ``v`` is never read (with
+    ``remat``, the body under ``cdfg.checkpoint``)."""
+    def body(consts, carry, row):
+        v, w = row
+        h = torch.tanh(carry[0] @ w) * 1.5
+        return (h,), ((h * h).mean(),)
+    if remat:
+        body = cdfg.checkpoint(body)
+    (h,), (ys,) = cdfg.scan(body, (x,), (p["v"], p["w"]))
+    return h.sum() + 3 * ys.sum()
 
 
 def _rng(*shape, seed=0):
@@ -575,18 +581,15 @@ RULE_CASES = {
         p["q"], p["k"], p["v"], causal=True, chunk=2) ** 2).sum() * x.sum(),
         {"q": _rng(1, 2, 5, 6), "k": _rng(1, 2, 5, 6, seed=1),
          "v": _rng(1, 2, 5, 3, seed=2)}),
-    "scan": (lambda p, x, i: (lambda y, ys: y.sum() + 3 * ys.sum())(
-        *_NS.segment(x, p["segment_0"], (), k=1.5)),
-        {"segment_0": [{"v": _rng(3, 4), "w": _rng(3, 4, 4, seed=2)
-                        / 4}]}),
+    "scan": (lambda p, x, i: _toy_segment(p, x),
+             {"v": _rng(3, 3, 4), "w": _rng(3, 4, 4, seed=2) / 4}),
+    "remat2": (lambda p, x, i: _toy_segment(p, x, remat=True),
+               {"v": _rng(3, 3, 4), "w": _rng(3, 4, 4, seed=2) / 4}),
+    "jit cumsum": (lambda p, x, i: (torch.cumsum(p["w"] * x, dim=1)
+                                    * x).sum(), {"w": _rng(3, 4)}),
+    "dynamic_slice": (lambda p, x, i: (p["w"][:, -1] * x[:, 0]).sum()
+                      + (p["w"][-1] * x[0]).sum(), {"w": _rng(3, 4)}),
 }
-
-
-def _unstacked(p, *args):
-    if "segment_0" not in p:
-        return p
-    return {"segment_0": [tree.tree_map(lambda t, r=r: t[r], p["segment_0"])
-                          for r in range(3)]}
 
 
 def test_rules_cover_every_jvp_rule():
@@ -607,22 +610,21 @@ def test_transpose_rule_matches_autograd(rule):
         raise AssertionError("traced only")
 
     value_and_grad.value_fn = lambda p, x, i: (fn(p, x, i), {})
-    value_and_grad.unstacked = _unstacked
+    value_and_grad.unstacked = lambda p, *args: p
     _NS.grad = value_and_grad
 
     def traced(p_leaves, x, idx):
         (v, _), g = _NS.grad(tree.unflatten(params, list(p_leaves)), x, idx)
         return (v, *tree.leaves(g))
 
-    with cdfg.leaves(index=[(layers, "take")], scan=[(_NS, "segment")],
-                     grad=[(_NS, "grad")]):
+    with cdfg.leaves(index=[(layers, "take")], grad=[(_NS, "grad")]):
         comp = dataflow_compile(traced, tuple(tree.leaves(params)), x, _IDX,
                                 backend="sequential", device="cpu",
                                 use_cache=False)
     out = comp(tuple(tree.leaves(params)), x, _IDX)
     leaves = [t.detach().clone().requires_grad_() for t in
               tree.leaves(params)]
-    want = fn(_unstacked(tree.unflatten(params, leaves)), x, _IDX)
+    want = fn(tree.unflatten(params, leaves), x, _IDX)
     grads = torch.autograd.grad(want, leaves, allow_unused=True)
     torch.testing.assert_close(out[0], want.detach(), rtol=1e-5, atol=1e-6)
     for got, g, p in zip(out[1:], grads, leaves, strict=True):
@@ -801,6 +803,7 @@ def test_scan_in_a_scan_equals_the_reference():
         if a[0] == "scan":
             a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
         assert a == b, k
+    _body_rows(jaxpr.jaxpr.eqns, comp.graph.eqns)
     scans = [e for e in comp.graph.eqns if e.prim == "scan"]
     assert len(scans) == 3
     assert all(e.impl.func is cdfg._run_loop for e in scans)
@@ -843,7 +846,44 @@ def _port_layer_scan(p, x, spec, cfg):
     return (h ** 2).sum()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def _body_rows(jaxpr_eqns, graph_eqns, where=""):
+    """The bodies nested in two equation lists, level by level: each
+    ``scan``'s (and ``remat2``'s, ``closed_call``'s) body's rows equal
+    (a scan's operands by count; a body's inputs numbered by first use,
+    as the scans' operand order is not held), recursively."""
+    def ref_body(e):
+        for k in ("jaxpr", "call_jaxpr"):
+            if k in e.params and e.primitive.name != "jit":
+                return getattr(e.params[k], "jaxpr", e.params[k])
+    subs = [(e, ref_body(e)) for e in jaxpr_eqns]
+    subs = [(e, b) for e, b in subs if b is not None]
+    mine = [e for e in graph_eqns if e.prim in ("scan", "remat2",
+                                                "closed_call")]
+    assert [e.primitive.name for e, _ in subs] == [e.prim for e in mine], \
+        where
+    for k, ((r, rb), p) in enumerate(zip(subs, mine)):
+        pb = (p.impl.args[0] if p.prim == "scan"
+              else p.params.get("jaxpr") or p.params["call_jaxpr"])
+        ref = _rows([(("jit " + e.params["name"]) if e.primitive.name == "jit"
+                      else e.primitive.name, e.invars, e.outvars)
+                     for e in rb.eqns], ([], [*rb.invars, *rb.constvars]),
+                    (0, 0, len(rb.eqns)))
+        port = _rows([("jit " + e.name if e.prim == "jit" else e.prim,
+                       e.invars, e.outvars) for e in pb.eqns],
+                     ([], pb.invars), (0, 0, len(pb.eqns)))
+        at = f"{where}/{r.primitive.name}{k}"
+        assert [x[0] for x in port] == [x[0] for x in ref], at
+        for i, (a, b) in enumerate(zip(port, ref)):
+            if a[0] == "scan":
+                a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
+            assert a == b, (at, i)
+        assert len(pb.invars) == len(rb.invars), at
+        assert len(pb.outvars) == len(rb.outvars), at
+        _body_rows(rb.eqns, pb.eqns, at)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b",
+                                  "jamba-1.5-large-398b+chunked"])
 def test_recurrent_layer_scan_equals_the_reference(arch):
     """``value_and_grad`` of a two-repeat scan whose body is one reduced
     recurrent layer: the port's lowered equations are
@@ -859,8 +899,12 @@ def test_recurrent_layer_scan_equals_the_reference(arch):
     import jax.numpy as jnp
     from repro.configs import reduced as ref_reduced
     from repro.models import transformer as ref_T
+    arch, _, variant = arch.partition("+")
     ref_cfg, cfg = ref_reduced(ref_load_config(arch)), reduced(
         load_config(arch))
+    if variant:     # the chunked Mamba scan: 2 chunks of 4 tokens
+        ref_cfg, cfg = (dataclasses.replace(c, ssm=dataclasses.replace(
+            c.ssm, scan_impl="chunked", chunk=4)) for c in (ref_cfg, cfg))
     ref_spec, spec = ref_cfg.segments[0].unit[0], cfg.segments[0].unit[0]
     assert spec.mixer in ("rwkv", "mamba")
     stacked = jax.tree_util.tree_map(
@@ -868,7 +912,7 @@ def test_recurrent_layer_scan_equals_the_reference(arch):
                                    for k in jax.random.split(
                                        jax.random.PRNGKey(0), LAYER_R)))
     x = np.random.default_rng(0).standard_normal(
-        (LAYER_B, LAYER_L, cfg.d_model)).astype(np.float32)
+        (LAYER_B, 8 if variant else LAYER_L, cfg.d_model)).astype(np.float32)
 
     def ref_f(p, x):
         def body(h, rp):
@@ -908,6 +952,85 @@ def test_recurrent_layer_scan_equals_the_reference(arch):
         assert sum(e.primitive.name == "scan"
                    for e in r.params["jaxpr"].jaxpr.eqns) == sum(
             e.prim == "scan" for e in body.eqns) == 1
+    _body_rows(jaxpr.jaxpr.eqns, comp.graph.eqns)
+    val, (g_p, g_x) = vg(stacked, x)
+    out = comp(leaves)
+    torch.testing.assert_close(out[0], torch.tensor(float(val)), rtol=1e-4,
+                               atol=0)
+    want = [*jax.tree_util.tree_leaves(g_p), g_x]
+    for got, g in zip(out[1:], want, strict=True):
+        g = torch.from_numpy(np.array(g))
+        torch.testing.assert_close(got, g, rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()))
+
+
+def test_remat_segment_scan_equals_the_reference():
+    """``value_and_grad`` of a two-repeat scan whose body, one reduced
+    SmolLM layer over 5 tokens (its attention the chunked one: a scan in
+    the body), is under ``jax.checkpoint`` (``cdfg.checkpoint``): the
+    port's lowered equations are ``jax.make_jaxpr(jax.value_and_grad)``'s
+    equation by equation, operands and avals included (a scan's operands
+    by count) — the forward scan of the primal alone (the attention's
+    scan a ``closed_call``, its masks hoisted as one), its only stacked
+    residual the carry, the reverse scan of one ``remat2`` equation —
+    and so are the nested bodies, the ``remat2`` body (the recomputed
+    primal, the residuals, the transposes) among them; the value and
+    gradients those of ``jax.value_and_grad`` (rtol 1e-4 +
+    1e-4·max|g|), the transposes replayed, none under autograd."""
+    import jax.numpy as jnp
+    from repro.configs import reduced as ref_reduced
+    from repro.models import transformer as ref_T
+    ref_cfg, cfg = (dataclasses.replace(c, attn_impl="chunked",
+                                        dtype="float32")
+                    for c in (ref_reduced(ref_load_config("smollm-135m")),
+                              reduced(load_config("smollm-135m"))))
+    ref_spec, spec = ref_cfg.segments[0].unit[0], cfg.segments[0].unit[0]
+    stacked = jax.tree_util.tree_map(
+        lambda *r: jnp.stack(r), *(ref_T._layer_init(k, ref_spec, ref_cfg)
+                                   for k in jax.random.split(
+                                       jax.random.PRNGKey(0), LAYER_R)))
+    x = np.random.default_rng(0).standard_normal(
+        (1, LAYER_L, cfg.d_model)).astype(np.float32)
+
+    def ref_f(p, x):
+        def body(h, rp):
+            return ref_T._layer_apply(rp, h, ref_spec, ref_cfg, {}), None
+        h, _ = jax.lax.scan(jax.checkpoint(body), x, p)
+        return (h ** 2).sum()
+    vg = jax.value_and_grad(ref_f, argnums=(0, 1))
+    jaxpr = jax.make_jaxpr(vg)(stacked, x)
+    params = {"p": _sorted_tree(stacked), "x": torch.from_numpy(x)}
+
+    def port_f(p, x):
+        def body(consts, carry, row):
+            return (M.transformer._layer_apply(tree.unflatten(p, list(row)),
+                                               carry[0], spec, cfg, {}),), None
+        (h,), _ = cdfg.scan(cdfg.checkpoint(body), (x,), tree.leaves(p))
+        return (h ** 2).sum()
+
+    def value_and_grad(p):
+        raise AssertionError("traced only")
+    value_and_grad.value_fn = lambda p: (port_f(p["p"], p["x"]), {})
+    value_and_grad.unstacked = lambda p: p
+    _NS.remat = value_and_grad
+
+    def traced(p_leaves):
+        (val, _), g = _NS.remat(tree.unflatten(params, list(p_leaves)))
+        return (val, *tree.leaves(g))
+    leaves = tuple(tree.leaves(params))
+    with cdfg.leaves(grad=[(_NS, "remat")]):
+        comp = dataflow_compile(traced, leaves, backend="sequential",
+                                device="cpu", use_cache=False)
+    ref, port = _jaxpr_rows(jaxpr), _graph_rows(comp.graph)
+    assert [r[0] for r in port] == [r[0] for r in ref]
+    for k, (a, b) in enumerate(zip(port, ref)):
+        if a[0] == "scan":
+            a, b = (*a[:2], len(a[2])), (*b[:2], len(b[2]))
+        assert a == b, k
+    _body_rows(jaxpr.jaxpr.eqns, comp.graph.eqns)
+    scans = [e for e in comp.graph.eqns if e.prim == "scan"]
+    assert [q.prim for q in scans[-1].impl.args[0].eqns] == ["remat2"]
+    _no_autograd_transpose(comp.graph)
     val, (g_p, g_x) = vg(stacked, x)
     out = comp(leaves)
     torch.testing.assert_close(out[0], torch.tensor(float(val)), rtol=1e-4,
@@ -948,12 +1071,13 @@ def _loop_selective_scan(dt, A, Bc, Cc, x):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_recurrences_on_tensors_equal_the_loop(dtype, monkeypatch):
-    """``ssm.rwkv6_apply`` and ``ssm.mamba_apply`` (the sequential scan)
-    of the reduced RWKV-6's and Jamba's layers on tensors, output and
-    cache, equal bit for bit what they give with the recurrence a
-    Python loop over time, in fp32 and bf16; each scan's outputs also
-    in the loop's memory layout (a strided output would send the next
-    product to another GEMM on the card, which rounds otherwise)."""
+    """``ssm.rwkv6_apply`` and ``ssm.mamba_apply`` (the sequential scan,
+    and the chunked one over 3 chunks of 4) of the reduced RWKV-6's and
+    Jamba's layers on tensors, output and cache, equal bit for bit what
+    they give with the recurrence a Python loop over time (over chunks),
+    in fp32 and bf16; each scan's outputs also in the loop's memory
+    layout (a strided output would send the next product to another
+    GEMM on the card, which rounds otherwise)."""
     g = torch.Generator().manual_seed(2)
     B, L, H, hd, N = 3, 7, 2, 4, 5
     r, k, v = (torch.randn((B, L, H, hd), generator=g) for _ in range(3))
@@ -966,21 +1090,34 @@ def test_recurrences_on_tensors_equal_the_loop(dtype, monkeypatch):
     for got, want in ((ssm._rwkv_scan(r, k, v, w, u),
                        _loop_rwkv_scan(r, k, v, w, u)),
                       (ssm._selective_scan_seq(dt, A, Bc, Cc, x),
-                       _loop_selective_scan(dt, A, Bc, Cc, x))):
+                       _loop_selective_scan(dt, A, Bc, Cc, x)),
+                      (ssm._selective_scan_chunked(
+                          dt[:, :6], A, Bc[:, :6], Cc[:, :6], x[:, :6], 3),
+                       _chip_smoke().mamba_chunked_loop(
+                           dt[:, :6], A, Bc[:, :6], Cc[:, :6], x[:, :6], 3))):
         for a, b in zip(got, want, strict=True):
             assert torch.equal(a, b) and a.stride() == b.stride()
     seen = set()
-    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
+    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b",
+                 "jamba-1.5-large-398b+chunked"):
+        arch, _, variant = arch.partition("+")
         cfg = dataclasses.replace(reduced(load_config(arch)), dtype=dtype)
+        if variant:
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, scan_impl="chunked", chunk=4))
         params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-        x = torch.randn((3, 7, cfg.d_model), generator=torch.Generator()
-                        .manual_seed(1)).to(cfg.torch_dtype)
+        x = torch.randn((3, 12 if variant else 7, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1)).to(
+                            cfg.torch_dtype)
         for spec, layer in zip(cfg.segments[0].unit,
                                params["segment_0"][0]):
             if spec.mixer not in ("rwkv", "mamba"):
                 continue
             fn, name, loop = ((ssm.rwkv6_apply, "_rwkv_scan", _loop_rwkv_scan)
                               if spec.mixer == "rwkv" else
+                              (ssm.mamba_apply, "_selective_scan_chunked",
+                               _chip_smoke().mamba_chunked_loop) if variant
+                              else
                               (ssm.mamba_apply, "_selective_scan_seq",
                                _loop_selective_scan))
             got = fn(layer["mixer"], x, cfg, return_cache=True)
@@ -989,8 +1126,8 @@ def test_recurrences_on_tensors_equal_the_loop(dtype, monkeypatch):
                 want = fn(layer["mixer"], x, cfg, return_cache=True)
             for a, b in zip(tree.leaves(got), tree.leaves(want), strict=True):
                 assert a.dtype == b.dtype and torch.equal(a, b), spec.mixer
-            seen.add(spec.mixer)
-    assert seen == {"rwkv", "mamba"}
+            seen.add(spec.mixer + variant)
+    assert seen == {"rwkv", "mamba", "mambachunked"}
 
 
 # -- edge inputs of the new lowering, against the reference --------------------
